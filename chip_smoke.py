@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch / CUDA port's serving path.
+"""On-card smoke test of the PyTorch / CUDA port: the serving path and the
+training path.
 
     python3 chip_smoke.py
 
@@ -7,14 +8,29 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc;
 imports nothing of JAX.  Phases, each printing its lines:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build: both kernels from ``custereomatching_tpu_torch/csrc``;
+2. build: every kernel from ``custereomatching_tpu_torch/csrc``, one nvcc
+   per source, in parallel;
 3. K1 (banded volume) against its plain PyTorch version on the card;
 4. K3 (fused pipeline) against its plain version, both head branches;
-5. the main path, with every launch counter reset just before it:
+5. the serving path, with every launch counter reset just before it:
    ``entry()``, a batched ``StereoMatcher`` forward and a
    ``StereoEngine`` serving 8 KITTI-size frames; the kernel counters must
    rise by the number of calls and the plain versions must not run;
-6. device times of both kernels and both plain versions at KITTI size.
+6. K2 (camera VJP) against the plain closed form, the same random
+   cotangent fed to both, at entry()'s shape and at KITTI too;
+7. K3w (training forward): its volume against the plain volume, its four
+   maps bit-equal to K3's, its argmax, s and t against the plain head;
+8. K4 (trainable backward) against its plain twin on the same residuals,
+   and the whole trainable pipeline (K3w + K4) against its plain twin,
+   both head branches and KITTI speckle;
+9. the training path, with every launch counter reset just before it:
+   ``entry()``'s soft disparity backpropagated to the camera (K1 + K2),
+   then ``optimize_camera`` for 5 Adam steps at KITTI size (K3w + K4); the
+   kernel counters must rise by the number of calls, the plain versions
+   must not run, and the losses must be finite and falling; then, outside
+   the counted run, entry()'s camera gradient against the plain VJP fed
+   the same head cotangent;
+10. device times of every kernel and its plain version at KITTI size.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -35,14 +51,34 @@ import torch
 
 from custereomatching_tpu_torch import StereoConfig, StereoEngine, StereoMatcher
 from custereomatching_tpu_torch.data import make_stereo_pair
-from custereomatching_tpu_torch.models import entry
+from custereomatching_tpu_torch.models import (
+    adam,
+    entry,
+    init_state,
+    make_train_step,
+    optimize_camera,
+)
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
+    fused_pipeline_bwd_cuda,
+    fused_pipeline_bwd_reference,
+    fused_pipeline_train_cuda,
+    fused_pipeline_train_reference,
+    head_residuals,
     stereo_pipeline_cuda,
     stereo_pipeline_reference,
+    stereo_pipeline_trainable,
+    stereo_pipeline_trainable_reference,
 )
-from custereomatching_tpu_torch.ops.cuda_zncc import cost_volume_banded_cuda
-from custereomatching_tpu_torch.ops.zncc import forward_banded
+from custereomatching_tpu_torch.ops.cuda_zncc import (
+    camera_grad_banded_cuda,
+    cost_volume_banded_cuda,
+)
+from custereomatching_tpu_torch.ops.zncc import (
+    box2d,
+    camera_grad_banded,
+    forward_banded,
+)
 from custereomatching_tpu_torch.utils import benchmark, fence
 
 EPS = 1e-8
@@ -51,10 +87,19 @@ THRESHOLD = 0.6
 SHAPES = [(1, 24, 150, 10, 5), (1, 17, 100, 3, 3), (1, 12, 260, 140, 7),
           (1, 9, 40, 0, 5), (2, 16, 48, 6, 5)]
 KITTI = (375, 1242, 192, 15)
+# entry()'s shape (B, H, W, D, k): where the training path runs K2.
+ENTRY = (1, 96, 160, 64, 15)
 BUCKET = (384, 1280)
 # Served frames: a slanted plane spanning most of the 0..192 band.
 D_MIN, D_MAX = 4.0, 184.0
 N_FRAMES = 8
+# Training path: Adam steps of optimize_camera from a camera with this much
+# Gaussian noise; then more steps, timed on the host clock.
+TRAIN_STEPS, TRAIN_LR, TRAIN_NOISE, TIMED_STEPS = 5, 1e-3, 0.05, 10
+# Gradient checks: the JAX suite's elementwise tolerance
+# (tests/test_pallas_bwd.py:89) at the small shapes, and a bound on
+# ||got - want|| / ||want|| everywhere (KITTI included).
+GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
 
 
 def require(ok: bool, what: str) -> None:
@@ -108,17 +153,18 @@ def phase_build() -> None:
                 print(f"build: {line.strip()}")
 
 
-def compare_volume(got, want, label: str) -> float:
+def compare_volume(got, want, label: str, kernel: str = "K1") -> float:
     torch.cuda.synchronize()
-    require(bool(torch.isfinite(got).all()), f"{label}: non-finite K1 output")
+    require(bool(torch.isfinite(got).all()),
+            f"{label}: non-finite {kernel} output")
     diff = (got - want).abs()
     bad = int((diff > 1e-5 + 1e-4 * want.abs()).sum())
     big = want.abs() > 1e-3
     max_rel = float((diff[big] / want.abs()[big]).max()) if big.any() else 0.
     max_abs = float(diff.max())
-    print(f"K1 {label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+    print(f"{kernel} {label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
           f"outside rtol 1e-4/atol 1e-5: {bad}")
-    require(bad == 0, f"K1 {label} within rtol 1e-4 / atol 1e-5")
+    require(bad == 0, f"{kernel} {label} within rtol 1e-4 / atol 1e-5")
     return max_abs
 
 
@@ -201,11 +247,30 @@ def phase_k3() -> float:
     return err
 
 
+KERNEL_COUNTERS = {
+    "k1": cost_volume_banded_cuda, "k3": stereo_pipeline_cuda,
+    "k2": camera_grad_banded_cuda, "k3w": fused_pipeline_train_cuda,
+    "k4": fused_pipeline_bwd_cuda}
+PLAIN_COUNTERS = {
+    "plain_volume": forward_banded,
+    "plain_pipeline": stereo_pipeline_reference,
+    "plain_vjp": camera_grad_banded,
+    "plain_train_fwd": fused_pipeline_train_reference,
+    "plain_train_bwd": fused_pipeline_bwd_reference,
+    "plain_trainable": stereo_pipeline_trainable_reference}
+
+
 def reset_counters() -> None:
-    cost_volume_banded_cuda.launches = 0
-    stereo_pipeline_cuda.launches = 0
-    forward_banded.calls = 0
-    stereo_pipeline_reference.calls = 0
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    for fn in PLAIN_COUNTERS.values():
+        fn.calls = 0
+
+
+def read_counters() -> dict:
+    counts = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+    counts.update({name: fn.calls for name, fn in PLAIN_COUNTERS.items()})
+    return counts
 
 
 def phase_main_path() -> dict:
@@ -227,16 +292,13 @@ def phase_main_path() -> dict:
         t0 = time.perf_counter()
         served.append(engine.infer(cam, proj))
         latency.append(time.perf_counter() - t0)
-    counts = {"k1": cost_volume_banded_cuda.launches,
-              "k3": stereo_pipeline_cuda.launches,
-              "plain_volume": forward_banded.calls,
-              "plain_pipeline": stereo_pipeline_reference.calls}
+    counts = read_counters()
     print(f"main path: counters {counts}")
     require(counts["k1"] == 2, "K1 launched once per volume call (2)")
     require(counts["k3"] == 1 + N_FRAMES,
             f"K3 launched once per warm-up and served frame "
             f"({1 + N_FRAMES})")
-    require(counts["plain_volume"] == 0 and counts["plain_pipeline"] == 0,
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
             "plain versions unused on the main path")
 
     require(tuple(soft.shape) == (1, 96, 160)
@@ -278,6 +340,265 @@ def phase_main_path() -> dict:
     return counts
 
 
+def top2_ties(cost_hwd: torch.Tensor) -> torch.Tensor:
+    """Pixels whose two largest costs lie within 1e-5 ([B, H, W] bool)."""
+    if cost_hwd.shape[-1] < 2:
+        return torch.zeros(cost_hwd.shape[:-1], dtype=torch.bool,
+                           device=cost_hwd.device)
+    top2 = torch.topk(cost_hwd, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) <= 1e-5
+
+
+def compare_grad(got, want, label: str, elementwise: bool,
+                 keep=None) -> float:
+    """A camera gradient against its plain twin over the pixels in
+    ``keep``: ||got - want|| / ||want|| <= GRAD_NORM_REL always, and with
+    ``elementwise`` every pixel within rtol GRAD_RTOL / atol GRAD_ATOL.
+    Prints max abs, max rel (over |want| > 1e-3 max |want|), the norm
+    ratio and GRAD_ATOL / max |want| (how loose the atol is at this
+    gradient's scale); returns max abs."""
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"{label}: non-finite gradient")
+    if keep is not None:
+        got, want = got[keep], want[keep]
+    diff = (got - want).abs()
+    scale = want.abs()
+    big = scale > 1e-3 * scale.max()
+    max_abs = float(diff.max())
+    max_rel = float((diff[big] / scale[big]).max()) if big.any() else 0.
+    norm_rel = float(diff.norm() / want.norm())
+    bad = int((diff > GRAD_ATOL + GRAD_RTOL * scale).sum())
+    print(f"{label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+          f"norm_rel {norm_rel:.3e} outside rtol {GRAD_RTOL}/atol "
+          f"{GRAD_ATOL}: {bad} of {diff.numel()}; atol/max|want| "
+          f"{GRAD_ATOL / float(scale.max()):.3e}")
+    require(norm_rel <= GRAD_NORM_REL,
+            f"{label}: norm-relative error within {GRAD_NORM_REL}")
+    if elementwise:
+        require(bad == 0, f"{label}: within rtol {GRAD_RTOL} / atol "
+                          f"{GRAD_ATOL}")
+    return max_abs
+
+
+def phase_k2() -> float:
+    err = 0.0
+    for i, (B, H, W, D, k) in enumerate(SHAPES + [ENTRY, (1,) + KITTI]):
+        cam, proj = uniform_pair(200 + i, B, H, W)
+        # A random cotangent at the scale of a mean loss over the frame's
+        # pixels (1 / (H W)), the regime of the JAX suite's tolerance.
+        g = torch.randn((B, D + 1, H, W), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(i))
+        g *= 1.0 / (H * W)
+        cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+        got = camera_grad_banded_cuda(cam, proj, cost.permute(0, 3, 1, 2), g,
+                                      D, k, EPS)
+        want = camera_grad_banded(cam, proj, g.permute(0, 2, 3, 1), D, k,
+                                  EPS)
+        kitti = (H, W, D, k) == KITTI
+        err = max(err, compare_grad(
+            got, want, f"K2 B={B} H={H} W={W} D={D} k={k}",
+            elementwise=not kitti))
+        del g, cost, got, want
+    return err
+
+
+def train_cases():
+    """(label, camera, projector, D, k, beta): the small shapes, the
+    rescaled head, and KITTI speckle."""
+    cases = []
+    for i, ((B, H, W, D, k), beta) in enumerate(
+            [(s, 50.0) for s in SHAPES] + [((1, 16, 100, 37, 7), 80.0)]):
+        cam, proj = uniform_pair(300 + i, B, H, W)
+        cases.append((f"B={B} H={H} W={W} D={D} k={k} beta={beta}", cam,
+                      proj, D, k, beta))
+    H, W, D, k = KITTI
+    cams, projs, _ = speckle_frames(1, seed=7)
+    cases.append((f"speckle B=1 H={H} W={W} D={D} k={k} beta=50.0",
+                  torch.from_numpy(cams).cuda(),
+                  torch.from_numpy(projs).cuda(), D, k, 50.0))
+    return cases
+
+
+def phase_k3w() -> float:
+    err = 0.0
+    for label, cam, proj, D, k, beta in train_cases():
+        maps, res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                              THRESHOLD)
+        serving = stereo_pipeline_cuda(cam, proj, D, k, EPS, beta, THRESHOLD)
+        want = forward_banded(cam, proj, D, k, EPS)
+        err = max(err, compare_volume(res.volume.permute(0, 2, 3, 1), want,
+                                      f"volume {label}", kernel="K3w"))
+        for name in maps._fields:
+            require(torch.equal(getattr(maps, name),
+                                getattr(serving, name)),
+                    f"K3w {label}: {name} bit-equal to K3's")
+        am, _, s, t = head_residuals(want, D, beta)
+        tie = top2_ties(want)
+        am_differ = res.am != am
+        require(not bool((am_differ & ~tie).any()),
+                f"K3w {label}: argmax differs only at top-two ties")
+        # s and t do not depend on which index is the argmax, so every
+        # pixel is compared, ties included.  s within rtol 1e-3; t within
+        # rtol 1e-3 plus atol 1e-3 s, i.e. |dt| <= 1e-3 (t + s).  |dt| / s
+        # alone cannot hold: t = sum_d d w_d carries the planes' rounding,
+        # amplified by beta in w_d, at the scale of t / s (the soft
+        # disparity, up to D); printed for the record.
+        dt = (res.t - t).abs()
+        s_max = float(((res.s - s).abs() / s).max())
+        t_max = float((dt / (t + s)).max())
+        ts_max = float((dt / s).max())
+        require(s_max <= 1e-3 and t_max <= 1e-3,
+                f"K3w {label}: s within rtol 1e-3, t within 1e-3 (t + s)")
+        print(f"K3w {label}: maps bit-equal to K3; argmax mismatches "
+              f"{int(am_differ.sum())} (top-two ties {int(tie.sum())}); "
+              f"|ds|/s max {s_max:.3e}, |dt|/(t+s) max {t_max:.3e}, "
+              f"|dt|/s max {ts_max:.3e}")
+        del maps, res, serving, want
+    return err
+
+
+def cotangents(seed: int, B: int, H: int, W: int):
+    """Random soft and confidence cotangents at the scale of a mean
+    loss's (1 / (H W))."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    scale = 1.0 / (H * W)
+    return (torch.randn((B, H, W), device="cuda", generator=gen) * scale,
+            torch.randn((B, H, W), device="cuda", generator=gen) * scale)
+
+
+def phase_k4() -> float:
+    err = 0.0
+    for i, (label, cam, proj, D, k, beta) in enumerate(train_cases()):
+        B, H, W = cam.shape
+        kitti = (H, W, D, k) == KITTI
+        gs, gc = cotangents(400 + i, B, H, W)
+        # K4 and its plain twin on the same residuals (K3w's).
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                        THRESHOLD)[1]
+        got = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k, EPS,
+                                      beta)
+        want = fused_pipeline_bwd_reference(cam, proj, res, gs, gc, D, k,
+                                            EPS, beta)
+        err = max(err, compare_grad(got, want, f"K4 {label}",
+                                    elementwise=not kitti))
+        del res, got, want
+
+        # The whole trainable pipeline against its plain twin: the two
+        # forwards may disagree on the argmax only at top-two ties and on
+        # the mask only within 1e-5 of the threshold; the gradient is
+        # compared outside the k x k neighbourhoods of such pixels.
+        grads, outs = [], []
+        for fn in (stereo_pipeline_trainable,
+                   stereo_pipeline_trainable_reference):
+            c = cam.clone().requires_grad_(True)
+            out = fn(c, proj, D, k, EPS, beta, THRESHOLD)
+            loss = ((out.soft_disparity * gs).sum()
+                    + (out.confidence * gc).sum())
+            grads.append(torch.autograd.grad(loss, c)[0])
+            outs.append(tuple(m.detach() for m in out))
+        (_, _, mask_k, _), (_, _, mask_p, conf_p) = outs
+        cost = forward_banded(cam, proj, D, k, EPS)
+        tie = top2_ties(cost)
+        am_k = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                         THRESHOLD)[1].am
+        am_p = head_residuals(cost, D, beta)[0]
+        flips = mask_k != mask_p
+        differ = am_k != am_p
+        require(bool(((conf_p - THRESHOLD).abs() <= 1e-5)[flips].all()),
+                f"K3w+K4 {label}: every mask flip within 1e-5 of the "
+                f"threshold")
+        require(not bool((differ & ~tie).any()),
+                f"K3w+K4 {label}: argmax differs only at top-two ties")
+        odd = (flips | differ).to(cam.dtype)
+        keep = box2d(odd, k, dim=1) == 0
+        print(f"K3w+K4 {label}: argmax mismatches {int(differ.sum())}, mask "
+              f"flips {int(flips.sum())}; gradient compared on "
+              f"{int(keep.sum())} of {keep.numel()} pixels")
+        compare_grad(grads[0], grads[1], f"K3w+K4 {label}",
+                     elementwise=not kitti, keep=keep)
+        del grads, outs, cost
+    return err
+
+
+def phase_train_path() -> dict:
+    H, W, D, k = KITTI
+    model = StereoMatcher(StereoConfig(kernel_size=k, num_disparities=D))
+    cams, projs, _ = speckle_frames(1, seed=60)
+    true_cam = torch.from_numpy(cams).cuda()
+    proj = torch.from_numpy(projs).cuda()
+    with torch.no_grad():
+        target = model.disparity_maps(true_cam, proj).soft_disparity
+    noise = np.random.default_rng(61).standard_normal(cams.shape)
+    camera0 = true_cam + torch.from_numpy(
+        (TRAIN_NOISE * noise).astype(np.float32)).cuda()
+    forward, (cam_e, proj_e) = entry("cuda")
+    require(tuple(cam_e.shape) == ENTRY[:3], f"entry() inputs {ENTRY[:3]}")
+    cam_e = cam_e.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    # A mean loss, as disparity_loss is.
+    forward(cam_e, proj_e).mean().backward()
+    camera, losses = optimize_camera(model, camera0, proj, target,
+                                     learning_rate=TRAIN_LR,
+                                     num_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"train path: counters {counts}")
+    require(counts["k1"] == 1 and counts["k2"] == 1,
+            "entry() backward: K1 and K2 launched once each")
+    require(counts["k3w"] == TRAIN_STEPS and counts["k4"] == TRAIN_STEPS,
+            f"K3w and K4 launched once per step ({TRAIN_STEPS})")
+    require(counts["k3"] == 0, "K3 (serving) unused on the training path")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain versions unused on the training path")
+    require(cam_e.grad is not None
+            and tuple(cam_e.grad.shape) == ENTRY[:3]
+            and bool(torch.isfinite(cam_e.grad).all()),
+            "entry() camera gradient")
+
+    # K2 as the path ran it, outside the counted window: entry()'s camera
+    # gradient against the plain closed-form VJP fed the same cotangent,
+    # the plain head's gradient on K1's volume.
+    _, _, _, De, ke = ENTRY
+    cfg_e = StereoConfig(kernel_size=ke, num_disparities=De)
+    cam_d = cam_e.detach()
+    cost = cost_volume_banded_cuda(cam_d, proj_e, De, ke, cfg_e.epsilon)
+    cost = cost.detach().requires_grad_(True)
+    soft = StereoMatcher(cfg_e).disparity(cost).soft_disparity
+    (g,) = torch.autograd.grad(soft.mean(), cost)
+    want = camera_grad_banded(cam_d, proj_e, g, De, ke, cfg_e.epsilon)
+    compare_grad(cam_e.grad, want, "train path: entry() camera gradient "
+                 "against the plain VJP on its head cotangent",
+                 elementwise=True)
+    del cost, soft, g, want
+    losses = losses.cpu().tolist()
+    print(f"train path: entry() camera gradient {tuple(cam_e.grad.shape)} "
+          f"finite, norm {float(cam_e.grad.norm()):.6e}; optimize_camera "
+          f"{TRAIN_STEPS} steps at {H}x{W} D={D} k={k} lr={TRAIN_LR}: "
+          f"losses {losses}")
+    require(all(np.isfinite(losses)), "every loss finite")
+    require(losses[-1] < losses[0], "the last loss below the first")
+    require(bool(torch.isfinite(camera).all()), "optimised camera finite")
+
+    # Host-clock time of a whole step (K3w, loss, K4, Adam), synchronised.
+    state = init_state(camera0, adam(TRAIN_LR))
+    step = make_train_step(model)
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, proj, target)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * float(np.median(times[1:]))
+    print(f"train path: step host-clock median {step_ms:.3f} ms over "
+          f"{TIMED_STEPS - 1} steps (first dropped); peak device memory "
+          f"of the path {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counts["step_ms"] = step_ms
+    return counts
+
+
 def timed(label: str, fn, *args) -> float:
     ms = 1e3 * benchmark(fn, *args, warmup=2, iters=10, chain=3)["median_s"]
     print(f"time: {label} median {ms:.4f} ms")
@@ -291,21 +612,57 @@ def phase_times(card: str) -> dict:
     scam, sproj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
     vol = (cam, proj, D, k, EPS)
     pipe = (scam, sproj, D, k, EPS, 50.0, THRESHOLD)
+    with torch.no_grad():
+        cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+        g = torch.randn((1, D + 1, H, W), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+        res = fused_pipeline_train_cuda(*pipe)[1]
+    gs, gc = cotangents(1, 1, H, W)
+    k2_args = (cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
+    bwd = (scam, sproj, res, gs, gc, D, k, EPS, 50.0)
+    cases = (
+        ("K1", cost_volume_banded_cuda, forward_banded, vol, vol),
+        ("K3", stereo_pipeline_cuda, stereo_pipeline_reference, pipe, pipe),
+        ("K2", camera_grad_banded_cuda, camera_grad_banded, k2_args,
+         (cam, proj, g.permute(0, 2, 3, 1), D, k, EPS)),
+        ("K3w", fused_pipeline_train_cuda, fused_pipeline_train_reference,
+         pipe, pipe),
+        ("K4", fused_pipeline_bwd_cuda, fused_pipeline_bwd_reference, bwd,
+         bwd),
+    )
     times = {}
     with torch.no_grad():
         # Interleaved: plain, kernel, kernel, plain.
-        for name, kernel, plain, args in (
-                ("K1", cost_volume_banded_cuda, forward_banded, vol),
-                ("K3", stereo_pipeline_cuda, stereo_pipeline_reference, pipe)):
-            p1 = timed(f"{name} plain", plain, *args)
-            k1 = timed(f"{name} kernel", kernel, *args)
-            k2 = timed(f"{name} kernel", kernel, *args)
-            p2 = timed(f"{name} plain", plain, *args)
+        for name, kernel, plain, kargs, pargs in cases:
+            p1 = timed(f"{name} plain", plain, *pargs)
+            k1 = timed(f"{name} kernel", kernel, *kargs)
+            k2 = timed(f"{name} kernel", kernel, *kargs)
+            p2 = timed(f"{name} plain", plain, *pargs)
             times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
             print(f"time: {name} at KITTI {H}x{W} D={D} k={k}: kernel "
                   f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
                   f"({card})")
     return times
+
+
+KERNELS = (
+    # name, key, source, replaces, path whose counters give its launches
+    ("zncc_banded_volume", "K1", "custereomatching_tpu_torch/csrc/"
+     "zncc_banded.cu", "custereomatching_tpu/ops/pallas_zncc.py:156",
+     "serve"),
+    ("fused_pipeline", "K3", "custereomatching_tpu_torch/csrc/"
+     "fused_pipeline.cu", "custereomatching_tpu/ops/pallas_pipeline.py:120",
+     "serve"),
+    ("zncc_banded_camera_vjp", "K2", "custereomatching_tpu_torch/csrc/"
+     "zncc_banded_bwd.cu",
+     "custereomatching_tpu/ops/pallas_zncc_bwd.py:54", "train"),
+    ("fused_pipeline_train", "K3w", "custereomatching_tpu_torch/csrc/"
+     "fused_pipeline.cu", "custereomatching_tpu/ops/pallas_pipeline.py:120",
+     "train"),
+    ("fused_pipeline_bwd", "K4", "custereomatching_tpu_torch/csrc/"
+     "fused_pipeline_bwd.cu",
+     "custereomatching_tpu/ops/pallas_pipeline.py:803", "train"),
+)
 
 
 def main() -> int:
@@ -318,23 +675,20 @@ def main() -> int:
 
     card = phase_env()
     phase_build()
-    k1_err = phase_k1()
-    k3_err = phase_k3()
-    counts = phase_main_path()
+    errs = {"K1": phase_k1(), "K3": phase_k3()}
+    counts = {"serve": phase_main_path()}
+    errs["K2"] = phase_k2()
+    errs["K3w"] = phase_k3w()
+    errs["K4"] = phase_k4()
+    counts["train"] = phase_train_path()
     times = phase_times(card)
 
     kernels = [
-        {"name": "zncc_banded_volume", "route": "cuda",
-         "source": "custereomatching_tpu_torch/csrc/zncc_banded.cu",
-         "replaces": "custereomatching_tpu/ops/pallas_zncc.py:156",
-         "launches": counts["k1"], "max_abs_err": k1_err,
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "fused_pipeline", "route": "cuda",
-         "source": "custereomatching_tpu_torch/csrc/fused_pipeline.cu",
-         "replaces": "custereomatching_tpu/ops/pallas_pipeline.py:120",
-         "launches": counts["k3"], "max_abs_err": k3_err,
-         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
-    ]
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": counts[path][key.lower()],
+         "max_abs_err": errs[key], "ms": times[key][0],
+         "plain_ms": times[key][1]}
+        for name, key, source, replaces, path in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
 from custereomatching_tpu_torch.data.synthetic import (
     box_scene_disparity,
     make_stereo_pair,
+    make_video_batch,
     render_camera,
     slanted_plane_disparity,
     speckle_pattern,
@@ -11,6 +12,7 @@ from custereomatching_tpu_torch.data.synthetic import (
 __all__ = [
     "box_scene_disparity",
     "make_stereo_pair",
+    "make_video_batch",
     "render_camera",
     "slanted_plane_disparity",
     "speckle_pattern",

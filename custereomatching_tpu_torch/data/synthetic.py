@@ -120,3 +120,24 @@ def make_stereo_pair(
     camera = render_camera(projector, disparity, noise=noise, seed=seed + 1)
     return camera, projector, disparity
 
+
+
+def make_video_batch(
+    num_frames: int, height: int, width: int, *, d_min: float = 2.0,
+    d_max: float = 12.0, seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A batch of frames with a drifting disparity plane — the
+    keyframe-depth video workload (BASELINE config 4).
+
+    Returns ``(cameras [B,H,W], projectors [B,H,W], disparities [B,H,W])``.
+    """
+    cams, projs, disps = [], [], []
+    for f in range(num_frames):
+        shift = (d_max - d_min) * f / max(num_frames - 1, 1) * 0.25
+        cam, proj, disp = make_stereo_pair(
+            height, width, d_min=d_min + shift, d_max=d_max - shift,
+            seed=seed + f)
+        cams.append(cam)
+        projs.append(proj)
+        disps.append(disp)
+    return (np.stack(cams), np.stack(projs), np.stack(disps))

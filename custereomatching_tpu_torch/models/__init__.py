@@ -1,8 +1,19 @@
-"""Model layer: the stereo matcher and the serving engine."""
+"""Model layer: the stereo matcher, the serving engine and camera
+optimisation."""
 
 from custereomatching_tpu_torch.models.engine import (
     DEFAULT_BUCKETS,
     StereoEngine,
+)
+from custereomatching_tpu_torch.models.optimize import (
+    StepMetrics,
+    TrainState,
+    adam,
+    disparity_loss,
+    init_state,
+    make_train_step,
+    optimize_camera,
+    train_state_from_jax,
 )
 from custereomatching_tpu_torch.models.stereo import (
     StereoMatcher,
@@ -14,6 +25,14 @@ __all__ = [
     "DEFAULT_BUCKETS",
     "StereoEngine",
     "StereoMatcher",
+    "StepMetrics",
     "StereoOutput",
+    "TrainState",
+    "adam",
+    "disparity_loss",
     "entry",
+    "init_state",
+    "make_train_step",
+    "optimize_camera",
+    "train_state_from_jax",
 ]

@@ -21,6 +21,8 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     PipelineMaps,
     stereo_pipeline_cuda,
     stereo_pipeline_reference,
+    stereo_pipeline_trainable,
+    stereo_pipeline_trainable_reference,
 )
 from custereomatching_tpu_torch.ops.disparity import (
     DisparityResult,
@@ -53,10 +55,11 @@ class StereoOutput(NamedTuple):
 class StereoMatcher(nn.Module):
     """Batched stereo matcher over ``[B, H, W]`` pairs.
 
-    The ``cuda`` backend runs K1 (:meth:`cost_volume`) and K3
-    (:meth:`disparity_maps`) on CUDA tensors; the ``torch`` backend runs
-    their plain versions.  The model has no parameters: its state is
-    the config.
+    The ``cuda`` backend runs the kernels on CUDA tensors: K1 for
+    :meth:`cost_volume` and K2 for its camera gradient, K3 for
+    :meth:`disparity_maps`, K3w and K4 for :meth:`trainable_disparity_maps`;
+    the ``torch`` backend runs their plain versions.  The model has no
+    parameters: its state is the config.
     """
 
     def __init__(self, config: StereoConfig = StereoConfig()):
@@ -97,7 +100,8 @@ class StereoMatcher(nn.Module):
 
     def forward(self, camera: torch.Tensor,
                 projector: torch.Tensor) -> StereoOutput:
-        """Full pipeline on a ``[B, H, W]`` batch."""
+        """Full pipeline on a ``[B, H, W]`` batch, differentiable in the
+        camera."""
         cv = self.cost_volume(camera, projector)
         d = self.disparity(cv)
         return StereoOutput(cost_volume=cv, disparity=d.disparity,
@@ -115,12 +119,22 @@ class StereoMatcher(nn.Module):
         return run(camera, projector, c.num_disparities, c.kernel_size,
                    c.epsilon, c.softargmax_beta, c.cost_threshold)
 
-    # -- not ported yet -------------------------------------------------------
-    def trainable_disparity_maps(self, camera, projector):
-        raise NotImplementedError(
-            "trainable_disparity_maps: the fused trainable pipeline is the "
-            "training slice (ROADMAP item 7)")
+    def trainable_disparity_maps(self, camera: torch.Tensor,
+                                 projector: torch.Tensor) -> PipelineMaps:
+        """Differentiable batched ``[B, H, W]`` pair to disparity maps.
 
+        On the ``cuda`` backend this is the trainable fused pipeline (K3w
+        forward, K4 backward): the cost-volume cotangent never exists in
+        device memory.  The ``torch`` backend runs its plain twin.
+        Gradients flow through ``soft_disparity`` and ``confidence``, to
+        the camera only."""
+        c = self.config
+        run = (stereo_pipeline_trainable if self._backend(camera) == "cuda"
+               else stereo_pipeline_trainable_reference)
+        return run(camera, projector, c.num_disparities, c.kernel_size,
+                   c.epsilon, c.softargmax_beta, c.cost_threshold)
+
+    # -- not ported yet -------------------------------------------------------
     def disparity_maps_lr(self, camera, projector, tolerance: float = 1.0):
         raise NotImplementedError(
             "disparity_maps_lr: the left-right check is ROADMAP item 11")

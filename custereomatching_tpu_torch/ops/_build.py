@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``custereomatching_tpu_torch/csrc/`` have a plain C
-interface.  ``nvcc`` compiles them for ``sm_90a`` into one shared library
-under ``build/kernels/`` at the repository root, named by a hash of the
-sources and flags (so an edit rebuilds it), and ``ctypes`` loads it.
+interface.  ``nvcc`` compiles each ``.cu`` for ``sm_90a`` in its own
+process, all started together, and links the objects into one shared
+library under ``build/kernels/`` at the repository root, named by a hash
+of the sources and flags (so an edit rebuilds it); ``ctypes`` loads it.
 Nothing includes PyTorch's headers, which keeps a build to seconds.
 
 Every pointer and the stream go to the library as ``ctypes.c_void_p``:
@@ -24,8 +25,9 @@ from typing import List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,17 @@ SIGNATURES = {
     # disparity, soft, mask, conf, B, H, W, D, k, eps, beta, threshold,
     # unnormalized, stream
     "custereo_fused_pipeline": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    # ... as above, with volume, am, s, t after conf
+    "custereo_fused_pipeline_train": [_P] * 14 + [_I] * 5 + [_F] * 3
+    + [_I, _P],
+    # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
+    # a1, bm, grmu, grad, B, H, W, D, k, eps, stream
+    "custereo_camera_grad": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, am, mask,
+    # conf, s, t, gsoft, gconf, a1, bm, grmu, grad, B, H, W, D, k, eps,
+    # beta, unnormalized, stream
+    "custereo_fused_pipeline_bwd": [_P] * 18 + [_I] * 5 + [_F] * 2
+    + [_I, _P],
 }
 
 
@@ -73,23 +86,51 @@ def nvcc() -> str:
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
 
-    The compiler's report (``-Xptxas=-v``: registers, shared memory and
-    spills of each kernel) is kept beside the library as ``.log``."""
+    Each ``.cu`` compiles in its own ``nvcc`` process, all at once; the
+    objects are then linked.  The compilers' report (``-Xptxas=-v``:
+    registers, shared memory and spills of each kernel) is kept beside the
+    library as ``.log``."""
     lib = library_path()
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    # Atomic publish: a concurrent build never loads a partial library.
-    os.replace(tmp, lib)
+    tag = f"{lib.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    try:
+        log = []
+        for cmd, _, proc in jobs:
+            log.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {proc.returncode}:\n"
+                    f"{' '.join(cmd)}\n{log[-1]}")
+        cmd = [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed with code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(log))
+        # Atomic publish: a concurrent build never loads a partial library.
+        os.replace(tmp, lib)
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
     return lib
 
 

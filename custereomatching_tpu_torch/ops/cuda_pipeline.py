@@ -1,35 +1,62 @@
-"""Wrapper of kernel K3, the fused volume-free stereo pipeline on the card.
+"""Wrappers of kernels K3, K3w and K4: the fused stereo pipeline on the
+card, its training forward and its backward.
 
 The counterpart of ``custereomatching_tpu/ops/pallas_pipeline.py``
-(``PipelineMaps``, ``_unnormalized_head`` and ``pallas_stereo_pipeline``,
-i.e. ``_fused_kernel`` with ``write_volume=False``).  The kernel is
-``csrc/fused_pipeline.cu``; its plain version is
-:func:`stereo_pipeline_reference`, the plain volume followed by the plain
-head, which is what the JAX ``xla`` backend computes for
-``StereoMatcher.disparity_maps``.  A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or the call raises.  Inference only.
+(``PipelineMaps``, ``_unnormalized_head``, ``pallas_stereo_pipeline``,
+i.e. ``_fused_kernel`` with ``write_volume=False``, and
+``stereo_pipeline_trainable(save_volume=True)``, i.e. ``_fused_kernel``
+with ``write_volume=True`` plus ``_fused_bwd_c_kernel``).  The kernels are
+``csrc/fused_pipeline.cu`` (K3; K3w is its training variant) and
+``csrc/fused_pipeline_bwd.cu`` (K4).  Each has a plain version here:
+
+  * K3: :func:`stereo_pipeline_reference`, the plain volume followed by the
+    plain head, which is what the JAX ``xla`` backend computes for
+    ``StereoMatcher.disparity_maps``;
+  * K3w: :func:`fused_pipeline_train_reference`, the plain volume and
+    :func:`head_residuals`;
+  * K4: :func:`fused_pipeline_bwd_reference`, :func:`head_cotangent`
+    followed by the closed-form camera VJP.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+the call raises.  :func:`stereo_pipeline_trainable` is the autograd node
+over K3w and K4; :func:`stereo_pipeline_trainable_reference` is its plain
+twin, the closed-form volume op followed by a head whose backward forms the
+head cotangent explicitly.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops.cuda_zncc import (
+    check_volume,
+    grad_scratch,
     prepare,
     ptr,
     stats_scratch,
     stream_of,
 )
 from custereomatching_tpu_torch.ops.disparity import extract_disparity
-from custereomatching_tpu_torch.ops.zncc import EPSILON, forward_banded
+from custereomatching_tpu_torch.ops.zncc import (
+    EPSILON,
+    StereoMatchingFunction,
+    camera_grad_banded,
+    forward_banded,
+)
+
+SAVE_VOLUME_TODO = ("save_volume=False, the volume-free trainable backward "
+                    "(K5), is not ported yet: ROADMAP item 7.3")
 
 
 class PipelineMaps(NamedTuple):
-    """Outputs of the fused pipeline (each ``[B, H, W]``)."""
+    """Outputs of the fused pipeline (each ``[B, H, W]``).  In the
+    trainable pipeline gradients flow through ``soft_disparity`` and
+    ``confidence``; ``disparity`` and ``mask`` are piecewise constant and
+    get none."""
 
     disparity: torch.Tensor       # hard argmax disparity, masked
     soft_disparity: torch.Tensor  # sub-pixel soft-argmax disparity, masked
@@ -98,3 +125,297 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
 
 
 stereo_pipeline_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Trainable pipeline: K3w forward, K4 backward
+# ---------------------------------------------------------------------------
+#
+# With soft = mask t/s and conf = m, the cotangent of cost plane d is
+#     g_d = gs_hat mask beta w_d (d - t/s) + gc_hat 1[d = am]
+#     w_d = e^{beta c_d} / s (unnormalized head), e^{beta (c_d - conf)} / s
+# The confidence gradient goes to the first argmax only (1[d = am]); torch's
+# amax backward would split it among tied maxima instead.
+
+
+class HeadResiduals(NamedTuple):
+    """What the trainable backward (K4) reads besides the images and the
+    cotangents (each map ``[B, H, W]``)."""
+
+    am: torch.Tensor          # raw first argmax (disparity = am * mask)
+    mask: torch.Tensor        # the forward's confidence mask
+    confidence: torch.Tensor  # max cost m
+    s: torch.Tensor           # softmax sum: raw, or relative to e^{beta m}
+    t: torch.Tensor           # first moment sum d e^{...}, as s
+    volume: torch.Tensor      # the cost volume, plane-major [B, D+1, H, W]
+
+
+def head_residuals(cost: torch.Tensor, num_disparities: int, beta: float
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Plain head over a ``[B, H, W, D+1]`` volume: ``(am, conf, s, t)`` in
+    K3w's convention (s and t raw under the unnormalized gate, relative to
+    ``e^{beta conf}`` otherwise)."""
+    conf = torch.amax(cost, dim=-1)
+    am = torch.argmax(cost, dim=-1).to(cost.dtype)
+    bc = cost * beta
+    if unnormalized_head(beta, num_disparities):
+        u = torch.exp(bc)
+    else:
+        u = torch.exp(bc - torch.amax(bc, dim=-1, keepdim=True))
+    d = torch.arange(cost.shape[-1], dtype=cost.dtype, device=cost.device)
+    return am, conf, u.sum(dim=-1), (u * d).sum(dim=-1)
+
+
+def _maps(am, conf, s, t, threshold: float) -> PipelineMaps:
+    mask = (conf > threshold).to(conf.dtype)
+    return PipelineMaps(disparity=am * mask, soft_disparity=(t / s) * mask,
+                        mask=mask, confidence=conf)
+
+
+def fused_pipeline_train_reference(camera: torch.Tensor,
+                                   projector: torch.Tensor,
+                                   num_disparities: int,
+                                   kernel_size: int = 15,
+                                   epsilon: float = EPSILON,
+                                   beta: float = 50.0,
+                                   threshold: float = 0.6
+                                   ) -> Tuple[PipelineMaps, HeadResiduals]:
+    """Plain version of K3w: the plain volume and :func:`head_residuals`.
+    ``.calls`` counts its uses."""
+    fused_pipeline_train_reference.calls += 1
+    cost = forward_banded(camera, projector, num_disparities, kernel_size,
+                          epsilon)
+    am, conf, s, t = head_residuals(cost, num_disparities, beta)
+    maps = _maps(am, conf, s, t, threshold)
+    return maps, HeadResiduals(am, maps.mask, conf, s, t,
+                               cost.permute(0, 3, 1, 2))
+
+
+fused_pipeline_train_reference.calls = 0
+
+
+def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
+                              num_disparities: int, kernel_size: int = 15,
+                              epsilon: float = EPSILON, beta: float = 50.0,
+                              threshold: float = 0.6
+                              ) -> Tuple[PipelineMaps, HeadResiduals]:
+    """The training forward: the four maps of :func:`stereo_pipeline_cuda`
+    plus the cost volume ``[B, D+1, H, W]`` and the raw argmax, s and t.
+    ``.launches`` counts K3w's launches."""
+    D, k = int(num_disparities), int(kernel_size)
+    camera, projector = prepare(camera, projector, D, k)
+    if camera.device.type == "cpu":
+        return fused_pipeline_train_reference(camera, projector, D, k,
+                                              epsilon, beta, threshold)
+    if camera.device.type != "cuda":
+        raise ValueError(f"K3w runs on CUDA or (plain) CPU tensors, got "
+                         f"{camera.device}")
+    if beta <= 0:
+        raise ValueError(f"beta must be > 0, got {beta}")
+    lib = _build.kernels()
+    B, H, W = camera.shape
+    maps = camera.new_empty((7, B, H, W))
+    volume = camera.new_empty((B, D + 1, H, W))
+    scratch = stats_scratch(camera, D)
+    with torch.cuda.device(camera.device):
+        code = lib.custereo_fused_pipeline_train(
+            ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
+            *(ptr(m) for m in maps[:4]), ptr(volume),
+            *(ptr(m) for m in maps[4:]), B, H, W, D, k, float(epsilon),
+            float(beta), float(threshold), int(unnormalized_head(beta, D)),
+            stream_of(camera.device))
+    _build.check(code, "K3w fused pipeline (training) launch")
+    fused_pipeline_train_cuda.launches += 1
+    disparity, soft, mask, conf, am, s, t = maps.unbind(0)
+    return (PipelineMaps(disparity, soft, mask, conf),
+            HeadResiduals(am, mask, conf, s, t, volume))
+
+
+fused_pipeline_train_cuda.launches = 0
+
+
+def head_cotangent(cost: torch.Tensor, am: torch.Tensor, mask: torch.Tensor,
+                   conf: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+                   gsoft: torch.Tensor, gconf: torch.Tensor, beta: float,
+                   unnormalized: bool) -> torch.Tensor:
+    """The cost-volume cotangent ``[B, H, W, D+1]`` that the soft-disparity
+    and confidence cotangents ``gsoft``, ``gconf`` induce, in K4's formula
+    (the Pallas ``_fused_bwd_c_kernel``, pallas_pipeline.py:979-990) and its
+    first-argmax convention."""
+    inv_s = 1.0 / s
+    tos = (t * inv_s)[..., None]
+    gs = (gsoft * mask * beta)[..., None]
+    arg = beta * cost if unnormalized else beta * (cost - conf[..., None])
+    w = torch.exp(arg) * inv_s[..., None]
+    d = torch.arange(cost.shape[-1], dtype=cost.dtype, device=cost.device)
+    hit = (am[..., None] == d).to(cost.dtype)
+    return gs * w * (d - tos) + gconf[..., None] * hit
+
+
+def fused_pipeline_bwd_reference(camera: torch.Tensor,
+                                 projector: torch.Tensor,
+                                 residuals: HeadResiduals,
+                                 gsoft: torch.Tensor, gconf: torch.Tensor,
+                                 num_disparities: int, kernel_size: int = 15,
+                                 epsilon: float = EPSILON,
+                                 beta: float = 50.0) -> torch.Tensor:
+    """Plain version of K4: :func:`head_cotangent`, then the closed-form
+    camera VJP.  ``.calls`` counts its uses."""
+    fused_pipeline_bwd_reference.calls += 1
+    D = int(num_disparities)
+    r = residuals
+    g = head_cotangent(r.volume.permute(0, 2, 3, 1), r.am, r.mask,
+                       r.confidence, r.s, r.t, gsoft, gconf, beta,
+                       unnormalized_head(beta, D))
+    return camera_grad_banded(camera, projector, g, D, kernel_size, epsilon)
+
+
+fused_pipeline_bwd_reference.calls = 0
+
+
+def _check_maps(camera: torch.Tensor, **maps: torch.Tensor):
+    out = []
+    for name, m in maps.items():
+        if (tuple(m.shape) != tuple(camera.shape) or m.dtype != camera.dtype
+                or m.device != camera.device):
+            raise ValueError(f"K4 {name}: expected {tuple(camera.shape)} "
+                             f"{camera.dtype} on {camera.device}, got "
+                             f"{tuple(m.shape)} {m.dtype} on {m.device}")
+        out.append(m.contiguous())
+    return out
+
+
+def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
+                            residuals: HeadResiduals,
+                            gsoft: torch.Tensor, gconf: torch.Tensor,
+                            num_disparities: int, kernel_size: int = 15,
+                            epsilon: float = EPSILON,
+                            beta: float = 50.0) -> torch.Tensor:
+    """Camera gradient ``[B, H, W]`` of the trainable pipeline from the
+    forward's residuals and the soft-disparity and confidence cotangents.
+    ``.launches`` counts K4's launches."""
+    D, k = int(num_disparities), int(kernel_size)
+    camera, projector = prepare(camera, projector, D, k)
+    if camera.device.type == "cpu":
+        return fused_pipeline_bwd_reference(camera, projector, residuals,
+                                            gsoft, gconf, D, k, epsilon,
+                                            beta)
+    if camera.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA or (plain) CPU tensors, got "
+                         f"{camera.device}")
+    r = residuals
+    volume = check_volume(r.volume, camera, D, "K4 cost")
+    head = _check_maps(camera, am=r.am, mask=r.mask, conf=r.confidence,
+                       s=r.s, t=r.t, gsoft=gsoft, gconf=gconf)
+    lib = _build.kernels()
+    B, H, W = camera.shape
+    grad = camera.new_empty((B, H, W))
+    scratch = grad_scratch(camera, D)
+    with torch.cuda.device(camera.device):
+        code = lib.custereo_fused_pipeline_bwd(
+            ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
+            ptr(volume), *(ptr(m) for m in head),
+            *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
+            float(epsilon), float(beta), int(unnormalized_head(beta, D)),
+            stream_of(camera.device))
+    _build.check(code, "K4 fused pipeline backward launch")
+    fused_pipeline_bwd_cuda.launches += 1
+    return grad
+
+
+fused_pipeline_bwd_cuda.launches = 0
+
+
+class _TrainablePipeline(torch.autograd.Function):
+    """K3w forward, K4 backward: the counterpart of ``_fused_train_v``.  The
+    residuals are the images, the maps and the cost volume; the projector
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, camera, projector, num_disparities, kernel_size,
+                epsilon, beta, threshold):
+        maps, res = fused_pipeline_train_cuda(
+            camera, projector, num_disparities, kernel_size, epsilon, beta,
+            threshold)
+        ctx.save_for_backward(camera, projector, *res)
+        ctx.args = (num_disparities, kernel_size, epsilon, beta)
+        ctx.mark_non_differentiable(maps.disparity, maps.mask)
+        return tuple(maps)
+
+    @staticmethod
+    def backward(ctx, g_disparity, g_soft, g_mask, g_conf):
+        camera, projector, *res = ctx.saved_tensors
+        grad = fused_pipeline_bwd_cuda(camera, projector, HeadResiduals(*res),
+                                       g_soft, g_conf, *ctx.args)
+        return grad, None, None, None, None, None, None
+
+
+def _check_trainable(camera: torch.Tensor, save_volume: bool) -> None:
+    if not save_volume:
+        raise NotImplementedError(SAVE_VOLUME_TODO)
+    if camera.ndim != 3:
+        raise ValueError(f"expected [B, H, W] images, got "
+                         f"{tuple(camera.shape)}")
+
+
+def stereo_pipeline_trainable(camera: torch.Tensor, projector: torch.Tensor,
+                              num_disparities: int, kernel_size: int = 15,
+                              epsilon: float = EPSILON, beta: float = 50.0,
+                              threshold: float = 0.6,
+                              save_volume: bool = True) -> PipelineMaps:
+    """Differentiable fused pipeline: ``[B, H, W]`` pairs to four maps.
+
+    The forward (K3w) writes the cost volume as the backward's residual,
+    and the backward (K4) forms the head cotangent plane by plane, so the
+    cost-volume cotangent never exists in device memory.  Camera gradients
+    flow through ``soft_disparity`` and ``confidence``; the projector gets
+    none.  ``save_volume=False`` (the volume-free backward, K5) is not
+    ported and raises ``NotImplementedError``.
+    """
+    _check_trainable(camera, save_volume)
+    return PipelineMaps(*_TrainablePipeline.apply(
+        camera, projector, int(num_disparities), int(kernel_size), epsilon,
+        beta, threshold))
+
+
+class _TrainableHead(torch.autograd.Function):
+    """The plain head over a ``[B, H, W, D+1]`` volume, whose backward
+    forms the cost cotangent explicitly with :func:`head_cotangent`."""
+
+    @staticmethod
+    def forward(ctx, cost, num_disparities, beta, threshold):
+        am, conf, s, t = head_residuals(cost, num_disparities, beta)
+        maps = _maps(am, conf, s, t, threshold)
+        ctx.save_for_backward(cost, am, maps.mask, conf, s, t)
+        ctx.args = (beta, unnormalized_head(beta, num_disparities))
+        ctx.mark_non_differentiable(maps.disparity, maps.mask)
+        return tuple(maps)
+
+    @staticmethod
+    def backward(ctx, g_disparity, g_soft, g_mask, g_conf):
+        cost, am, mask, conf, s, t = ctx.saved_tensors
+        return (head_cotangent(cost, am, mask, conf, s, t, g_soft, g_conf,
+                               *ctx.args), None, None, None)
+
+
+def stereo_pipeline_trainable_reference(camera: torch.Tensor,
+                                        projector: torch.Tensor,
+                                        num_disparities: int,
+                                        kernel_size: int = 15,
+                                        epsilon: float = EPSILON,
+                                        beta: float = 50.0,
+                                        threshold: float = 0.6,
+                                        save_volume: bool = True
+                                        ) -> PipelineMaps:
+    """Plain twin of :func:`stereo_pipeline_trainable`: the closed-form
+    volume op, then the head of :func:`head_cotangent`, each an autograd
+    node.  ``.calls`` counts its uses."""
+    _check_trainable(camera, save_volume)
+    stereo_pipeline_trainable_reference.calls += 1
+    D = int(num_disparities)
+    cost = StereoMatchingFunction.apply(camera, projector, D,
+                                        int(kernel_size), epsilon)
+    return PipelineMaps(*_TrainableHead.apply(cost, D, beta, threshold))
+
+
+stereo_pipeline_trainable_reference.calls = 0

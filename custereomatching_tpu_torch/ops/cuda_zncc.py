@@ -1,8 +1,11 @@
-"""Wrapper of kernel K1, the banded ZNCC cost volume on the card.
+"""Wrappers of kernels K1 and K2: the banded ZNCC cost volume on the card
+and its camera VJP.
 
-The counterpart of ``custereomatching_tpu/ops/pallas_zncc.py``.  The
-kernel is ``csrc/zncc_banded.cu``; its plain version is
-:func:`.zncc.forward_banded`.  A CPU tensor takes the plain version; a
+The counterparts of ``custereomatching_tpu/ops/pallas_zncc.py`` and of the
+with-cost mode of ``pallas_zncc_bwd.py``.  The kernels are
+``csrc/zncc_banded.cu`` and ``csrc/zncc_banded_bwd.cu``; their plain
+versions are :func:`.zncc.forward_banded` and
+:func:`.zncc.camera_grad_banded`.  A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or the call raises.
 """
 
@@ -16,6 +19,7 @@ import torch
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops.zncc import (
     EPSILON,
+    camera_grad_banded,
     check_pair,
     forward_banded,
 )
@@ -97,3 +101,67 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
 
 
 cost_volume_banded_cuda.launches = 0
+
+
+def check_volume(volume: torch.Tensor, camera: torch.Tensor,
+                 num_disparities: int, what: str) -> torch.Tensor:
+    """Validate a plane-major ``[B, D+1, H, W]`` fp32 volume that belongs
+    with ``[B, H, W]`` images; returns it contiguous."""
+    B, H, W = camera.shape
+    want = (B, int(num_disparities) + 1, H, W)
+    if tuple(volume.shape) != want:
+        raise ValueError(f"{what}: expected a plane-major volume {want}, "
+                         f"got {tuple(volume.shape)}")
+    if volume.dtype != torch.float32 or volume.device != camera.device:
+        raise ValueError(f"{what}: expected float32 on {camera.device}, got "
+                         f"{volume.dtype} on {volume.device}")
+    return volume.contiguous()
+
+
+def grad_scratch(camera: torch.Tensor, num_disparities: int):
+    """Scratch of the camera-VJP kernels (K2, K4): the statistics of
+    :func:`stats_scratch`, then the A1, B and GRMU fields ``[B, H, W]``."""
+    fields = camera.new_empty((3,) + tuple(camera.shape))
+    return stats_scratch(camera, num_disparities) + tuple(fields.unbind(0))
+
+
+def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
+                            cost: torch.Tensor, cotangent: torch.Tensor,
+                            num_disparities: int, kernel_size: int = 15,
+                            epsilon: float = EPSILON) -> torch.Tensor:
+    """Camera VJP of the banded volume: ``[B, H, W]`` pairs, the forward
+    volume and its cotangent, both plane-major ``[B, D+1, H, W]``, to a
+    ``[B, H, W]`` gradient.
+
+    On a CUDA tensor this launches K2, which reads the cost as a residual
+    (``n r = c``: no cross-term recompute).  A CPU tensor takes the plain
+    closed form, which recomputes the cost.  ``.launches`` counts K2's
+    launches.
+    """
+    D, k = int(num_disparities), int(kernel_size)
+    camera, projector = prepare(camera, projector, D, k)
+    cost = check_volume(cost, camera, D, "K2 cost")
+    cotangent = check_volume(cotangent, camera, D, "K2 cotangent")
+    if camera.device.type == "cpu":
+        return camera_grad_banded(camera, projector,
+                                  cotangent.permute(0, 2, 3, 1), D, k,
+                                  epsilon)
+    if camera.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or (plain) CPU tensors, got "
+                         f"{camera.device}")
+    lib = _build.kernels()
+    B, H, W = camera.shape
+    grad = camera.new_empty((B, H, W))
+    scratch = grad_scratch(camera, D)
+    with torch.cuda.device(camera.device):
+        code = lib.custereo_camera_grad(
+            ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
+            ptr(cost), ptr(cotangent), *(ptr(s) for s in scratch[4:]),
+            ptr(grad), B, H, W, D, k, float(epsilon),
+            stream_of(camera.device))
+    _build.check(code, "K2 camera VJP launch")
+    camera_grad_banded_cuda.launches += 1
+    return grad
+
+
+camera_grad_banded_cuda.launches = 0

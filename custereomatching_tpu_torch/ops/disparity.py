@@ -5,6 +5,8 @@ The twin of ``custereomatching_tpu/ops/disparity.py``:
   * all-pairs volumes ``[H, W, W]``: the last axis is the absolute
     projector column, so ``disparity = w - correspondence``;
   * banded volumes ``[H, W, D+1]``: the band index is the disparity;
+  * plane-major volumes ``[B, D+1, H, W]`` (:func:`extract_disparity_hdw`):
+    the plane index is the disparity;
   * ``mask = max_d cost > threshold``; masked pixels get disparity 0.
 
 ``torch.argmax`` returns the first maximal index, as ``jnp.argmax`` does.
@@ -82,6 +84,43 @@ def extract_disparity(cost_volume: torch.Tensor,
         soft_disparity = corr_soft * mask
 
     return DisparityResult(disparity=disparity, soft_disparity=soft_disparity,
+                           mask=mask, confidence=confidence)
+
+
+def extract_disparity_hdw(cost_volume_hdw: torch.Tensor,
+                          num_disparities: int, height: int, width: int,
+                          threshold: float = 0.6,
+                          beta: float = 50.0) -> DisparityResult:
+    """Disparity head over a plane-major volume, the counterpart of the JAX
+    ``extract_disparity_hdw``.
+
+    Takes the port's exact ``[B, D+1, H, W]`` volume (what K1 and K3w
+    write) or ``[D+1, H, W]``, and also padded volumes with more planes,
+    rows or columns.  Reduces over the plane axis (``-3``) with the planes
+    beyond D masked to -3e38, so they move neither the max nor the
+    softmax, then crops the maps to ``[..., height, width]``.  A training
+    loss therefore needs no permute, and padded entries get an exactly
+    zero cotangent.
+    """
+    if cost_volume_hdw.ndim not in (3, 4):
+        raise ValueError(
+            f"expected [D+1, H, W] or [B, D+1, H, W] volume, got "
+            f"{tuple(cost_volume_hdw.shape)}")
+    ndt = cost_volume_hdw.shape[-3]
+    if ndt < num_disparities + 1:
+        raise ValueError(f"volume has {ndt} planes < num_disparities+1 "
+                         f"({num_disparities + 1})")
+    dtype, device = cost_volume_hdw.dtype, cost_volume_hdw.device
+    plane = torch.arange(ndt, device=device)[:, None, None]
+    masked = torch.where(plane <= num_disparities, cost_volume_hdw,
+                         torch.tensor(-3.0e38, dtype=dtype, device=device))
+
+    confidence = torch.amax(masked, dim=-3)[..., :height, :width]
+    mask = (confidence > threshold).to(dtype)
+    corr_hard = torch.argmax(masked, dim=-3).to(dtype)[..., :height, :width]
+    corr_soft = soft_argmax(masked, beta=beta, dim=-3)[..., :height, :width]
+    return DisparityResult(disparity=corr_hard * mask,
+                           soft_disparity=corr_soft * mask,
                            mask=mask, confidence=confidence)
 
 

@@ -1,9 +1,11 @@
-"""Plain PyTorch banded ZNCC cost volume.
+"""Plain PyTorch banded ZNCC cost volume and its closed-form camera VJP.
 
 The twin of ``custereomatching_tpu/ops/zncc.py`` (``box2d``,
-``_image_moments``, ``_banded_stats``, ``_forward_banded``): the CPU
-backend of the port, and the plain version that the CUDA kernel K1
-(``csrc/zncc_banded.cu``) is held against on the card.
+``_image_moments``, ``_banded_stats``, ``_forward_banded``,
+``_camera_grad_banded`` and the ``_stereo_matching`` custom VJP): the CPU
+backend of the port, and the plain versions that the CUDA kernels K1
+(``csrc/zncc_banded.cu``) and K2 (``csrc/zncc_banded_bwd.cu``) are held
+against on the card.
 
 Numerical contract: windows read zeros outside the image, means divide
 by k^2 including the padding, and
@@ -121,6 +123,61 @@ def check_pair(camera: torch.Tensor, projector: torch.Tensor,
             f"{kernel_size}")
 
 
+def camera_grad_banded(camera: torch.Tensor, projector: torch.Tensor,
+                       g: torch.Tensor, num_disparities: int,
+                       kernel_size: int = 15,
+                       epsilon: float = EPSILON) -> torch.Tensor:
+    """Closed-form camera VJP of the banded volume: ``[B, H, W]`` pairs and
+    a ``[B, H, W, D+1]`` cotangent to a ``[B, H, W]`` gradient.
+
+    With ``n = exy + eps`` and ``r = (ex2 ey2 + eps)^{-1/2}``::
+
+        cam_grad = A1 - box2d(GRMU) + box2d(B mux) - cam * box2d(B)
+        B = sum_d g n r^3 ey2,  GRMU = sum_d g r muy,
+        A1 = sum_d box2d(g r) proj(x - d)
+
+    The plain version of K2 (the JAX ``_camera_grad_banded``); ``.calls``
+    counts its uses."""
+    camera_grad_banded.calls += 1
+    D, k = int(num_disparities), int(kernel_size)
+    sx, ex2, sy_band, ey2_band, proj_band, exy, k2 = _banded_stats(
+        camera, projector, D, k)
+    mux = sx / k2
+    muy_band = sy_band / k2
+    r = torch.rsqrt(ex2[..., None] * ey2_band + epsilon)
+    n = exy + epsilon
+    gr = g * r
+    b = torch.sum(g * n * (r * r * r) * ey2_band, dim=-1)
+    grmu = torch.sum(gr * muy_band, dim=-1)
+    a1 = torch.sum(box2d(gr, k, dim=1) * proj_band, dim=-1)
+    return (a1 - box2d(grmu, k, dim=1) + box2d(b * mux, k, dim=1)
+            - camera * box2d(b, k, dim=1))
+
+
+camera_grad_banded.calls = 0
+
+
+class StereoMatchingFunction(torch.autograd.Function):
+    """The plain banded op as an autograd node, the counterpart of the JAX
+    ``_stereo_matching`` custom VJP: the residuals are the two images, the
+    backward is the closed form :func:`camera_grad_banded`, and the
+    projector gets no gradient (``None``)."""
+
+    @staticmethod
+    def forward(ctx, camera, projector, num_disparities, kernel_size,
+                epsilon):
+        ctx.save_for_backward(camera, projector)
+        ctx.args = (num_disparities, kernel_size, epsilon)
+        return forward_banded(camera, projector, num_disparities,
+                              kernel_size, epsilon)
+
+    @staticmethod
+    def backward(ctx, grad):
+        camera, projector = ctx.saved_tensors
+        cam_grad = camera_grad_banded(camera, projector, grad, *ctx.args)
+        return cam_grad, None, None, None, None
+
+
 def stereo_matching_torch(camera: torch.Tensor, projector: torch.Tensor,
                           num_disparities: Optional[int],
                           kernel_size: int = 15,
@@ -128,9 +185,10 @@ def stereo_matching_torch(camera: torch.Tensor, projector: torch.Tensor,
     """The plain banded ZNCC op on any device: ``[H, W]`` or ``[B, H, W]``
     pairs to ``[..., H, W, D+1]`` volumes.
 
-    Differentiable in the camera through autograd; the projector is
-    detached, so it receives no gradient (the JAX op's camera-only
-    contract).  k = 1 is accepted, as in the JAX XLA op.
+    Differentiable in the camera through the closed-form VJP
+    (:class:`StereoMatchingFunction`), as the JAX XLA op is; the projector
+    receives no gradient (the JAX op's camera-only contract).  k = 1 is
+    accepted, as in the JAX XLA op.
     """
     check_pair(camera, projector, kernel_size)
     if num_disparities is None:
@@ -141,6 +199,7 @@ def stereo_matching_torch(camera: torch.Tensor, projector: torch.Tensor,
     single = camera.ndim == 2
     if single:
         camera, projector = camera[None], projector[None]
-    cost = forward_banded(camera, projector.detach(), num_disparities,
-                          kernel_size, epsilon)
+    cost = StereoMatchingFunction.apply(camera, projector,
+                                        int(num_disparities),
+                                        int(kernel_size), epsilon)
     return cost[0] if single else cost

@@ -1,0 +1,252 @@
+"""Where the time of the port's steps goes on one CUDA card.
+
+    python -m custereomatching_tpu_torch.scripts.device_profile MODE...
+
+Every mode runs at KITTI size (375x1242, D=192, k=15, B=1) on a synthetic
+speckle frame and prints its lines, then one JSON object:
+
+* ``train``: the fused train step (``make_train_step``: K3w, loss, K4,
+  Adam).  The host-clock median of unprofiled steps; then as many steps
+  again under ``torch.profiler``, in the same process and loop (each
+  step synchronised): the device time per step of each kernel, the busy
+  time (the union of the kernel, copy and memset intervals), the
+  window's host-clock wall and its idle share ``1 - busy / wall``.  The
+  profiler adds host work, so that share bounds the unprofiled run's
+  from above; ``1 - busy / step`` against the unprofiled step is printed
+  as an estimate (negative where the profiled kernels ran longer).
+* ``volume``: the volume path's step (``StereoMatcher.__call__``, the
+  soft-disparity MSE, its backward through the plain head and K2),
+  profiled the same way; copies are the kernels named ``*copy*``.
+* ``k3``: device time of the serving K3 (CUDA events).  To compare two
+  checkouts in one run, run this file by its path with ``PYTHONPATH`` set
+  to each checkout in turn: the package is then imported from there.
+* ``build``: wall time of the kernel build as the port makes it (one
+  nvcc per source, all started together, then a link) and as a single
+  nvcc over every source, alternated, each into an empty directory.
+
+Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+from typing import Callable, Dict, Iterable, List, Tuple
+
+import numpy as np
+import torch
+
+# Only what the serving slice already had is imported here, so ``k3`` runs
+# against a checkout of that slice too.
+from custereomatching_tpu_torch.config import StereoConfig
+from custereomatching_tpu_torch.data import make_stereo_pair
+from custereomatching_tpu_torch.models import StereoMatcher
+from custereomatching_tpu_torch.ops import _build
+from custereomatching_tpu_torch.ops.cuda_pipeline import stereo_pipeline_cuda
+from custereomatching_tpu_torch.utils import benchmark
+
+KITTI = (375, 1242, 192, 15)
+STEPS = 10
+# Chrome-trace categories of device work.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+Interval = Tuple[str, float, float]
+
+
+def device_intervals(trace_events: Iterable[dict]) -> List[Interval]:
+    """``(name, start_us, end_us)`` of every device event of a Chrome
+    trace's ``traceEvents``."""
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in trace_events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+
+
+def busy_us(intervals: Iterable[Interval]) -> float:
+    """Length of the union of the intervals: the time the device was busy
+    (concurrent streams are not counted twice)."""
+    total, end = 0.0, float("-inf")
+    for _, lo, hi in sorted(intervals, key=lambda x: x[1]):
+        if hi <= end:
+            continue
+        total += hi - max(lo, end)
+        end = hi
+    return total
+
+
+def per_name_us(intervals: Iterable[Interval]) -> Dict[str, float]:
+    """Summed duration of each name's intervals, largest first."""
+    sums: Dict[str, float] = defaultdict(float)
+    for name, lo, hi in intervals:
+        sums[name] += hi - lo
+    return dict(sorted(sums.items(), key=lambda kv: -kv[1]))
+
+
+def scene(seed: int = 60):
+    """A KITTI-size speckle pair on the card, a noisy camera to start from
+    and the fused pipeline's soft disparity of the clean pair as target."""
+    H, W, D, k = KITTI
+    cam, proj, _ = make_stereo_pair(H, W, d_min=4.0, d_max=184.0, seed=seed)
+    cam = torch.from_numpy(cam[None]).cuda()
+    proj = torch.from_numpy(proj[None]).cuda()
+    model = StereoMatcher(StereoConfig(kernel_size=k, num_disparities=D))
+    with torch.no_grad():
+        target = model.disparity_maps(cam, proj).soft_disparity
+    noise = np.random.default_rng(seed + 1).standard_normal(cam.shape)
+    camera0 = cam + torch.from_numpy((0.05 * noise).astype(np.float32)).cuda()
+    return model, camera0, proj, target
+
+
+def profile_steps(label: str, step: Callable[[], None]) -> dict:
+    """Unprofiled host-clock median of ``STEPS`` steps, then ``STEPS``
+    steps under the profiler: per-kernel device ms a step, busy ms a step,
+    the window's wall ms a step and its idle share."""
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * float(np.median(times))
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                step()
+                torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    intervals = device_intervals(events)
+    if not intervals:
+        raise RuntimeError(f"{label}: the trace holds no device events")
+    busy_ms = busy_us(intervals) / 1e3 / STEPS
+    names = per_name_us(intervals)
+    copies_ms = sum(us for name, us in names.items()
+                    if "copy" in name.lower()) / 1e3 / STEPS
+    print(f"{label}: unprofiled step host-clock median {step_ms:.4f} ms "
+          f"over {STEPS} steps")
+    print(f"{label}: profiled window {STEPS} steps: wall {wall_ms:.4f} ms a "
+          f"step, device busy {busy_ms:.4f} ms a step, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}; estimate against the unprofiled "
+          f"step: {1 - busy_ms / step_ms:.4f}")
+    print(f"{label}: copies {copies_ms:.4f} ms a step; device time a step "
+          f"by kernel:")
+    for name, us in list(names.items())[:12]:
+        print(f"{label}:   {us / 1e3 / STEPS:9.4f} ms  {name[:110]}")
+    return {"step_ms": step_ms, "profiled_wall_ms": wall_ms,
+            "busy_ms": busy_ms, "idle_share_profiled": 1 - busy_ms / wall_ms,
+            "copies_ms": copies_ms,
+            "top": {name[:110]: us / 1e3 / STEPS
+                    for name, us in list(names.items())[:6]}}
+
+
+def mode_train() -> dict:
+    from custereomatching_tpu_torch.models import (
+        adam,
+        init_state,
+        make_train_step,
+    )
+
+    model, camera0, proj, target = scene()
+    state = init_state(camera0, adam(1e-3))
+    step_fn = make_train_step(model)
+
+    def step():
+        nonlocal state
+        state, _ = step_fn(state, proj, target)
+
+    return profile_steps("train", step)
+
+
+def mode_volume() -> dict:
+    model, camera0, proj, target = scene()
+    camera = camera0.clone().requires_grad_(True)
+
+    def step():
+        camera.grad = None
+        err = model(camera, proj).soft_disparity - target
+        torch.mean(err * err).backward()
+
+    return profile_steps("volume", step)
+
+
+def mode_k3() -> dict:
+    H, W, D, k = KITTI
+    _, camera0, proj, _ = scene()
+    args = (camera0, proj, D, k, 1e-8, 50.0, 0.6)
+    with torch.no_grad():
+        ms = [1e3 * benchmark(stereo_pipeline_cuda, *args, warmup=2,
+                              iters=10, chain=3)["median_s"]
+              for _ in range(3)]
+    print(f"k3: serving K3 from {Path(_build.__file__).parents[2]}: "
+          f"medians {' '.join(f'{m:.4f}' for m in ms)} ms")
+    return {"k3_ms": ms}
+
+
+def mode_build() -> dict:
+    """Alternate: parallel, single, single, parallel."""
+    cu = [str(s) for s in _build.sources() if s.suffix == ".cu"]
+    times: Dict[str, List[float]] = {"parallel": [], "single": []}
+    build_dir = _build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, how in enumerate(("parallel", "single", "single",
+                                     "parallel")):
+                out = Path(tmp) / f"{i}"
+                out.mkdir()
+                t0 = time.perf_counter()
+                if how == "parallel":
+                    _build.BUILD_DIR = out
+                    _build.build()
+                else:
+                    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS,
+                                    "-shared", "-o", str(out / "single.so"),
+                                    *cu], capture_output=True, text=True,
+                                   check=True)
+                times[how].append(time.perf_counter() - t0)
+        finally:
+            _build.BUILD_DIR = build_dir
+    print(f"build: {len(cu)} sources; one nvcc per source in parallel + "
+          f"link {times['parallel']} s; one nvcc over all "
+          f"{times['single']} s")
+    return {f"build_{how}_s": t for how, t in times.items()}
+
+
+MODES = {"train": mode_train, "volume": mode_volume, "k3": mode_k3,
+         "build": mode_build}
+
+
+def main(argv: List[str]) -> int:
+    if not argv or any(m not in MODES for m in argv):
+        print(f"usage: device_profile MODE... (MODE in {sorted(MODES)})",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("device_profile: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    result = {}
+    for mode in argv:
+        result[mode] = MODES[mode]()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

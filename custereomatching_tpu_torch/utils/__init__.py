@@ -1,5 +1,11 @@
-"""Utilities: host timer and the CUDA-event benchmark harness."""
+"""Utilities: host timer, the CUDA-event benchmark harness and the
+disparity metrics."""
 
+from custereomatching_tpu_torch.utils.metrics import (
+    bad_pixel_rate,
+    disparity_metrics,
+    end_point_error,
+)
 from custereomatching_tpu_torch.utils.timer import (
     Timer,
     TimerError,
@@ -7,4 +13,5 @@ from custereomatching_tpu_torch.utils.timer import (
     fence,
 )
 
-__all__ = ["Timer", "TimerError", "benchmark", "fence"]
+__all__ = ["Timer", "TimerError", "bad_pixel_rate", "benchmark",
+           "disparity_metrics", "end_point_error", "fence"]

@@ -69,7 +69,11 @@ def test_backend_resolution():
 def test_port_imports_no_jax():
     code = ("import sys, custereomatching_tpu_torch, "
             "custereomatching_tpu_torch.data; "
-            "import custereomatching_tpu_torch.models.engine; "
+            "import custereomatching_tpu_torch.models.engine, "
+            "custereomatching_tpu_torch.models.optimize, "
+            "custereomatching_tpu_torch.utils.metrics, "
+            "custereomatching_tpu_torch.examples.train, "
+            "custereomatching_tpu_torch.scripts.device_profile; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'custereomatching_tpu.'))"
             " or m == 'custereomatching_tpu'); "

@@ -1,5 +1,6 @@
 """PyTorch port: the disparity head against the JAX package's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -7,8 +8,10 @@ import torch
 
 from custereomatching_tpu.ops import disparity as jax_disparity
 from custereomatching_tpu_torch.ops.disparity import (
+    DisparityResult,
     disparity_to_depth,
     extract_disparity,
+    extract_disparity_hdw,
     soft_argmax,
 )
 
@@ -61,6 +64,42 @@ def test_extract_disparity_rejects_bad_volumes():
         extract_disparity(torch.zeros(4, 5), 3)
     with pytest.raises(ValueError, match="num_disparities"):
         extract_disparity(torch.zeros(2, 3, 5), 6)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_extract_disparity_hdw_matches_jax(padded):
+    """The plane-major head: the port's exact [B, D+1, H, W] volume, and a
+    padded [ndt, h_pad, wo] one as the JAX package writes it; maps and the
+    volume cotangent of a soft-disparity loss, zero in the padding."""
+    H, W, D = 6, 9, 5
+    ndt, hp, wp = (8, 8, 16) if padded else (D + 1, H, W)
+    rng = np.random.default_rng(2)
+    cv = rng.uniform(-1, 1, (ndt, hp, wp)).astype(np.float32)
+    gs = rng.standard_normal((H, W)).astype(np.float32)
+
+    def jloss(v):
+        r = jax_disparity.extract_disparity_hdw(v, D, H, W)
+        return jnp.sum(r.soft_disparity * gs), r
+
+    (_, want), jgrad = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(cv))
+    cv_t = torch.from_numpy(cv)[None].requires_grad_(True)
+    got = extract_disparity_hdw(cv_t, D, H, W)
+    (got.soft_disparity[0] * torch.from_numpy(gs)).sum().backward()
+    _assert_result_close(DisparityResult(*(m[0].detach() for m in got)),
+                         want)
+    # fp32 softmax backward at beta = 50: at the winning plane d - soft
+    # cancels, so elements of a gradient that reaches ~70 carry ~1e-5 of
+    # absolute rounding noise.
+    np.testing.assert_allclose(cv_t.grad[0].numpy(), np.asarray(jgrad),
+                               rtol=1e-5, atol=1e-4)
+    assert not cv_t.grad[0, D + 1:].any()
+    assert not cv_t.grad[0, :, H:].any() and not cv_t.grad[0, ..., W:].any()
+    if not padded:
+        hwd = extract_disparity(torch.from_numpy(cv).permute(1, 2, 0), D)
+        single = extract_disparity_hdw(torch.from_numpy(cv), D, H, W)
+        for a, b in zip(single, hwd):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dim", [0, -1])

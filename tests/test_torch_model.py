@@ -2,6 +2,7 @@
 and the timer, held against the JAX package on the CPU."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,9 @@ from custereomatching_tpu_torch import (
 )
 from custereomatching_tpu_torch.data import synthetic
 from custereomatching_tpu_torch.models import entry
+from custereomatching_tpu_torch.ops.cuda_pipeline import (
+    stereo_pipeline_trainable,
+)
 from custereomatching_tpu_torch.utils import fence
 
 
@@ -124,13 +128,18 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("call,item", [
-    ("trainable_disparity_maps", "7"), ("disparity_maps_lr", "11"),
+    ("save_volume", "7.3"), ("disparity_maps_lr", "11"),
     ("sharded_cost_volume", "13"), ("sharded_apply", "13"),
     ("grad_projector", "10"), ("allpairs", "9"),
 ])
 def test_unported_model_paths_raise(call, item):
     x = torch.zeros((1, 6, 8))
-    if call == "grad_projector":
+    if call == "save_volume":
+        # The volume-free trainable backward (K5).
+        fn = functools.partial(stereo_pipeline_trainable,
+                               num_disparities=2, kernel_size=3,
+                               save_volume=False)
+    elif call == "grad_projector":
         model = StereoMatcher(StereoConfig(num_disparities=2,
                                            grad_projector=True))
         fn = model.cost_volume

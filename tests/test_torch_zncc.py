@@ -10,11 +10,7 @@ import torch
 
 from custereomatching_tpu.ops import zncc as jax_zncc
 from custereomatching_tpu.ops.pallas_zncc import pallas_cost_volume_banded
-from custereomatching_tpu_torch.ops import (
-    _build,
-    _CudaStereoMatching,
-    stereo_matching,
-)
+from custereomatching_tpu_torch.ops import _build, stereo_matching
 from custereomatching_tpu_torch.ops.cuda_zncc import cost_volume_banded_cuda
 from custereomatching_tpu_torch.ops.zncc import box2d, forward_banded
 
@@ -69,8 +65,8 @@ def test_public_op_matches_xla_op(k):
 
 
 def test_public_op_camera_gradient_matches_jax():
-    """The CPU op is differentiable in the camera only (projector
-    detached), and its camera gradient is the JAX op's."""
+    """The CPU op is differentiable in the camera only (the projector gets
+    no gradient), and its camera gradient is the JAX op's."""
     H, W, D, K = 12, 40, 5, 5
     cam, proj = _pair(2, H, W)
     g = np.random.default_rng(3).standard_normal(
@@ -123,16 +119,12 @@ def test_kernel_wrapper_rejects(bad):
                                 bad.get("kernel_size", 3))
 
 
-def test_cuda_op_backward_not_ported():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _CudaStereoMatching.backward(None, torch.zeros(1))
-
-
 def test_library_name_tracks_sources_and_flags(monkeypatch):
     lib = _build.library_path()
     assert lib.parent == _build.BUILD_DIR
     assert {s.name for s in _build.sources()} >= {
-        "common.cuh", "zncc_banded.cu", "fused_pipeline.cu"}
+        "common.cuh", "camera_grad.cuh", "zncc_banded.cu",
+        "zncc_banded_bwd.cu", "fused_pipeline.cu", "fused_pipeline_bwd.cu"}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path() != lib
 
