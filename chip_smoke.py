@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch / CUDA port: the serving path and the
-training path.
+"""On-card smoke test of the PyTorch / CUDA port: the serving path, the
+training path, the all-pairs path and the projector-gradient path.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,22 @@ imports nothing of JAX.  Phases, each printing its lines:
    must not run, and the losses must be finite and falling; then, outside
    the counted run, entry()'s camera gradient against the plain VJP fed
    the same head cotangent;
-10. device times of every kernel and its plain version at KITTI size.
+10. K8 (all-pairs volume) against its plain version at the JAX suite's
+    shapes, a batch, the 330x422 verify shape and 375x1242 (the wide y
+    extent);
+11. K7 (projector VJP) against the plain closed form on the same cost and
+    cotangent, at the JAX suite's shapes, a batch and KITTI;
+12. the all-pairs path, with every launch counter reset just before it:
+    the default ``StereoMatcher`` (all-pairs) forward, plain head and
+    backward of a mean soft-disparity loss at 330x422, k=15; K8 must run
+    once and the plain forward never, and the camera gradient must match
+    the plain node's (plain volume and plain VJP);
+13. the projector-gradient path, counters reset: the banded KITTI model
+    with ``grad_projector=True``, forward, plain head and backward; K1, K2
+    and K7 must run once each, and both gradients must match the plain
+    closed forms fed the same head cotangent;
+14. device times of every kernel and its plain version: K8 at 330x422,
+    the others at KITTI size.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -70,14 +85,21 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     stereo_pipeline_trainable,
     stereo_pipeline_trainable_reference,
 )
+from custereomatching_tpu_torch.ops.cuda_allpairs import (
+    cost_volume_allpairs_cuda,
+)
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     camera_grad_banded_cuda,
     cost_volume_banded_cuda,
+    projector_grad_banded_cuda,
 )
 from custereomatching_tpu_torch.ops.zncc import (
     box2d,
+    camera_grad_allpairs,
     camera_grad_banded,
+    forward_allpairs,
     forward_banded,
+    projector_grad_banded,
 )
 from custereomatching_tpu_torch.utils import benchmark, fence
 
@@ -96,6 +118,17 @@ N_FRAMES = 8
 # Training path: Adam steps of optimize_camera from a camera with this much
 # Gaussian noise; then more steps, timed on the host clock.
 TRAIN_STEPS, TRAIN_LR, TRAIN_NOISE, TIMED_STEPS = 5, 1e-3, 0.05, 10
+# All-pairs (B, H, W, k): the JAX suite's kernel shapes
+# (tests/test_pallas_allpairs.py:28-31) and a batch; then the reference's
+# verify shape, where the all-pairs path runs, and KITTI's width.
+AP_SHAPES = [(1, 24, 60, 5), (1, 16, 150, 15), (1, 13, 40, 7),
+             (1, 9, 129, 3), (2, 16, 48, 5)]
+VERIFY = (330, 422, 15)
+AP_WIDE = (1, 375, 1242, 15)
+# K7 (B, H, W, D, k): the JAX suite's shapes (tests/test_pallas_bwd.py:
+# 277-281) and a batch; KITTI is added in the phase.
+K7_SHAPES = [(1, 16, 24, 5, 3), (1, 24, 150, 10, 5), (1, 40, 96, 12, 15),
+             (2, 16, 48, 6, 5)]
 # Gradient checks: the JAX suite's elementwise tolerance
 # (tests/test_pallas_bwd.py:89) at the small shapes, and a bound on
 # ||got - want|| / ||want|| everywhere (KITTI included).
@@ -250,26 +283,35 @@ def phase_k3() -> float:
 KERNEL_COUNTERS = {
     "k1": cost_volume_banded_cuda, "k3": stereo_pipeline_cuda,
     "k2": camera_grad_banded_cuda, "k3w": fused_pipeline_train_cuda,
-    "k4": fused_pipeline_bwd_cuda}
+    "k4": fused_pipeline_bwd_cuda, "k8": cost_volume_allpairs_cuda,
+    "k7": projector_grad_banded_cuda}
+# Plain twins of kernels: no main path may call them.
 PLAIN_COUNTERS = {
     "plain_volume": forward_banded,
     "plain_pipeline": stereo_pipeline_reference,
     "plain_vjp": camera_grad_banded,
     "plain_train_fwd": fused_pipeline_train_reference,
     "plain_train_bwd": fused_pipeline_bwd_reference,
-    "plain_trainable": stereo_pipeline_trainable_reference}
+    "plain_trainable": stereo_pipeline_trainable_reference,
+    "plain_allpairs": forward_allpairs,
+    "plain_proj_vjp": projector_grad_banded}
+# The all-pairs camera VJP has no kernel in either package (the JAX
+# package leaves it to XLA): it is the all-pairs path's own backward.
+PATH_PLAIN_COUNTERS = {"allpairs_vjp": camera_grad_allpairs}
 
 
 def reset_counters() -> None:
     for fn in KERNEL_COUNTERS.values():
         fn.launches = 0
-    for fn in PLAIN_COUNTERS.values():
+    for fn in (*PLAIN_COUNTERS.values(), *PATH_PLAIN_COUNTERS.values()):
         fn.calls = 0
 
 
 def read_counters() -> dict:
     counts = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
     counts.update({name: fn.calls for name, fn in PLAIN_COUNTERS.items()})
+    counts.update({name: fn.calls
+                   for name, fn in PATH_PLAIN_COUNTERS.items()})
     return counts
 
 
@@ -599,13 +641,185 @@ def phase_train_path() -> dict:
     return counts
 
 
+def phase_k8() -> float:
+    err = 0.0
+    for i, (B, H, W, k) in enumerate(AP_SHAPES + [(1,) + VERIFY, AP_WIDE]):
+        cam, proj = uniform_pair(500 + i, B, H, W)
+        got = cost_volume_allpairs_cuda(cam, proj, k, EPS)
+        want = forward_allpairs(cam, proj, k, EPS)
+        require(tuple(got.shape) == (B, H, W, W), f"K8 shape {(B, H, W, W)}")
+        err = max(err, compare_volume(got, want, f"B={B} H={H} W={W} k={k}",
+                                      kernel="K8"))
+        del got, want
+        torch.cuda.empty_cache()
+    return err
+
+
+def phase_k7() -> float:
+    err = 0.0
+    for i, (B, H, W, D, k) in enumerate(K7_SHAPES + [(1,) + KITTI]):
+        cam, proj = uniform_pair(600 + i, B, H, W)
+        # A random cotangent at a mean loss's scale, as phase_k2's.
+        g = torch.randn((B, D + 1, H, W), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(i))
+        g *= 1.0 / (H * W)
+        cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+        got = projector_grad_banded_cuda(cam, proj, cost.permute(0, 3, 1, 2),
+                                         g, D, k, EPS)
+        want = projector_grad_banded(cam, proj, cost, g.permute(0, 2, 3, 1),
+                                     D, k, EPS)
+        kitti = (H, W, D, k) == KITTI
+        err = max(err, compare_grad(
+            got, want, f"K7 B={B} H={H} W={W} D={D} k={k}",
+            elementwise=not kitti))
+        del g, cost, got, want
+    return err
+
+
+def phase_allpairs_path() -> dict:
+    H, W, k = VERIFY
+    model = StereoMatcher(StereoConfig(kernel_size=k, backend="cuda"))
+    require(model.config.num_disparities is None,
+            "the default config is all-pairs")
+    cam_np, proj_np, truth = make_stereo_pair(H, W, d_min=2.0, d_max=12.0,
+                                              noise=0.01, seed=0)
+    cam = torch.from_numpy(cam_np[None]).cuda().requires_grad_(True)
+    proj = torch.from_numpy(proj_np[None]).cuda()
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = model(cam, proj)
+    out.soft_disparity.mean().backward()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counters()
+    print(f"all-pairs path: counters {counts}")
+    require(counts["k8"] == 1, "K8 launched once")
+    require(counts["allpairs_vjp"] == 1, "the all-pairs VJP ran once")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the all-pairs path")
+    require(tuple(out.cost_volume.shape) == (1, H, W, W)
+            and bool(torch.isfinite(out.cost_volume).all())
+            and bool(torch.isfinite(out.soft_disparity).all()),
+            "all-pairs forward output")
+    require(cam.grad is not None and tuple(cam.grad.shape) == (1, H, W),
+            "all-pairs camera gradient")
+    mask = out.mask[0].bool().cpu().numpy()
+    soft = out.soft_disparity[0].detach().cpu().numpy()
+    coverage = float(mask.mean())
+    epe = float(np.abs(soft - truth)[mask].mean())
+    print(f"all-pairs path: {H}x{W} k={k} forward + head + backward "
+          f"{step_ms:.3f} ms host clock (first call); coverage "
+          f"{coverage:.4f}, EPE {epe:.4f} px on confident pixels; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    require(coverage > 0.5 and epe < 1.0, "all-pairs accuracy")
+    del out
+
+    # The plain node (plain volume, plain VJP) on the same inputs, outside
+    # the counted run.
+    cam_p = cam.detach().clone().requires_grad_(True)
+    plain = StereoMatcher(StereoConfig(kernel_size=k, backend="torch"))
+    plain(cam_p, proj).soft_disparity.mean().backward()
+    compare_grad(cam.grad, cam_p.grad, f"all-pairs path: camera gradient "
+                 f"against the plain node at {H}x{W} k={k}",
+                 elementwise=True)
+    counts["step_ms"] = step_ms
+    return counts
+
+
+def phase_grad_projector_path() -> dict:
+    H, W, D, k = KITTI
+    model = StereoMatcher(StereoConfig(kernel_size=k, num_disparities=D,
+                                       grad_projector=True))
+    cams, projs, _ = speckle_frames(1, seed=80)
+    cam = torch.from_numpy(cams).cuda().requires_grad_(True)
+    proj = torch.from_numpy(projs).cuda().requires_grad_(True)
+    torch.cuda.synchronize()
+
+    reset_counters()
+    model(cam, proj).soft_disparity.mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"grad_projector path: counters {counts}")
+    require(counts["k1"] == 1 and counts["k2"] == 1 and counts["k7"] == 1,
+            "K1, K2 and K7 launched once each")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the grad_projector path")
+    for name, grad in (("camera", cam.grad), ("projector", proj.grad)):
+        require(grad is not None and tuple(grad.shape) == (1, H, W)
+                and bool(torch.isfinite(grad).all()),
+                f"grad_projector path: {name} gradient")
+
+    # Both gradients against the plain closed forms fed the same head
+    # cotangent, the plain head's gradient on K1's volume.
+    cam_d, proj_d = cam.detach(), proj.detach()
+    cost = cost_volume_banded_cuda(cam_d, proj_d, D, k, EPS)
+    cost = cost.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad(model.disparity(cost).soft_disparity.mean(),
+                               cost)
+    want_c = camera_grad_banded(cam_d, proj_d, g, D, k, EPS)
+    want_p = projector_grad_banded(cam_d, proj_d, cost.detach(), g, D, k,
+                                   EPS)
+    compare_grad(cam.grad, want_c, "grad_projector path: camera gradient "
+                 "against the plain VJP on its head cotangent",
+                 elementwise=False)
+    compare_grad(proj.grad, want_p, "grad_projector path: projector "
+                 "gradient against the plain VJP on its head cotangent",
+                 elementwise=False)
+    del cost, g, want_c, want_p
+
+    # Each backward kernel runs only for an input that needs its gradient.
+    B, He, We, De, ke = ENTRY
+    cam_e, proj_e = uniform_pair(81, B, He, We)
+    proj_e.requires_grad_(True)
+    small = StereoMatcher(StereoConfig(kernel_size=ke, num_disparities=De,
+                                       grad_projector=True))
+    before = (camera_grad_banded_cuda.launches,
+              projector_grad_banded_cuda.launches)
+    small(cam_e, proj_e).soft_disparity.mean().backward()
+    after = (camera_grad_banded_cuda.launches,
+             projector_grad_banded_cuda.launches)
+    require(after == (before[0], before[1] + 1),
+            "projector-only gradient: K7 launched, K2 not")
+    print("grad_projector path: a projector-only gradient launches K7 and "
+          "not K2")
+    return counts
+
+
 def timed(label: str, fn, *args) -> float:
     ms = 1e3 * benchmark(fn, *args, warmup=2, iters=10, chain=3)["median_s"]
     print(f"time: {label} median {ms:.4f} ms")
     return ms
 
 
+def interleaved(name: str, kernel, plain, kargs, pargs, where: str,
+                card: str):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    with torch.no_grad():
+        p1 = timed(f"{name} plain", plain, *pargs)
+        k1 = timed(f"{name} kernel", kernel, *kargs)
+        k2 = timed(f"{name} kernel", kernel, *kargs)
+        p2 = timed(f"{name} plain", plain, *pargs)
+    ms = ((k1 + k2) / 2, (p1 + p2) / 2)
+    print(f"time: {name} at {where}: kernel {ms[0]:.4f} ms, plain "
+          f"{ms[1]:.4f} ms ({card})")
+    return ms
+
+
 def phase_times(card: str) -> dict:
+    # K8 at the all-pairs path's shape.
+    Hv, Wv, kv = VERIFY
+    acam, aproj = uniform_pair(1, 1, Hv, Wv)
+    ap = (acam, aproj, kv, EPS)
+    times = {"K8": interleaved("K8", cost_volume_allpairs_cuda,
+                               forward_allpairs, ap, ap,
+                               f"{Hv}x{Wv} k={kv}", card)}
+    del acam, aproj, ap
+    torch.cuda.empty_cache()
+
     H, W, D, k = KITTI
     cam, proj = uniform_pair(0, 1, H, W)
     cams, projs, _ = speckle_frames(1, seed=7)
@@ -619,29 +833,23 @@ def phase_times(card: str) -> dict:
         res = fused_pipeline_train_cuda(*pipe)[1]
     gs, gc = cotangents(1, 1, H, W)
     k2_args = (cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
+    plain_vjp = (cam, proj, g.permute(0, 2, 3, 1), D, k, EPS)
     bwd = (scam, sproj, res, gs, gc, D, k, EPS, 50.0)
     cases = (
         ("K1", cost_volume_banded_cuda, forward_banded, vol, vol),
         ("K3", stereo_pipeline_cuda, stereo_pipeline_reference, pipe, pipe),
         ("K2", camera_grad_banded_cuda, camera_grad_banded, k2_args,
-         (cam, proj, g.permute(0, 2, 3, 1), D, k, EPS)),
+         plain_vjp),
+        ("K7", projector_grad_banded_cuda, projector_grad_banded, k2_args,
+         (cam, proj, cost) + plain_vjp[2:]),
         ("K3w", fused_pipeline_train_cuda, fused_pipeline_train_reference,
          pipe, pipe),
         ("K4", fused_pipeline_bwd_cuda, fused_pipeline_bwd_reference, bwd,
          bwd),
     )
-    times = {}
-    with torch.no_grad():
-        # Interleaved: plain, kernel, kernel, plain.
-        for name, kernel, plain, kargs, pargs in cases:
-            p1 = timed(f"{name} plain", plain, *pargs)
-            k1 = timed(f"{name} kernel", kernel, *kargs)
-            k2 = timed(f"{name} kernel", kernel, *kargs)
-            p2 = timed(f"{name} plain", plain, *pargs)
-            times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            print(f"time: {name} at KITTI {H}x{W} D={D} k={k}: kernel "
-                  f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-                  f"({card})")
+    for name, kernel, plain, kargs, pargs in cases:
+        times[name] = interleaved(name, kernel, plain, kargs, pargs,
+                                  f"KITTI {H}x{W} D={D} k={k}", card)
     return times
 
 
@@ -662,6 +870,12 @@ KERNELS = (
     ("fused_pipeline_bwd", "K4", "custereomatching_tpu_torch/csrc/"
      "fused_pipeline_bwd.cu",
      "custereomatching_tpu/ops/pallas_pipeline.py:803", "train"),
+    ("zncc_allpairs_volume", "K8", "custereomatching_tpu_torch/csrc/"
+     "zncc_allpairs.cu", "custereomatching_tpu/ops/pallas_allpairs.py:60",
+     "allpairs"),
+    ("zncc_banded_projector_vjp", "K7", "custereomatching_tpu_torch/csrc/"
+     "zncc_banded_proj_bwd.cu",
+     "custereomatching_tpu/ops/pallas_zncc_bwd.py:607", "grad_projector"),
 )
 
 
@@ -681,6 +895,10 @@ def main() -> int:
     errs["K3w"] = phase_k3w()
     errs["K4"] = phase_k4()
     counts["train"] = phase_train_path()
+    errs["K8"] = phase_k8()
+    errs["K7"] = phase_k7()
+    counts["allpairs"] = phase_allpairs_path()
+    counts["grad_projector"] = phase_grad_projector_path()
     times = phase_times(card)
 
     kernels = [

@@ -2,8 +2,10 @@
 
 The serving and training slices of the stereo-matching engine on an NVIDIA
 Hopper card: the banded ZNCC cost volume (kernel K1,
-``csrc/zncc_banded.cu``) and its closed-form camera VJP (K2,
-``csrc/zncc_banded_bwd.cu``), the fused volume-free disparity pipeline
+``csrc/zncc_banded.cu``), its closed-form camera VJP (K2,
+``csrc/zncc_banded_bwd.cu``) and projector VJP (K7,
+``csrc/zncc_banded_proj_bwd.cu``), the all-pairs volume (K8,
+``csrc/zncc_allpairs.cu``), the fused volume-free disparity pipeline
 (K3, ``csrc/fused_pipeline.cu``), its trainable form (K3w, the same
 kernel writing the cost volume, and K4, ``csrc/fused_pipeline_bwd.cu``),
 the disparity heads, the batched matcher, the bucketed serving engine and

@@ -31,17 +31,23 @@ class StereoConfig:
     Attributes:
       kernel_size: side of the square correlation window (odd k >= 1).
       num_disparities: ``D``; the banded ``[H, W, D+1]`` volume, band d
-        matching projector column ``w - d``.  ``None`` selects the
-        all-pairs ``[H, W, W]`` volume, which the port does not have yet
-        (ROADMAP item 9): the ops raise ``NotImplementedError`` for it.
+        matching projector column ``w - d``.  ``None`` (the default, the
+        reference's own op) selects the all-pairs ``[H, W, W]`` volume,
+        the last axis the absolute projector column (kernel K8 on the
+        ``cuda`` backend).  The fused pipelines are banded only.
       softargmax_beta: temperature of the soft-argmax head.
       cost_threshold: confidence threshold on the per-pixel max correlation.
       epsilon: added to the numerator and inside the square root of the
         denominator: ``cost = (exy + eps) / sqrt(ex2 * ey2 + eps)``.
-      grad_projector: accepted and validated; the projector gradient is
-        ROADMAP item 10, and the model raises ``NotImplementedError``.
-      precision: "highest" or "default"; the banded path has no matrix
-        product, so it reads neither.
+      grad_projector: make the volume differentiable in the projector too.
+        Banded on ``cuda``: K1 forward, K2 and K7 backward; otherwise
+        autograd of the plain moments form.  The fused trainable pipeline
+        is camera-only, so training then takes the volume path.
+      precision: "highest" or "default", the JAX package's matrix-product
+        knob ("default" lets the TPU take bf16 passes).  The port sums in
+        exact fp32 for both: the banded path has no matrix product, and
+        K8 runs fp32 FMAs on the CUDA cores (a TF32 variant is later
+        work).
       backend: "cuda" runs the hand-written Hopper kernels and needs CUDA
         tensors; "torch" runs the plain PyTorch versions; "auto" picks
         "cuda" for CUDA tensors and "torch" otherwise.

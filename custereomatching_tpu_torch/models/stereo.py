@@ -29,8 +29,8 @@ from custereomatching_tpu_torch.ops.disparity import (
     extract_disparity,
 )
 from custereomatching_tpu_torch.ops.zncc import (
-    ALLPAIRS_TODO,
     stereo_matching_torch,
+    stereo_matching_with_proj_grad,
 )
 
 
@@ -55,11 +55,12 @@ class StereoOutput(NamedTuple):
 class StereoMatcher(nn.Module):
     """Batched stereo matcher over ``[B, H, W]`` pairs.
 
-    The ``cuda`` backend runs the kernels on CUDA tensors: K1 for
-    :meth:`cost_volume` and K2 for its camera gradient, K3 for
-    :meth:`disparity_maps`, K3w and K4 for :meth:`trainable_disparity_maps`;
-    the ``torch`` backend runs their plain versions.  The model has no
-    parameters: its state is the config.
+    The ``cuda`` backend runs the kernels on CUDA tensors: K1 for a banded
+    :meth:`cost_volume`, K2 for its camera gradient and, with
+    ``grad_projector``, K7 for its projector gradient; K8 for an all-pairs
+    :meth:`cost_volume`; K3 for :meth:`disparity_maps`, K3w and K4 for
+    :meth:`trainable_disparity_maps`.  The ``torch`` backend runs their
+    plain versions.  The model has no parameters: its state is the config.
     """
 
     def __init__(self, config: StereoConfig = StereoConfig()):
@@ -67,28 +68,33 @@ class StereoMatcher(nn.Module):
         self.config = config
 
     def _backend(self, camera: torch.Tensor) -> str:
-        c = self.config
-        if c.grad_projector:
-            raise NotImplementedError(
-                "grad_projector=True: the projector gradient is not ported "
-                "yet (ROADMAP item 10)")
-        if c.num_disparities is None:
-            raise NotImplementedError(ALLPAIRS_TODO)
-        return c.resolved_backend(camera.device)
+        return self.config.resolved_backend(camera.device)
 
     # -- volume path --------------------------------------------------------
     def cost_volume_single(self, camera: torch.Tensor,
                            projector: torch.Tensor) -> torch.Tensor:
-        """ZNCC cost volume ``[H, W, D+1]`` of one ``[H, W]`` pair."""
+        """ZNCC cost volume ``[H, W, L]`` of one ``[H, W]`` pair."""
         return self.cost_volume(camera[None], projector[None])[0]
 
     def cost_volume(self, camera: torch.Tensor,
                     projector: torch.Tensor) -> torch.Tensor:
-        """ZNCC cost volume ``[B, H, W, D+1]`` of a ``[B, H, W]`` batch."""
+        """ZNCC cost volume ``[B, H, W, L]`` of a ``[B, H, W]`` batch: L is
+        D+1 (banded) or W (all-pairs, ``num_disparities=None``).
+
+        Routed as the JAX ``cost_volume_single``: with ``grad_projector``
+        the volume is differentiable in both images (``cuda``, banded: K1
+        with K2 and K7 backward; otherwise autograd of the plain moments
+        form); without it, in the camera only (K1 + K2, K8 + the plain
+        all-pairs VJP, or the plain ops)."""
         c = self.config
         if self._backend(camera) == "cuda":
             return stereo_matching(camera, projector, c.num_disparities,
-                                   c.kernel_size, c.epsilon)
+                                   c.kernel_size, c.epsilon,
+                                   c.grad_projector, c.precision)
+        if c.grad_projector:
+            return stereo_matching_with_proj_grad(
+                camera, projector, c.num_disparities, c.kernel_size,
+                c.epsilon)
         return stereo_matching_torch(camera, projector, c.num_disparities,
                                      c.kernel_size, c.epsilon)
 
@@ -101,21 +107,34 @@ class StereoMatcher(nn.Module):
     def forward(self, camera: torch.Tensor,
                 projector: torch.Tensor) -> StereoOutput:
         """Full pipeline on a ``[B, H, W]`` batch, differentiable in the
-        camera."""
+        camera (and the projector with ``grad_projector``)."""
         cv = self.cost_volume(camera, projector)
         d = self.disparity(cv)
         return StereoOutput(cost_volume=cv, disparity=d.disparity,
                             soft_disparity=d.soft_disparity, mask=d.mask,
                             confidence=d.confidence)
 
+    def _volume_maps(self, camera: torch.Tensor,
+                     projector: torch.Tensor) -> PipelineMaps:
+        out = self(camera, projector)
+        return PipelineMaps(disparity=out.disparity,
+                            soft_disparity=out.soft_disparity,
+                            mask=out.mask, confidence=out.confidence)
+
     # -- fused inference path -----------------------------------------------
     def disparity_maps(self, camera: torch.Tensor,
                        projector: torch.Tensor) -> PipelineMaps:
         """Batched ``[B, H, W]`` pair to disparity maps, volume-free on the
-        ``cuda`` backend (K3).  Inference only."""
+        ``cuda`` backend (K3).  Inference only.  The fused pipeline is
+        banded: all-pairs raises ``ValueError`` on ``cuda`` and takes the
+        volume path on ``torch``, as in the JAX package."""
         c = self.config
-        run = (stereo_pipeline_cuda if self._backend(camera) == "cuda"
-               else stereo_pipeline_reference)
+        cuda = self._backend(camera) == "cuda"
+        if c.num_disparities is None:
+            if cuda:
+                raise ValueError("fused pipeline requires banded mode")
+            return self._volume_maps(camera, projector)
+        run = stereo_pipeline_cuda if cuda else stereo_pipeline_reference
         return run(camera, projector, c.num_disparities, c.kernel_size,
                    c.epsilon, c.softargmax_beta, c.cost_threshold)
 
@@ -123,12 +142,17 @@ class StereoMatcher(nn.Module):
                                  projector: torch.Tensor) -> PipelineMaps:
         """Differentiable batched ``[B, H, W]`` pair to disparity maps.
 
-        On the ``cuda`` backend this is the trainable fused pipeline (K3w
-        forward, K4 backward): the cost-volume cotangent never exists in
-        device memory.  The ``torch`` backend runs its plain twin.
-        Gradients flow through ``soft_disparity`` and ``confidence``, to
-        the camera only."""
+        Banded and camera-only, the ``cuda`` backend runs the trainable
+        fused pipeline (K3w forward, K4 backward): the cost-volume
+        cotangent never exists in device memory; the ``torch`` backend runs
+        its plain twin.  Gradients flow through ``soft_disparity`` and
+        ``confidence``.  The fused pipeline's VJP is banded and
+        camera-only, so ``grad_projector`` and all-pairs take the volume
+        path and the plain head on either backend (where the JAX package's
+        Pallas backend raises for all-pairs)."""
         c = self.config
+        if c.grad_projector or c.num_disparities is None:
+            return self._volume_maps(camera, projector)
         run = (stereo_pipeline_trainable if self._backend(camera) == "cuda"
                else stereo_pipeline_trainable_reference)
         return run(camera, projector, c.num_disparities, c.kernel_size,

@@ -1,5 +1,5 @@
-"""Compute ops of the port: the banded ZNCC cost volume and its camera VJP
-(plain PyTorch and kernels K1, K2), the fused pipeline (plain and kernel
+"""Compute ops of the port: the ZNCC cost volumes and their VJPs (plain
+PyTorch and kernels K1, K2, K7, K8), the fused pipeline (plain and kernel
 K3), its trainable form (kernels K3w, K4) and the disparity heads."""
 
 from __future__ import annotations
@@ -8,6 +8,10 @@ from typing import Optional
 
 import torch
 
+from custereomatching_tpu_torch.ops.cuda_allpairs import (
+    CudaAllPairsMatching,
+    cost_volume_allpairs_cuda,
+)
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     PipelineMaps,
     stereo_pipeline_cuda,
@@ -18,6 +22,7 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     camera_grad_banded_cuda,
     cost_volume_banded_cuda,
+    projector_grad_banded_cuda,
 )
 from custereomatching_tpu_torch.ops.disparity import (
     DisparityResult,
@@ -27,68 +32,101 @@ from custereomatching_tpu_torch.ops.disparity import (
     soft_argmax,
 )
 from custereomatching_tpu_torch.ops.zncc import (
-    ALLPAIRS_TODO,
     EPSILON,
     box2d,
+    camera_grad_allpairs,
     camera_grad_banded,
     check_pair,
+    forward_allpairs,
+    projector_grad_banded,
     stereo_matching_torch,
+    stereo_matching_with_proj_grad,
 )
 
 
 class _CudaStereoMatching(torch.autograd.Function):
-    """K1 as an autograd node whose backward is K2, the counterpart of
-    ``_pallas_stereo_fwd``/``_pallas_stereo_bwd``: the residuals are the
-    images and the plane-major volume K1 wrote, and the projector gets no
-    gradient (``None``)."""
+    """K1 as an autograd node whose backward is K2 and, with
+    ``grad_projector``, K7: the counterpart of ``_pallas_stereo`` and
+    ``_pallas_stereo_both``.  The residuals are the images and the
+    plane-major volume K1 wrote.  Each backward kernel launches only when
+    its input needs a gradient; without ``grad_projector`` the projector
+    gets none (``None``)."""
 
     @staticmethod
     def forward(ctx, camera, projector, num_disparities, kernel_size,
-                epsilon):
+                epsilon, grad_projector):
         cost = cost_volume_banded_cuda(camera, projector, num_disparities,
                                        kernel_size, epsilon)
         # cost is a [B, H, W, D+1] view of the plane-major volume.
         ctx.save_for_backward(camera, projector, cost)
         ctx.args = (num_disparities, kernel_size, epsilon)
+        ctx.grad_projector = grad_projector
         return cost
 
     @staticmethod
     def backward(ctx, grad):
         camera, projector, cost = ctx.saved_tensors
-        # One volume copy: the cotangent into K2's plane-major layout (the
-        # transpose the JAX op pays at pallas_zncc.py:527-529).
+        want_cam = ctx.needs_input_grad[0]
+        want_proj = ctx.grad_projector and ctx.needs_input_grad[1]
+        cam_grad = proj_grad = None
+        if not (want_cam or want_proj):
+            return None, None, None, None, None, None
+        # One volume copy: the cotangent into the kernels' plane-major
+        # layout (the transpose the JAX op pays at pallas_zncc.py:527-529).
         g = grad.permute(0, 3, 1, 2).contiguous()
-        cam_grad = camera_grad_banded_cuda(camera, projector,
-                                           cost.permute(0, 3, 1, 2), g,
-                                           *ctx.args)
-        return cam_grad, None, None, None, None
+        vol = cost.permute(0, 3, 1, 2)
+        if want_cam:
+            cam_grad = camera_grad_banded_cuda(camera, projector, vol, g,
+                                               *ctx.args)
+        if want_proj:
+            proj_grad = projector_grad_banded_cuda(camera, projector, vol, g,
+                                                   *ctx.args)
+        return cam_grad, proj_grad, None, None, None, None
 
 
 def stereo_matching(camera: torch.Tensor, projector: torch.Tensor,
                     num_disparities: Optional[int],
                     kernel_size: int = 15,
-                    epsilon: float = EPSILON) -> torch.Tensor:
-    """Banded ZNCC cost volume: ``[H, W]`` or ``[B, H, W]`` pairs to
-    ``[..., H, W, D+1]`` volumes, band d matching projector column w - d.
+                    epsilon: float = EPSILON,
+                    grad_projector: bool = False,
+                    precision: str = "highest") -> torch.Tensor:
+    """ZNCC cost volume: ``[H, W]`` or ``[B, H, W]`` pairs to banded
+    ``[..., H, W, D+1]`` volumes (band d matching projector column w - d),
+    or with ``num_disparities=None`` to all-pairs ``[..., H, W, W]``
+    volumes (the last axis the absolute projector column).
 
-    A CPU tensor takes the plain op; a CUDA tensor launches K1, and its
-    camera gradient launches K2.  Both backwards are the closed form, and
-    the projector gets no gradient.  ``num_disparities=None`` (all-pairs)
-    raises ``NotImplementedError``.
+    A CPU tensor takes the plain op.  On a CUDA tensor the banded volume
+    launches K1, its camera gradient K2 and, with ``grad_projector``, its
+    projector gradient K7; the all-pairs volume launches K8, and its
+    camera gradient is the plain closed form (the JAX package leaves it to
+    XLA).  All-pairs with ``grad_projector`` is autograd of the plain
+    moments form on any device, as in the JAX package.  Without
+    ``grad_projector`` the projector gets no gradient.  ``precision`` is
+    the JAX op's knob; every kernel here sums in exact fp32 for both
+    values.
     """
     if camera.device.type == "cpu":
+        if grad_projector:
+            return stereo_matching_with_proj_grad(
+                camera, projector, num_disparities, kernel_size, epsilon)
         return stereo_matching_torch(camera, projector, num_disparities,
                                      kernel_size, epsilon)
     if camera.device.type != "cuda":
         raise ValueError(f"unsupported device {camera.device}")
     check_pair(camera, projector, kernel_size)
-    if num_disparities is None:
-        raise NotImplementedError(ALLPAIRS_TODO)
+    if num_disparities is None and grad_projector:
+        return stereo_matching_with_proj_grad(camera, projector, None,
+                                              kernel_size, epsilon)
     single = camera.ndim == 2
     if single:
         camera, projector = camera[None], projector[None]
-    cost = _CudaStereoMatching.apply(camera, projector, num_disparities,
-                                     kernel_size, epsilon)
+    if num_disparities is None:
+        cost = CudaAllPairsMatching.apply(camera, projector, kernel_size,
+                                          epsilon, precision)
+    else:
+        cost = _CudaStereoMatching.apply(camera, projector, num_disparities,
+                                         kernel_size, epsilon,
+                                         grad_projector)
     return cost[0] if single else cost
 
 
@@ -97,15 +135,21 @@ __all__ = [
     "EPSILON",
     "PipelineMaps",
     "box2d",
+    "camera_grad_allpairs",
     "camera_grad_banded",
     "camera_grad_banded_cuda",
+    "cost_volume_allpairs_cuda",
     "cost_volume_banded_cuda",
     "disparity_to_depth",
     "extract_disparity",
     "extract_disparity_hdw",
+    "forward_allpairs",
+    "projector_grad_banded",
+    "projector_grad_banded_cuda",
     "soft_argmax",
     "stereo_matching",
     "stereo_matching_torch",
+    "stereo_matching_with_proj_grad",
     "stereo_pipeline_cuda",
     "stereo_pipeline_reference",
     "stereo_pipeline_trainable",

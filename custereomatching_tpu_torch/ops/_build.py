@@ -53,6 +53,12 @@ SIGNATURES = {
     # beta, unnormalized, stream
     "custereo_fused_pipeline_bwd": [_P] * 18 + [_I] * 5 + [_F] * 2
     + [_I, _P],
+    # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
+    # a1p, z2, z3, grad, B, H, W, D, k, eps, stream
+    "custereo_projector_grad": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # camera, projector, cam_s, cam_e2, proj_s, proj_e2, out, B, H, W, k,
+    # eps, stream
+    "custereo_allpairs_volume": [_P] * 7 + [_I] * 4 + [_F, _P],
 }
 
 

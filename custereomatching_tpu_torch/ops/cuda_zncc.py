@@ -1,12 +1,13 @@
-"""Wrappers of kernels K1 and K2: the banded ZNCC cost volume on the card
-and its camera VJP.
+"""Wrappers of kernels K1, K2 and K7: the banded ZNCC cost volume on the
+card, its camera VJP and its projector VJP.
 
 The counterparts of ``custereomatching_tpu/ops/pallas_zncc.py`` and of the
-with-cost mode of ``pallas_zncc_bwd.py``.  The kernels are
-``csrc/zncc_banded.cu`` and ``csrc/zncc_banded_bwd.cu``; their plain
-versions are :func:`.zncc.forward_banded` and
-:func:`.zncc.camera_grad_banded`.  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or the call raises.
+with-cost kernels of ``pallas_zncc_bwd.py``.  The kernels are
+``csrc/zncc_banded.cu``, ``csrc/zncc_banded_bwd.cu`` and
+``csrc/zncc_banded_proj_bwd.cu``; their plain versions are
+:func:`.zncc.forward_banded`, :func:`.zncc.camera_grad_banded` and
+:func:`.zncc.projector_grad_banded`.  A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or the call raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from custereomatching_tpu_torch.ops.zncc import (
     camera_grad_banded,
     check_pair,
     forward_banded,
+    projector_grad_banded,
 )
 
 # The kernel path rejects k < 3 (the JAX Pallas kernels do too): k = 1 is
@@ -165,3 +167,49 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
 
 
 camera_grad_banded_cuda.launches = 0
+
+
+def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
+                               cost: torch.Tensor, cotangent: torch.Tensor,
+                               num_disparities: int, kernel_size: int = 15,
+                               epsilon: float = EPSILON) -> torch.Tensor:
+    """Projector VJP of the banded volume: ``[B, H, W]`` pairs, the forward
+    volume and its cotangent, both plane-major ``[B, D+1, H, W]``, to a
+    ``[B, H, W]`` gradient.
+
+    On a CUDA tensor this launches K7, which reads the cost as a residual
+    (``n r = c``).  A CPU tensor takes the plain closed form.
+    ``.launches`` counts K7's launches.
+    """
+    D, k = int(num_disparities), int(kernel_size)
+    camera, projector = prepare(camera, projector, D, k)
+    cost = check_volume(cost, camera, D, "K7 cost")
+    cotangent = check_volume(cotangent, camera, D, "K7 cotangent")
+    if camera.device.type == "cpu":
+        return projector_grad_banded(camera, projector,
+                                     cost.permute(0, 2, 3, 1),
+                                     cotangent.permute(0, 2, 3, 1), D, k,
+                                     epsilon)
+    if camera.device.type != "cuda":
+        raise ValueError(f"K7 runs on CUDA or (plain) CPU tensors, got "
+                         f"{camera.device}")
+    lib = _build.kernels()
+    B, H, W = camera.shape
+    p = k // 2
+    grad = camera.new_empty((B, H, W))
+    cam_s, cam_e2, a1p = camera.new_empty((3, B, H, W)).unbind(0)
+    # The projector's statistics and z2, z3 on the extended columns
+    # -p .. W-1.
+    proj_s, proj_e2, z2, z3 = camera.new_empty((4, B, H, W + p)).unbind(0)
+    with torch.cuda.device(camera.device):
+        code = lib.custereo_projector_grad(
+            ptr(camera), ptr(projector), ptr(cam_s), ptr(cam_e2),
+            ptr(proj_s), ptr(proj_e2), ptr(cost), ptr(cotangent), ptr(a1p),
+            ptr(z2), ptr(z3), ptr(grad), B, H, W, D, k, float(epsilon),
+            stream_of(camera.device))
+    _build.check(code, "K7 projector VJP launch")
+    projector_grad_banded_cuda.launches += 1
+    return grad
+
+
+projector_grad_banded_cuda.launches = 0

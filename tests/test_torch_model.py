@@ -130,7 +130,6 @@ def test_cuda_backend_on_cpu_tensors_raises():
 @pytest.mark.parametrize("call,item", [
     ("save_volume", "7.3"), ("disparity_maps_lr", "11"),
     ("sharded_cost_volume", "13"), ("sharded_apply", "13"),
-    ("grad_projector", "10"), ("allpairs", "9"),
 ])
 def test_unported_model_paths_raise(call, item):
     x = torch.zeros((1, 6, 8))
@@ -139,12 +138,6 @@ def test_unported_model_paths_raise(call, item):
         fn = functools.partial(stereo_pipeline_trainable,
                                num_disparities=2, kernel_size=3,
                                save_volume=False)
-    elif call == "grad_projector":
-        model = StereoMatcher(StereoConfig(num_disparities=2,
-                                           grad_projector=True))
-        fn = model.cost_volume
-    elif call == "allpairs":
-        fn = StereoMatcher(StereoConfig(kernel_size=3)).disparity_maps
     else:
         fn = getattr(StereoMatcher(StereoConfig(num_disparities=2)), call)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):

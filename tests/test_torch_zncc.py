@@ -85,10 +85,15 @@ def test_public_op_camera_gradient_matches_jax():
 
 
 def test_allpairs_not_ported():
+    """The all-pairs op that was once missing: ``num_disparities=None``
+    gives the JAX XLA op's ``[H, W, W]`` volume (forward tolerance)."""
     cam, proj = _pair(4, 6, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        stereo_matching(torch.from_numpy(cam), torch.from_numpy(proj), None,
-                        3)
+    want = np.asarray(jax_zncc.stereo_matching(jnp.asarray(cam),
+                                               jnp.asarray(proj), None, 3))
+    got = stereo_matching(torch.from_numpy(cam), torch.from_numpy(proj), None,
+                          3)
+    assert got.shape == (6, 8, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 def test_kernel_wrapper_cpu_takes_plain_version():
@@ -124,7 +129,8 @@ def test_library_name_tracks_sources_and_flags(monkeypatch):
     assert lib.parent == _build.BUILD_DIR
     assert {s.name for s in _build.sources()} >= {
         "common.cuh", "camera_grad.cuh", "zncc_banded.cu",
-        "zncc_banded_bwd.cu", "fused_pipeline.cu", "fused_pipeline_bwd.cu"}
+        "zncc_banded_bwd.cu", "fused_pipeline.cu", "fused_pipeline_bwd.cu",
+        "zncc_banded_proj_bwd.cu", "zncc_allpairs.cu"}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path() != lib
 
