@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch / CUDA port: the serving path, the
-training path, the all-pairs path and the projector-gradient path.
+training path, the all-pairs path, the projector-gradient path, the
+volume-free training path, the plane-major path and the camera VJP
+without the cost residual.
 
     python3 chip_smoke.py
 
@@ -44,8 +46,37 @@ imports nothing of JAX.  Phases, each printing its lines:
     with ``grad_projector=True``, forward, plain head and backward; K1, K2
     and K7 must run once each, and both gradients must match the plain
     closed forms fed the same head cotangent;
-14. device times of every kernel and its plain version: K8 at 330x422,
-    the others at KITTI size.
+14. K6 (camera VJP recomputing the cost) through both entries (the
+    plane-major cotangent, and the parity one staged by K9b) against the
+    plain closed form on the same cotangent, at the small shapes, a D
+    whose projector tile is staged in chunks, and KITTI, and against K2
+    (with the cost residual) at the last two;
+15. K9a and K9b (layout conversions) bit-equal to ``permute().contiguous()``;
+16. K3m (volume-free training forward): its four maps bit-equal to K3's,
+    its argmax, s and t bit-equal to K3w's, no volume;
+17. K5 (volume-free trainable backward) against its plain twin on the same
+    residual maps, and against K4 on K3w's, both head branches, KITTI and
+    three (D, k) whose projector tile is staged in chunks (k up to
+    ``K5_MAX_KERNEL_SIZE``); a larger k is refused before any launch;
+18. the volume-free training path, counters reset: 5 Adam steps at KITTI
+    of ``optimize_camera``'s loss through
+    ``stereo_pipeline_trainable(save_volume=False)``; K3m and K5 once a
+    step, K3w, K4 and every plain twin never, losses finite and falling;
+    then the K5 gradient against the K4 one, and each mode's peak device
+    memory and host-clock step time;
+19. the plane-major path at KITTI, counters reset: ``stereo_matching_hdw``
+    + ``extract_disparity_hdw`` and the backward of a mean soft-disparity
+    loss; K1 and K2 once each, the volume K1's buffer as it is; its camera
+    gradient against the parity path's (``StereoMatcher.__call__``) and
+    both host-clock step times;
+20. the camera VJP without the cost residual at KITTI, counters reset: K1's
+    plane-major volume, K9a to parity, the plain head's cotangent, K9b and
+    K6; each once, the gradient against the plain closed form;
+21. device times of every kernel, its plain version and, for K9a/b, the
+    one PyTorch call that computes the same function: K8 at 330x422, the
+    others at KITTI size; beside each its bound, the larger of its bytes
+    over 3.35 TB/s and the least operations its function needs (window
+    sums taken separably) over 67 TFLOP/s.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -73,8 +104,13 @@ from custereomatching_tpu_torch.models import (
     make_train_step,
     optimize_camera,
 )
-from custereomatching_tpu_torch.ops import _build
+from custereomatching_tpu_torch.ops import (
+    _build,
+    extract_disparity_hdw,
+    stereo_matching_hdw,
+)
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
+    K5_MAX_KERNEL_SIZE,
     fused_pipeline_bwd_cuda,
     fused_pipeline_bwd_reference,
     fused_pipeline_train_cuda,
@@ -90,8 +126,15 @@ from custereomatching_tpu_torch.ops.cuda_allpairs import (
 )
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     camera_grad_banded_cuda,
+    camera_grad_banded_parity_cuda,
     cost_volume_banded_cuda,
     projector_grad_banded_cuda,
+)
+from custereomatching_tpu_torch.ops.layout import (
+    parity_to_plane_major,
+    parity_to_plane_major_reference,
+    plane_major_to_parity,
+    plane_major_to_parity_reference,
 )
 from custereomatching_tpu_torch.ops.zncc import (
     box2d,
@@ -133,6 +176,9 @@ K7_SHAPES = [(1, 16, 24, 5, 3), (1, 24, 150, 10, 5), (1, 40, 96, 12, 15),
 # (tests/test_pallas_bwd.py:89) at the small shapes, and a bound on
 # ||got - want|| / ||want|| everywhere (KITTI included).
 GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
+# One H100 SXM (NVIDIA's data sheet): fp32 outside the tensor cores and
+# the HBM3 rate, the two rates a kernel's bound is taken against.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def require(ok: bool, what: str) -> None:
@@ -280,11 +326,22 @@ def phase_k3() -> float:
     return err
 
 
+# Each kernel's wrapper and the attribute that counts its launches (one
+# wrapper launches K2 or K6, one K3w or K3m, one K4 or K5, with a counter
+# for each).
 KERNEL_COUNTERS = {
-    "k1": cost_volume_banded_cuda, "k3": stereo_pipeline_cuda,
-    "k2": camera_grad_banded_cuda, "k3w": fused_pipeline_train_cuda,
-    "k4": fused_pipeline_bwd_cuda, "k8": cost_volume_allpairs_cuda,
-    "k7": projector_grad_banded_cuda}
+    "k1": (cost_volume_banded_cuda, "launches"),
+    "k3": (stereo_pipeline_cuda, "launches"),
+    "k2": (camera_grad_banded_cuda, "launches"),
+    "k3w": (fused_pipeline_train_cuda, "launches"),
+    "k4": (fused_pipeline_bwd_cuda, "launches"),
+    "k8": (cost_volume_allpairs_cuda, "launches"),
+    "k7": (projector_grad_banded_cuda, "launches"),
+    "k6": (camera_grad_banded_cuda, "recompute_launches"),
+    "k3m": (fused_pipeline_train_cuda, "maps_launches"),
+    "k5": (fused_pipeline_bwd_cuda, "recompute_launches"),
+    "k9a": (plane_major_to_parity, "launches"),
+    "k9b": (parity_to_plane_major, "launches")}
 # Plain twins of kernels: no main path may call them.
 PLAIN_COUNTERS = {
     "plain_volume": forward_banded,
@@ -294,21 +351,24 @@ PLAIN_COUNTERS = {
     "plain_train_bwd": fused_pipeline_bwd_reference,
     "plain_trainable": stereo_pipeline_trainable_reference,
     "plain_allpairs": forward_allpairs,
-    "plain_proj_vjp": projector_grad_banded}
+    "plain_proj_vjp": projector_grad_banded,
+    "plain_to_parity": plane_major_to_parity_reference,
+    "plain_to_plane_major": parity_to_plane_major_reference}
 # The all-pairs camera VJP has no kernel in either package (the JAX
 # package leaves it to XLA): it is the all-pairs path's own backward.
 PATH_PLAIN_COUNTERS = {"allpairs_vjp": camera_grad_allpairs}
 
 
 def reset_counters() -> None:
-    for fn in KERNEL_COUNTERS.values():
-        fn.launches = 0
+    for fn, attr in KERNEL_COUNTERS.values():
+        setattr(fn, attr, 0)
     for fn in (*PLAIN_COUNTERS.values(), *PATH_PLAIN_COUNTERS.values()):
         fn.calls = 0
 
 
 def read_counters() -> dict:
-    counts = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+    counts = {name: getattr(fn, attr)
+              for name, (fn, attr) in KERNEL_COUNTERS.items()}
     counts.update({name: fn.calls for name, fn in PLAIN_COUNTERS.items()})
     counts.update({name: fn.calls
                    for name, fn in PATH_PLAIN_COUNTERS.items()})
@@ -789,6 +849,344 @@ def phase_grad_projector_path() -> dict:
     return counts
 
 
+def mean_loss_cotangent(seed: int, B: int, H: int, W: int, D: int):
+    """A random plane-major cotangent at a mean loss's scale (1 / (H W)),
+    the regime of the JAX suite's gradient tolerance."""
+    g = torch.randn((B, D + 1, H, W), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    return g * (1.0 / (H * W))
+
+
+# Past the card's shared memory the recompute stages the projector tile in
+# chunks of planes: K6 at k=15 beyond D ~ 1540, K5 at k=15 beyond D = 567
+# and at k=25 beyond D ~ 97 (camera_grad.cuh).  (B, H, W, D, k); W > D,
+# so the planes of every chunk reach into the image.
+K6_CHUNKED = (1, 16, 1800, 1600, 15)
+K5_CHUNKED = [((1, 32, 800, 600, 15), 50.0), ((1, 40, 400, 192, 25), 50.0),
+              ((1, 40, 300, 64, 27), 80.0)]
+
+
+def phase_k6() -> float:
+    err = 0.0
+    for i, (B, H, W, D, k) in enumerate(SHAPES + [K6_CHUNKED,
+                                                  (1,) + KITTI]):
+        cam, proj = uniform_pair(700 + i, B, H, W)
+        g = mean_loss_cotangent(700 + i, B, H, W, D)
+        g_parity = g.permute(0, 2, 3, 1).contiguous()
+        want = camera_grad_banded(cam, proj, g_parity, D, k, EPS)
+        kitti = (H, W, D, k) == KITTI
+        label = f"B={B} H={H} W={W} D={D} k={k}"
+        got = camera_grad_banded_cuda(cam, proj, None, g, D, k, EPS)
+        err = max(err, compare_grad(got, want, f"K6 plane-major {label}",
+                                    elementwise=not kitti))
+        got_p = camera_grad_banded_parity_cuda(cam, proj, g_parity, D, k,
+                                               EPS)
+        err = max(err, compare_grad(got_p, want, f"K6 parity (K9b + K6) "
+                                    f"{label}", elementwise=not kitti))
+        # K9b's staging is exact, so both entries run K6 on one cotangent.
+        require(torch.equal(got_p, got), f"K6 {label}: both entries equal")
+        if kitti or (B, H, W, D, k) == K6_CHUNKED:
+            cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+            with_cost = camera_grad_banded_cuda(
+                cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
+            compare_grad(got, with_cost, f"K6 against K2 (cost residual) "
+                         f"{label}", elementwise=False)
+            print(f"K6 {label}: bit-equal to K2: "
+                  f"{torch.equal(got, with_cost)}")
+            del cost, with_cost
+        del g, g_parity, want, got, got_p
+    return err
+
+
+def phase_k9() -> float:
+    for i, (B, H, W, D, _) in enumerate(SHAPES + [(1,) + KITTI]):
+        vol = torch.randn((B, D + 1, H, W), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(i))
+        label = f"B={B} H={H} W={W} D={D}"
+        parity = plane_major_to_parity(vol)
+        require(torch.equal(parity, vol.permute(0, 2, 3, 1).contiguous()),
+                f"K9a {label}: bit-equal to permute().contiguous()")
+        back = parity_to_plane_major(parity)
+        require(torch.equal(back, vol), f"K9b {label}: bit-equal to "
+                f"permute().contiguous()")
+        # One frame without the batch axis.
+        require(torch.equal(plane_major_to_parity(vol[0]), parity[0])
+                and torch.equal(parity_to_plane_major(parity[0]), vol[0]),
+                f"K9a/b {label}: an unbatched frame")
+        print(f"K9a/b {label}: bit-equal to permute().contiguous() both "
+              f"ways, batched and unbatched")
+        del vol, parity, back
+    return 0.0
+
+
+def phase_k3m() -> float:
+    err = 0.0
+    for label, cam, proj, D, k, beta in train_cases():
+        maps, res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                              THRESHOLD, save_volume=False)
+        serving = stereo_pipeline_cuda(cam, proj, D, k, EPS, beta, THRESHOLD)
+        res_w = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                          THRESHOLD)[1]
+        require(res.volume is None, f"K3m {label}: no volume")
+        for name in maps._fields:
+            require(torch.equal(getattr(maps, name), getattr(serving, name)),
+                    f"K3m {label}: {name} bit-equal to K3's")
+        for name in ("am", "s", "t"):
+            require(torch.equal(getattr(res, name), getattr(res_w, name)),
+                    f"K3m {label}: {name} bit-equal to K3w's")
+        # The confidence against the plain volume's maximum.
+        conf = forward_banded(cam, proj, D, k, EPS).amax(-1)
+        e = float((maps.confidence - conf).abs().max())
+        require(e <= 1e-5, f"K3m {label}: confidence within 1e-5 of the "
+                           f"plain volume's max")
+        err = max(err, e)
+        print(f"K3m {label}: maps bit-equal to K3, am/s/t bit-equal to "
+              f"K3w; confidence max_abs {e:.3e} against the plain volume")
+        del maps, res, serving, res_w, conf
+    return err
+
+
+def phase_k5() -> float:
+    err = 0.0
+    chunked = []
+    for j, ((B, H, W, D, k), beta) in enumerate(K5_CHUNKED):
+        cam, proj = uniform_pair(850 + j, B, H, W)
+        chunked.append((f"chunked B={B} H={H} W={W} D={D} k={k} "
+                        f"beta={beta}", cam, proj, D, k, beta))
+    for i, (label, cam, proj, D, k, beta) in enumerate(train_cases()
+                                                       + chunked):
+        B, H, W = cam.shape
+        kitti = (H, W, D, k) == KITTI
+        gs, gc = cotangents(800 + i, B, H, W)
+        # K5 and its plain twin on the same residual maps (K3m's).
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                        THRESHOLD, save_volume=False)[1]
+        got = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k, EPS,
+                                      beta)
+        want = fused_pipeline_bwd_reference(cam, proj, res, gs, gc, D, k,
+                                            EPS, beta)
+        err = max(err, compare_grad(got, want, f"K5 {label}",
+                                    elementwise=not kitti))
+        # K4 on K3w's residuals: the same maps, the cost read, not
+        # recomputed.
+        res_w = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                          THRESHOLD)[1]
+        with_cost = fused_pipeline_bwd_cuda(cam, proj, res_w, gs, gc, D, k,
+                                            EPS, beta)
+        compare_grad(got, with_cost, f"K5 against K4 {label}",
+                     elementwise=False)
+        del res, got, want, res_w, with_cost
+
+    # Past K5_MAX_KERNEL_SIZE not one plane's tiles fit: the volume-free
+    # pipeline refuses before it launches anything.
+    cam, proj = uniform_pair(860, 1, 40, 120)
+    k = K5_MAX_KERNEL_SIZE + 2
+    before = fused_pipeline_train_cuda.maps_launches
+    try:
+        stereo_pipeline_trainable(cam, proj, 16, k, EPS, save_volume=False)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and fused_pipeline_train_cuda.maps_launches
+            == before, f"K5 k={k}: refused before any launch")
+    print(f"K5 k={k}: refused before any launch ({refused})")
+    return err
+
+
+def adam_steps(camera0, loss_of, steps: int):
+    """``steps`` Adam steps of ``loss_of(camera)`` from ``camera0``, each
+    synchronised: (losses, host-clock seconds a step, peak device memory
+    of a step above what was allocated before it)."""
+    state = init_state(camera0, adam(TRAIN_LR))
+    losses, times, peaks = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_of(state.camera)
+        loss.backward()
+        state.optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        losses.append(float(loss.detach()))
+    return losses, times, max(peaks)
+
+
+def phase_volume_free_path() -> dict:
+    H, W, D, k = KITTI
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    cams, projs, _ = speckle_frames(1, seed=60)
+    true_cam = torch.from_numpy(cams).cuda()
+    proj = torch.from_numpy(projs).cuda()
+    with torch.no_grad():
+        target = StereoMatcher(cfg).disparity_maps(true_cam,
+                                                   proj).soft_disparity
+    noise = np.random.default_rng(61).standard_normal(cams.shape)
+    camera0 = true_cam + torch.from_numpy(
+        (TRAIN_NOISE * noise).astype(np.float32)).cuda()
+
+    def loss_fn(save_volume: bool):
+        # optimize_camera's loss (disparity_loss): the soft disparity's
+        # mean squared error against the target.
+        def loss_of(camera):
+            maps = stereo_pipeline_trainable(
+                camera, proj, D, k, cfg.epsilon, cfg.softargmax_beta,
+                cfg.cost_threshold, save_volume=save_volume)
+            err = maps.soft_disparity - target
+            return torch.mean(err * err)
+        return loss_of
+
+    torch.cuda.synchronize()
+    reset_counters()
+    losses, _, _ = adam_steps(camera0, loss_fn(False), TRAIN_STEPS)
+    counts = read_counters()
+    print(f"volume-free path: counters {counts}")
+    require(counts["k3m"] == TRAIN_STEPS and counts["k5"] == TRAIN_STEPS,
+            f"K3m and K5 launched once per step ({TRAIN_STEPS})")
+    require(counts["k3w"] == 0 and counts["k4"] == 0 and counts["k3"] == 0,
+            "K3, K3w and K4 unused on the volume-free path")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the volume-free path")
+    print(f"volume-free path: {TRAIN_STEPS} Adam steps at {H}x{W} D={D} "
+          f"k={k} lr={TRAIN_LR}: losses {losses}")
+    require(all(np.isfinite(losses)), "every loss finite")
+    require(losses[-1] < losses[0], "the last loss below the first")
+
+    # Outside the counted run: the K5 gradient against the K4 one on the
+    # same inputs (K3m's maps are K3w's bit for bit).
+    grads = []
+    for save_volume in (False, True):
+        c = camera0.clone().requires_grad_(True)
+        loss_fn(save_volume)(c).backward()
+        grads.append(c.grad)
+    compare_grad(grads[0], grads[1], "volume-free path: K5 camera gradient "
+                 "against the save_volume (K4) gradient", elementwise=False)
+    del grads
+
+    # Host-clock step time and peak device memory of a step, each mode
+    # timed in turns (free, saved, saved, free), the first step dropped.
+    steps = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    for save_volume in (False, True, True, False):
+        _, times, p = adam_steps(camera0, loss_fn(save_volume),
+                                 TIMED_STEPS)
+        steps[save_volume] += times[1:]
+        peak[save_volume] = max(peak[save_volume], p)
+    step_ms = {s: 1e3 * float(np.median(t)) for s, t in steps.items()}
+    print(f"volume-free path: step host-clock median {step_ms[False]:.3f} "
+          f"ms (K3m + K5) against {step_ms[True]:.3f} ms (K3w + K4); peak "
+          f"device memory of a step {peak[False] / 2**20:.1f} MiB against "
+          f"{peak[True] / 2**20:.1f} MiB, "
+          f"{(peak[True] - peak[False]) / 2**20:.1f} MiB less (one volume "
+          f"is {4 * (D + 1) * H * W / 2**20:.1f} MiB)")
+    require(peak[False] < peak[True], "the volume-free step holds less")
+    counts.update(step_ms=step_ms[False], saved_step_ms=step_ms[True])
+    return counts
+
+
+def phase_plane_major_path() -> dict:
+    H, W, D, k = KITTI
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    model = StereoMatcher(cfg)
+    cams, projs, _ = speckle_frames(1, seed=90)
+    cam0 = torch.from_numpy(cams).cuda()
+    proj = torch.from_numpy(projs).cuda()
+
+    def plane_major(camera):
+        vol = stereo_matching_hdw(camera, proj, D, k, cfg.epsilon)
+        r = extract_disparity_hdw(vol, D, H, W, cfg.cost_threshold,
+                                  cfg.softargmax_beta)
+        r.soft_disparity.mean().backward()
+        return vol
+
+    def parity(camera):
+        out = model(camera, proj)
+        out.soft_disparity.mean().backward()
+        return out.cost_volume
+
+    torch.cuda.synchronize()
+    reset_counters()
+    cam = cam0.clone().requires_grad_(True)
+    vol = plane_major(cam)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"plane-major path: counters {counts}")
+    require(counts["k1"] == 1 and counts["k2"] == 1,
+            "K1 and K2 launched once each")
+    require(not any(counts[name] for name in ("k6", "k7", "k9a", "k9b")),
+            "no K6, K7 or layout kernel on the plane-major path")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the plane-major path")
+    require(tuple(vol.shape) == (1, D + 1, H, W)
+            and bool(torch.isfinite(vol).all()), "plane-major volume")
+    require(vol.is_contiguous(), "the plane-major volume is K1's buffer")
+    del vol
+
+    cam_p = cam0.clone().requires_grad_(True)
+    parity(cam_p)
+    compare_grad(cam.grad, cam_p.grad, "plane-major path: camera gradient "
+                 "against the parity path's (StereoMatcher.__call__)",
+                 elementwise=False)
+
+    # Host-clock step time of both paths, in turns (parity, plane-major,
+    # plane-major, parity), the first step of each turn dropped.
+    times = {"parity": [], "plane_major": []}
+    for name in ("parity", "plane_major", "plane_major", "parity"):
+        run = plane_major if name == "plane_major" else parity
+        for i in range(TIMED_STEPS):
+            c = cam0.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(c)
+            torch.cuda.synchronize()
+            if i:
+                times[name].append(time.perf_counter() - t0)
+    ms = {name: 1e3 * float(np.median(t)) for name, t in times.items()}
+    print(f"plane-major path: step (forward, head, backward) host-clock "
+          f"median {ms['plane_major']:.3f} ms against the parity path's "
+          f"{ms['parity']:.3f} ms at {H}x{W} D={D} k={k}")
+    counts.update(step_ms=ms["plane_major"], parity_step_ms=ms["parity"])
+    return counts
+
+
+def phase_no_residual_path() -> dict:
+    """The camera VJP when the forward volume is not kept: K1's volume,
+    K9a to the parity layout, the plain head and its cotangent, then the
+    restaged K6 entry (K9b, K6)."""
+    H, W, D, k = KITTI
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    cams, projs, _ = speckle_frames(1, seed=100)
+    cam, proj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
+    torch.cuda.synchronize()
+
+    reset_counters()
+    with torch.no_grad():
+        parity_vol = plane_major_to_parity(
+            stereo_matching_hdw(cam, proj, D, k, cfg.epsilon))
+    parity_vol.requires_grad_(True)
+    soft = StereoMatcher(cfg).disparity(parity_vol).soft_disparity
+    (g,) = torch.autograd.grad(soft.mean(), parity_vol)
+    del parity_vol, soft
+    grad = camera_grad_banded_parity_cuda(cam, proj, g, D, k, cfg.epsilon)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"no-residual VJP path: counters {counts}")
+    require(all(counts[name] == 1 for name in ("k1", "k9a", "k9b", "k6")),
+            "K1, K9a, K9b and K6 launched once each")
+    require(counts["k2"] == 0, "K2 unused without the cost residual")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the no-residual VJP path")
+    require(tuple(grad.shape) == (1, H, W)
+            and bool(torch.isfinite(grad).all()), "camera gradient")
+    want = camera_grad_banded(cam, proj, g, D, k, cfg.epsilon)
+    compare_grad(grad, want, "no-residual VJP path: camera gradient against "
+                 "the plain VJP on its head cotangent", elementwise=False)
+    return counts
+
+
 def timed(label: str, fn, *args) -> float:
     ms = 1e3 * benchmark(fn, *args, warmup=2, iters=10, chain=3)["median_s"]
     print(f"time: {label} median {ms:.4f} ms")
@@ -796,27 +1194,95 @@ def timed(label: str, fn, *args) -> float:
 
 
 def interleaved(name: str, kernel, plain, kargs, pargs, where: str,
-                card: str):
-    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+                card: str, library=None):
+    """(kernel ms, plain ms, library ms or None), timed plain, library,
+    kernel, kernel, library, plain; ``library`` is one PyTorch call that
+    computes the kernel's function, taking ``pargs``."""
+    order = ["plain", "library", "kernel", "kernel", "library", "plain"]
+    calls = {"kernel": (kernel, kargs), "plain": (plain, pargs),
+             "library": (library, pargs)}
+    samples = {"kernel": [], "plain": [], "library": []}
     with torch.no_grad():
-        p1 = timed(f"{name} plain", plain, *pargs)
-        k1 = timed(f"{name} kernel", kernel, *kargs)
-        k2 = timed(f"{name} kernel", kernel, *kargs)
-        p2 = timed(f"{name} plain", plain, *pargs)
-    ms = ((k1 + k2) / 2, (p1 + p2) / 2)
+        for what in order:
+            fn, args = calls[what]
+            if fn is not None:
+                samples[what].append(timed(f"{name} {what}", fn, *args))
+    ms = tuple(sum(s) / len(s) if s else None
+               for s in (samples["kernel"], samples["plain"],
+                         samples["library"]))
+    lib = f", library {ms[2]:.4f} ms" if library is not None else ""
     print(f"time: {name} at {where}: kernel {ms[0]:.4f} ms, plain "
-          f"{ms[1]:.4f} ms ({card})")
+          f"{ms[1]:.4f} ms{lib} ({card})")
     return ms
 
 
+def bound(flops: float, nbytes: float):
+    """(ms, what bounds it): the least time for ``flops`` fp32 operations
+    and ``nbytes`` moved, each input read once and each output written
+    once, at the data sheet's peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+# The least fp32 operations of one volume entry (one pixel and plane, or
+# one pixel and projector column for K8), with every k x k window sum
+# taken separably (k column taps, then k row taps), as the least work the
+# functions need rather than what any kernel does:
+def cost_flops(k: int) -> int:
+    # one product, the window's 2k taps, then (sxy - mux sy + eps) r with
+    # r = rsqrt(ex2 ey2 + eps): 7
+    return 2 * k + 8
+
+
+HEAD_FLOPS = 6       # max, argmax, e^{beta c}, s += u, t += d u
+COTANGENT_FLOPS = 8  # g_d from the head's maps (pallas_pipeline.py:979-990)
+
+
+def vjp_flops(k: int) -> int:
+    # gr = g r, the window of gr (2k taps), A1 += box proj, the B and GRMU
+    # sums: 2k + 9 (r itself is cost_flops' or, with the cost read, 3 more)
+    return 2 * k + 9
+
+
+def banded_bounds(B: int, H: int, W: int, D: int, k: int) -> dict:
+    """Each banded kernel's bound at [B, H, W], D, k: operations from the
+    per-entry counts above; bytes count the images, maps and volumes each
+    kernel reads and writes, 4 a value."""
+    n = B * H * W * (D + 1)        # volume entries
+    px = 4 * B * H * W             # bytes of one [B, H, W] map
+    vol = 4 * n                    # bytes of one volume
+    fwd = (cost_flops(k) + HEAD_FLOPS) * n
+    with_cost = (3 + vjp_flops(k)) * n
+    recompute = (cost_flops(k) + vjp_flops(k)) * n
+    return {
+        "K1": bound(cost_flops(k) * n, vol + 2 * px),        # images; volume
+        "K3": bound(fwd, 6 * px),                            # images; 4 maps
+        "K3w": bound(fwd, vol + 9 * px),                     # + am, s, t
+        "K3m": bound(fwd, 9 * px),
+        "K2": bound(with_cost, 2 * vol + 3 * px),            # g, cost; grad
+        "K7": bound(with_cost, 2 * vol + 3 * px),
+        "K4": bound(with_cost + COTANGENT_FLOPS * n,         # cost, 7 maps;
+                    vol + 10 * px),                          # grad
+        "K5": bound(recompute + COTANGENT_FLOPS * n, 10 * px),
+        "K6": bound(recompute, vol + 3 * px),                # g, images; grad
+        "K9a": bound(0, 2 * vol),
+        "K9b": bound(0, 2 * vol),
+    }
+
+
 def phase_times(card: str) -> dict:
+    """Times and bounds of every kernel: {key: (kernel ms, plain ms,
+    library ms or None, (bound ms, bound by))}."""
     # K8 at the all-pairs path's shape.
     Hv, Wv, kv = VERIFY
     acam, aproj = uniform_pair(1, 1, Hv, Wv)
     ap = (acam, aproj, kv, EPS)
     times = {"K8": interleaved("K8", cost_volume_allpairs_cuda,
                                forward_allpairs, ap, ap,
-                               f"{Hv}x{Wv} k={kv}", card)}
+                               f"{Hv}x{Wv} k={kv}", card)
+             + (bound(cost_flops(kv) * Hv * Wv * Wv,
+                      4 * Hv * Wv * Wv + 2 * 4 * Hv * Wv),)}
     del acam, aproj, ap
     torch.cuda.empty_cache()
 
@@ -831,25 +1297,45 @@ def phase_times(card: str) -> dict:
         g = torch.randn((1, D + 1, H, W), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
         res = fused_pipeline_train_cuda(*pipe)[1]
+        res_m = fused_pipeline_train_cuda(*pipe, False)[1]
+        g_parity = g.permute(0, 2, 3, 1).contiguous()
     gs, gc = cotangents(1, 1, H, W)
     k2_args = (cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
     plain_vjp = (cam, proj, g.permute(0, 2, 3, 1), D, k, EPS)
     bwd = (scam, sproj, res, gs, gc, D, k, EPS, 50.0)
+    bwd_free = (scam, sproj, res_m, gs, gc, D, k, EPS, 50.0)
     cases = (
-        ("K1", cost_volume_banded_cuda, forward_banded, vol, vol),
-        ("K3", stereo_pipeline_cuda, stereo_pipeline_reference, pipe, pipe),
+        ("K1", cost_volume_banded_cuda, forward_banded, vol, vol, None),
+        ("K3", stereo_pipeline_cuda, stereo_pipeline_reference, pipe, pipe,
+         None),
         ("K2", camera_grad_banded_cuda, camera_grad_banded, k2_args,
-         plain_vjp),
+         plain_vjp, None),
         ("K7", projector_grad_banded_cuda, projector_grad_banded, k2_args,
-         (cam, proj, cost) + plain_vjp[2:]),
+         (cam, proj, cost) + plain_vjp[2:], None),
         ("K3w", fused_pipeline_train_cuda, fused_pipeline_train_reference,
-         pipe, pipe),
+         pipe, pipe, None),
         ("K4", fused_pipeline_bwd_cuda, fused_pipeline_bwd_reference, bwd,
-         bwd),
+         bwd, None),
+        ("K6", camera_grad_banded_cuda, camera_grad_banded,
+         (cam, proj, None, g, D, k, EPS), plain_vjp, None),
+        ("K3m", fused_pipeline_train_cuda, fused_pipeline_train_reference,
+         pipe + (False,), pipe + (False,), None),
+        ("K5", fused_pipeline_bwd_cuda, fused_pipeline_bwd_reference,
+         bwd_free, bwd_free, None),
+        ("K9a", plane_major_to_parity, plane_major_to_parity_reference,
+         (g,), (g,), lambda v: v.permute(0, 2, 3, 1).contiguous()),
+        ("K9b", parity_to_plane_major, parity_to_plane_major_reference,
+         (g_parity,), (g_parity,),
+         lambda v: v.permute(0, 3, 1, 2).contiguous()),
     )
-    for name, kernel, plain, kargs, pargs in cases:
+    bounds = banded_bounds(1, H, W, D, k)
+    for name, kernel, plain, kargs, pargs, library in cases:
         times[name] = interleaved(name, kernel, plain, kargs, pargs,
-                                  f"KITTI {H}x{W} D={D} k={k}", card)
+                                  f"KITTI {H}x{W} D={D} k={k}", card,
+                                  library) + (bounds[name],)
+    for name, (ms, _, _, (b_ms, by)) in times.items():
+        print(f"bound: {name} {b_ms:.4f} ms by {by}; the kernel takes "
+              f"{ms / b_ms:.2f} times its bound ({card})")
     return times
 
 
@@ -876,6 +1362,21 @@ KERNELS = (
     ("zncc_banded_projector_vjp", "K7", "custereomatching_tpu_torch/csrc/"
      "zncc_banded_proj_bwd.cu",
      "custereomatching_tpu/ops/pallas_zncc_bwd.py:607", "grad_projector"),
+    ("zncc_banded_camera_vjp_recompute", "K6",
+     "custereomatching_tpu_torch/csrc/zncc_banded_bwd.cu",
+     "custereomatching_tpu/ops/pallas_zncc_bwd.py:54", "no_residual"),
+    ("fused_pipeline_train_maps", "K3m", "custereomatching_tpu_torch/csrc/"
+     "fused_pipeline.cu", "custereomatching_tpu/ops/pallas_pipeline.py:120",
+     "volume_free"),
+    ("fused_pipeline_bwd_recompute", "K5", "custereomatching_tpu_torch/csrc/"
+     "fused_pipeline_bwd.cu",
+     "custereomatching_tpu/ops/pallas_pipeline.py:510", "volume_free"),
+    ("plane_major_to_parity", "K9a",
+     "custereomatching_tpu_torch/csrc/layout.cu",
+     "custereomatching_tpu/ops/pallas_layout.py:53", "no_residual"),
+    ("parity_to_plane_major", "K9b",
+     "custereomatching_tpu_torch/csrc/layout.cu",
+     "custereomatching_tpu/ops/pallas_layout.py:161", "no_residual"),
 )
 
 
@@ -899,14 +1400,26 @@ def main() -> int:
     errs["K7"] = phase_k7()
     counts["allpairs"] = phase_allpairs_path()
     counts["grad_projector"] = phase_grad_projector_path()
+    errs["K6"] = phase_k6()
+    errs["K9a"] = errs["K9b"] = phase_k9()
+    errs["K3m"] = phase_k3m()
+    errs["K5"] = phase_k5()
+    counts["volume_free"] = phase_volume_free_path()
+    counts["plane_major"] = phase_plane_major_path()
+    counts["no_residual"] = phase_no_residual_path()
     times = phase_times(card)
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": counts[path][key.lower()],
-         "max_abs_err": errs[key], "ms": times[key][0],
-         "plain_ms": times[key][1]}
-        for name, key, source, replaces, path in KERNELS]
+    kernels = []
+    for name, key, source, replaces, path in KERNELS:
+        ms, plain_ms, library_ms, (bound_ms, bound_by) = times[key]
+        launches = counts[path][key.lower()]
+        require(launches >= 1, f"{key} launched on its path ({path})")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,18 @@ class StereoConfig:
         return (H, W, self.num_disparities + 1)
 
 
+def entry_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when the caller names
+    one, else the CUDA card.  Raises ``RuntimeError`` when that is CUDA and
+    no card is present: nothing carries on on the CPU unless asked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" (--device cpu "
+            "in the examples) to run on the CPU with the plain versions")
+    return device
+
+
 def config_from_jax(jax_cfg_fields: dict) -> StereoConfig:
     """A port config from ``dataclasses.asdict`` of a JAX ``StereoConfig``.
 

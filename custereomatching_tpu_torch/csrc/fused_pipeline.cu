@@ -1,15 +1,17 @@
 // K3: the fused stereo pipeline on Hopper -- banded ZNCC planes folded into
 // an online disparity head.  The serving variant never writes the cost
 // volume; the training variant (K3w) also streams each plane out as the
-// backward's cost residual.
+// backward's cost residual; the volume-free training variant (K3m) writes
+// the training maps but no volume.
 //
 // Replaces: custereomatching_tpu/ops/pallas_pipeline.py:_fused_kernel, with
 // write_volume=False (driven by _pipeline_forward_full; the serving path)
-// and with write_volume=True (the forward of _fused_train_v).  Same values,
-// not the same blocks: the TPU grid walks disparity tiles in order and
-// carries the head in scratch; here one thread owns one pixel, keeps its
-// head in registers and loops over d = 0..D in order, so no state crosses
-// blocks.
+// and with write_volume=True (the forward of _fused_train_v); K3m is what
+// _fused_train_fwd gets from _pipeline_forward_full without write_volume.
+// Same values, not the same blocks: the TPU grid walks disparity tiles in
+// order and carries the head in scratch; here one thread owns one pixel,
+// keeps its head in registers and loops over d = 0..D in order, so no
+// state crosses blocks.
 //
 // Per plane, with the projector pre-scaled by beta when it is staged (as
 // the JAX wrapper _pipeline_forward_full folds beta into the projector):
@@ -27,8 +29,10 @@
 // disparity = am * mask, soft = (t / s) * mask.  The training variant adds
 // the cost planes c = bc * (1 / beta) as a [B, D+1, H, W] volume (as the
 // Pallas kernel writes bc * inv_b) and the raw am, s and t maps that the
-// backward (K4, fused_pipeline_bwd.cu) reads.  Its four maps are the
-// serving variant's bit for bit: the extra stores change no arithmetic.
+// backward (K4, fused_pipeline_bwd.cu) reads; K3m adds the three maps
+// alone, for the volume-free backward (K5).  The training variants' four
+// maps are the serving variant's bit for bit: the extra stores change no
+// arithmetic.
 //
 // What bounds it on the H100: the serving variant reads two images and
 // writes four maps (about 6 * 4 * H * W bytes a frame), so it has no memory
@@ -36,20 +40,21 @@
 // column sums plus one rsqrt and one or two exp per pixel and plane.  As
 // in K1 the simple first version is bound by the shared-memory traffic of
 // the row pass and by two barriers per plane; the design keeps both
-// images in shared memory for all planes and the head in registers.  The
-// training variant adds K1's volume write (360 MB a KITTI frame, about
-// 0.11 ms at 3.35 TB/s), stored coalesced along W.  It is not hidden
-// behind the planes' arithmetic: on the H100 the training variant takes
-// about that much longer than the serving one.
+// images in shared memory for all planes and the head in registers.  K3m
+// adds three map stores (12 bytes a pixel).  K3w adds K1's volume write
+// (360 MB a KITTI frame, about 0.11 ms at 3.35 TB/s), stored coalesced
+// along W.  It is not hidden
+// behind the planes' arithmetic: on the H100 K3w takes about that much
+// longer than the serving variant.
 #include "common.cuh"
 
 namespace custereo {
 namespace {
 
 // Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
-// shared memory PlaneTile(k, D).floats() floats.  volume, am_out, s_out and
-// t_out are written only when kTrain.
-template <bool kUnnormalized, bool kTrain>
+// shared memory PlaneTile(k, D).floats() floats.  am_out, s_out and t_out
+// are written only when kResiduals, volume only when kVolume.
+template <bool kUnnormalized, bool kResiduals, bool kVolume>
 __global__ void __launch_bounds__(kThreads)
     fused_pipeline_kernel(const float* __restrict__ camera,
                           const float* __restrict__ projector,
@@ -92,7 +97,7 @@ __global__ void __launch_bounds__(kThreads)
     const size_t row = (static_cast<size_t>(b) * H + h) * (W + D) + D + w;
     sy_row = proj_s + row;
     ey2_row = proj_e2 + row;
-    if (kTrain)
+    if (kVolume)
       vol_px = volume + static_cast<size_t>(b) * (D + 1) * plane +
                static_cast<size_t>(h) * W + w;
   }
@@ -109,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
       const float exy_b = sxy_b - mux * __ldg(sy_row - d);
       const float bc =
           (exy_b + beps) * rsqrtf(ex2 * __ldg(ey2_row - d) + eps);
-      if (kTrain) vol_px[d * plane] = bc * inv_b;
+      if (kVolume) vol_px[d * plane] = bc * inv_b;
       const float df = static_cast<float>(d);
       if (kUnnormalized) {
         const float u = expf(bc);
@@ -141,14 +146,14 @@ __global__ void __launch_bounds__(kThreads)
   mask[o] = mk;
   disparity[o] = am * mk;
   soft[o] = (t / s) * mk;
-  if (kTrain) {
+  if (kResiduals) {
     am_out[o] = am;
     s_out[o] = s;
     t_out[o] = t;
   }
 }
 
-template <bool kUnnormalized, bool kTrain>
+template <bool kUnnormalized, bool kResiduals, bool kVolume>
 cudaError_t launch_fused(const float* camera, const float* projector,
                          const float* cam_s, const float* cam_e2,
                          const float* proj_s, const float* proj_e2,
@@ -157,7 +162,7 @@ cudaError_t launch_fused(const float* camera, const float* projector,
                          float* t, int B, int H, int W, int D, int k,
                          float eps, float beta, float threshold,
                          cudaStream_t stream) {
-  auto kernel = fused_pipeline_kernel<kUnnormalized, kTrain>;
+  auto kernel = fused_pipeline_kernel<kUnnormalized, kResiduals, kVolume>;
   const size_t bytes = PlaneTile(k, D).floats() * sizeof(float);
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
@@ -170,7 +175,7 @@ cudaError_t launch_fused(const float* camera, const float* projector,
 
 // The statistics passes, then the fused kernel in the head branch that
 // `unnormalized` selects.
-template <bool kTrain>
+template <bool kResiduals, bool kVolume>
 int run_pipeline(const float* camera, const float* projector, float* cam_s,
                  float* cam_e2, float* proj_s, float* proj_e2,
                  float* disparity, float* soft, float* mask, float* conf,
@@ -184,11 +189,11 @@ int run_pipeline(const float* camera, const float* projector, float* cam_s,
                        stream);
   if (e != cudaSuccess) return e;
   if (unnormalized)
-    return launch_fused<true, kTrain>(
+    return launch_fused<true, kResiduals, kVolume>(
         camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
         mask, conf, volume, am, s, t, B, H, W, D, k, eps, beta, threshold,
         stream);
-  return launch_fused<false, kTrain>(
+  return launch_fused<false, kResiduals, kVolume>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
       mask, conf, volume, am, s, t, B, H, W, D, k, eps, beta, threshold,
       stream);
@@ -209,11 +214,10 @@ extern "C" int custereo_fused_pipeline(
     float* proj_s, float* proj_e2, float* disparity, float* soft, float* mask,
     float* conf, int B, int H, int W, int D, int k, float eps, float beta,
     float threshold, int unnormalized, void* stream_ptr) {
-  return run_pipeline<false>(camera, projector, cam_s, cam_e2, proj_s,
-                             proj_e2, disparity, soft, mask, conf, nullptr,
-                             nullptr, nullptr, nullptr, B, H, W, D, k, eps,
-                             beta, threshold, unnormalized,
-                             static_cast<cudaStream_t>(stream_ptr));
+  return run_pipeline<false, false>(
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
+      mask, conf, nullptr, nullptr, nullptr, nullptr, B, H, W, D, k, eps,
+      beta, threshold, unnormalized, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The training forward (K3w): as custereo_fused_pipeline, plus the cost
@@ -224,9 +228,22 @@ extern "C" int custereo_fused_pipeline_train(
     float* conf, float* volume, float* am, float* s, float* t, int B, int H,
     int W, int D, int k, float eps, float beta, float threshold,
     int unnormalized, void* stream_ptr) {
-  return run_pipeline<true>(camera, projector, cam_s, cam_e2, proj_s,
-                            proj_e2, disparity, soft, mask, conf, volume, am,
-                            s, t, B, H, W, D, k, eps, beta, threshold,
-                            unnormalized,
-                            static_cast<cudaStream_t>(stream_ptr));
+  return run_pipeline<true, true>(
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
+      mask, conf, volume, am, s, t, B, H, W, D, k, eps, beta, threshold,
+      unnormalized, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The volume-free training forward (K3m): as custereo_fused_pipeline, plus
+// the raw argmax, s and t maps [B, H, W]; no volume.
+extern "C" int custereo_fused_pipeline_train_maps(
+    const float* camera, const float* projector, float* cam_s, float* cam_e2,
+    float* proj_s, float* proj_e2, float* disparity, float* soft, float* mask,
+    float* conf, float* am, float* s, float* t, int B, int H, int W, int D,
+    int k, float eps, float beta, float threshold, int unnormalized,
+    void* stream_ptr) {
+  return run_pipeline<true, false>(
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
+      mask, conf, nullptr, am, s, t, B, H, W, D, k, eps, beta, threshold,
+      unnormalized, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -17,10 +17,14 @@
 // Precision: exact fp32 FMAs on the CUDA cores, for the JAX op's
 // "highest" and "default" alike (no TF32 tensor-core product).
 //
-// What bounds it on the H100: the k^2 FMAs of every output, 2 H W^2 k^2
-// flops (26.4 GFLOP at the 330 x 422, k = 15 verify shape, 0.39 ms at the
-// 67 TFLOP/s fp32 peak), against a 4 H W^2-byte write (235 MB there,
-// 0.07 ms at 3.35 TB/s): compute-bound.  What the design does about it:
+// What bounds it on the H100: the function needs a 4 H W^2-byte write
+// (235 MB at the 330 x 422, k = 15 verify shape, 0.07 ms at 3.35 TB/s);
+// its window sum separates (a k-row sum of products, then a k-tap
+// diagonal sum: about (2k + 8) H W^2 flops, 0.03 ms at the 67 TFLOP/s
+// fp32 peak), so the write bounds it.  This kernel sums the k^2 products
+// of every output directly, 2 H W^2 k^2 flops (26.4 GFLOP there, 0.39 ms
+// at the peak), so its own arithmetic is what it spends its time on.
+// What the design does about that arithmetic:
 // each thread keeps an 8 x 4 register tile of outputs, so one (i, j) step
 // costs 12 shared-memory loads for 32 FMAs; the 8 camera values are the
 // same for the whole warp (broadcast) and the 4 projector values are 32

@@ -3,13 +3,16 @@
 The counterpart of ``examples/train.py``: Adam over the camera frames
 against a target disparity map, the trainable fused pipeline (kernels K3w
 and K4) on a CUDA card, and ``torch.save`` checkpoints so that a killed run
-resumes where it stopped.  It runs on the card when there is one, else on
-the CPU with the plain versions.
+resumes where it stopped.  It runs on the card; ``--device cpu`` runs the
+plain versions on the CPU instead (without a card and without it, it
+raises).
 
 Usage:
   python -m custereomatching_tpu_torch.examples.train --steps 200
   python -m custereomatching_tpu_torch.examples.train --steps 400 \\
       --ckpt-dir ckpt        # resumes from the newest step in ckpt/
+  python -m custereomatching_tpu_torch.examples.train --device cpu \\
+      --height 16 --width 48 -D 6 -k 5 --steps 3
 
 ``--mesh`` and ``--autotune`` are accepted and raise: the parallel layer
 and the tile autotuner are not ported yet (ROADMAP items 13 and 12).
@@ -24,7 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from custereomatching_tpu_torch.config import StereoConfig
+from custereomatching_tpu_torch.config import StereoConfig, entry_device
 from custereomatching_tpu_torch.data import make_video_batch
 from custereomatching_tpu_torch.models import (
     StereoMatcher,
@@ -80,6 +83,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--mesh", type=str, default=None,
                     help="not ported yet (ROADMAP item 13)")
     ap.add_argument("--backend", default="auto")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions)")
     ap.add_argument("--autotune", action="store_true",
                     help="not ported yet (ROADMAP item 12)")
     args = ap.parse_args(argv)
@@ -91,7 +96,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             "--autotune: the tile autotuner is not ported yet (ROADMAP "
             "item 12)")
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = entry_device(args.device)
     cams, projs, _ = make_video_batch(args.frames, args.height, args.width,
                                       d_min=2.0,
                                       d_max=min(args.disparities * 0.7, 16.0))

@@ -11,9 +11,12 @@ forward.  On the CPU the kernel wrappers take their plain versions, so
 there only the closed forms are checked against autograd, at a small size.
 
     python -m custereomatching_tpu_torch.examples.verify   # 330x422, D=200, k=15 on a card
-    python -m custereomatching_tpu_torch.examples.verify --height 24 --width 48 -D 8 -k 5
+    python -m custereomatching_tpu_torch.examples.verify --device cpu
+        # the plain versions at 24x48, D=8, k=5
 
-Without a card the default workload is that small one.  The data is a
+It runs on the card unless ``--device cpu`` asks for the CPU (without a
+card and without it, it raises); on the CPU the default workload is that
+small one.  The data is a
 synthetic speckle pair (the reference's input images are not in its
 repository); ``--skip-allpairs`` leaves out the ``[H, W, W]`` volume.
 """
@@ -27,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from custereomatching_tpu_torch.config import entry_device
 from custereomatching_tpu_torch.data import make_stereo_pair
 from custereomatching_tpu_torch.ops import stereo_matching
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
@@ -141,9 +145,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--disparities", "-D", type=int, default=None)
     ap.add_argument("--kernel-size", "-k", type=int, default=None)
     ap.add_argument("--skip-allpairs", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = entry_device(args.device)
     default = REFERENCE if device.type == "cuda" else SMALL
     H, W, D, k = (v if v is not None else d for v, d in zip(
         (args.height, args.width, args.disparities, args.kernel_size),

@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from custereomatching_tpu_torch.config import StereoConfig
+from custereomatching_tpu_torch.config import StereoConfig, entry_device
 from custereomatching_tpu_torch.models.stereo import StereoMatcher
 from custereomatching_tpu_torch.ops.cuda_pipeline import PipelineMaps
 from custereomatching_tpu_torch.utils.timer import fence
@@ -36,7 +36,8 @@ class StereoEngine:
         engine.warmup()                          # build + run each bucket
         maps = engine.infer(camera, projector)   # numpy in, numpy out
 
-    ``device`` defaults to CUDA when available, else CPU.  ``lr_check``,
+    ``device`` defaults to the CUDA card; without a card the engine
+    raises ``RuntimeError`` unless built with ``device="cpu"``.  ``lr_check``,
     ``retries`` and ``autotune`` are not ported yet (ROADMAP items 11 and
     12) and raise ``NotImplementedError`` when set.
     """
@@ -57,9 +58,7 @@ class StereoEngine:
         if autotune:
             raise NotImplementedError(
                 "autotune: tile autotuning is ROADMAP item 12")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         config.resolved_backend(self.device)  # raises on cuda + CPU
         self.config = config
         self.model = StereoMatcher(config)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from custereomatching_tpu_torch.config import StereoConfig
+from custereomatching_tpu_torch.config import StereoConfig, entry_device
 from custereomatching_tpu_torch.ops import stereo_matching
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     PipelineMaps,
@@ -178,11 +178,11 @@ def entry(device: Optional[torch.device] = None):
     ``[1, 96, 160]`` drawn from ``np.random.default_rng(0)``).
 
     Returns ``(forward, (camera, projector))`` with the inputs on
-    ``device`` (CUDA when available, else CPU); ``forward`` returns the
-    soft disparity.
+    ``device`` (the CUDA card unless the caller names another; without a
+    card and without ``device="cpu"`` it raises ``RuntimeError``);
+    ``forward`` returns the soft disparity.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = entry_device(device)
     model = StereoMatcher(StereoConfig(kernel_size=15, num_disparities=64))
 
     def forward(camera, projector):

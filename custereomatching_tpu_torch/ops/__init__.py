@@ -1,6 +1,8 @@
 """Compute ops of the port: the ZNCC cost volumes and their VJPs (plain
-PyTorch and kernels K1, K2, K7, K8), the fused pipeline (plain and kernel
-K3), its trainable form (kernels K3w, K4) and the disparity heads."""
+PyTorch and kernels K1, K2, K6, K7, K8), in the parity and the plane-major
+layout, the layout conversions (K9a, K9b), the fused pipeline (plain and
+kernel K3), its trainable forms (kernels K3w and K4, K3m and K5) and the
+disparity heads."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
 )
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     camera_grad_banded_cuda,
+    camera_grad_banded_parity_cuda,
     cost_volume_banded_cuda,
     projector_grad_banded_cuda,
 )
@@ -30,6 +33,10 @@ from custereomatching_tpu_torch.ops.disparity import (
     extract_disparity,
     extract_disparity_hdw,
     soft_argmax,
+)
+from custereomatching_tpu_torch.ops.layout import (
+    parity_to_plane_major,
+    plane_major_to_parity,
 )
 from custereomatching_tpu_torch.ops.zncc import (
     EPSILON,
@@ -47,10 +54,11 @@ from custereomatching_tpu_torch.ops.zncc import (
 class _CudaStereoMatching(torch.autograd.Function):
     """K1 as an autograd node whose backward is K2 and, with
     ``grad_projector``, K7: the counterpart of ``_pallas_stereo`` and
-    ``_pallas_stereo_both``.  The residuals are the images and the
-    plane-major volume K1 wrote.  Each backward kernel launches only when
-    its input needs a gradient; without ``grad_projector`` the projector
-    gets none (``None``)."""
+    ``_pallas_stereo_both`` (and, under :func:`stereo_matching_hdw`'s
+    ``movedim``, of ``_pallas_stereo_hdw`` and ``_pallas_stereo_hdw_both``).
+    The residuals are the images and the plane-major volume K1 wrote.  Each
+    backward kernel launches only when its input needs a gradient; without
+    ``grad_projector`` the projector gets none (``None``)."""
 
     @staticmethod
     def forward(ctx, camera, projector, num_disparities, kernel_size,
@@ -71,8 +79,10 @@ class _CudaStereoMatching(torch.autograd.Function):
         cam_grad = proj_grad = None
         if not (want_cam or want_proj):
             return None, None, None, None, None, None
-        # One volume copy: the cotangent into the kernels' plane-major
-        # layout (the transpose the JAX op pays at pallas_zncc.py:527-529).
+        # The cotangent in the kernels' plane-major layout: one volume copy
+        # for a parity cotangent (the transpose the JAX op pays at
+        # pallas_zncc.py:527-529), none for the permuted view of a
+        # plane-major one that stereo_matching_hdw's backward hands over.
         g = grad.permute(0, 3, 1, 2).contiguous()
         vol = cost.permute(0, 3, 1, 2)
         if want_cam:
@@ -130,6 +140,32 @@ def stereo_matching(camera: torch.Tensor, projector: torch.Tensor,
     return cost[0] if single else cost
 
 
+def stereo_matching_hdw(camera: torch.Tensor, projector: torch.Tensor,
+                        num_disparities: int, kernel_size: int = 15,
+                        epsilon: float = EPSILON,
+                        grad_projector: bool = False) -> torch.Tensor:
+    """Differentiable banded ZNCC volume in the plane-major layout:
+    ``[H, W]`` or ``[B, H, W]`` pairs to the exact ``[D+1, H, W]`` or
+    ``[B, D+1, H, W]`` volume (the counterpart of
+    ``stereo_matching_pallas_hdw``, whose padded extents are TPU geometry).
+    It pairs with :func:`extract_disparity_hdw`, so a training loss needs
+    no permute.
+
+    It is :func:`stereo_matching`'s banded volume with the plane axis moved
+    to the front.  On a CUDA tensor that volume is a permuted view of the
+    plane-major buffer K1 writes, so the result is that buffer as it is;
+    the backward is K2 and, with ``grad_projector``, K7, and the permute
+    of the cotangent it hands them is a view, so no volume is copied.  A
+    CPU tensor takes the plain op.  Without ``grad_projector`` the
+    projector gets no gradient.
+    """
+    if num_disparities is None:
+        raise ValueError("the plane-major op is banded: num_disparities "
+                         "must be an int")
+    return stereo_matching(camera, projector, num_disparities, kernel_size,
+                           epsilon, grad_projector).movedim(-1, -3)
+
+
 __all__ = [
     "DisparityResult",
     "EPSILON",
@@ -138,16 +174,20 @@ __all__ = [
     "camera_grad_allpairs",
     "camera_grad_banded",
     "camera_grad_banded_cuda",
+    "camera_grad_banded_parity_cuda",
     "cost_volume_allpairs_cuda",
     "cost_volume_banded_cuda",
     "disparity_to_depth",
     "extract_disparity",
     "extract_disparity_hdw",
     "forward_allpairs",
+    "parity_to_plane_major",
+    "plane_major_to_parity",
     "projector_grad_banded",
     "projector_grad_banded_cuda",
     "soft_argmax",
     "stereo_matching",
+    "stereo_matching_hdw",
     "stereo_matching_torch",
     "stereo_matching_with_proj_grad",
     "stereo_pipeline_cuda",

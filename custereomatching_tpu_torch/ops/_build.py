@@ -23,6 +23,8 @@ import subprocess
 from pathlib import Path
 from typing import List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -45,20 +47,31 @@ SIGNATURES = {
     # ... as above, with volume, am, s, t after conf
     "custereo_fused_pipeline_train": [_P] * 14 + [_I] * 5 + [_F] * 3
     + [_I, _P],
+    # ... as above, without the volume
+    "custereo_fused_pipeline_train_maps": [_P] * 13 + [_I] * 5 + [_F] * 3
+    + [_I, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
     # a1, bm, grmu, grad, B, H, W, D, k, eps, stream
     "custereo_camera_grad": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # ... as above, without the cost
+    "custereo_camera_grad_recompute": [_P] * 11 + [_I] * 5 + [_F, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, am, mask,
     # conf, s, t, gsoft, gconf, a1, bm, grmu, grad, B, H, W, D, k, eps,
     # beta, unnormalized, stream
     "custereo_fused_pipeline_bwd": [_P] * 18 + [_I] * 5 + [_F] * 2
     + [_I, _P],
+    # ... as above, without the cost
+    "custereo_fused_pipeline_bwd_recompute": [_P] * 17 + [_I] * 5
+    + [_F] * 2 + [_I, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
     # a1p, z2, z3, grad, B, H, W, D, k, eps, stream
     "custereo_projector_grad": [_P] * 12 + [_I] * 5 + [_F, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, out, B, H, W, k,
     # eps, stream
     "custereo_allpairs_volume": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # in, out, B, planes, pixels, stream
+    "custereo_plane_major_to_parity": [_P] * 2 + [_I] * 3 + [_P],
+    "custereo_parity_to_plane_major": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 
@@ -151,6 +164,14 @@ def kernels() -> ctypes.CDLL:
     lib.custereo_error_string.argtypes = [ctypes.c_int]
     lib.custereo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(code: int, what: str) -> None:

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from custereomatching_tpu_torch.ops import _build
-from custereomatching_tpu_torch.ops.cuda_zncc import prepare, ptr, stream_of
+from custereomatching_tpu_torch.ops._build import ptr, stream_of
+from custereomatching_tpu_torch.ops.cuda_zncc import prepare
 from custereomatching_tpu_torch.ops.zncc import (
     EPSILON,
     camera_grad_allpairs,

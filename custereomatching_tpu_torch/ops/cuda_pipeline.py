@@ -1,44 +1,50 @@
-"""Wrappers of kernels K3, K3w and K4: the fused stereo pipeline on the
-card, its training forward and its backward.
+"""Wrappers of kernels K3, K3w, K3m, K4 and K5: the fused stereo pipeline
+on the card, its training forwards and its backwards.
 
 The counterpart of ``custereomatching_tpu/ops/pallas_pipeline.py``
 (``PipelineMaps``, ``_unnormalized_head``, ``pallas_stereo_pipeline``,
-i.e. ``_fused_kernel`` with ``write_volume=False``, and
+i.e. ``_fused_kernel`` with ``write_volume=False``;
 ``stereo_pipeline_trainable(save_volume=True)``, i.e. ``_fused_kernel``
-with ``write_volume=True`` plus ``_fused_bwd_c_kernel``).  The kernels are
-``csrc/fused_pipeline.cu`` (K3; K3w is its training variant) and
-``csrc/fused_pipeline_bwd.cu`` (K4).  Each has a plain version here:
+with ``write_volume=True`` plus ``_fused_bwd_c_kernel``; and
+``stereo_pipeline_trainable(save_volume=False)``, i.e. ``_fused_kernel``
+without the volume plus ``_fused_bwd_kernel``).  The kernels are
+``csrc/fused_pipeline.cu`` (K3; K3w and K3m are its training variants,
+with and without the volume) and ``csrc/fused_pipeline_bwd.cu`` (K4, and
+K5, which recomputes the cost).  Each has a plain version here:
 
   * K3: :func:`stereo_pipeline_reference`, the plain volume followed by the
     plain head, which is what the JAX ``xla`` backend computes for
     ``StereoMatcher.disparity_maps``;
-  * K3w: :func:`fused_pipeline_train_reference`, the plain volume and
-    :func:`head_residuals`;
-  * K4: :func:`fused_pipeline_bwd_reference`, :func:`head_cotangent`
-    followed by the closed-form camera VJP.
+  * K3w and K3m: :func:`fused_pipeline_train_reference`, the plain volume
+    and :func:`head_residuals`, the volume kept (K3w) or dropped (K3m);
+  * K4 and K5: :func:`fused_pipeline_bwd_reference`,
+    :func:`head_cotangent` on the residual volume (or, for K5, the plain
+    volume recomputed) followed by the closed-form camera VJP.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-the call raises.  :func:`stereo_pipeline_trainable` is the autograd node
-over K3w and K4; :func:`stereo_pipeline_trainable_reference` is its plain
-twin, the closed-form volume op followed by a head whose backward forms the
-head cotangent explicitly.
+the call raises.  :func:`fused_pipeline_train_cuda` launches K3w or, without
+``save_volume``, K3m; :func:`fused_pipeline_bwd_cuda` launches K4 or, when
+the residuals hold no volume, K5.  :func:`stereo_pipeline_trainable` is the
+autograd node over K3w and K4 (``save_volume=True``) or K3m and K5
+(``False``); :func:`stereo_pipeline_trainable_reference` is its plain twin,
+the closed-form volume op followed by a head whose backward forms the head
+cotangent explicitly.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from custereomatching_tpu_torch.ops import _build
+from custereomatching_tpu_torch.ops._build import ptr, stream_of
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     check_volume,
     grad_scratch,
     prepare,
-    ptr,
     stats_scratch,
-    stream_of,
 )
 from custereomatching_tpu_torch.ops.disparity import extract_disparity
 from custereomatching_tpu_torch.ops.zncc import (
@@ -47,10 +53,6 @@ from custereomatching_tpu_torch.ops.zncc import (
     camera_grad_banded,
     forward_banded,
 )
-
-SAVE_VOLUME_TODO = ("save_volume=False, the volume-free trainable backward "
-                    "(K5), is not ported yet: ROADMAP item 7.3")
-
 
 class PipelineMaps(NamedTuple):
     """Outputs of the fused pipeline (each ``[B, H, W]``).  In the
@@ -128,7 +130,7 @@ stereo_pipeline_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Trainable pipeline: K3w forward, K4 backward
+# Trainable pipeline: K3w forward and K4 backward, or K3m and K5
 # ---------------------------------------------------------------------------
 #
 # With soft = mask t/s and conf = m, the cotangent of cost plane d is
@@ -139,15 +141,17 @@ stereo_pipeline_cuda.launches = 0
 
 
 class HeadResiduals(NamedTuple):
-    """What the trainable backward (K4) reads besides the images and the
-    cotangents (each map ``[B, H, W]``)."""
+    """What the trainable backward (K4 or K5) reads besides the images and
+    the cotangents (each map ``[B, H, W]``)."""
 
     am: torch.Tensor          # raw first argmax (disparity = am * mask)
     mask: torch.Tensor        # the forward's confidence mask
     confidence: torch.Tensor  # max cost m
     s: torch.Tensor           # softmax sum: raw, or relative to e^{beta m}
     t: torch.Tensor           # first moment sum d e^{...}, as s
-    volume: torch.Tensor      # the cost volume, plane-major [B, D+1, H, W]
+    # The cost volume, plane-major [B, D+1, H, W]; None after K3m (K5
+    # recomputes it).
+    volume: Optional[torch.Tensor] = None
 
 
 def head_residuals(cost: torch.Tensor, num_disparities: int, beta: float
@@ -178,17 +182,20 @@ def fused_pipeline_train_reference(camera: torch.Tensor,
                                    kernel_size: int = 15,
                                    epsilon: float = EPSILON,
                                    beta: float = 50.0,
-                                   threshold: float = 0.6
+                                   threshold: float = 0.6,
+                                   save_volume: bool = True
                                    ) -> Tuple[PipelineMaps, HeadResiduals]:
-    """Plain version of K3w: the plain volume and :func:`head_residuals`.
+    """Plain version of K3w and (without ``save_volume``) K3m: the plain
+    volume and :func:`head_residuals`, the volume kept or dropped.
     ``.calls`` counts its uses."""
     fused_pipeline_train_reference.calls += 1
     cost = forward_banded(camera, projector, num_disparities, kernel_size,
                           epsilon)
     am, conf, s, t = head_residuals(cost, num_disparities, beta)
     maps = _maps(am, conf, s, t, threshold)
-    return maps, HeadResiduals(am, maps.mask, conf, s, t,
-                               cost.permute(0, 3, 1, 2))
+    return maps, HeadResiduals(
+        am, maps.mask, conf, s, t,
+        cost.permute(0, 3, 1, 2) if save_volume else None)
 
 
 fused_pipeline_train_reference.calls = 0
@@ -197,41 +204,52 @@ fused_pipeline_train_reference.calls = 0
 def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
                               num_disparities: int, kernel_size: int = 15,
                               epsilon: float = EPSILON, beta: float = 50.0,
-                              threshold: float = 0.6
+                              threshold: float = 0.6,
+                              save_volume: bool = True
                               ) -> Tuple[PipelineMaps, HeadResiduals]:
     """The training forward: the four maps of :func:`stereo_pipeline_cuda`
-    plus the cost volume ``[B, D+1, H, W]`` and the raw argmax, s and t.
-    ``.launches`` counts K3w's launches."""
+    plus the raw argmax, s and t, and with ``save_volume`` the cost volume
+    ``[B, D+1, H, W]`` (K3w), else none (K3m: ``HeadResiduals.volume`` is
+    None).  ``.launches`` counts K3w's launches and ``.maps_launches``
+    K3m's."""
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
         return fused_pipeline_train_reference(camera, projector, D, k,
-                                              epsilon, beta, threshold)
+                                              epsilon, beta, threshold,
+                                              save_volume)
+    what = "K3w" if save_volume else "K3m"
     if camera.device.type != "cuda":
-        raise ValueError(f"K3w runs on CUDA or (plain) CPU tensors, got "
+        raise ValueError(f"{what} runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
     if beta <= 0:
         raise ValueError(f"beta must be > 0, got {beta}")
     lib = _build.kernels()
+    entry = (lib.custereo_fused_pipeline_train if save_volume
+             else lib.custereo_fused_pipeline_train_maps)
     B, H, W = camera.shape
     maps = camera.new_empty((7, B, H, W))
-    volume = camera.new_empty((B, D + 1, H, W))
+    volume = (camera.new_empty((B, D + 1, H, W)),) if save_volume else ()
     scratch = stats_scratch(camera, D)
     with torch.cuda.device(camera.device):
-        code = lib.custereo_fused_pipeline_train(
+        code = entry(
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
-            *(ptr(m) for m in maps[:4]), ptr(volume),
+            *(ptr(m) for m in maps[:4]), *(ptr(v) for v in volume),
             *(ptr(m) for m in maps[4:]), B, H, W, D, k, float(epsilon),
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
             stream_of(camera.device))
-    _build.check(code, "K3w fused pipeline (training) launch")
-    fused_pipeline_train_cuda.launches += 1
+    _build.check(code, f"{what} fused pipeline (training) launch")
+    if save_volume:
+        fused_pipeline_train_cuda.launches += 1
+    else:
+        fused_pipeline_train_cuda.maps_launches += 1
     disparity, soft, mask, conf, am, s, t = maps.unbind(0)
     return (PipelineMaps(disparity, soft, mask, conf),
-            HeadResiduals(am, mask, conf, s, t, volume))
+            HeadResiduals(am, mask, conf, s, t, *volume))
 
 
 fused_pipeline_train_cuda.launches = 0
+fused_pipeline_train_cuda.maps_launches = 0
 
 
 def head_cotangent(cost: torch.Tensor, am: torch.Tensor, mask: torch.Tensor,
@@ -259,30 +277,50 @@ def fused_pipeline_bwd_reference(camera: torch.Tensor,
                                  num_disparities: int, kernel_size: int = 15,
                                  epsilon: float = EPSILON,
                                  beta: float = 50.0) -> torch.Tensor:
-    """Plain version of K4: :func:`head_cotangent`, then the closed-form
-    camera VJP.  ``.calls`` counts its uses."""
+    """Plain version of K4 and K5: :func:`head_cotangent` on the residual
+    volume (K4) or, when ``residuals.volume`` is None, on the plain volume
+    recomputed (K5); then the closed-form camera VJP.  ``.calls`` counts
+    its uses."""
     fused_pipeline_bwd_reference.calls += 1
-    D = int(num_disparities)
+    D, k = int(num_disparities), int(kernel_size)
     r = residuals
-    g = head_cotangent(r.volume.permute(0, 2, 3, 1), r.am, r.mask,
-                       r.confidence, r.s, r.t, gsoft, gconf, beta,
-                       unnormalized_head(beta, D))
-    return camera_grad_banded(camera, projector, g, D, kernel_size, epsilon)
+    cost = (forward_banded(camera, projector, D, k, epsilon)
+            if r.volume is None else r.volume.permute(0, 2, 3, 1))
+    g = head_cotangent(cost, r.am, r.mask, r.confidence, r.s, r.t, gsoft,
+                       gconf, beta, unnormalized_head(beta, D))
+    return camera_grad_banded(camera, projector, g, D, k, epsilon)
 
 
 fused_pipeline_bwd_reference.calls = 0
 
 
-def _check_maps(camera: torch.Tensor, **maps: torch.Tensor):
+def _check_maps(camera: torch.Tensor, what: str, **maps: torch.Tensor):
     out = []
     for name, m in maps.items():
         if (tuple(m.shape) != tuple(camera.shape) or m.dtype != camera.dtype
                 or m.device != camera.device):
-            raise ValueError(f"K4 {name}: expected {tuple(camera.shape)} "
-                             f"{camera.dtype} on {camera.device}, got "
-                             f"{tuple(m.shape)} {m.dtype} on {m.device}")
+            raise ValueError(f"{what} {name}: expected "
+                             f"{tuple(camera.shape)} {camera.dtype} on "
+                             f"{camera.device}, got {tuple(m.shape)} "
+                             f"{m.dtype} on {m.device}")
         out.append(m.contiguous())
     return out
+
+
+# K5's planes block holds the halo'd tiles of camera_grad.cuh's recompute
+# beside the head's six maps: at one plane per projector staging it needs
+# 56,108 floats at k = 27 and 60,464 at k = 29, past the 58,112 floats
+# (227 KB) a block may have on an H100.  Below that any D runs: the
+# projector tile is staged in as many disparity chunks as it takes.
+K5_MAX_KERNEL_SIZE = 27
+
+
+def _check_k5_kernel_size(k: int) -> None:
+    if k > K5_MAX_KERNEL_SIZE:
+        raise ValueError(
+            f"K5 (the volume-free backward) takes kernel_size <= "
+            f"{K5_MAX_KERNEL_SIZE} (its block's shared memory), got {k}; "
+            f"save_volume=True runs K4 instead")
 
 
 def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
@@ -293,51 +331,69 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
                             beta: float = 50.0) -> torch.Tensor:
     """Camera gradient ``[B, H, W]`` of the trainable pipeline from the
     forward's residuals and the soft-disparity and confidence cotangents.
-    ``.launches`` counts K4's launches."""
+
+    On a CUDA tensor this launches K4, which reads ``residuals.volume``,
+    or, when that is None (K3m's residuals), K5, which recomputes each cost
+    plane from the images; K5 takes ``kernel_size`` up to
+    ``K5_MAX_KERNEL_SIZE``.  ``.launches`` counts K4's launches and
+    ``.recompute_launches`` K5's.
+    """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
         return fused_pipeline_bwd_reference(camera, projector, residuals,
                                             gsoft, gconf, D, k, epsilon,
                                             beta)
-    if camera.device.type != "cuda":
-        raise ValueError(f"K4 runs on CUDA or (plain) CPU tensors, got "
-                         f"{camera.device}")
     r = residuals
-    volume = check_volume(r.volume, camera, D, "K4 cost")
-    head = _check_maps(camera, am=r.am, mask=r.mask, conf=r.confidence,
+    free = r.volume is None
+    what = "K5" if free else "K4"
+    if camera.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or (plain) CPU tensors, got "
+                         f"{camera.device}")
+    if free:
+        _check_k5_kernel_size(k)
+    head = _check_maps(camera, what, am=r.am, mask=r.mask, conf=r.confidence,
                        s=r.s, t=r.t, gsoft=gsoft, gconf=gconf)
+    volume = () if free else (check_volume(r.volume, camera, D, "K4 cost"),)
     lib = _build.kernels()
+    entry = (lib.custereo_fused_pipeline_bwd_recompute if free
+             else lib.custereo_fused_pipeline_bwd)
     B, H, W = camera.shape
     grad = camera.new_empty((B, H, W))
     scratch = grad_scratch(camera, D)
     with torch.cuda.device(camera.device):
-        code = lib.custereo_fused_pipeline_bwd(
+        code = entry(
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
-            ptr(volume), *(ptr(m) for m in head),
+            *(ptr(v) for v in volume), *(ptr(m) for m in head),
             *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
             float(epsilon), float(beta), int(unnormalized_head(beta, D)),
             stream_of(camera.device))
-    _build.check(code, "K4 fused pipeline backward launch")
-    fused_pipeline_bwd_cuda.launches += 1
+    _build.check(code, f"{what} fused pipeline backward launch")
+    if free:
+        fused_pipeline_bwd_cuda.recompute_launches += 1
+    else:
+        fused_pipeline_bwd_cuda.launches += 1
     return grad
 
 
 fused_pipeline_bwd_cuda.launches = 0
+fused_pipeline_bwd_cuda.recompute_launches = 0
 
 
 class _TrainablePipeline(torch.autograd.Function):
-    """K3w forward, K4 backward: the counterpart of ``_fused_train_v``.  The
-    residuals are the images, the maps and the cost volume; the projector
-    gets no gradient."""
+    """K3w forward and K4 backward (``save_volume``), the counterpart of
+    ``_fused_train_v``; or K3m and K5, the counterpart of ``_fused_train``.
+    The residuals are the images, the head's maps and, with
+    ``save_volume``, the cost volume; the projector gets no gradient."""
 
     @staticmethod
     def forward(ctx, camera, projector, num_disparities, kernel_size,
-                epsilon, beta, threshold):
+                epsilon, beta, threshold, save_volume):
         maps, res = fused_pipeline_train_cuda(
             camera, projector, num_disparities, kernel_size, epsilon, beta,
-            threshold)
-        ctx.save_for_backward(camera, projector, *res)
+            threshold, save_volume)
+        ctx.save_for_backward(camera, projector,
+                              *(res if save_volume else res[:5]))
         ctx.args = (num_disparities, kernel_size, epsilon, beta)
         ctx.mark_non_differentiable(maps.disparity, maps.mask)
         return tuple(maps)
@@ -347,12 +403,10 @@ class _TrainablePipeline(torch.autograd.Function):
         camera, projector, *res = ctx.saved_tensors
         grad = fused_pipeline_bwd_cuda(camera, projector, HeadResiduals(*res),
                                        g_soft, g_conf, *ctx.args)
-        return grad, None, None, None, None, None, None
+        return grad, None, None, None, None, None, None, None
 
 
-def _check_trainable(camera: torch.Tensor, save_volume: bool) -> None:
-    if not save_volume:
-        raise NotImplementedError(SAVE_VOLUME_TODO)
+def _check_trainable(camera: torch.Tensor) -> None:
     if camera.ndim != 3:
         raise ValueError(f"expected [B, H, W] images, got "
                          f"{tuple(camera.shape)}")
@@ -365,17 +419,21 @@ def stereo_pipeline_trainable(camera: torch.Tensor, projector: torch.Tensor,
                               save_volume: bool = True) -> PipelineMaps:
     """Differentiable fused pipeline: ``[B, H, W]`` pairs to four maps.
 
-    The forward (K3w) writes the cost volume as the backward's residual,
-    and the backward (K4) forms the head cotangent plane by plane, so the
-    cost-volume cotangent never exists in device memory.  Camera gradients
-    flow through ``soft_disparity`` and ``confidence``; the projector gets
-    none.  ``save_volume=False`` (the volume-free backward, K5) is not
-    ported and raises ``NotImplementedError``.
+    With ``save_volume`` (the default) the forward (K3w) writes the cost
+    volume as the backward's residual; without it the forward (K3m) writes
+    only the maps and the backward (K5) recomputes each cost plane from the
+    images, so no volume exists in device memory in either direction; on
+    the card that takes ``kernel_size`` up to ``K5_MAX_KERNEL_SIZE``.  The
+    backward forms the head cotangent plane by plane, so the cost-volume
+    cotangent never exists in device memory.  Camera gradients flow through
+    ``soft_disparity`` and ``confidence``; the projector gets none.
     """
-    _check_trainable(camera, save_volume)
+    _check_trainable(camera)
+    if not save_volume and camera.device.type == "cuda":
+        _check_k5_kernel_size(int(kernel_size))
     return PipelineMaps(*_TrainablePipeline.apply(
         camera, projector, int(num_disparities), int(kernel_size), epsilon,
-        beta, threshold))
+        beta, threshold, bool(save_volume)))
 
 
 class _TrainableHead(torch.autograd.Function):
@@ -409,8 +467,11 @@ def stereo_pipeline_trainable_reference(camera: torch.Tensor,
                                         ) -> PipelineMaps:
     """Plain twin of :func:`stereo_pipeline_trainable`: the closed-form
     volume op, then the head of :func:`head_cotangent`, each an autograd
-    node.  ``.calls`` counts its uses."""
-    _check_trainable(camera, save_volume)
+    node.  ``save_volume`` is accepted only to match the kernel node's
+    signature: it chooses what the kernels keep, and the plain ops compute
+    the same values and gradients either way.  ``.calls`` counts its
+    uses."""
+    _check_trainable(camera)
     stereo_pipeline_trainable_reference.calls += 1
     D = int(num_disparities)
     cost = StereoMatchingFunction.apply(camera, projector, D,

@@ -1,23 +1,25 @@
-"""Wrappers of kernels K1, K2 and K7: the banded ZNCC cost volume on the
-card, its camera VJP and its projector VJP.
+"""Wrappers of kernels K1, K2, K6 and K7: the banded ZNCC cost volume on
+the card, its camera VJP with and without the cost residual, and its
+projector VJP.
 
-The counterparts of ``custereomatching_tpu/ops/pallas_zncc.py`` and of the
-with-cost kernels of ``pallas_zncc_bwd.py``.  The kernels are
-``csrc/zncc_banded.cu``, ``csrc/zncc_banded_bwd.cu`` and
-``csrc/zncc_banded_proj_bwd.cu``; their plain versions are
-:func:`.zncc.forward_banded`, :func:`.zncc.camera_grad_banded` and
+The counterparts of ``custereomatching_tpu/ops/pallas_zncc.py`` and of
+``pallas_zncc_bwd.py``.  The kernels are ``csrc/zncc_banded.cu`` (K1),
+``csrc/zncc_banded_bwd.cu`` (K2 and K6) and ``csrc/zncc_banded_proj_bwd.cu``
+(K7); their plain versions are :func:`.zncc.forward_banded`,
+:func:`.zncc.camera_grad_banded` (for K2 and K6) and
 :func:`.zncc.projector_grad_banded`.  A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or the call raises.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from custereomatching_tpu_torch.ops import _build
+from custereomatching_tpu_torch.ops._build import ptr, stream_of
+from custereomatching_tpu_torch.ops.layout import parity_to_plane_major
 from custereomatching_tpu_torch.ops.zncc import (
     EPSILON,
     camera_grad_banded,
@@ -62,14 +64,6 @@ def stats_scratch(camera: torch.Tensor, num_disparities: int):
     cam = camera.new_empty((2, B, H, W))
     proj = camera.new_empty((2, B, H, W + num_disparities))
     return cam[0], cam[1], proj[0], proj[1]
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream_of(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
@@ -121,52 +115,88 @@ def check_volume(volume: torch.Tensor, camera: torch.Tensor,
 
 
 def grad_scratch(camera: torch.Tensor, num_disparities: int):
-    """Scratch of the camera-VJP kernels (K2, K4): the statistics of
+    """Scratch of the camera-VJP kernels (K2, K4, K5, K6): the statistics of
     :func:`stats_scratch`, then the A1, B and GRMU fields ``[B, H, W]``."""
     fields = camera.new_empty((3,) + tuple(camera.shape))
     return stats_scratch(camera, num_disparities) + tuple(fields.unbind(0))
 
 
 def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
-                            cost: torch.Tensor, cotangent: torch.Tensor,
+                            cost: Optional[torch.Tensor],
+                            cotangent: torch.Tensor,
                             num_disparities: int, kernel_size: int = 15,
                             epsilon: float = EPSILON) -> torch.Tensor:
     """Camera VJP of the banded volume: ``[B, H, W]`` pairs, the forward
-    volume and its cotangent, both plane-major ``[B, D+1, H, W]``, to a
-    ``[B, H, W]`` gradient.
+    volume (or None) and its cotangent, both plane-major
+    ``[B, D+1, H, W]``, to a ``[B, H, W]`` gradient; with ``cost=None`` the
+    JAX ``pallas_camera_grad_banded_hdw``, else its ``_with_cost`` form.
 
     On a CUDA tensor this launches K2, which reads the cost as a residual
-    (``n r = c``: no cross-term recompute).  A CPU tensor takes the plain
-    closed form, which recomputes the cost.  ``.launches`` counts K2's
-    launches.
+    (``n r = c``: no cross-term recompute), or, with ``cost=None``, K6,
+    which recomputes each cost plane from the images.  A CPU tensor takes
+    the plain closed form, which recomputes the cost.  ``.launches`` counts
+    K2's launches and ``.recompute_launches`` K6's.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
-    cost = check_volume(cost, camera, D, "K2 cost")
-    cotangent = check_volume(cotangent, camera, D, "K2 cotangent")
+    what = "K6" if cost is None else "K2"
+    cotangent = check_volume(cotangent, camera, D, f"{what} cotangent")
+    volume = () if cost is None else (check_volume(cost, camera, D,
+                                                   "K2 cost"),)
     if camera.device.type == "cpu":
         return camera_grad_banded(camera, projector,
                                   cotangent.permute(0, 2, 3, 1), D, k,
                                   epsilon)
     if camera.device.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA or (plain) CPU tensors, got "
+        raise ValueError(f"{what} runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
     lib = _build.kernels()
+    entry = (lib.custereo_camera_grad_recompute if cost is None
+             else lib.custereo_camera_grad)
     B, H, W = camera.shape
     grad = camera.new_empty((B, H, W))
     scratch = grad_scratch(camera, D)
     with torch.cuda.device(camera.device):
-        code = lib.custereo_camera_grad(
+        code = entry(
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
-            ptr(cost), ptr(cotangent), *(ptr(s) for s in scratch[4:]),
-            ptr(grad), B, H, W, D, k, float(epsilon),
-            stream_of(camera.device))
-    _build.check(code, "K2 camera VJP launch")
-    camera_grad_banded_cuda.launches += 1
+            *(ptr(v) for v in volume), ptr(cotangent),
+            *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
+            float(epsilon), stream_of(camera.device))
+    _build.check(code, f"{what} camera VJP launch")
+    if cost is None:
+        camera_grad_banded_cuda.recompute_launches += 1
+    else:
+        camera_grad_banded_cuda.launches += 1
     return grad
 
 
 camera_grad_banded_cuda.launches = 0
+camera_grad_banded_cuda.recompute_launches = 0
+
+
+def camera_grad_banded_parity_cuda(camera: torch.Tensor,
+                                   projector: torch.Tensor,
+                                   cotangent: torch.Tensor,
+                                   num_disparities: int,
+                                   kernel_size: int = 15,
+                                   epsilon: float = EPSILON) -> torch.Tensor:
+    """Camera VJP of the banded volume from a parity ``[B, H, W, D+1]``
+    cotangent, with no forward volume (the JAX
+    ``pallas_camera_grad_banded``): on a CUDA tensor K9b stages the
+    cotangent plane-major, then K6 runs.  A CPU tensor takes the plain
+    closed form on the cotangent as it is."""
+    D, k = int(num_disparities), int(kernel_size)
+    camera, projector = prepare(camera, projector, D, k)
+    want = tuple(camera.shape) + (D + 1,)
+    if tuple(cotangent.shape) != want:
+        raise ValueError(f"K6 cotangent: expected a parity volume {want}, "
+                         f"got {tuple(cotangent.shape)}")
+    if camera.device.type == "cpu":
+        return camera_grad_banded(camera, projector, cotangent, D, k,
+                                  epsilon)
+    return camera_grad_banded_cuda(camera, projector, None,
+                                   parity_to_plane_major(cotangent), D, k,
+                                   epsilon)
 
 
 def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,

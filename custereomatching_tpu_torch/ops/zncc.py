@@ -13,6 +13,12 @@ Numerical contract: windows read zeros outside the image, means divide
 by k^2 including the padding, and
 ``cost = (exy + eps) / sqrt(ex2 * ey2 + eps)`` in fp32.
 
+The forwards take ``1 / sqrt`` as ``torch.rsqrt``.  ``torch.sqrt`` of a
+large CPU tensor runs a vector-math library routine (MKL's, in MKL
+builds) whose first call in a process has returned one thread's chunk
+inexact, costs off by up to 2e-4; ``rsqrt`` is PyTorch's own division by
+an exact square root.
+
 Window sums are k shifted-slice adds over a zero-padded tensor, rows then
 columns.  ``F.conv2d`` is avoided on purpose: cuDNN runs fp32
 convolutions in TF32 by default, which would spoil every comparison on
@@ -118,8 +124,7 @@ def forward_banded(camera: torch.Tensor, projector: torch.Tensor,
     forward_banded.calls += 1
     _, ex2, _, ey2_band, _, exy, _ = _banded_stats(
         camera, projector, int(num_disparities), int(kernel_size))
-    deno = torch.sqrt(ex2[..., None] * ey2_band + epsilon)
-    return (exy + epsilon) / deno
+    return (exy + epsilon) * torch.rsqrt(ex2[..., None] * ey2_band + epsilon)
 
 
 forward_banded.calls = 0
@@ -153,8 +158,8 @@ def forward_allpairs(camera: torch.Tensor, projector: torch.Tensor,
     sy, ey2 = _image_moments(projector, k)
     exy = (_allpairs_cross(camera, projector, k)
            - sx[..., :, None] * sy[..., None, :] / k2)
-    deno = torch.sqrt(ex2[..., :, None] * ey2[..., None, :] + epsilon)
-    return (exy + epsilon) / deno
+    return (exy + epsilon) * torch.rsqrt(ex2[..., :, None] * ey2[..., None, :]
+                                         + epsilon)
 
 
 forward_allpairs.calls = 0

@@ -14,15 +14,29 @@ speckle frame and prints its lines, then one JSON object:
   profiler adds host work, so that share bounds the unprofiled run's
   from above; ``1 - busy / step`` against the unprofiled step is printed
   as an estimate (negative where the profiled kernels ran longer).
+* ``free``: the volume-free train step (``stereo_pipeline_trainable``
+  with ``save_volume=False``: K3m, the soft-disparity MSE, K5, Adam),
+  profiled the same way.
 * ``volume``: the volume path's step (``StereoMatcher.__call__``, the
   soft-disparity MSE, its backward through the plain head and K2),
   profiled the same way; copies are the kernels named ``*copy*``.
-* ``k3``: device time of the serving K3 (CUDA events).  To compare two
-  checkouts in one run, run this file by its path with ``PYTHONPATH`` set
-  to each checkout in turn: the package is then imported from there.
+* ``hdw``: the same step in the plane-major layout
+  (``stereo_matching_hdw``, ``extract_disparity_hdw``: K1, the plain head
+  over the planes, K2 reading the cotangent as it comes).
+* ``k3``: device time of the serving K3 (CUDA events).
+* ``engine``: host-clock latency of ``StereoEngine.infer`` on KITTI
+  frames, as ``chip_smoke.py``'s serving phase measures it.
+* ``allpairs``: the all-pairs step at 330x422, k=15 (the default
+  ``StereoConfig``), its first call and the median of warm ones.
+* ``launch``: the host time of one call of the K3w and of the K4 wrapper
+  (their kernels enqueued, not waited for) at KITTI size.
 * ``build``: wall time of the kernel build as the port makes it (one
   nvcc per source, all started together, then a link) and as a single
   nvcc over every source, alternated, each into an empty directory.
+
+To compare two checkouts in one run (``train``, ``k3``, ``engine``,
+``allpairs``, ``launch``), run this file by its path with ``PYTHONPATH``
+set to each checkout in turn: the package is then imported from there.
 
 Needs a CUDA card and nvcc.
 """
@@ -170,6 +184,29 @@ def mode_train() -> dict:
     return profile_steps("train", step)
 
 
+def mode_free() -> dict:
+    from custereomatching_tpu_torch.models import adam, init_state
+    from custereomatching_tpu_torch.ops.cuda_pipeline import (
+        stereo_pipeline_trainable,
+    )
+
+    model, camera0, proj, target = scene()
+    cfg = model.config
+    state = init_state(camera0, adam(1e-3))
+
+    def step():
+        state.optimizer.zero_grad(set_to_none=True)
+        maps = stereo_pipeline_trainable(
+            state.camera, proj, cfg.num_disparities, cfg.kernel_size,
+            cfg.epsilon, cfg.softargmax_beta, cfg.cost_threshold,
+            save_volume=False)
+        err = maps.soft_disparity - target
+        torch.mean(err * err).backward()
+        state.optimizer.step()
+
+    return profile_steps("free", step)
+
+
 def mode_volume() -> dict:
     model, camera0, proj, target = scene()
     camera = camera0.clone().requires_grad_(True)
@@ -180,6 +217,28 @@ def mode_volume() -> dict:
         torch.mean(err * err).backward()
 
     return profile_steps("volume", step)
+
+
+def mode_hdw() -> dict:
+    from custereomatching_tpu_torch.ops import (
+        extract_disparity_hdw,
+        stereo_matching_hdw,
+    )
+
+    H, W, D, k = KITTI
+    model, camera0, proj, target = scene()
+    cfg = model.config
+    camera = camera0.clone().requires_grad_(True)
+
+    def step():
+        camera.grad = None
+        vol = stereo_matching_hdw(camera, proj, D, k, cfg.epsilon)
+        r = extract_disparity_hdw(vol, D, H, W, cfg.cost_threshold,
+                                  cfg.softargmax_beta)
+        err = r.soft_disparity - target
+        torch.mean(err * err).backward()
+
+    return profile_steps("hdw", step)
 
 
 def mode_k3() -> dict:
@@ -193,6 +252,90 @@ def mode_k3() -> dict:
     print(f"k3: serving K3 from {Path(_build.__file__).parents[2]}: "
           f"medians {' '.join(f'{m:.4f}' for m in ms)} ms")
     return {"k3_ms": ms}
+
+
+def mode_engine() -> dict:
+    """Host-clock latency of ``StereoEngine.infer`` (numpy in, numpy out)
+    on KITTI frames in the 384x1280 bucket, as ``chip_smoke.py``'s serving
+    phase times it: three rounds of 8 frames after the warm-up."""
+    from custereomatching_tpu_torch.models.engine import StereoEngine
+
+    H, W, D, k = KITTI
+    engine = StereoEngine(StereoConfig(kernel_size=k, num_disparities=D),
+                          buckets=[(384, 1280)], device="cuda")
+    engine.warmup()
+    frames = [make_stereo_pair(H, W, d_min=4.0, d_max=184.0, seed=40 + i)
+              for i in range(8)]
+    rounds = []
+    for _ in range(3):
+        latency = []
+        for cam, proj, _ in frames:
+            t0 = time.perf_counter()
+            engine.infer(cam, proj)
+            latency.append(time.perf_counter() - t0)
+        rounds.append(1e3 * float(np.median(latency)))
+    print(f"engine: infer host-clock median of 8 frames, three rounds: "
+          f"{' '.join(f'{m:.3f}' for m in rounds)} ms")
+    return {"engine_infer_ms": rounds}
+
+
+def mode_allpairs() -> dict:
+    """The all-pairs step of ``chip_smoke.py`` (the default all-pairs
+    ``StereoMatcher`` at 330x422, k=15: K8, plain head, the mean soft
+    disparity's backward through the plain VJP): its first call, then the
+    host-clock median of ``STEPS`` more, each synchronised."""
+    H, W, k = 330, 422, 15
+    model = StereoMatcher(StereoConfig(kernel_size=k, backend="cuda"))
+    cam_np, proj_np, _ = make_stereo_pair(H, W, d_min=2.0, d_max=12.0,
+                                          noise=0.01, seed=0)
+    proj = torch.from_numpy(proj_np[None]).cuda()
+    times = []
+    for _ in range(1 + STEPS):
+        cam = torch.from_numpy(cam_np[None]).cuda().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(cam, proj).soft_disparity.mean().backward()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    warm = float(np.median(times[1:]))
+    print(f"allpairs: step host clock, first call {times[0]:.3f} ms, then "
+          f"median {warm:.3f} ms over {STEPS}")
+    return {"allpairs_first_ms": times[0], "allpairs_step_ms": warm}
+
+
+def mode_launch() -> dict:
+    """Host cost of the train step's kernel wrappers: the host-clock time
+    of one call of the K3w wrapper and of the K4 wrapper, each call only
+    enqueuing its kernels (no synchronisation inside the timed call),
+    median of 200 calls, each preceded by a synchronisation."""
+    from custereomatching_tpu_torch.ops.cuda_pipeline import (
+        fused_pipeline_bwd_cuda,
+        fused_pipeline_train_cuda,
+    )
+
+    H, W, D, k = KITTI
+    _, camera0, proj, _ = scene()
+    fwd = (camera0, proj, D, k, 1e-8, 50.0, 0.6)
+    gen = torch.Generator("cuda").manual_seed(0)
+    gs = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
+    gc = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
+    res = fused_pipeline_train_cuda(*fwd)[1]
+    bwd = (camera0, proj, res, gs, gc, D, k, 1e-8, 50.0)
+    out = {}
+    for name, fn, args in (("k3w", fused_pipeline_train_cuda, fwd),
+                           ("k4", fused_pipeline_bwd_cuda, bwd)):
+        times = []
+        for _ in range(200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append(1e6 * (time.perf_counter() - t0))
+        out[f"{name}_host_us"] = float(np.median(times))
+    torch.cuda.synchronize()
+    print(f"launch: host time of one call (enqueue only), median of 200: "
+          f"K3w wrapper {out['k3w_host_us']:.1f} us, K4 wrapper "
+          f"{out['k4_host_us']:.1f} us")
+    return out
 
 
 def mode_build() -> dict:
@@ -224,7 +367,9 @@ def mode_build() -> dict:
     return {f"build_{how}_s": t for how, t in times.items()}
 
 
-MODES = {"train": mode_train, "volume": mode_volume, "k3": mode_k3,
+MODES = {"train": mode_train, "free": mode_free, "volume": mode_volume,
+         "hdw": mode_hdw, "k3": mode_k3, "engine": mode_engine,
+         "allpairs": mode_allpairs, "launch": mode_launch,
          "build": mode_build}
 
 

@@ -2,7 +2,6 @@
 and the timer, held against the JAX package on the CPU."""
 
 import dataclasses
-import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,10 +22,9 @@ from custereomatching_tpu_torch import (
     config_from_jax,
 )
 from custereomatching_tpu_torch.data import synthetic
+from custereomatching_tpu_torch.examples import train as train_example
+from custereomatching_tpu_torch.examples import verify as verify_example
 from custereomatching_tpu_torch.models import entry
-from custereomatching_tpu_torch.ops.cuda_pipeline import (
-    stereo_pipeline_trainable,
-)
 from custereomatching_tpu_torch.utils import fence
 
 
@@ -128,20 +126,61 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("call,item", [
-    ("save_volume", "7.3"), ("disparity_maps_lr", "11"),
-    ("sharded_cost_volume", "13"), ("sharded_apply", "13"),
+    ("disparity_maps_lr", "11"), ("sharded_cost_volume", "13"),
+    ("sharded_apply", "13"),
 ])
 def test_unported_model_paths_raise(call, item):
     x = torch.zeros((1, 6, 8))
-    if call == "save_volume":
-        # The volume-free trainable backward (K5).
-        fn = functools.partial(stereo_pipeline_trainable,
-                               num_disparities=2, kernel_size=3,
-                               save_volume=False)
-    else:
-        fn = getattr(StereoMatcher(StereoConfig(num_disparities=2)), call)
+    fn = getattr(StereoMatcher(StereoConfig(num_disparities=2)), call)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         fn(x, x)
+
+
+def _train_argv(tmp_path):
+    return ["--height", "12", "--width", "32", "--frames", "1", "-D", "4",
+            "-k", "3", "--steps", "1", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "1"]
+
+
+_VERIFY_ARGV = ["--height", "12", "--width", "24", "-D", "4", "-k", "3",
+                "--skip-allpairs"]
+_ENGINE_CFG = StereoConfig(kernel_size=3, num_disparities=2)
+
+
+def _entry_ran_on_cpu(tmp_path) -> bool:
+    forward, args = entry("cpu")
+    soft = forward(*args)
+    return soft.device.type == "cpu" and tuple(soft.shape) == (1, 96, 160)
+
+
+def _engine_ran_on_cpu(tmp_path) -> bool:
+    engine = StereoEngine(_ENGINE_CFG, buckets=[(8, 16)], device="cpu")
+    return engine.infer(np.zeros((6, 10)), np.zeros((6, 10))).mask.shape \
+        == (6, 10)
+
+
+def _train_ran_on_cpu(tmp_path) -> bool:
+    train_example.main(_train_argv(tmp_path) + ["--device", "cpu"])
+    return (tmp_path / "step_00000001.pt").is_file()
+
+
+@pytest.mark.parametrize("run,run_cpu", [
+    (lambda tmp: entry(), _entry_ran_on_cpu),
+    (lambda tmp: StereoEngine(_ENGINE_CFG), _engine_ran_on_cpu),
+    (lambda tmp: train_example.main(_train_argv(tmp)), _train_ran_on_cpu),
+    (lambda tmp: verify_example.main(_VERIFY_ARGV),
+     lambda tmp: verify_example.main(_VERIFY_ARGV + ["--device", "cpu"])
+     == 0),
+], ids=["entry", "engine", "train", "verify"])
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(
+        run, run_cpu, monkeypatch, tmp_path):
+    """entry(), StereoEngine and the two examples run on the card by
+    default: without one they raise, naming the CPU option, and with the
+    CPU asked for they run there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"|--device cpu'):
+        run(tmp_path)
+    assert run_cpu(tmp_path)
 
 
 @pytest.mark.parametrize("kwargs", [

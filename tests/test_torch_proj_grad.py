@@ -220,7 +220,7 @@ def test_camera_only_default_gives_no_projector_grad():
 
 def test_verify_example_passes_on_cpu(capsys):
     assert verify_example.main(["--height", "16", "--width", "32", "-D",
-                                "6", "-k", "5"]) == 0
+                                "6", "-k", "5", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "VERIFY: PASS" in out and "FAIL" not in out
     assert "K7 vs plain" in out and "K8 vs plain" in out

@@ -352,7 +352,8 @@ def test_video_batch_and_metrics_match_jax():
 
 def test_trainer_example_checkpoint_and_resume(tmp_path, capsys):
     argv = ["--height", "16", "--width", "40", "--frames", "1", "-D", "5",
-            "-k", "5", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+            "-k", "5", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1",
+            "--device", "cpu"]
     train_example.main(argv + ["--steps", "2"])
     out = capsys.readouterr().out
     assert "checkpointed step 2" in out and "final disparity" in out
