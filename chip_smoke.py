@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch / CUDA port: the serving path, the
 training path, the all-pairs path, the projector-gradient path, the
-volume-free training path, the plane-major path and the camera VJP
-without the cost residual.
+volume-free training path, the plane-major path, the camera VJP
+without the cost residual and the bound model's rate probes.
 
     python3 chip_smoke.py
 
@@ -72,11 +72,23 @@ imports nothing of JAX.  Phases, each printing its lines:
 20. the camera VJP without the cost residual at KITTI, counters reset: K1's
     plane-major volume, K9a to parity, the plain head's cotangent, K9b and
     K6; each once, the gradient against the plain closed form;
-21. device times of every kernel, its plain version and, for K9a/b, the
-    one PyTorch call that computes the same function: K8 at 330x422, the
-    others at KITTI size; beside each its bound, the larger of its bytes
-    over 3.35 TB/s and the least operations its function needs (window
-    sums taken separably) over 67 TFLOP/s.
+21. K10a (the op-class rate probe, every mode, a small launch and its
+    measuring size) against its plain twin within rtol 1e-5, K10b (HBM
+    read) within rtol 1e-5 and K10c (HBM write) bit-equal, at KITTI's
+    volume;
+22. the bound-model path, counters reset: ``measure_vpu_rates(force=True)``
+    (K10a in every mode and K10b and K10c in each of its three rounds,
+    the plain twins never) and the card health probe
+    (``scripts/device_probe.py``, which must pass); each rate printed
+    beside the data sheet;
+23. device times of every kernel, its plain version and the one PyTorch
+    call that computes the same function where there is one (K9a/b,
+    K10b/c): K8 at 330x422, K10a at its madd timing size, the others at
+    KITTI size; beside each its bound, the larger of its bytes over
+    3.35 TB/s and the least operations its function needs (window sums
+    taken separably) over 67 TFLOP/s (``utils/profiling.py``), and its
+    model bound, its counted work priced at the rates of phase 22
+    (``utils/kernel_model.py``), which no kernel may beat.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -144,7 +156,17 @@ from custereomatching_tpu_torch.ops.zncc import (
     forward_banded,
     projector_grad_banded,
 )
+from custereomatching_tpu_torch.scripts import device_probe
 from custereomatching_tpu_torch.utils import benchmark, fence
+from custereomatching_tpu_torch.utils import kernel_model as km
+from custereomatching_tpu_torch.utils.profiling import (
+    PEAK_BYTES,
+    PEAK_FLOPS,
+    allpairs_bound,
+    banded_bounds,
+    bound,
+    card_line,
+)
 
 EPS = 1e-8
 THRESHOLD = 0.6
@@ -176,9 +198,11 @@ K7_SHAPES = [(1, 16, 24, 5, 3), (1, 24, 150, 10, 5), (1, 40, 96, 12, 15),
 # (tests/test_pallas_bwd.py:89) at the small shapes, and a bound on
 # ||got - want|| / ||want|| everywhere (KITTI included).
 GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
-# One H100 SXM (NVIDIA's data sheet): fp32 outside the tensor cores and
-# the HBM3 rate, the two rates a kernel's bound is taken against.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# K10a's modes, and the iterations of its timed madd launch (at the
+# measuring launch's blocks): short enough for the plain twin's
+# 4 x iters elementwise calls.
+K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
+K10A_TIMED_ITERS = 1024
 
 
 def require(ok: bool, what: str) -> None:
@@ -201,20 +225,12 @@ def speckle_frames(n: int, seed: int):
     return [np.stack(x) for x in zip(*pairs)]
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def phase_env() -> str:
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, nvcc '{nvcc.splitlines()[-1]}'")
-    card = smi_line()
+    card = card_line()
     print(f"env: card {card}; torch sees {torch.cuda.device_count()} "
           f"({torch.cuda.get_device_name(0)})")
     return card
@@ -341,9 +357,15 @@ KERNEL_COUNTERS = {
     "k3m": (fused_pipeline_train_cuda, "maps_launches"),
     "k5": (fused_pipeline_bwd_cuda, "recompute_launches"),
     "k9a": (plane_major_to_parity, "launches"),
-    "k9b": (parity_to_plane_major, "launches")}
+    "k9b": (parity_to_plane_major, "launches"),
+    "k10a": (km.rate_probe, "launches"),
+    "k10b": (km.hbm_read_probe, "launches"),
+    "k10c": (km.hbm_write_probe, "launches")}
 # Plain twins of kernels: no main path may call them.
 PLAIN_COUNTERS = {
+    "plain_rate_probe": km.rate_probe_reference,
+    "plain_hbm_read": km.hbm_read_reference,
+    "plain_hbm_write": km.hbm_write_reference,
     "plain_volume": forward_banded,
     "plain_pipeline": stereo_pipeline_reference,
     "plain_vjp": camera_grad_banded,
@@ -362,6 +384,7 @@ PATH_PLAIN_COUNTERS = {"allpairs_vjp": camera_grad_allpairs}
 def reset_counters() -> None:
     for fn, attr in KERNEL_COUNTERS.values():
         setattr(fn, attr, 0)
+    km.rate_probe.mode_launches = dict.fromkeys(K10A_MODES, 0)
     for fn in (*PLAIN_COUNTERS.values(), *PATH_PLAIN_COUNTERS.values()):
         fn.calls = 0
 
@@ -369,6 +392,8 @@ def reset_counters() -> None:
 def read_counters() -> dict:
     counts = {name: getattr(fn, attr)
               for name, (fn, attr) in KERNEL_COUNTERS.items()}
+    counts.update({f"k10a_{mode}": n
+                   for mode, n in km.rate_probe.mode_launches.items()})
     counts.update({name: fn.calls for name, fn in PLAIN_COUNTERS.items()})
     counts.update({name: fn.calls
                    for name, fn in PATH_PLAIN_COUNTERS.items()})
@@ -1187,6 +1212,85 @@ def phase_no_residual_path() -> dict:
     return counts
 
 
+def compare_probe(got, want, rtol: float, label: str) -> float:
+    """A K10 probe's output against its plain twin within ``rtol`` (0:
+    bit-equal); returns max abs."""
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    diff = (got - want).abs()
+    max_rel = float((diff / want.abs().clamp_min(1e-30)).max())
+    print(f"{label}: max_abs {float(diff.max()):.3e} max_rel {max_rel:.3e} "
+          f"(rtol {rtol})")
+    require(torch.equal(got, want) if rtol == 0 else max_rel <= rtol,
+            f"{label}: " + ("bit-equal to its plain twin" if rtol == 0
+                            else f"within rtol {rtol} of its plain twin"))
+    return float(diff.max())
+
+
+def phase_k10() -> dict:
+    """K10a in every mode, at a small launch and at its measuring size;
+    K10b and K10c at KITTI's volume; each against its plain twin."""
+    err = {"K10a": 0.0}
+    for mode in K10A_MODES:
+        for blocks, iters in ((2, 16), km.rate_probe_size(mode)):
+            got = km.rate_probe(mode, iters, blocks)
+            want = km.rate_probe_reference(mode, iters, blocks,
+                                           km.rate_probe_cols(mode), "cuda")
+            err["K10a"] = max(err["K10a"], compare_probe(
+                got, want, 1e-5, f"K10a {mode} blocks={blocks} "
+                f"iters={iters} (value {float(got[0, 0]):.7f})"))
+            require(bool((got == got[0, 0]).all()),
+                    f"K10a {mode}: every chain holds one value")
+            del got, want
+    P, H, W = km.HBM_SHAPE
+    vol = torch.rand(km.HBM_SHAPE, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(10))
+    err["K10b"] = compare_probe(km.hbm_read_probe(vol),
+                                km.hbm_read_reference(vol), 1e-5,
+                                f"K10b plane sums of [{P}, {H}, {W}]")
+    del vol
+    err["K10c"] = compare_probe(km.hbm_write_probe(P, H, W),
+                                km.hbm_write_reference(P, H, W, "cuda"), 0,
+                                f"K10c out[d, h, w] = d over [{P}, {H}, {W}]")
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_bound_model(card: str):
+    """The bound model's path, counters reset: every rate measured anew
+    into the rates cache, then the card health probe against it.
+    Returns (counters, rates)."""
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    rates = km.measure_vpu_rates(force=True, cache_path=str(km.CACHE_PATH))
+    seconds = time.perf_counter() - t0
+    rc = device_probe.main([])
+    counts = read_counters()
+    print(f"bound model: counters {counts}")
+    require(all(counts[f"k10a_{mode}"] >= 3 for mode in K10A_MODES)
+            and counts["k10b"] >= 3 and counts["k10c"] >= 3,
+            "K10a in every mode, K10b and K10c launched in each of three "
+            "rounds")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the bound-model path")
+    require(rc == 0, "device_probe finds the card healthy")
+    print(f"bound model: rates measured in {seconds:.1f} s into "
+          f"{km.CACHE_PATH.relative_to(km.CACHE_PATH.parents[2])}: "
+          f"{json.dumps(rates)}")
+    per_s = {m: 1.0 / rates[m] for m in rates}
+    print(f"rate: madd {2 * per_s['madd'] / 1e12:.3f} TFLOP/s (data sheet "
+          f"{PEAK_FLOPS / 1e12:.0f}); hbm_r3d {per_s['hbm_r3d'] / 1e12:.3f} "
+          f"and hbm_w3d {per_s['hbm_w3d'] / 1e12:.3f} TB/s (data sheet "
+          f"{PEAK_BYTES / 1e12:.2f}); t3d {per_s['t3d'] / 1e12:.3f} and "
+          f"dus3d {per_s['dus3d'] / 1e12:.3f} TB/s read and written; smem "
+          f"{per_s['smem'] / 1e12:.3f} T loads/s; boxadd "
+          f"{per_s['boxadd'] / 1e12:.3f} T pass loads/s; exp "
+          f"{per_s['exp'] / 1e12:.3f} and rsqrt {per_s['rsqrt'] / 1e12:.3f} "
+          f"T results/s ({card})")
+    return counts, rates
+
+
 def timed(label: str, fn, *args) -> float:
     ms = 1e3 * benchmark(fn, *args, warmup=2, iters=10, chain=3)["median_s"]
     print(f"time: {label} median {ms:.4f} ms")
@@ -1216,64 +1320,46 @@ def interleaved(name: str, kernel, plain, kargs, pargs, where: str,
     return ms
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, what bounds it): the least time for ``flops`` fp32 operations
-    and ``nbytes`` moved, each input read once and each output written
-    once, at the data sheet's peaks."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
-
-
-# The least fp32 operations of one volume entry (one pixel and plane, or
-# one pixel and projector column for K8), with every k x k window sum
-# taken separably (k column taps, then k row taps), as the least work the
-# functions need rather than what any kernel does:
-def cost_flops(k: int) -> int:
-    # one product, the window's 2k taps, then (sxy - mux sy + eps) r with
-    # r = rsqrt(ex2 ey2 + eps): 7
-    return 2 * k + 8
-
-
-HEAD_FLOPS = 6       # max, argmax, e^{beta c}, s += u, t += d u
-COTANGENT_FLOPS = 8  # g_d from the head's maps (pallas_pipeline.py:979-990)
-
-
-def vjp_flops(k: int) -> int:
-    # gr = g r, the window of gr (2k taps), A1 += box proj, the B and GRMU
-    # sums: 2k + 9 (r itself is cost_flops' or, with the cost read, 3 more)
-    return 2 * k + 9
-
-
-def banded_bounds(B: int, H: int, W: int, D: int, k: int) -> dict:
-    """Each banded kernel's bound at [B, H, W], D, k: operations from the
-    per-entry counts above; bytes count the images, maps and volumes each
-    kernel reads and writes, 4 a value."""
-    n = B * H * W * (D + 1)        # volume entries
-    px = 4 * B * H * W             # bytes of one [B, H, W] map
-    vol = 4 * n                    # bytes of one volume
-    fwd = (cost_flops(k) + HEAD_FLOPS) * n
-    with_cost = (3 + vjp_flops(k)) * n
-    recompute = (cost_flops(k) + vjp_flops(k)) * n
+def model_costs() -> dict:
+    """Each kernel's counted work (``utils/kernel_model.py``) at the size
+    phase_times runs it."""
+    H, W, D, k = KITTI
+    Hv, Wv, kv = VERIFY
+    blocks = km.rate_probe_size("madd")[0]
     return {
-        "K1": bound(cost_flops(k) * n, vol + 2 * px),        # images; volume
-        "K3": bound(fwd, 6 * px),                            # images; 4 maps
-        "K3w": bound(fwd, vol + 9 * px),                     # + am, s, t
-        "K3m": bound(fwd, 9 * px),
-        "K2": bound(with_cost, 2 * vol + 3 * px),            # g, cost; grad
-        "K7": bound(with_cost, 2 * vol + 3 * px),
-        "K4": bound(with_cost + COTANGENT_FLOPS * n,         # cost, 7 maps;
-                    vol + 10 * px),                          # grad
-        "K5": bound(recompute + COTANGENT_FLOPS * n, 10 * px),
-        "K6": bound(recompute, vol + 3 * px),                # g, images; grad
-        "K9a": bound(0, 2 * vol),
-        "K9b": bound(0, 2 * vol),
+        "K8": km.allpairs_forward_cost(Hv, Wv, kv),
+        "K1": km.volume_forward_cost(H, W, D, k),
+        "K3": km.fused_forward_cost(H, W, D, k),
+        "K2": km.volume_backward_cost(H, W, D, k),
+        "K7": km.projector_backward_cost(H, W, D, k),
+        "K3w": km.fused_forward_cost(H, W, D, k, write_volume=True),
+        "K4": km.fused_backward_c_cost(H, W, D, k),
+        "K6": km.volume_backward_cost(H, W, D, k, with_cost=False),
+        "K3m": km.fused_forward_cost(H, W, D, k, residuals=True),
+        "K5": km.fused_backward_cost(H, W, D, k),
+        "K9a": km.transpose_volume_cost(H, W, D),
+        "K9b": km.transpose_volume_cost(H, W, D),
+        "K10a": km.rate_probe_cost("madd", blocks, K10A_TIMED_ITERS),
+        "K10b": km.hbm_read_probe_cost(*km.HBM_SHAPE),
+        "K10c": km.hbm_write_probe_cost(*km.HBM_SHAPE),
     }
 
 
-def phase_times(card: str) -> dict:
+def model_bound(cost, rates: dict):
+    """(ms, what bounds it, {class: ms, "memory": ms}): ``cost`` priced at
+    the measured ``rates``, bound by the class that takes the longest or
+    by ``memory``."""
+    b = km.kernel_bound(cost, rates)
+    by = (max(b["by_class"], key=b["by_class"].get)
+          if b["bound_by"] == "compute" else "memory")
+    parts = {m: 1e3 * t for m, t in b["by_class"].items()}
+    parts["memory"] = 1e3 * b["t_memory_s"]
+    return 1e3 * b["bound_s"], by, parts
+
+
+def phase_times(card: str, rates: dict) -> dict:
     """Times and bounds of every kernel: {key: (kernel ms, plain ms,
-    library ms or None, (bound ms, bound by))}."""
+    library ms or None, (bound ms, bound by), (model ms, model by))}."""
     # K8 at the all-pairs path's shape.
     Hv, Wv, kv = VERIFY
     acam, aproj = uniform_pair(1, 1, Hv, Wv)
@@ -1281,8 +1367,7 @@ def phase_times(card: str) -> dict:
     times = {"K8": interleaved("K8", cost_volume_allpairs_cuda,
                                forward_allpairs, ap, ap,
                                f"{Hv}x{Wv} k={kv}", card)
-             + (bound(cost_flops(kv) * Hv * Wv * Wv,
-                      4 * Hv * Wv * Wv + 2 * 4 * Hv * Wv),)}
+             + (allpairs_bound(1, Hv, Wv, kv),)}
     del acam, aproj, ap
     torch.cuda.empty_cache()
 
@@ -1333,9 +1418,48 @@ def phase_times(card: str) -> dict:
         times[name] = interleaved(name, kernel, plain, kargs, pargs,
                                   f"KITTI {H}x{W} D={D} k={k}", card,
                                   library) + (bounds[name],)
-    for name, (ms, _, _, (b_ms, by)) in times.items():
-        print(f"bound: {name} {b_ms:.4f} ms by {by}; the kernel takes "
-              f"{ms / b_ms:.2f} times its bound ({card})")
+    del cases, vol, pipe, cam, proj, scam, sproj, cost, g, res, res_m
+    del g_parity, k2_args, plain_vjp, bwd, bwd_free
+    torch.cuda.empty_cache()
+
+    # The probes: K10a's madd chains (an FMA is two operations), K10b and
+    # K10c at KITTI's volume (K10b adds each entry once).
+    blocks = km.rate_probe_size("madd")[0]
+    cols, it = km.rate_probe_cols("madd"), K10A_TIMED_ITERS
+    times["K10a"] = interleaved(
+        "K10a", km.rate_probe, km.rate_probe_reference,
+        ("madd", it, blocks, "cuda"), ("madd", it, blocks, cols, "cuda"),
+        f"madd {blocks} blocks x {it} iterations", card) + (
+        bound(2 * blocks * cols * it, 4 * blocks * cols),)
+    P, Hp, Wp = km.HBM_SHAPE
+    n = P * Hp * Wp
+    probe_vol = torch.rand(km.HBM_SHAPE, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(11))
+    times["K10b"] = interleaved(
+        "K10b", km.hbm_read_probe, km.hbm_read_reference, (probe_vol,),
+        (probe_vol,), f"[{P}, {Hp}, {Wp}]", card,
+        lambda v: v.sum(0)) + (bound(n, 4 * (n + Hp * Wp)),)
+    del probe_vol
+    times["K10c"] = interleaved(
+        "K10c", km.hbm_write_probe, km.hbm_write_reference,
+        (P, Hp, Wp, "cuda"), (P, Hp, Wp, "cuda"), f"[{P}, {Hp}, {Wp}]",
+        card, lambda P, H, W, device: torch.arange(
+            P, dtype=torch.float32, device=device).view(P, 1, 1).expand(
+            P, H, W).contiguous()) + (bound(0, 4 * n),)
+    torch.cuda.empty_cache()
+
+    costs = model_costs()
+    for name in times:
+        m_ms, m_by, parts = model_bound(costs[name], rates)
+        times[name] += ((m_ms, m_by),)
+        ms, (b_ms, by) = times[name][0], times[name][3]
+        shown = ", ".join(f"{m} {t:.4f}" for m, t in parts.items())
+        print(f"bound: {name} {b_ms:.4f} ms by {by}, model {m_ms:.4f} ms by "
+              f"{m_by} ({shown}); the kernel takes {ms / b_ms:.2f} times its "
+              f"bound and {ms / m_ms:.3f} times its model ({card})")
+        if not name.startswith("K10"):
+            require(m_ms <= ms, f"{name}: its model bound ({m_ms:.4f} ms) "
+                    f"within its time ({ms:.4f} ms)")
     return times
 
 
@@ -1377,6 +1501,14 @@ KERNELS = (
     ("parity_to_plane_major", "K9b",
      "custereomatching_tpu_torch/csrc/layout.cu",
      "custereomatching_tpu/ops/pallas_layout.py:161", "no_residual"),
+    ("rate_probe", "K10a", "custereomatching_tpu_torch/csrc/rate_probes.cu",
+     "custereomatching_tpu/utils/kernel_model.py:83", "bound_model"),
+    ("hbm_read_probe", "K10b",
+     "custereomatching_tpu_torch/csrc/rate_probes.cu",
+     "custereomatching_tpu/utils/kernel_model.py:228", "bound_model"),
+    ("hbm_write_probe", "K10c",
+     "custereomatching_tpu_torch/csrc/rate_probes.cu",
+     "custereomatching_tpu/utils/kernel_model.py:269", "bound_model"),
 )
 
 
@@ -1407,11 +1539,14 @@ def main() -> int:
     counts["volume_free"] = phase_volume_free_path()
     counts["plane_major"] = phase_plane_major_path()
     counts["no_residual"] = phase_no_residual_path()
-    times = phase_times(card)
+    errs.update(phase_k10())
+    counts["bound_model"], rates = phase_bound_model(card)
+    times = phase_times(card, rates)
 
     kernels = []
     for name, key, source, replaces, path in KERNELS:
-        ms, plain_ms, library_ms, (bound_ms, bound_by) = times[key]
+        ms, plain_ms, library_ms, (bound_ms, bound_by), (model_ms, model_by) \
+            = times[key]
         launches = counts[path][key.lower()]
         require(launches >= 1, f"{key} launched on its path ({path})")
         kernels.append({
@@ -1419,9 +1554,10 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms, "model_ms": model_ms,
+            "model_by": model_by})
     print(json.dumps({"kernels": kernels}))
-    print(smi_line())
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

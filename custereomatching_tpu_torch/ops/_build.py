@@ -72,6 +72,12 @@ SIGNATURES = {
     # in, out, B, planes, pixels, stream
     "custereo_plane_major_to_parity": [_P] * 2 + [_I] * 3 + [_P],
     "custereo_parity_to_plane_major": [_P] * 2 + [_I] * 3 + [_P],
+    # mode, out, blocks, iters, a0, zero, fill, stream
+    "custereo_rate_probe": [_I, _P, _I, _I] + [_F] * 3 + [_P],
+    # vol, out, P, H, W, stream
+    "custereo_hbm_read_probe": [_P] * 2 + [_I] * 3 + [_P],
+    # vol, P, H, W, stream
+    "custereo_hbm_write_probe": [_P] + [_I] * 3 + [_P],
 }
 
 

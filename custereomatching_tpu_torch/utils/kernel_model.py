@@ -1,0 +1,812 @@
+"""Calibrated bound model of the port's Hopper kernels.
+
+The counterpart of ``custereomatching_tpu/utils/kernel_model.py``, with
+its public names.  A kernel's bound is the larger of two legs:
+
+1. **Compute**: the count of each class of work the kernel does (mirrored
+   from its CUDA source, ``csrc/``), each priced at the rate this card
+   sustains for that class, summed.  The rates come from probes K10a-c
+   (``csrc/rate_probes.cu``), measured once per card and cached
+   (:func:`measure_vpu_rates`).  Nothing is calibrated against the kernels
+   themselves.
+2. **Memory**: the bytes the kernel moves through HBM (``bytes_r`` read,
+   ``bytes_w`` written, scratch maps included), at the rates of the HBM
+   probes, which read and write a volume in the kernels' own pattern, a
+   pixel's planes one after another.  A dense stream that does not walk
+   the planes so (K9's tiled transpose) counts ``bytes`` only, priced at
+   the data sheet's bandwidth.
+
+The classes, as one thread's instructions (a "warp-wide" op is 32 of
+them):
+
+``madd``
+    one FP32 FMA-pipe instruction (FFMA, FADD, FMUL, a compare or a
+    select) not already counted with a load.  Probe: eight independent
+    FMA chains a thread.
+``smem``
+    one shared-memory load or store, or one global load served by the
+    L1/L2 caches (the same load pipe), with the arithmetic instruction
+    that consumes it.  Probe: FMA chains each fed by a shared load at an
+    offset that moves every iteration (the Hopper counterpart of the TPU's
+    ``lshift``/``sshift`` relayouts: a window sum's neighbour reads).
+``exp``, ``rsqrt``
+    one ``expf``; one ``rsqrtf`` (and, priced the same, one ``sqrtf`` or
+    IEEE division: the multi-function unit and a few fix-up instructions).
+    Probes: chains of ``expf(a * 0.25)`` and ``rsqrtf(a + 1)``.
+``boxadd``
+    one shared-memory load inside a per-plane window pass (a rows pass of
+    products: two loads a tap; a rows pass of sums: one; a columns tap:
+    one), the pass's barriers included.  Probe: K1's own pass, at K1's
+    geometry and occupancy; normalised by :func:`box_pass_loads`, the
+    count the cost functions charge.
+
+Rate keys: the classes (seconds an element), ``hbm_r3d`` and ``hbm_w3d``
+(seconds a byte, K10b and K10c), ``t3d`` and ``dus3d`` (seconds a byte
+read and written of the plain-torch volume ops of the parity adapter,
+``permute().contiguous()`` and zeros plus a copy into plane-major).
+
+Like the JAX module, each cost function returns an :class:`OpCount`;
+:func:`kernel_bound` prices it.  The count is a floor: where a kernel's
+instructions are uncertain, fewer are counted, so the bound cannot pass
+the kernel's time.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from custereomatching_tpu_torch.ops import _build
+from custereomatching_tpu_torch.ops._build import ptr, stream_of
+
+CACHE_PATH = (Path(__file__).resolve().parents[2] / "build" / "rates"
+              / "hopper_rates.json")
+
+_OP_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
+_DMA_MODES = ("hbm_r3d", "hbm_w3d")
+_TORCH_MODES = ("t3d", "dus3d")
+_ALL_MODES = _OP_MODES + _DMA_MODES + _TORCH_MODES
+
+# Python mirrors of the kernels' geometry (csrc/common.cuh kTileH, kTileW;
+# csrc/rate_probes.cu kRateThreads, kChains, kUnroll, kBoxK, kBoxD).
+K_TILE_H, K_TILE_W = 16, 64
+K_THREADS = K_TILE_H * K_TILE_W
+RATE_THREADS, RATE_CHAINS, RATE_UNROLL = 256, 8, 8
+BOX_PROBE_K, BOX_PROBE_D = 15, 192
+# The shared memory a block may opt into on an H100 (227 KB).
+SMEM_OPTIN_BYTES = 232448
+
+_MODE_IDS = {"madd": 0, "smem": 1, "exp": 2, "rsqrt": 3, "boxadd": 4}
+# The probes' fixed inputs: the accumulators' start (_rate_kernel's 0.6),
+# the smem probe's shared values (0.015625) and boxadd's staged tiles
+# (0.125, so a product is 0.015625).
+RATE_A0, SMEM_FILL, BOX_FILL = 0.6, 0.015625, 0.125
+# A measuring launch: blocks an SM and iterations, for a launch of >= 1 ms
+# on an H100 (JAX's ~2 G element-ops a call would be ~60 us of FMAs).
+RATE_BLOCKS_PER_SM = {"madd": 8, "smem": 8, "exp": 8, "rsqrt": 8,
+                      "boxadd": 4}
+RATE_ITERS = {"madd": 32768, "smem": 8192, "exp": 4096, "rsqrt": 4096,
+              "boxadd": 256}
+# The HBM probes' volume: KITTI's, P = D + 1 = 193 planes of 375 x 1242.
+HBM_SHAPE = (193, 375, 1242)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _need_card(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} measures the CUDA card, and none is "
+                           f"available")
+
+
+# ---------------------------------------------------------------------------
+# K10a-c: the probes, their plain twins and the rates they measure
+# ---------------------------------------------------------------------------
+
+def rate_probe_cols(mode: str) -> int:
+    """Columns of K10a's output: a row a block, an accumulator a column."""
+    return K_THREADS if mode == "boxadd" else RATE_THREADS * RATE_CHAINS
+
+
+def _box_value() -> torch.Tensor:
+    """The window sum of boxadd's staged tiles: a rows pass of k products
+    of two ``BOX_FILL`` tiles, then k columns (225 * 0.015625)."""
+    k = BOX_PROBE_K
+    tile = torch.full((k, k), BOX_FILL, dtype=torch.float32)
+    return (tile * tile).sum(0).sum(0)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to fp32, the value of the kernels' ``x``f literal."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+def rate_probe_reference(mode: str, iters: int, rows: int, cols: int,
+                         device="cpu") -> torch.Tensor:
+    """Plain version of K10a: a ``[rows, cols]`` tile at ``RATE_A0``
+    through ``iters`` iterations of ``mode``'s op (``_rate_kernel``'s
+    function).  The multiply-add is the kernel's ``fmaf``: the product of
+    two fp32 values is exact in fp64, and the sum is rounded to fp32 once.
+    A product rounded before the add would settle elsewhere: near madd's
+    fixed point (0.625) a step moves ``a`` by less than half an fp32 ulp
+    within ~1e-4 of it, so each rounding order stops at its own value.
+    ``.calls`` counts its uses."""
+    if mode not in _MODE_IDS:
+        raise ValueError(f"unknown K10a mode {mode!r}")
+    rate_probe_reference.calls += 1
+    a = torch.full((rows, cols), RATE_A0, dtype=torch.float32, device=device)
+    mul = _f32(0.9996)
+    add = {"madd": _f32(0.00025), "smem": SMEM_FILL}.get(mode)
+    if mode == "boxadd":
+        add = _box_value().item()
+    for _ in range(iters):
+        if mode == "exp":
+            a = torch.exp(a * 0.25)
+        elif mode == "rsqrt":
+            a = torch.rsqrt(a + 1.0)
+        else:
+            a = (a.double() * mul + add).float()
+    return a
+
+
+rate_probe_reference.calls = 0
+
+
+def rate_probe(mode: str, iters: int, blocks: int,
+               device="cuda") -> torch.Tensor:
+    """K10a: ``blocks`` blocks of ``mode``'s chains through ``iters``
+    iterations; ``[blocks, rate_probe_cols(mode)]``.  On the CPU the plain
+    version; on a CUDA device the kernel, or the call raises.
+    ``.launches`` counts K10a's launches, ``.mode_launches`` each mode's."""
+    if mode not in _MODE_IDS:
+        raise ValueError(f"unknown K10a mode {mode!r}")
+    if mode != "boxadd" and iters % RATE_UNROLL:
+        raise ValueError(f"K10a {mode}: iters must be a multiple of "
+                         f"{RATE_UNROLL}, got {iters}")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return rate_probe_reference(mode, iters, blocks,
+                                    rate_probe_cols(mode))
+    if device.type != "cuda":
+        raise ValueError(f"K10a runs on CUDA or (plain) CPU, got {device}")
+    out = torch.empty((blocks, rate_probe_cols(mode)), dtype=torch.float32,
+                      device=device)
+    fill = BOX_FILL if mode == "boxadd" else SMEM_FILL
+    with torch.cuda.device(device):
+        code = _build.kernels().custereo_rate_probe(
+            _MODE_IDS[mode], ptr(out), blocks, iters, RATE_A0, 0.0, fill,
+            stream_of(device))
+    _build.check(code, f"K10a {mode} launch")
+    rate_probe.launches += 1
+    rate_probe.mode_launches[mode] += 1
+    return out
+
+
+rate_probe.launches = 0
+rate_probe.mode_launches = {m: 0 for m in _OP_MODES}
+
+
+def _check_volume(vol: torch.Tensor, what: str) -> None:
+    if vol.ndim != 3 or vol.dtype != torch.float32:
+        raise ValueError(f"{what}: expected a float32 [P, H, W] volume, got "
+                         f"{vol.dtype} {tuple(vol.shape)}")
+
+
+def hbm_read_reference(vol: torch.Tensor) -> torch.Tensor:
+    """Plain version of K10b: each pixel's sum over the planes, in plane
+    order.  ``.calls`` counts its uses."""
+    hbm_read_reference.calls += 1
+    acc = torch.zeros(vol.shape[1:], dtype=vol.dtype, device=vol.device)
+    for d in range(vol.shape[0]):
+        acc = acc + vol[d]
+    return acc
+
+
+hbm_read_reference.calls = 0
+
+
+def hbm_read_probe(vol: torch.Tensor) -> torch.Tensor:
+    """K10b: ``[H, W]`` plane sums of a plane-major ``[P, H, W]`` volume,
+    read as K2, K4 and K7 read theirs.  ``.launches`` counts its
+    launches."""
+    _check_volume(vol, "K10b")
+    if vol.device.type == "cpu":
+        return hbm_read_reference(vol)
+    if vol.device.type != "cuda":
+        raise ValueError(f"K10b runs on CUDA or (plain) CPU tensors, got "
+                         f"{vol.device}")
+    vol = vol.contiguous()
+    P, H, W = vol.shape
+    out = vol.new_empty((H, W))
+    with torch.cuda.device(vol.device):
+        code = _build.kernels().custereo_hbm_read_probe(
+            ptr(vol), ptr(out), P, H, W, stream_of(vol.device))
+    _build.check(code, "K10b launch")
+    hbm_read_probe.launches += 1
+    return out
+
+
+hbm_read_probe.launches = 0
+
+
+def hbm_write_reference(P: int, H: int, W: int, device="cpu") -> torch.Tensor:
+    """Plain version of K10c: ``out[d, h, w] = d``, a plane at a time.
+    ``.calls`` counts its uses."""
+    hbm_write_reference.calls += 1
+    out = torch.empty((P, H, W), dtype=torch.float32, device=device)
+    for d in range(P):
+        out[d].fill_(float(d))
+    return out
+
+
+hbm_write_reference.calls = 0
+
+
+def hbm_write_probe(P: int, H: int, W: int, device="cuda") -> torch.Tensor:
+    """K10c: a new ``[P, H, W]`` volume with ``out[d, h, w] = d``, written
+    as K1 and K3w write theirs.  ``.launches`` counts its launches."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return hbm_write_reference(P, H, W)
+    if device.type != "cuda":
+        raise ValueError(f"K10c runs on CUDA or (plain) CPU, got {device}")
+    out = torch.empty((P, H, W), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        code = _build.kernels().custereo_hbm_write_probe(
+            ptr(out), P, H, W, stream_of(device))
+    _build.check(code, "K10c launch")
+    hbm_write_probe.launches += 1
+    return out
+
+
+hbm_write_probe.launches = 0
+
+
+def rate_probe_size(mode: str) -> Tuple[int, int]:
+    """(blocks, iters) of ``mode``'s measuring launch on the current card."""
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return RATE_BLOCKS_PER_SM[mode] * sms, RATE_ITERS[mode]
+
+
+def rate_probe_elems(mode: str, blocks: int, iters: int) -> float:
+    """The elements a K10a launch is normalised by: tile elements times
+    iterations, or for boxadd the loads of its passes
+    (:func:`box_pass_loads`, the count the cost functions charge)."""
+    if mode == "boxadd":
+        p = BOX_PROBE_K // 2
+        return float(blocks * iters * box_pass_loads(
+            BOX_PROBE_K, K_TILE_H, K_TILE_W + 2 * p, K_THREADS))
+    return float(blocks * rate_probe_cols(mode) * iters)
+
+
+def _device_seconds(fn, *args, chain: int = 2) -> float:
+    from custereomatching_tpu_torch.utils.timer import benchmark
+
+    return benchmark(fn, *args, warmup=1, iters=5, chain=chain)["median_s"]
+
+
+def _run_rate(mode: str) -> float:
+    """Seconds an element of one op class (K10a at its measuring size)."""
+    _need_card("K10a")
+    blocks, iters = rate_probe_size(mode)
+    t = _device_seconds(rate_probe, mode, iters, blocks, "cuda")
+    return t / rate_probe_elems(mode, blocks, iters)
+
+
+def _run_dma_rate(mode: str) -> float:
+    """Seconds a byte of an HBM pattern (K10b or K10c at KITTI's volume)."""
+    _need_card("K10b/K10c")
+    P, H, W = HBM_SHAPE
+    if mode == "hbm_r3d":
+        vol = torch.ones(HBM_SHAPE, dtype=torch.float32, device="cuda")
+        t = _device_seconds(hbm_read_probe, vol, chain=8)
+    elif mode == "hbm_w3d":
+        t = _device_seconds(hbm_write_probe, P, H, W, "cuda", chain=8)
+    else:
+        raise ValueError(mode)
+    return t / (P * H * W * 4)
+
+
+def _run_torch_rate(mode: str) -> float:
+    """Seconds a byte (read and written) of a plain-torch volume op at
+    KITTI's volume: ``t3d`` the plane-major volume to parity,
+    ``permute().contiguous()``; ``dus3d`` a parity cotangent into a zeroed
+    plane-major volume.  Plain torch, as the JAX counterpart is plain
+    XLA."""
+    _need_card("the torch volume-op rates")
+    P, H, W = HBM_SHAPE
+    if mode == "t3d":
+        src = torch.ones((P, H, W), dtype=torch.float32, device="cuda")
+
+        def fn(v):
+            return v.permute(1, 2, 0).contiguous()
+    elif mode == "dus3d":
+        src = torch.ones((H, W, P), dtype=torch.float32, device="cuda")
+
+        def fn(g):
+            return torch.zeros((P, H, W), dtype=g.dtype,
+                               device=g.device).copy_(g.permute(2, 0, 1))
+    else:
+        raise ValueError(mode)
+    return _device_seconds(fn, src, chain=4) / (2 * P * H * W * 4)
+
+
+def _card_name() -> str:
+    _need_card("measure_vpu_rates")
+    return torch.cuda.get_device_name()
+
+
+def _median_rounds(fn, modes, rounds: int = 3) -> Dict[str, float]:
+    runs = [{m: fn(m) for m in modes} for _ in range(rounds)]
+    return {m: sorted(r[m] for r in runs)[rounds // 2] for m in modes}
+
+
+def _measure(modes) -> Dict[str, float]:
+    rates = {}
+    for group, fn in ((_OP_MODES, _run_rate), (_DMA_MODES, _run_dma_rate),
+                      (_TORCH_MODES, _run_torch_rate)):
+        todo = [m for m in group if m in modes]
+        if todo:
+            rates.update(_median_rounds(fn, todo))
+    return rates
+
+
+def measure_vpu_rates(force: bool = False,
+                      cache_path: Optional[str] = None,
+                      measure_if_missing: bool = True,
+                      device_name: Optional[str] = None,
+                      ) -> Optional[Dict[str, float]]:
+    """Per-class rates of this card (seconds an element, or a byte).
+
+    Cached on disk by card name (``build/rates/hopper_rates.json``, git
+    ignored; never the JAX package's ``vpu_rates.json``), each entry with
+    the power limit ``nvidia-smi`` reported.  Measured in three rounds, the
+    median of each class.  A partial cache is topped up; with
+    ``measure_if_missing=False`` a miss returns what the cache has, or
+    ``None``.  ``device_name`` names the card instead of asking torch.
+    Without a card, a call that would measure raises ``RuntimeError``."""
+    kind = device_name or _card_name()
+    path = Path(cache_path) if cache_path else CACHE_PATH
+    cache = {}
+    if path.is_file():
+        try:
+            cache = json.loads(path.read_text())
+        except (OSError, ValueError):
+            cache = {}
+    have = {m: float(v) for m, v in cache.get(kind, {}).items()
+            if m in _ALL_MODES}
+    missing = [m for m in _ALL_MODES if m not in have]
+    if not force and kind in cache and not missing:
+        return have
+    if not measure_if_missing and not force:
+        # A partial cache still prices every kernel that does not use the
+        # missing classes; without HBM rates the memory leg falls back to
+        # the data sheet's bandwidth.
+        return have if kind in cache else None
+    _need_card("measure_vpu_rates")
+    from custereomatching_tpu_torch.utils.profiling import card_line
+
+    rates = _measure(_ALL_MODES if force else missing)
+    if not force:
+        rates = {**have, **rates}
+    cache[kind] = {**rates,
+                   "power_limit": card_line().rsplit(",", 1)[-1].strip()}
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(cache, indent=1, sort_keys=True))
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    return dict(rates)
+
+
+# ---------------------------------------------------------------------------
+# Structural counting
+# ---------------------------------------------------------------------------
+
+class OpCount(dict):
+    """Per-class element counts; supports ``+`` and ``scaled``."""
+
+    def __init__(self, **kw):
+        super().__init__({m: 0.0 for m in _OP_MODES})
+        self.update({k: float(v) for k, v in kw.items()})
+        self.bytes = 0.0
+        # The read/write split of ``bytes``; when populated (and the rates
+        # carry the HBM probes'), the memory leg is priced per pattern.
+        self.bytes_r = 0.0
+        self.bytes_w = 0.0
+
+    def __add__(self, other):
+        out = OpCount()
+        for m in _OP_MODES:
+            out[m] = self[m] + other[m]
+        out.bytes = self.bytes + getattr(other, "bytes", 0.0)
+        out.bytes_r = self.bytes_r + getattr(other, "bytes_r", 0.0)
+        out.bytes_w = self.bytes_w + getattr(other, "bytes_w", 0.0)
+        return out
+
+    def scaled(self, f):
+        out = OpCount()
+        for m in _OP_MODES:
+            out[m] = self[m] * f
+        out.bytes = self.bytes * f
+        out.bytes_r = self.bytes_r * f
+        out.bytes_w = self.bytes_w * f
+        return out
+
+    def time(self, rates: Dict[str, float], hbm_bw: float) -> Dict:
+        # Zero-count classes are skipped, so a partial rate cache still
+        # prices every kernel that does not use the missing classes.
+        by_class = {m: self[m] * rates[m] for m in _OP_MODES if self[m]}
+        t_c = sum(by_class.values())
+        if (self.bytes_r + self.bytes_w > 0
+                and all(m in rates for m in _DMA_MODES)):
+            t_m = (self.bytes_r * rates["hbm_r3d"]
+                   + self.bytes_w * rates["hbm_w3d"])
+        else:
+            t_m = self.bytes / hbm_bw
+        return {"t_compute_s": t_c, "t_memory_s": t_m,
+                "bound_s": max(t_c, t_m),
+                "bound_by": "compute" if t_c >= t_m else "memory",
+                "by_class": by_class}
+
+
+def _with_bytes(c: OpCount, bytes_r: float, bytes_w: float) -> OpCount:
+    c.bytes_r, c.bytes_w = float(bytes_r), float(bytes_w)
+    c.bytes = c.bytes_r + c.bytes_w
+    return c
+
+
+def box_pass_loads(k: int, rows: int, width: int, pixels: int,
+                   products: bool = True) -> int:
+    """Shared loads of one per-plane window pass of a block: a rows pass
+    over ``rows`` x ``width`` entries of k taps (two loads a tap for
+    products, ``vertical_products`` / ``cross_rows``; one for sums,
+    ``vertical_sum``), then k column taps (``horizontal_sum``) for each of
+    ``pixels`` outputs.  The ``boxadd`` element."""
+    return rows * width * k * (2 if products else 1) + pixels * k
+
+
+def _overlap(n_tiles: int, tile: int, ext: int, lo: int, hi: int) -> int:
+    """Sum over tiles i of |[i tile - ext, (i + 1) tile + ext) ∩ [lo, hi)|."""
+    total = 0
+    for i in range(n_tiles):
+        a, b = max(i * tile - ext, lo), min((i + 1) * tile + ext, hi)
+        total += max(b - a, 0)
+    return total
+
+
+def _grid(H: int, W: int) -> Tuple[int, int]:
+    """(row tiles, column tiles) of the 16 x 64 pixel tiling."""
+    return _cdiv(H, K_TILE_H), _cdiv(W, K_TILE_W)
+
+
+def _stats_cost(H: int, W: int, k: int, wout: int) -> OpCount:
+    """``box_stats_kernel`` (common.cuh) for one image, outputs ``wout``
+    columns wide: the halo'd tile staged (a load and a store an entry),
+    the rows pass of x and x^2 (a load, an add and an FMA a tap), the two
+    column sums of each pixel, two maps written."""
+    p = k // 2
+    nbh, nbw = _cdiv(H, K_TILE_H), _cdiv(wout, K_TILE_W)
+    blocks = nbh * nbw
+    cols = K_TILE_W + 2 * p
+    halo = (K_TILE_H + 2 * p) * cols
+    vert = K_TILE_H * cols * k
+    px = H * wout
+    c = OpCount(smem=blocks * (2 * halo + vert) + px * 2 * k,
+                madd=blocks * vert + 3 * px)
+    return _with_bytes(c, H * W * 4, 2 * px * 4)
+
+
+def _combine_cost(H: int, W: int, k: int, we: int) -> OpCount:
+    """The combine kernel of K2/K4/K5/K6 (``camera_grad_combine_kernel``)
+    or K7 (``proj_grad_combine_kernel``, three maps ``we`` columns wide):
+    three halo'd tiles staged, three box filters, the final sum."""
+    p = k // 2
+    nbh, nbw = _grid(H, W)
+    cols = K_TILE_W + 2 * p
+    halo = (K_TILE_H + 2 * p) * cols
+    inside = (_overlap(nbh, K_TILE_H, p, 0, H)
+              * _overlap(nbw, K_TILE_W, p, 0, we))
+    outside = nbh * nbw * halo - inside
+    return OpCount(smem=6 * inside + 3 * outside
+                   + nbh * nbw * 3 * K_TILE_H * cols * k + H * W * 3 * k,
+                   madd=2 * inside + 4 * H * W)
+
+
+def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K1 (``csrc/zncc_banded.cu``): the statistics passes, then a block a
+    16 x 64 tile staging the camera and the D-widened projector tiles and,
+    per plane, ``vertical_products`` and ``horizontal_sum`` (one pass,
+    two barriers), two statistics loads, one rsqrt and the volume store."""
+    p = k // 2
+    nbh, nbw = _grid(H, W)
+    blocks = nbh * nbw
+    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    px, planes = H * W, D + 1
+    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+    c = c + OpCount(
+        smem=blocks * 2 * rows * (2 * cam_w + D) + 2 * px
+        + planes * 2 * px,
+        boxadd=planes * (blocks * box_pass_loads(k, K_TILE_H, cam_w, 0)
+                         + px * k),
+        rsqrt=planes * px, madd=px + planes * 4 * px)
+    stats = (2 * px + 2 * H * (W + D)) * 4
+    return _with_bytes(c, c.bytes_r + stats, c.bytes_w + planes * px * 4)
+
+
+def fused_forward_cost(H: int, W: int, D: int, k: int,
+                       write_volume: bool = False,
+                       residuals: Optional[bool] = None) -> OpCount:
+    """K3 / K3w / K3m (``csrc/fused_pipeline.cu``): K1's loop with the
+    online head in registers (one expf and four FMA-pipe ops a pixel and
+    plane), four maps out; ``residuals`` adds am, s and t (K3m; K3w
+    always), ``write_volume`` the volume store (K3w)."""
+    residuals = write_volume if residuals is None else residuals
+    p = k // 2
+    nbh, nbw = _grid(H, W)
+    blocks = nbh * nbw
+    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    px, planes = H * W, D + 1
+    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+    c = c + OpCount(
+        smem=blocks * 2 * rows * (2 * cam_w + D) + 2 * px
+        + planes * 2 * px,
+        boxadd=planes * (blocks * box_pass_loads(k, K_TILE_H, cam_w, 0)
+                         + px * k),
+        rsqrt=planes * px + px,                  # + t / s once a pixel
+        exp=planes * px,
+        madd=px + planes * (8 + int(write_volume)) * px + 4 * px)
+    maps = 4 + (3 if residuals else 0)
+    stats = (2 * px + 2 * H * (W + D)) * 4
+    return _with_bytes(
+        c, c.bytes_r + stats,
+        c.bytes_w + maps * px * 4 + (planes * px * 4 if write_volume else 0))
+
+
+def _recompute_chunk(k: int, D: int, halo_cost: bool, fixed: int) -> int:
+    """Planes a projector staging of the cost recompute covers
+    (``recompute_chunk`` of camera_grad.cuh on an H100)."""
+    p = k // 2
+    ext = p if halo_cost else 0
+    img_rows = K_TILE_H + 2 * ext + 2 * p
+    cam_w = K_TILE_W + 2 * ext + 2 * p
+    out_rows = K_TILE_H + 2 * ext
+    halo = (K_TILE_H + 2 * p) * (K_TILE_W + 2 * p)
+    one = (fixed + img_rows * (2 * cam_w) + out_rows * cam_w
+           + (halo if ext else 0))
+    budget = SMEM_OPTIN_BYTES // 4
+    if one > budget:
+        return 0
+    return min((budget - one) // img_rows + 1, D + 1)
+
+
+def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
+                      recompute: bool) -> OpCount:
+    """The camera VJP body of ``csrc/camera_grad.cuh``: K2 (cotangent and
+    cost read), K6 (cotangent read, cost recomputed on K1's tile), K4
+    (head maps, cost read), K5 (head maps, cost recomputed over the
+    halo'd tile); the statistics passes, the planes kernel and the
+    combine.
+
+    Per plane and block: the recompute's rows pass of products (one pass),
+    gr_d over the halo'd tile (its source, an rsqrt), ``vertical_sum``
+    and the column sums of gr (one pass), the A1 / B / GRMU accumulation
+    of the block's pixels; three (four with the recompute) barriers."""
+    p = k // 2
+    nbh, nbw = _grid(H, W)
+    blocks = nbh * nbw
+    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    halo = rows * cam_w
+    px, planes = H * W, D + 1
+    inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
+                                                         0, W)
+    outside = blocks * halo - inside
+    halo_cost = recompute and head
+    maps = 6 if head else 0
+
+    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+    c = c + _combine_cost(H, W, k, W)
+    # Prologue: ex2 and the source's maps over the halo (a head map's 1/s
+    # is a division); the recompute's image tiles, one staging of the
+    # projector per chunk of planes.
+    c = c + OpCount(smem=(2 + 2 * maps) * inside + (1 + maps) * outside,
+                    rsqrt=inside if head else 0,
+                    madd=(3 * inside if head else 0))
+    if recompute:
+        ext = p if halo_cost else 0
+        img_rows = K_TILE_H + 2 * ext + 2 * p
+        x_w = K_TILE_W + 2 * ext + 2 * p
+        out_rows = K_TILE_H + 2 * ext
+        chunk = _recompute_chunk(k, D, halo_cost, halo * (2 + maps)
+                                 + K_TILE_H * cam_w)
+        stagings = _cdiv(planes, max(chunk, 1))
+        c = c + OpCount(
+            smem=blocks * 2 * img_rows * (x_w + stagings * (x_w + chunk - 1))
+            + (2 * inside + outside if halo_cost else px),
+            boxadd=planes * blocks * box_pass_loads(k, out_rows, x_w, 0))
+    # gr_d over the halo: ex2 (shared), ey2 (cached), the source, the
+    # store; the recompute's column sums and statistics where the cost is
+    # needed there (K5).
+    src_smem = 5 if head else 1               # head maps, or g (global)
+    src_madd = 7 if head else 0
+    cost_smem = 2 if halo_cost else (1 if head else 0)
+    per_inside = OpCount(smem=3 + src_smem + cost_smem, rsqrt=1,
+                         exp=1 if head else 0,
+                         madd=2 + src_madd + (3 if halo_cost else 0),
+                         boxadd=k if halo_cost else 0)
+    c = c + per_inside.scaled(planes * inside) + OpCount(
+        smem=planes * outside)
+    # vertical_sum of gr and the column sums of the block's pixels.
+    c = c + OpCount(boxadd=planes * (blocks * box_pass_loads(
+        k, K_TILE_H, cam_w, 0, products=False) + px * k))
+    # A1 / B / GRMU of each pixel: projector, gr, ey2, sy, ex2 and the cost
+    # (read, or the recompute's column sums).
+    c = c + OpCount(smem=planes * px * (5 + (0 if recompute else 1)),
+                    boxadd=planes * px * (k if recompute else 0),
+                    rsqrt=planes * px,
+                    madd=planes * px * (7 + (2 if recompute else 0)))
+    vol = planes * px * 4
+    stats = (2 * px + 2 * H * (W + D)) * 4
+    bytes_r = (c.bytes_r + stats
+               + (0 if head else vol)                      # cotangent
+               + (0 if recompute else vol)                 # cost
+               + (7 * px * 4 if head else 0)               # head maps
+               + 3 * px * 4)                               # A1, B, GRMU
+    bytes_w = c.bytes_w + 3 * px * 4 + px * 4              # A1, B, GRMU; grad
+    return _with_bytes(c, bytes_r, bytes_w)
+
+
+def volume_backward_cost(H: int, W: int, D: int, k: int,
+                         with_cost: bool = True) -> OpCount:
+    """K2 (``with_cost``, ``csrc/zncc_banded_bwd.cu``) or K6 (the cost
+    recomputed on K1's tile): reads the plane-major cotangent (and K2 the
+    cost)."""
+    return _camera_grad_cost(H, W, D, k, head=False, recompute=not with_cost)
+
+
+def fused_backward_c_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K4 (``csrc/fused_pipeline_bwd.cu``): the head's cotangent formed
+    per plane from six staged maps and the cost read (one expf a halo
+    pixel), then K2's body."""
+    return _camera_grad_cost(H, W, D, k, head=True, recompute=False)
+
+
+def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K5 (``csrc/fused_pipeline_bwd.cu``): K4 with the cost recomputed
+    over the halo'd tile (a rows pass over (16 + 2p) x (64 + 4p) entries
+    and k column loads at each halo pixel, per plane)."""
+    return _camera_grad_cost(H, W, D, k, head=True, recompute=True)
+
+
+def projector_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K7 (``csrc/zncc_banded_proj_bwd.cu``): the statistics passes
+    (projector on the p-widened columns), the planes kernel over the
+    extended columns e in [0, W + p) (per plane: g~r over the halo'd tile,
+    one pass of sums, A1p, z2, z3), and the combine."""
+    p = k // 2
+    we = W + p
+    nbh, nbw = _cdiv(H, K_TILE_H), _cdiv(we, K_TILE_W)
+    blocks = nbh * nbw
+    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    halo = rows * cam_w
+    px, planes = H * W, D + 1
+    rows_in = _overlap(nbh, K_TILE_H, p, 0, H)
+    # Halo entries whose camera column ei - p + d lies in the image.
+    shifted = sum(_overlap(nbw, K_TILE_W, p, max(0, p - d), W + p - d)
+                  for d in range(planes))
+    g_entries = rows_in * shifted
+    prologue_in = rows_in * _overlap(nbw, K_TILE_W, p, 0, we)
+    # Output pixels whose camera column x + d lies in the image.
+    z_px = H * sum(W - d + min(p, d) for d in range(planes) if d < W)
+    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, we)
+    c = c + _combine_cost(H, W, k, we)
+    c = c + OpCount(
+        smem=2 * prologue_in + (blocks * halo - prologue_in)
+        + 4 * g_entries + (planes * blocks * halo - g_entries)
+        + planes * px + 5 * z_px,
+        rsqrt=g_entries + z_px,
+        madd=2 * g_entries + planes * px + 6 * z_px,
+        boxadd=planes * (blocks * box_pass_loads(k, K_TILE_H, cam_w, 0,
+                                                 products=False) + px * k))
+    vol = planes * px * 4
+    stats = (2 * px + 2 * H * we) * 4
+    bytes_r = c.bytes_r + 2 * vol + stats + (px + 2 * H * we) * 4
+    bytes_w = c.bytes_w + (px + 2 * H * we) * 4 + px * 4
+    return _with_bytes(c, bytes_r, bytes_w)
+
+
+def allpairs_forward_cost(H: int, W: int, k: int) -> OpCount:
+    """K8 (``csrc/zncc_allpairs.cu``): a block of 256 threads a 64 x 128
+    output tile of one row; per tap (i, j) a thread makes 12 shared loads
+    and 32 FMAs, per row i 32 adds; each output a division, a sqrtf and a
+    division (three multi-function ops) and three FMA-pipe ops; the exact
+    [H, W, W] volume written.  The taps' loop is bound by the load pipe
+    (one warp-wide shared load a clock an SM, four warp-wide FMAs): its 32
+    FMAs run beside its 12 loads and are not counted again."""
+    p = k // 2
+    tiles = H * _cdiv(W, 64) * _cdiv(W, 128)
+    thread_steps = tiles * 256
+    out = H * W * W
+    c = _stats_cost(H, W, k, W).scaled(2)
+    c = c + OpCount(
+        smem=tiles * 2 * k * (192 + 4 * p) + thread_steps * k * k * 12,
+        madd=thread_steps * k * 32 + 3 * out,
+        rsqrt=3 * out)
+    return _with_bytes(c, c.bytes_r + 4 * H * W * 4, c.bytes_w + out * 4)
+
+
+def allpairs_backward_cost(H: int, W: int, k: int) -> OpCount:
+    """Mandatory-traffic floor of the plain all-pairs camera backward
+    (``ops/zncc.py::camera_grad_allpairs``, plain torch, as JAX leaves it
+    to XLA): the cotangent and the cost residual read once each, the
+    images read, the gradient written.  Priced at the data sheet's
+    bandwidth (``bytes`` only)."""
+    vol = H * W * W
+    c = OpCount()
+    c.bytes = (2 * vol + 2 * H * W) * 4 + H * W * 4
+    return c
+
+
+def transpose_volume_cost(H: int, W: int, D: int) -> OpCount:
+    """K9a / K9b (``csrc/layout.cu``): every element read once, staged
+    through a 32 x 32 shared tile (a store and a load), written once.  A
+    warp moves 128 contiguous bytes a row of the tile on both sides, a
+    dense stream, not the plane-by-plane walk of a pixel that K10b and
+    K10c measure: the bytes are priced at the data sheet's bandwidth
+    (``bytes`` only; at ``hbm_w3d`` the bound would pass K9b's time).  The
+    plain ``permute().contiguous()`` moves the same bytes; its measured
+    rate is ``t3d``."""
+    n = (D + 1) * H * W
+    c = OpCount(smem=2 * n)
+    c.bytes = 2.0 * n * 4
+    return c
+
+
+def rate_probe_cost(mode: str, blocks: int, iters: int) -> OpCount:
+    """K10a's own work: its elements in its own class, its output map."""
+    c = OpCount(**{mode: rate_probe_elems(mode, blocks, iters)})
+    return _with_bytes(c, 0, blocks * rate_probe_cols(mode) * 4)
+
+
+def hbm_read_probe_cost(P: int, H: int, W: int) -> OpCount:
+    """K10b's own work: the volume read, the [H, W] sums written."""
+    return _with_bytes(OpCount(), P * H * W * 4, H * W * 4)
+
+
+def hbm_write_probe_cost(P: int, H: int, W: int) -> OpCount:
+    """K10c's own work: the volume written."""
+    return _with_bytes(OpCount(), 0, P * H * W * 4)
+
+
+def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
+                 hbm_bw: Optional[float] = None) -> Dict:
+    """Bound (seconds, frames/s) of a counted kernel on this card."""
+    from custereomatching_tpu_torch.utils.profiling import device_specs
+
+    if rates is None:
+        rates = measure_vpu_rates()
+    if hbm_bw is None:
+        hbm_bw = device_specs()["hbm_bw"]
+    out = cost.time(rates, hbm_bw)
+    out["bound_fps"] = 1.0 / out["bound_s"]
+    return out
+
+
+__all__ = ["OpCount", "allpairs_backward_cost", "allpairs_forward_cost",
+           "box_pass_loads", "fused_backward_c_cost", "fused_backward_cost",
+           "fused_forward_cost", "hbm_read_probe", "hbm_read_probe_cost",
+           "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
+           "hbm_write_reference", "kernel_bound", "measure_vpu_rates",
+           "projector_backward_cost", "rate_probe", "rate_probe_cost",
+           "rate_probe_reference",
+           "transpose_volume_cost", "volume_backward_cost",
+           "volume_forward_cost"]
