@@ -13,7 +13,9 @@ imports nothing of JAX.  Phases, each printing its lines:
 2. build: every kernel from ``custereomatching_tpu_torch/csrc``, one nvcc
    per source, in parallel;
 3. K1 (banded volume) against its plain PyTorch version on the card;
-4. K3 (fused pipeline) against its plain version, both head branches;
+4. K3 (fused pipeline) against its plain version, both head branches,
+   also at shapes on the edges of its register blocking (H not a multiple
+   of 16, W not of 64, D + 1 not of the planes a round, k = 3 to 27);
 5. the serving path, with every launch counter reset just before it:
    ``entry()``, a batched ``StereoMatcher`` forward and a
    ``StereoEngine`` serving 8 KITTI-size frames; the kernel counters must
@@ -22,6 +24,9 @@ imports nothing of JAX.  Phases, each printing its lines:
    cotangent fed to both, at entry()'s shape and at KITTI too;
 7. K3w (training forward): its volume against the plain volume, its four
    maps bit-equal to K3's, its argmax, s and t against the plain head;
+   and at beta = 1 its volume against K1's on the same pair (K1 runs the
+   first window pass: printed whether bit-equal, held to the forward
+   tolerance);
 8. K4 (trainable backward) against its plain twin on the same residuals,
    and the whole trainable pipeline (K3w + K4) against its plain twin,
    both head branches and KITTI speckle;
@@ -57,7 +62,8 @@ imports nothing of JAX.  Phases, each printing its lines:
 17. K5 (volume-free trainable backward) against its plain twin on the same
     residual maps, and against K4 on K3w's, both head branches, KITTI and
     three (D, k) whose projector tile is staged in chunks (k up to
-    ``K5_MAX_KERNEL_SIZE``); a larger k is refused before any launch;
+    ``K5_MAX_KERNEL_SIZE``) and the edge shapes of phase 4; a larger k is
+    refused before any launch;
 18. the volume-free training path, counters reset: 5 Adam steps at KITTI
     of ``optimize_camera``'s loss through
     ``stereo_pipeline_trainable(save_volume=False)``; K3m and K5 once a
@@ -88,7 +94,9 @@ imports nothing of JAX.  Phases, each printing its lines:
     3.35 TB/s and the least operations its function needs (window sums
     taken separably) over 67 TFLOP/s (``utils/profiling.py``), and its
     model bound, its counted work priced at the rates of phase 22
-    (``utils/kernel_model.py``), which no kernel may beat.
+    (``utils/kernel_model.py``), which no kernel may beat; K3, K3w, K3m
+    and K5 beside their times before the register-blocked pass
+    (``MS_BEFORE``).
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -203,6 +211,9 @@ GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
 # 4 x iters elementwise calls.
 K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
 K10A_TIMED_ITERS = 1024
+# Device ms at KITTI before the register-blocked window pass (the K1-style
+# pass of PR 5's kernels; NVIDIA H100 80GB HBM3 at 700.00 W).
+MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410}
 
 
 def require(ok: bool, what: str) -> None:
@@ -319,9 +330,26 @@ def compare_maps(got, want, cost, threshold: float, exact: bool,
     return float(conf_err.max())
 
 
+# Shapes on the edges of the register-blocked pass of K3 and K5 (B, H, W,
+# D, k), beta: H not a multiple of 16 and W not of 64; D + 1 not a
+# multiple of the planes a round; k = 3 (every pass below its blocking),
+# 11 (K5's cross-term rows pass below it) and 27 (K5's largest).
+EDGE = [((1, 37, 200, 24, 3), 50.0), ((1, 33, 140, 19, 11), 80.0),
+        ((1, 40, 130, 30, 27), 50.0)]
+
+
+def edge_label(B: int, H: int, W: int, D: int, k: int, beta: float) -> str:
+    """The shape, with K3's planes a round and K5's (planes a round,
+    planes a projector staging) on an H100."""
+    return (f"edge B={B} H={H} W={W} D={D} k={k} beta={beta} (K3 round "
+            f"{km.round_planes(k, D)}, K5 round/chunk "
+            f"{km.halo_round(k, D)})")
+
+
 def phase_k3() -> float:
     err = 0.0
-    cases = [(s, 50.0) for s in SHAPES] + [((1, 16, 100, 37, 7), 80.0)]
+    cases = ([(s, 50.0) for s in SHAPES] + [((1, 16, 100, 37, 7), 80.0)]
+             + EDGE)
     for i, ((B, H, W, D, k), beta) in enumerate(cases):
         cam, proj = uniform_pair(100 + i, B, H, W)
         got = stereo_pipeline_cuda(cam, proj, D, k, EPS, beta, THRESHOLD)
@@ -531,7 +559,7 @@ def phase_k2() -> float:
 
 def train_cases():
     """(label, camera, projector, D, k, beta): the small shapes, the
-    rescaled head, and KITTI speckle."""
+    rescaled head, and KITTI speckle; then the edge shapes."""
     cases = []
     for i, ((B, H, W, D, k), beta) in enumerate(
             [(s, 50.0) for s in SHAPES] + [((1, 16, 100, 37, 7), 80.0)]):
@@ -543,6 +571,10 @@ def train_cases():
     cases.append((f"speckle B=1 H={H} W={W} D={D} k={k} beta=50.0",
                   torch.from_numpy(cams).cuda(),
                   torch.from_numpy(projs).cuda(), D, k, 50.0))
+    for j, ((B, H, W, D, k), beta) in enumerate(EDGE):
+        cam, proj = uniform_pair(320 + j, B, H, W)
+        cases.append((edge_label(B, H, W, D, k, beta), cam, proj, D, k,
+                      beta))
     return cases
 
 
@@ -581,6 +613,19 @@ def phase_k3w() -> float:
               f"|ds|/s max {s_max:.3e}, |dt|/(t+s) max {t_max:.3e}, "
               f"|dt|/s max {ts_max:.3e}")
         del maps, res, serving, want
+
+    # At beta = 1 K3w's volume is K1's function on the same pair; K1 keeps
+    # the first window pass, K3w runs the register-blocked one.
+    H, W, D, k = KITTI
+    cams, projs, _ = speckle_frames(1, seed=7)
+    cam, proj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
+    vol = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 1.0,
+                                    THRESHOLD)[1].volume.permute(0, 2, 3, 1)
+    want = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+    label = f"beta=1 against K1, speckle B=1 H={H} W={W} D={D} k={k}"
+    err = max(err, compare_volume(vol, want, label, kernel="K3w"))
+    print(f"K3w {label}: bit-equal to K1: {torch.equal(vol, want)}")
+    del vol, want
     return err
 
 
@@ -1460,6 +1505,10 @@ def phase_times(card: str, rates: dict) -> dict:
         if not name.startswith("K10"):
             require(m_ms <= ms, f"{name}: its model bound ({m_ms:.4f} ms) "
                     f"within its time ({ms:.4f} ms)")
+    for name, before in MS_BEFORE.items():
+        ms = times[name][0]
+        print(f"time: {name} ms {ms:.4f} ms_before {before:.4f} "
+              f"({before / ms:.2f} times faster; {card})")
     return times
 
 

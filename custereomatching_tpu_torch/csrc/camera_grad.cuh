@@ -24,16 +24,14 @@
 // The recompute is K1's per-plane cross term (a rows pass of camera x
 // shifted projector products, then the columns pass):
 //   c_d = (box(cam proj(. - d)) - mux sy(. - d) + eps) r_d
-// Where it is needed depends on the Source.  With the cotangent read from
-// memory (K6) the cost enters only the B term of the tile's own pixels,
-// so the recompute covers K1's kTileH x kTileW tile.  With the head's
-// cotangent (K5) g_d needs the cost at every pixel of the halo'd tile, so
-// the recompute covers (kTileH + 2p) x (kTileW + 2p) pixels, reading the
-// images over (kTileH + 4p) x (kTileW + 4p) and the projector widened
-// left by the planes of one chunk.  The projector tile is staged once per
-// chunk of planes: all D + 1 when the block fits the card's shared memory
-// that way (K6 and K5 at k = 15 up to D ~ 560), fewer otherwise, so any D
-// runs; the chunk changes where values sit, not the arithmetic.
+// With the cotangent read from memory (K6) the cost enters only the B
+// term of the tile's own pixels, so the recompute covers K1's kTileH x
+// kTileW tile.  The projector tile is staged once per chunk of planes: all
+// D + 1 when the block fits the card's shared memory that way (K6 at k =
+// 15 up to D ~ 1540), fewer otherwise, so any D runs; the chunk changes
+// where values sit, not the arithmetic.  K5, whose head cotangent needs
+// the cost over the halo'd tile, has a kernel of its own
+// (fused_pipeline_bwd.cu) and shares only the combine below.
 //
 // Two kernels:
 //   1. camera_grad_planes_kernel: one block per kTileH x kTileW pixel tile
@@ -49,9 +47,9 @@
 // each (about 0.11 ms at 3.35 TB/s); the halo'd gr tile re-reads a
 // neighbour's cotangent through L2.  Beyond that, as K1, the per-plane row
 // and column passes through shared memory and three barriers a plane
-// (four with the recompute, which adds K1's rows pass, 2.2 times K1's
-// region for K5); per-pixel constants of the tile (ex2, the head maps)
-// are staged once in shared memory.
+// (four with the recompute, which adds K1's rows pass); per-pixel
+// constants of the tile (ex2, the head maps) are staged once in shared
+// memory.
 #pragma once
 
 #include "common.cuh"
@@ -74,51 +72,45 @@ struct GradTile {
   }
 };
 
-// Shared-memory geometry of the cost recompute, in floats, after
+// Shared-memory geometry of K6's cost recompute, in floats, after
 // GradTile's: the camera tile (img_rows x cam_w) and the projector tile
 // widened left by `chunk` - 1 columns (img_rows x proj_w) over the image
-// region the recomputed windows of `chunk` planes read, the cross term's
-// rows pass (out_rows x cam_w) and, when the recompute covers the halo'd
-// tile, the camera's window means there (one more halo'd tile).  `ext` is
-// how far the recomputed region reaches past the kTileH x kTileW tile on
-// each side: 0 or p.
+// region the recomputed windows of `chunk` planes read, and the cross
+// term's rows pass (kTileH x cam_w).
 struct RecomputeTile {
-  int p, ext, chunk, out_rows, img_rows, cam_w, proj_w;
-  __host__ __device__ RecomputeTile(int k, int chunk, bool halo_cost)
+  int p, chunk, img_rows, cam_w, proj_w;
+  __host__ __device__ RecomputeTile(int k, int chunk)
       : p(k / 2),
-        ext(halo_cost ? k / 2 : 0),
         chunk(chunk),
-        out_rows(kTileH + 2 * ext),
-        img_rows(kTileH + 2 * ext + 2 * (k / 2)),
-        cam_w(kTileW + 2 * ext + 2 * (k / 2)),
-        proj_w(kTileW + 2 * ext + 2 * (k / 2) + chunk - 1) {}
-  __host__ __device__ size_t floats(int halo) const {
+        img_rows(kTileH + 2 * (k / 2)),
+        cam_w(kTileW + 2 * (k / 2)),
+        proj_w(kTileW + 2 * (k / 2) + chunk - 1) {}
+  __host__ __device__ size_t floats() const {
     return static_cast<size_t>(img_rows) * (cam_w + proj_w) +
-           static_cast<size_t>(out_rows) * cam_w + (ext ? halo : 0);
+           static_cast<size_t>(kTileH) * cam_w;
   }
 };
 
-// The most planes a projector staging of the recompute can cover within
-// `budget` floats of shared memory beside `fixed` (GradTile's), capped at
-// D + 1; 0 when not even one plane fits.
-inline int recompute_chunk(int k, int D, bool halo_cost, size_t fixed,
-                           int halo, size_t budget) {
-  const size_t one = fixed + RecomputeTile(k, 1, halo_cost).floats(halo);
+// The most planes a projector staging can cover within `budget` floats
+// of shared memory, when a block holds `fixed` floats beside a staging of
+// `rows` image rows that grows by a column a plane and takes `one_plane`
+// floats at one plane; capped at D + 1; 0 when not even one plane fits.
+inline int staging_chunk(int D, size_t fixed, size_t one_plane, int rows,
+                         size_t budget) {
+  const size_t one = fixed + one_plane;
   if (one > budget) return 0;
-  const size_t more =
-      (budget - one) / RecomputeTile(k, 1, halo_cost).img_rows;
+  const size_t more = (budget - one) / rows;
   return static_cast<int>(more + 1 < static_cast<size_t>(D) + 1
                               ? more + 1
                               : static_cast<size_t>(D) + 1);
 }
 
-// The cross term's rows pass for shift = D - d (K1's vertical_products
-// over out_rows rows): xsum[r][c] = sum_{t<k} cam_t[r + t][c] *
-// proj_t[r + t][c + shift].
+// The cross term's rows pass for shift = D - d (K1's vertical_products):
+// xsum[r][c] = sum_{t<k} cam_t[r + t][c] * proj_t[r + t][c + shift].
 __device__ inline void cross_rows(float* xsum, const float* cam_t,
                                   const float* proj_t,
                                   const RecomputeTile& x, int k, int shift) {
-  for (int i = threadIdx.x; i < x.out_rows * x.cam_w; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kTileH * x.cam_w; i += blockDim.x) {
     const int r = i / x.cam_w, c = i - r * x.cam_w;
     const float* a = cam_t + r * x.cam_w + c;
     const float* b = proj_t + r * x.proj_w + c + shift;
@@ -144,7 +136,7 @@ __device__ inline void vertical_sum(float* vsum, const float* tile,
 
 // Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
 // shared memory GradTile(k).floats(Source::kMaps) floats, plus
-// RecomputeTile(k, chunk, Source::kNeedsCost).floats(halo) with kRecompute.
+// RecomputeTile(k, chunk).floats() with kRecompute.
 //
 // Source: the cotangent plane.
 //   kMaps       halo'd tiles of per-pixel constants it stages
@@ -152,9 +144,11 @@ __device__ inline void vertical_sum(float* vsum, const float* tile,
 //   stage(maps, halo, i, pix, inside)  fill entry i of its tiles
 //   value(maps, halo, i, vidx, c, df)  g_d at halo entry i (inside the
 //     image), volume offset vidx, cost c, disparity df
-// kRecompute: the cost is recomputed from camera and projector (cost is
-// not read), the projector tile staged anew every `chunk` planes;
-// otherwise it is read from the plane-major volume `cost` (chunk unused).
+// kRecompute: the cost is recomputed from camera and projector on the
+// tile's own pixels (cost is not read), the projector tile staged anew
+// every `chunk` planes; otherwise it is read from the plane-major volume
+// `cost` (chunk unused).  The recompute serves a Source that does not
+// read the cost at the halo (K6).
 template <class Source, bool kRecompute>
 __global__ void __launch_bounds__(kThreads)
     camera_grad_planes_kernel(Source src, const float* __restrict__ camera,
@@ -168,8 +162,8 @@ __global__ void __launch_bounds__(kThreads)
                               float* __restrict__ b_out,
                               float* __restrict__ grmu_out, int H, int W,
                               int D, int k, int chunk, float eps) {
-  // The recompute covers the halo'd tile when g_d needs the cost there.
-  constexpr bool kHaloCost = kRecompute && Source::kNeedsCost;
+  static_assert(!(kRecompute && Source::kNeedsCost),
+                "K5 recomputes the halo's cost in its own kernel");
   extern __shared__ float smem[];
   const GradTile g(k);
   const int halo = g.halo();
@@ -177,11 +171,10 @@ __global__ void __launch_bounds__(kThreads)
   float* gr_t = ex2_t + halo;
   float* vsum = gr_t + halo;
   float* maps = vsum + kTileH * g.cam_w;
-  const RecomputeTile x(k, chunk, kHaloCost);
+  const RecomputeTile x(k, chunk);
   float* cam_x = maps + Source::kMaps * halo;
   float* proj_x = cam_x + x.img_rows * x.cam_w;
   float* xsum = proj_x + x.img_rows * x.proj_w;
-  float* mux_t = xsum + x.out_rows * x.cam_w;
 
   const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
   const size_t plane = static_cast<size_t>(H) * W;
@@ -198,10 +191,9 @@ __global__ void __launch_bounds__(kThreads)
     const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
     const size_t pix = frame + static_cast<size_t>(y) * W + xx;
     ex2_t[i] = inside ? __ldg(cam_e2 + pix) : 0.f;
-    if (kHaloCost) mux_t[i] = inside ? __ldg(cam_s + pix) * inv_k2 : 0.f;
     src.stage(maps, halo, i, pix, inside);
   }
-  const int row0 = h0 - x.ext - x.p, col0 = w0 - x.ext - x.p;
+  const int row0 = h0 - x.p, col0 = w0 - x.p;
   if (kRecompute)
     stage_tile(cam_x, camera + frame, H, W, row0, col0, x.img_rows, x.cam_w,
                1.f);
@@ -214,8 +206,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t o = frame + static_cast<size_t>(h) * W + w;
   const size_t stats_row = (static_cast<size_t>(b) * H + h) * stats_w + D + w;
   // The camera's window mean at the tile's own pixel (K6's recompute).
-  const float mux =
-      kRecompute && !kHaloCost && valid ? __ldg(cam_s + o) * inv_k2 : 0.f;
+  const float mux = kRecompute && valid ? __ldg(cam_s + o) * inv_k2 : 0.f;
   float a1 = 0.f, bacc = 0.f, grmu = 0.f;
   // The last plane of the staged projector chunk: its tile starts at image
   // column col0 - last, so plane d reads it at shift last - d.
@@ -247,13 +238,7 @@ __global__ void __launch_bounds__(kThreads)
             (static_cast<size_t>(b) * H + y) * stats_w + D + xx - d;
         const float ri = rsqrtf(ex2_t[i] * __ldg(proj_e2 + srow) + eps);
         float cv = 0.f;
-        if (kHaloCost) {
-          // Halo entry i is recompute output (rr, cc): ext = p.
-          const float sxy = horizontal_sum(xsum, x.cam_w, rr, cc, k);
-          cv = (sxy - mux_t[i] * __ldg(proj_s + srow) + eps) * ri;
-        } else if (Source::kNeedsCost) {
-          cv = __ldg(cost_d + px);
-        }
+        if (Source::kNeedsCost) cv = __ldg(cost_d + px);
         const float gd = src.value(
             maps, halo, i, (static_cast<size_t>(b) * (D + 1) + d) * plane + px,
             cv, df);
@@ -274,9 +259,8 @@ __global__ void __launch_bounds__(kThreads)
       const float rc = rsqrtf(ex2_t[centre] * e2 + eps);
       float cv;
       if (kRecompute) {
-        const float sxy =
-            horizontal_sum(xsum, x.cam_w, r + x.ext, c + x.ext, k);
-        cv = (sxy - (kHaloCost ? mux_t[centre] : mux) * sy + eps) * rc;
+        const float sxy = horizontal_sum(xsum, x.cam_w, r, c, k);
+        cv = (sxy - mux * sy + eps) * rc;
       } else {
         cv = __ldg(cost_d + (o - frame));
       }
@@ -346,10 +330,52 @@ __global__ void __launch_bounds__(kThreads)
   grad[o] = (a1[o] - s_grmu) + (s_bmu - camera[o] * s_b);
 }
 
-// The statistics passes (camera; projector over the D-widened columns),
-// the planes kernel and the combine.  Scratch: cam_s/cam_e2 [B, H, W],
-// proj_s/proj_e2 [B, H, W + D], a1/bm/grmu [B, H, W].  With kRecompute
-// `cost` is not read (pass nullptr).
+// The opt-in shared memory a block of the current device may hold, in
+// floats.
+inline cudaError_t optin_floats(size_t* floats) {
+  int device = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  *floats = static_cast<size_t>(optin) / sizeof(float);
+  return e;
+}
+
+// The statistics passes: the camera's, and the projector's over the
+// D-widened columns.
+inline cudaError_t launch_grad_stats(const float* camera,
+                                     const float* projector, float* cam_s,
+                                     float* cam_e2, float* proj_s,
+                                     float* proj_e2, int B, int H, int W,
+                                     int D, int k, cudaStream_t stream) {
+  const cudaError_t e =
+      launch_box_stats(camera, cam_s, cam_e2, B, H, W, k, 0, W, 1.f, stream);
+  if (e != cudaSuccess) return e;
+  return launch_box_stats(projector, proj_s, proj_e2, B, H, W, k, D, W + D,
+                          1.f, stream);
+}
+
+inline cudaError_t launch_grad_combine(const float* camera,
+                                       const float* cam_s, const float* a1,
+                                       const float* bm, const float* grmu,
+                                       float* grad, int B, int H, int W,
+                                       int k, cudaStream_t stream) {
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  const int p = k / 2;
+  const size_t cols = kTileW + 2 * p;
+  const size_t combine_bytes =
+      sizeof(float) * 3 * ((kTileH + 2 * p) * cols + kTileH * cols);
+  const cudaError_t e = allow_smem(camera_grad_combine_kernel, combine_bytes);
+  if (e != cudaSuccess) return e;
+  camera_grad_combine_kernel<<<grid, kThreads, combine_bytes, stream>>>(
+      camera, cam_s, a1, bm, grmu, grad, H, W, k);
+  return cudaGetLastError();
+}
+
+// The statistics passes, the planes kernel and the combine.  Scratch:
+// cam_s/cam_e2 [B, H, W], proj_s/proj_e2 [B, H, W + D], a1/bm/grmu
+// [B, H, W].  With kRecompute `cost` is not read (pass nullptr).
 template <bool kRecompute, class Source>
 cudaError_t launch_camera_grad(const Source& src, const float* camera,
                                const float* projector, float* cam_s,
@@ -357,11 +383,8 @@ cudaError_t launch_camera_grad(const Source& src, const float* camera,
                                const float* cost, float* a1, float* bm,
                                float* grmu, float* grad, int B, int H, int W,
                                int D, int k, float eps, cudaStream_t stream) {
-  cudaError_t e =
-      launch_box_stats(camera, cam_s, cam_e2, B, H, W, k, 0, W, 1.f, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_box_stats(projector, proj_s, proj_e2, B, H, W, k, D, W + D, 1.f,
-                       stream);
+  cudaError_t e = launch_grad_stats(camera, projector, cam_s, cam_e2, proj_s,
+                                    proj_e2, B, H, W, D, k, stream);
   if (e != cudaSuccess) return e;
 
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
@@ -370,17 +393,14 @@ cudaError_t launch_camera_grad(const Source& src, const float* camera,
   size_t floats = g.floats(Source::kMaps);
   int chunk = D + 1;
   if (kRecompute) {
-    int device = 0, optin = 0;
-    e = cudaGetDevice(&device);
+    size_t budget = 0;
+    e = optin_floats(&budget);
     if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (e != cudaSuccess) return e;
-    chunk = recompute_chunk(k, D, Source::kNeedsCost, floats, g.halo(),
-                            static_cast<size_t>(optin) / sizeof(float));
+    const RecomputeTile one(k, 1);
+    chunk = staging_chunk(D, floats, one.floats(), one.img_rows, budget);
     // Not even one plane's projector tile fits beside the block's tiles.
     if (chunk < 1) return cudaErrorInvalidConfiguration;
-    floats += RecomputeTile(k, chunk, Source::kNeedsCost).floats(g.halo());
+    floats += RecomputeTile(k, chunk).floats();
   }
   const size_t bytes = floats * sizeof(float);
   e = allow_smem(planes, bytes);
@@ -390,16 +410,8 @@ cudaError_t launch_camera_grad(const Source& src, const float* camera,
                                             bm, grmu, H, W, D, k, chunk, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-
-  const int p = k / 2;
-  const size_t cols = kTileW + 2 * p;
-  const size_t combine_bytes =
-      sizeof(float) * 3 * ((kTileH + 2 * p) * cols + kTileH * cols);
-  e = allow_smem(camera_grad_combine_kernel, combine_bytes);
-  if (e != cudaSuccess) return e;
-  camera_grad_combine_kernel<<<grid, kThreads, combine_bytes, stream>>>(
-      camera, cam_s, a1, bm, grmu, grad, H, W, k);
-  return cudaGetLastError();
+  return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
+                             stream);
 }
 
 }  // namespace

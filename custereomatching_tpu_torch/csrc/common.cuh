@@ -80,6 +80,164 @@ __device__ inline float horizontal_sum(const float* vsum, int cam_w, int r,
   return acc;
 }
 
+// ---------------------------------------------------------------------------
+// The register-blocked window pass (K3, K3w, K3m and K5).  K1, K2, K4, K6,
+// K7 and the boxadd rate probe keep the pass above.
+//
+// One work item makes N adjacent outputs of a window of k taps along one
+// line (a column of rows, or a row of columns) from N + k - 1 loads of each
+// operand, where the pass above makes k loads an output:
+//   acc[n] = sum_{t<k} a[(n + t) as] * b[(n + t) bs]    (kProducts: fmaf)
+//   acc[n] = sum_{t<k} a[(n + t) as]                    (sums: +)
+// Each output adds its taps t = 0..k-1 in order, from 0, with fmaf for
+// products and + for sums, as vertical_products, horizontal_sum,
+// cross_rows and vertical_sum do: the operands come from registers, the
+// arithmetic is theirs, so the values are theirs bit for bit.  Line entry
+// i feeds the outputs n with 0 <= i - n < k; for k >= N - 1 the first and
+// last N - 1 entries feed a set of outputs known at compile time, and the
+// middle entries feed all N, so no tap is predicated.  A smaller k takes
+// the predicated loop (same taps, same order).
+template <bool kProducts>
+__device__ __forceinline__ float window_tap(float acc, float x, float y) {
+  if constexpr (kProducts)
+    return fmaf(x, y, acc);
+  else
+    return acc + x;
+}
+
+template <int N, bool kProducts>
+__device__ __forceinline__ void window_taps(float (&acc)[N], const float* a,
+                                            int as, const float* b, int bs,
+                                            int k) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n] = 0.f;
+  auto load = [&](int i, float& x, float& y) {
+    x = a[i * as];
+    if constexpr (kProducts) y = b[i * bs];
+  };
+  float x, y = 0.f;
+  if (k >= N - 1) {
+#pragma unroll
+    for (int i = 0; i < N - 1; ++i) {
+      load(i, x, y);
+#pragma unroll
+      for (int n = 0; n <= i; ++n) acc[n] = window_tap<kProducts>(acc[n], x, y);
+    }
+#pragma unroll 2
+    for (int i = N - 1; i < k; ++i) {
+      load(i, x, y);
+#pragma unroll
+      for (int n = 0; n < N; ++n) acc[n] = window_tap<kProducts>(acc[n], x, y);
+    }
+#pragma unroll
+    for (int j = 0; j < N - 1; ++j) {
+      load(k + j, x, y);
+#pragma unroll
+      for (int n = j + 1; n < N; ++n)
+        acc[n] = window_tap<kProducts>(acc[n], x, y);
+    }
+  } else {
+    for (int i = 0; i < N - 1 + k; ++i) {
+      load(i, x, y);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int t = i - n;
+        if (t >= 0 && t < k) acc[n] = window_tap<kProducts>(acc[n], x, y);
+      }
+    }
+  }
+}
+
+// The first output of group q of a line of `len` outputs cut in groups of
+// N: the last group is moved back to end at the line's end, so it reads
+// nothing past it (its outputs shared with the group before are computed
+// twice, to the same value).  len >= N.
+template <int N>
+__device__ __forceinline__ int group_start(int q, int len) {
+  return min(q * N, len - N);
+}
+
+// K3's round: P planes of the rows pass (kRoundRows output rows a column,
+// the whole tile height), one barrier, P planes of column sums
+// (kRoundCols outputs a row), one barrier; then each pixel's thread reads
+// its P sums in plane order.  Rows of the round's buffers are padded to an
+// odd stride, so the column sums' 32 rows of a warp hit 32 banks.
+constexpr int kRoundRows = 16;
+constexpr int kRoundCols = 16;
+static_assert(kRoundRows == kTileH, "the rows pass covers the tile height");
+static_assert(kTileW % kRoundCols == 0, "column groups tile the width");
+
+// Shared-memory geometry of K3's round, in floats, after PlaneTile's two
+// image tiles: `planes` planes of the rows pass (kTileH x vs, vs = cam_w + 1)
+// and of the window sums (kTileH x bs, bs = kTileW + 1).
+struct RoundTile {
+  int vs, bs, planes;
+  __host__ __device__ RoundTile(const PlaneTile& g, int planes)
+      : vs(g.cam_w + 1), bs(kTileW + 1), planes(planes) {}
+  __host__ __device__ int vsum_floats() const { return kTileH * vs; }
+  __host__ __device__ int box_floats() const { return kTileH * bs; }
+  __host__ __device__ static size_t image_floats(const PlaneTile& g) {
+    return static_cast<size_t>(g.rows) * (g.cam_w + g.proj_w);
+  }
+  __host__ __device__ size_t floats(const PlaneTile& g) const {
+    return image_floats(g) +
+           static_cast<size_t>(planes) * (vsum_floats() + box_floats());
+  }
+};
+
+// Planes a K3 round takes within `budget` floats of shared memory: as many
+// as give every thread one rows-pass column (kThreads / cam_w), capped by
+// the budget and by D + 1; 0 when not one plane fits.
+inline int round_planes(int k, int D, size_t budget) {
+  const PlaneTile g(k, D);
+  const RoundTile one(g, 1);
+  const size_t fixed = RoundTile::image_floats(g);
+  const size_t per = static_cast<size_t>(one.vsum_floats()) + one.box_floats();
+  if (fixed + per > budget) return 0;
+  size_t planes = kThreads / g.cam_w;
+  if (planes < 1) planes = 1;
+  if (planes > (budget - fixed) / per) planes = (budget - fixed) / per;
+  if (planes > static_cast<size_t>(D) + 1) planes = static_cast<size_t>(D) + 1;
+  return static_cast<int>(planes);
+}
+
+// Rows pass of `np` planes: vsum[j][r][c] = sum_{t<k} cam_t[r + t][c] *
+// proj_t[r + t][c + shift0 - j] for r < kTileH, c < cam_w (plane d0 + j
+// reads the projector at shift D - d0 - j).  An item is a column of one
+// plane.
+__device__ inline void round_products(float* vsum, const float* cam_t,
+                                      const float* proj_t, const PlaneTile& g,
+                                      const RoundTile& x, int k, int shift0,
+                                      int np) {
+  for (int i = threadIdx.x; i < np * g.cam_w; i += blockDim.x) {
+    const int j = i / g.cam_w, c = i - j * g.cam_w;
+    float acc[kRoundRows];
+    window_taps<kRoundRows, true>(acc, cam_t + c, g.cam_w,
+                                  proj_t + c + shift0 - j, g.proj_w, k);
+    float* out = vsum + j * x.vsum_floats() + c;
+#pragma unroll
+    for (int n = 0; n < kRoundRows; ++n) out[n * x.vs] = acc[n];
+  }
+}
+
+// Column sums of `np` planes: box[j][r][c] = sum_{t<k} vsum[j][r][c + t]
+// for r < kTileH, c < kTileW.  An item is kRoundCols outputs of one row;
+// a warp's items are consecutive rows (planes continue the rows).
+__device__ inline void round_column_sums(float* box, const float* vsum,
+                                         const RoundTile& x, int k, int np) {
+  constexpr int kGroups = kTileW / kRoundCols;
+  const int lines = np * kTileH;
+  for (int i = threadIdx.x; i < lines * kGroups; i += blockDim.x) {
+    const int q = i / lines, line = i - q * lines;
+    float acc[kRoundCols];
+    window_taps<kRoundCols, false>(acc, vsum + line * x.vs + q * kRoundCols,
+                                   1, nullptr, 0, k);
+    float* out = box + line * x.bs + q * kRoundCols;
+#pragma unroll
+    for (int n = 0; n < kRoundCols; ++n) out[n] = acc[n];
+  }
+}
+
 // Internal linkage: each translation unit that includes this header gets
 // its own copy of the statistics kernel and its launcher.
 namespace {

@@ -37,25 +37,36 @@
 // What bounds it on the H100: the serving variant reads two images and
 // writes four maps (about 6 * 4 * H * W bytes a frame), so it has no memory
 // floor worth the name; the work is (D+1) planes of the k-tap row and
-// column sums plus one rsqrt and one or two exp per pixel and plane.  As
-// in K1 the simple first version is bound by the shared-memory traffic of
-// the row pass and by two barriers per plane; the design keeps both
-// images in shared memory for all planes and the head in registers.  K3m
-// adds three map stores (12 bytes a pixel).  K3w adds K1's volume write
-// (360 MB a KITTI frame, about 0.11 ms at 3.35 TB/s), stored coalesced
-// along W.  It is not hidden
-// behind the planes' arithmetic: on the H100 K3w takes about that much
-// longer than the serving variant.
+// column sums plus one rsqrt and one or two exp per pixel and plane.  K1's
+// pass (2k shared loads a rows-pass entry, k a pixel's column sum, two
+// barriers a plane) bound the first version.  This one runs the
+// register-blocked pass of common.cuh in rounds of P planes: a rows-pass
+// item sums a whole tile column of one plane (16 outputs from 2 (15 + k)
+// loads), a column-sums item 16 outputs from 15 + k loads, and a round
+// has two barriers, so at k = 15 a pixel and plane costs about 11 shared
+// loads and stores where K1's pass makes 52, and D = 192 takes 30
+// barriers, not 386.  The round's sums wait in shared memory and each
+// pixel's thread reads its own in plane order, so the head sees the
+// planes as before.  At KITTI (k = 15, D = 192) a block holds the two
+// image tiles (30 x 78 and 30 x 270) and P = 13 planes of rows-pass sums
+// (16 x 79) and window sums (16 x 65): 40,392 floats = 161,568 bytes, and
+// its threads take up to 64 registers, so one 1024-thread block an SM.
+// K3m adds three map stores (12 bytes a pixel).  K3w adds K1's volume
+// write (360 MB a KITTI frame, about 0.11 ms at 3.35 TB/s), stored
+// coalesced along W.  It is not hidden behind the planes' arithmetic: on
+// the H100 K3w took about that much longer than the serving variant.
 #include "common.cuh"
 
 namespace custereo {
 namespace {
 
-// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
-// shared memory PlaneTile(k, D).floats() floats.  am_out, s_out and t_out
-// are written only when kResiduals, volume only when kVolume.
+// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads, one
+// block an SM (the register-blocked pass takes up to 64 registers a
+// thread); dynamic shared memory RoundTile(PlaneTile(k, D), planes).floats()
+// floats.  am_out, s_out and t_out are written only when kResiduals, volume
+// only when kVolume.
 template <bool kUnnormalized, bool kResiduals, bool kVolume>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     fused_pipeline_kernel(const float* __restrict__ camera,
                           const float* __restrict__ projector,
                           const float* __restrict__ cam_s,
@@ -68,12 +79,15 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ am_out,
                           float* __restrict__ s_out,
                           float* __restrict__ t_out, int H, int W, int D,
-                          int k, float eps, float beta, float threshold) {
+                          int k, int planes, float eps, float beta,
+                          float threshold) {
   extern __shared__ float smem[];
   const PlaneTile g(k, D);
+  const RoundTile x(g, planes);
   float* cam_t = smem;
   float* proj_t = cam_t + g.rows * g.cam_w;
   float* vsum = proj_t + g.rows * g.proj_w;
+  float* box = vsum + planes * x.vsum_floats();
 
   const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
   const size_t plane = static_cast<size_t>(H) * W;
@@ -103,14 +117,24 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float beps = beta * eps;
   const float inv_b = 1.f / beta;
+  const float* my_box = box + r * x.bs + c;
   float m = -3.0e38f, am = 0.f, s = 0.f, t = 0.f;
   __syncthreads();
 
-  for (int d = 0; d <= D; ++d) {
-    vertical_products(vsum, cam_t, proj_t, g, k, D - d);
+  // Rounds of `planes` planes.  The rows pass of a round overwrites vsum,
+  // whose last reader (the round before's column sums) is behind a
+  // barrier; the column sums overwrite box after the rows pass's barrier,
+  // which every read of the round before's sums precedes.
+  for (int d0 = 0; d0 <= D; d0 += planes) {
+    const int np = min(planes, D + 1 - d0);
+    round_products(vsum, cam_t, proj_t, g, x, k, D - d0, np);
     __syncthreads();
-    if (valid) {
-      const float sxy_b = horizontal_sum(vsum, g.cam_w, r, c, k);
+    round_column_sums(box, vsum, x, k, np);
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < np; ++j) {
+      const int d = d0 + j;
+      const float sxy_b = my_box[j * x.box_floats()];
       const float exy_b = sxy_b - mux * __ldg(sy_row - d);
       const float bc =
           (exy_b + beps) * rsqrtf(ex2 * __ldg(ey2_row - d) + eps);
@@ -136,7 +160,6 @@ __global__ void __launch_bounds__(kThreads)
         t = fmaf(df, e, t);
       }
     }
-    __syncthreads();
   }
 
   if (!valid) return;
@@ -163,13 +186,24 @@ cudaError_t launch_fused(const float* camera, const float* projector,
                          float eps, float beta, float threshold,
                          cudaStream_t stream) {
   auto kernel = fused_pipeline_kernel<kUnnormalized, kResiduals, kVolume>;
-  const size_t bytes = PlaneTile(k, D).floats() * sizeof(float);
-  const cudaError_t e = allow_smem(kernel, bytes);
+  int device = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  if (e != cudaSuccess) return e;
+  const int planes =
+      round_planes(k, D, static_cast<size_t>(optin) / sizeof(float));
+  // Not even one plane's buffers fit beside the image tiles.
+  if (planes < 1) return cudaErrorInvalidConfiguration;
+  const PlaneTile g(k, D);
+  const size_t bytes = RoundTile(g, planes).floats(g) * sizeof(float);
+  e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
-      mask, conf, volume, am, s, t, H, W, D, k, eps, beta, threshold);
+      mask, conf, volume, am, s, t, H, W, D, k, planes, eps, beta, threshold);
   return cudaGetLastError();
 }
 

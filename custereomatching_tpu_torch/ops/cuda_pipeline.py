@@ -307,10 +307,11 @@ def _check_maps(camera: torch.Tensor, what: str, **maps: torch.Tensor):
     return out
 
 
-# K5's planes block holds the halo'd tiles of camera_grad.cuh's recompute
-# beside the head's six maps: at one plane per projector staging it needs
-# 56,108 floats at k = 27 and 60,464 at k = 29, past the 58,112 floats
-# (227 KB) a block may have on an H100.  Below that any D runs: the
+# K5's block holds the halo'd tile's constants, the image tiles and a
+# round's buffers (fused_pipeline_bwd.cu): at one plane a round and a
+# projector staging it needs 54,752 floats at k = 27 and 59,080 at k = 29,
+# past the 58,112 floats (227 KB) a block may have on an H100
+# (``utils/kernel_model.halo_tile``).  Below that any D runs: the
 # projector tile is staged in as many disparity chunks as it takes.
 K5_MAX_KERNEL_SIZE = 27
 

@@ -24,6 +24,10 @@ speckle frame and prints its lines, then one JSON object:
   (``stereo_matching_hdw``, ``extract_disparity_hdw``: K1, the plain head
   over the planes, K2 reading the cotangent as it comes).
 * ``k3``: device time of the serving K3 (CUDA events).
+* ``kernels``: device time of each banded kernel, K1, K3, K3w, K3m, K2,
+  K7, K4, K6 and K5 (CUDA events, the median of 10 chained calls of 3),
+  on the speckle pair, a random volume cotangent and random head
+  cotangents.
 * ``engine``: host-clock latency of ``StereoEngine.infer`` on KITTI
   frames, as ``chip_smoke.py``'s serving phase measures it.
 * ``allpairs``: the all-pairs step at 330x422, k=15 (the default
@@ -34,9 +38,10 @@ speckle frame and prints its lines, then one JSON object:
   nvcc per source, all started together, then a link) and as a single
   nvcc over every source, alternated, each into an empty directory.
 
-To compare two checkouts in one run (``train``, ``k3``, ``engine``,
-``allpairs``, ``launch``), run this file by its path with ``PYTHONPATH``
-set to each checkout in turn: the package is then imported from there.
+To compare two checkouts in one run (``train``, ``free``, ``k3``,
+``kernels``, ``engine``, ``allpairs``, ``launch``), run this file by its
+path with ``PYTHONPATH`` set to each checkout in turn: the package is
+then imported from there.
 
 Needs a CUDA card and nvcc.
 """
@@ -254,6 +259,50 @@ def mode_k3() -> dict:
     return {"k3_ms": ms}
 
 
+def mode_kernels() -> dict:
+    from custereomatching_tpu_torch.ops.cuda_pipeline import (
+        fused_pipeline_bwd_cuda,
+        fused_pipeline_train_cuda,
+    )
+    from custereomatching_tpu_torch.ops.cuda_zncc import (
+        camera_grad_banded_cuda,
+        cost_volume_banded_cuda,
+        projector_grad_banded_cuda,
+    )
+
+    H, W, D, k = KITTI
+    _, cam, proj, _ = scene()
+    pipe = (cam, proj, D, k, 1e-8, 50.0, 0.6)
+    gen = torch.Generator("cuda").manual_seed(0)
+    with torch.no_grad():
+        res = fused_pipeline_train_cuda(*pipe)[1]
+        res_m = fused_pipeline_train_cuda(*pipe, False)[1]
+        cost = cost_volume_banded_cuda(cam, proj, D, k, 1e-8)
+        g = torch.randn((1, D + 1, H, W), device="cuda", generator=gen)
+    gs = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
+    gc = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
+    vjp = (cam, proj, cost.permute(0, 3, 1, 2), g, D, k, 1e-8)
+    out = {}
+    for name, fn, args in (
+            ("K1", cost_volume_banded_cuda, (cam, proj, D, k, 1e-8)),
+            ("K3", stereo_pipeline_cuda, pipe),
+            ("K3w", fused_pipeline_train_cuda, pipe),
+            ("K3m", fused_pipeline_train_cuda, pipe + (False,)),
+            ("K2", camera_grad_banded_cuda, vjp),
+            ("K7", projector_grad_banded_cuda, vjp),
+            ("K4", fused_pipeline_bwd_cuda,
+             (cam, proj, res, gs, gc, D, k, 1e-8, 50.0)),
+            ("K6", camera_grad_banded_cuda, (cam, proj, None, g, D, k, 1e-8)),
+            ("K5", fused_pipeline_bwd_cuda,
+             (cam, proj, res_m, gs, gc, D, k, 1e-8, 50.0))):
+        with torch.no_grad():
+            out[name] = 1e3 * benchmark(fn, *args, warmup=2, iters=10,
+                                        chain=3)["median_s"]
+    print(f"kernels: from {Path(_build.__file__).parents[2]}: "
+          + " ".join(f"{n} {ms:.4f}" for n, ms in out.items()) + " ms")
+    return out
+
+
 def mode_engine() -> dict:
     """Host-clock latency of ``StereoEngine.infer`` (numpy in, numpy out)
     on KITTI frames in the 384x1280 bucket, as ``chip_smoke.py``'s serving
@@ -368,7 +417,8 @@ def mode_build() -> dict:
 
 
 MODES = {"train": mode_train, "free": mode_free, "volume": mode_volume,
-         "hdw": mode_hdw, "k3": mode_k3, "engine": mode_engine,
+         "hdw": mode_hdw, "k3": mode_k3, "kernels": mode_kernels,
+         "engine": mode_engine,
          "allpairs": mode_allpairs, "launch": mode_launch,
          "build": mode_build}
 

@@ -34,11 +34,13 @@ them):
     IEEE division: the multi-function unit and a few fix-up instructions).
     Probes: chains of ``expf(a * 0.25)`` and ``rsqrtf(a + 1)``.
 ``boxadd``
-    one shared-memory load inside a per-plane window pass (a rows pass of
-    products: two loads a tap; a rows pass of sums: one; a columns tap:
-    one), the pass's barriers included.  Probe: K1's own pass, at K1's
-    geometry and occupancy; normalised by :func:`box_pass_loads`, the
-    count the cost functions charge.
+    one shared-memory load inside K1's per-plane window pass (a rows pass
+    of products: two loads a tap; a rows pass of sums: one; a columns
+    tap: one), the pass's barriers included.  Probe: K1's own pass, at
+    K1's geometry and occupancy; normalised by :func:`box_pass_loads`,
+    the count the cost functions charge.  It prices K1, K2, K4, K6 and
+    K7, which run that pass.  The register-blocked pass of K3, K3w, K3m
+    and K5 (:func:`window_pass_cost`) is priced in ``smem`` or ``madd``.
 
 Rate keys: the classes (seconds an element), ``hbm_r3d`` and ``hbm_w3d``
 (seconds a byte, K10b and K10c), ``t3d`` and ``dus3d`` (seconds a byte
@@ -79,6 +81,18 @@ RATE_THREADS, RATE_CHAINS, RATE_UNROLL = 256, 8, 8
 BOX_PROBE_K, BOX_PROBE_D = 15, 192
 # The shared memory a block may opt into on an H100 (227 KB).
 SMEM_OPTIN_BYTES = 232448
+# The register-blocked window pass: outputs a work item of K3's rows pass
+# and column sums (csrc/common.cuh kRoundRows, kRoundCols), and of K5's
+# cross-term rows pass, its column sums, gr's rows pass and gr's column
+# sums; the halo entries a K5 thread owns and the constants staged an
+# entry (csrc/fused_pipeline_bwd.cu kHaloRows, kHaloCols, kGradRows,
+# kGradCols, kHaloOwn, kHaloConsts).
+ROUND_ROWS, ROUND_COLS = 16, 16
+HALO_ROWS, HALO_COLS, GRAD_ROWS, GRAD_COLS = 15, 13, 8, 8
+HALO_OWN, HALO_CONSTS = 4, 8
+# An H100 SM issues four warp-wide FP32 instructions a clock for each
+# warp-wide shared-memory access (128 FP32 lanes, 32 load/store lanes).
+FMA_PER_SMEM = 4
 
 _MODE_IDS = {"madd": 0, "smem": 1, "exp": 2, "rsqrt": 3, "boxadd": 4}
 # The probes' fixed inputs: the accumulators' start (_rate_kernel's 0.6),
@@ -522,6 +536,91 @@ def _combine_cost(H: int, W: int, k: int, we: int) -> OpCount:
                    madd=2 * inside + 4 * H * W)
 
 
+def window_pass_cost(items: int, n: int, k: int,
+                     products: bool) -> OpCount:
+    """``items`` work items of the register-blocked pass (common.cuh
+    ``window_taps``): each makes ``n`` outputs of ``k`` taps from
+    ``n + k - 1`` loads of each operand (two for products), stores them,
+    and issues ``n k`` FMAs or adds.  The loads and the FMAs go to two
+    pipes that run side by side, so only the one that binds is counted:
+    the shared accesses in ``smem``, or the FMAs in ``madd``, whichever
+    takes more issue slots at ``FMA_PER_SMEM`` FMAs an access."""
+    access = (n + k - 1) * (2 if products else 1) + n
+    ops = n * k
+    if access * FMA_PER_SMEM >= ops:
+        return OpCount(smem=items * access)
+    return OpCount(madd=items * ops)
+
+
+def _round_floats(k: int, D: int) -> Tuple[int, int]:
+    """K3's block in floats (``RoundTile`` of common.cuh): the two image
+    tiles, and the rows-pass and window-sum buffers of one plane (rows
+    padded to an odd stride)."""
+    p = k // 2
+    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    return (rows * (2 * cam_w + D),
+            K_TILE_H * (cam_w + 1) + K_TILE_H * (K_TILE_W + 1))
+
+
+def round_planes(k: int, D: int) -> int:
+    """Planes of a K3 round (``round_planes`` of common.cuh on an H100)."""
+    fixed, per = _round_floats(k, D)
+    budget = SMEM_OPTIN_BYTES // 4
+    if fixed + per > budget:
+        return 0
+    cam_w = K_TILE_W + 2 * (k // 2)
+    return min(max(1, K_THREADS // cam_w), (budget - fixed) // per, D + 1)
+
+
+def fused_block_floats(k: int, D: int) -> int:
+    """Shared memory of a K3 block in floats (``RoundTile::floats``)."""
+    fixed, per = _round_floats(k, D)
+    return fixed + round_planes(k, D) * per
+
+
+def halo_tile(k: int, chunk: int, planes: int) -> Dict[str, int]:
+    """K5's shared-memory geometry (``HaloTile`` of
+    fused_pipeline_bwd.cu), ``floats`` its block's total."""
+    p = k // 2
+    t = {"p": p, "halo_rows": K_TILE_H + 2 * p,
+         "halo_cols": K_TILE_W + 2 * p, "img_rows": K_TILE_H + 4 * p,
+         "img_w": K_TILE_W + 4 * p}
+    t["halo"] = t["halo_rows"] * t["halo_cols"]
+    t["proj_w"] = t["img_w"] + chunk - 1
+    t["xsz"] = max(t["halo_rows"] * (t["img_w"] + 1),
+                   K_TILE_H * (t["halo_cols"] + 1))
+    t["ysz"] = max(t["halo_rows"] * (t["halo_cols"] + 1),
+                   K_TILE_H * (K_TILE_W + 1))
+    t["row_groups"] = _cdiv(t["halo_rows"], HALO_ROWS)
+    t["fixed"] = HALO_CONSTS * t["halo"] + t["img_rows"] * t["img_w"]
+    t["floats"] = (t["fixed"] + t["img_rows"] * t["proj_w"]
+                   + planes * (t["xsz"] + t["ysz"]))
+    return t
+
+
+def halo_round(k: int, D: int) -> Tuple[int, int]:
+    """(planes a round, planes a projector staging) of K5
+    (``halo_round`` of fused_pipeline_bwd.cu on an H100); (0, 0) when not
+    one plane fits."""
+    t = halo_tile(k, 1, 1)
+    budget = SMEM_OPTIN_BYTES // 4
+    proj1 = t["img_rows"] * t["img_w"]
+    per = t["xsz"] + t["ysz"]
+    if t["fixed"] + proj1 + per > budget:
+        return 0, 0
+    planes = min(max(1, K_THREADS // (t["img_w"] * t["row_groups"])), D + 1)
+    if t["fixed"] + proj1 + planes * per > budget:
+        planes = (budget - t["fixed"] - proj1) // per
+    one = t["fixed"] + planes * per + proj1
+    chunk = min((budget - one) // t["img_rows"] + 1, D + 1)
+    if chunk < D + 1:
+        if chunk < planes:
+            planes = chunk
+        else:
+            chunk -= chunk % planes
+    return planes, chunk
+
+
 def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
     """K1 (``csrc/zncc_banded.cu``): the statistics passes, then a block a
     16 x 64 tile staging the camera and the D-widened projector tiles and,
@@ -546,9 +645,12 @@ def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
 def fused_forward_cost(H: int, W: int, D: int, k: int,
                        write_volume: bool = False,
                        residuals: Optional[bool] = None) -> OpCount:
-    """K3 / K3w / K3m (``csrc/fused_pipeline.cu``): K1's loop with the
-    online head in registers (one expf and four FMA-pipe ops a pixel and
-    plane), four maps out; ``residuals`` adds am, s and t (K3m; K3w
+    """K3 / K3w / K3m (``csrc/fused_pipeline.cu``): the image tiles staged,
+    then per plane the register-blocked rows pass (an item a tile column)
+    and column sums (an item ``ROUND_COLS`` pixels of a row), and the
+    online head in registers (the pixel's window sum read back, two
+    statistics loads, one rsqrt, one expf and eight FMA-pipe ops a pixel
+    and plane), four maps out; ``residuals`` adds am, s and t (K3m; K3w
     always), ``write_volume`` the volume store (K3w)."""
     residuals = write_volume if residuals is None else residuals
     p = k // 2
@@ -557,11 +659,13 @@ def fused_forward_cost(H: int, W: int, D: int, k: int,
     rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
     px, planes = H * W, D + 1
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+    c = c + window_pass_cost(blocks * cam_w * planes, ROUND_ROWS, k, True)
+    c = c + window_pass_cost(
+        blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes, ROUND_COLS,
+        k, False)
     c = c + OpCount(
         smem=blocks * 2 * rows * (2 * cam_w + D) + 2 * px
-        + planes * 2 * px,
-        boxadd=planes * (blocks * box_pass_loads(k, K_TILE_H, cam_w, 0)
-                         + px * k),
+        + planes * 3 * px,
         rsqrt=planes * px + px,                  # + t / s once a pixel
         exp=planes * px,
         madd=px + planes * (8 + int(write_volume)) * px + 4 * px)
@@ -572,17 +676,14 @@ def fused_forward_cost(H: int, W: int, D: int, k: int,
         c.bytes_w + maps * px * 4 + (planes * px * 4 if write_volume else 0))
 
 
-def _recompute_chunk(k: int, D: int, halo_cost: bool, fixed: int) -> int:
-    """Planes a projector staging of the cost recompute covers
-    (``recompute_chunk`` of camera_grad.cuh on an H100)."""
+def _recompute_chunk(k: int, D: int, fixed: int) -> int:
+    """Planes a projector staging of K6's cost recompute covers
+    (``staging_chunk`` of camera_grad.cuh with ``RecomputeTile`` on an
+    H100)."""
     p = k // 2
-    ext = p if halo_cost else 0
-    img_rows = K_TILE_H + 2 * ext + 2 * p
-    cam_w = K_TILE_W + 2 * ext + 2 * p
-    out_rows = K_TILE_H + 2 * ext
-    halo = (K_TILE_H + 2 * p) * (K_TILE_W + 2 * p)
-    one = (fixed + img_rows * (2 * cam_w) + out_rows * cam_w
-           + (halo if ext else 0))
+    img_rows = K_TILE_H + 2 * p
+    cam_w = K_TILE_W + 2 * p
+    one = fixed + img_rows * (2 * cam_w) + K_TILE_H * cam_w
     budget = SMEM_OPTIN_BYTES // 4
     if one > budget:
         return 0
@@ -593,9 +694,8 @@ def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
                       recompute: bool) -> OpCount:
     """The camera VJP body of ``csrc/camera_grad.cuh``: K2 (cotangent and
     cost read), K6 (cotangent read, cost recomputed on K1's tile), K4
-    (head maps, cost read), K5 (head maps, cost recomputed over the
-    halo'd tile); the statistics passes, the planes kernel and the
-    combine.
+    (head maps, cost read); the statistics passes, the planes kernel and
+    the combine.
 
     Per plane and block: the recompute's rows pass of products (one pass),
     gr_d over the halo'd tile (its source, an rsqrt), ``vertical_sum``
@@ -610,7 +710,6 @@ def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
     inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
                                                          0, W)
     outside = blocks * halo - inside
-    halo_cost = recompute and head
     maps = 6 if head else 0
 
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
@@ -622,27 +721,20 @@ def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
                     rsqrt=inside if head else 0,
                     madd=(3 * inside if head else 0))
     if recompute:
-        ext = p if halo_cost else 0
-        img_rows = K_TILE_H + 2 * ext + 2 * p
-        x_w = K_TILE_W + 2 * ext + 2 * p
-        out_rows = K_TILE_H + 2 * ext
-        chunk = _recompute_chunk(k, D, halo_cost, halo * (2 + maps)
-                                 + K_TILE_H * cam_w)
+        img_rows, x_w = K_TILE_H + 2 * p, cam_w
+        chunk = _recompute_chunk(k, D, halo * 2 + K_TILE_H * cam_w)
         stagings = _cdiv(planes, max(chunk, 1))
         c = c + OpCount(
             smem=blocks * 2 * img_rows * (x_w + stagings * (x_w + chunk - 1))
-            + (2 * inside + outside if halo_cost else px),
-            boxadd=planes * blocks * box_pass_loads(k, out_rows, x_w, 0))
+            + px,
+            boxadd=planes * blocks * box_pass_loads(k, K_TILE_H, x_w, 0))
     # gr_d over the halo: ex2 (shared), ey2 (cached), the source, the
-    # store; the recompute's column sums and statistics where the cost is
-    # needed there (K5).
+    # store.
     src_smem = 5 if head else 1               # head maps, or g (global)
     src_madd = 7 if head else 0
-    cost_smem = 2 if halo_cost else (1 if head else 0)
+    cost_smem = 1 if head else 0
     per_inside = OpCount(smem=3 + src_smem + cost_smem, rsqrt=1,
-                         exp=1 if head else 0,
-                         madd=2 + src_madd + (3 if halo_cost else 0),
-                         boxadd=k if halo_cost else 0)
+                         exp=1 if head else 0, madd=2 + src_madd)
     c = c + per_inside.scaled(planes * inside) + OpCount(
         smem=planes * outside)
     # vertical_sum of gr and the column sums of the block's pixels.
@@ -654,15 +746,24 @@ def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
                     boxadd=planes * px * (k if recompute else 0),
                     rsqrt=planes * px,
                     madd=planes * px * (7 + (2 if recompute else 0)))
-    vol = planes * px * 4
+    return _with_bytes(c, *_grad_bytes(H, W, D, head=head,
+                                       cost_read=not recompute, c=c))
+
+
+def _grad_bytes(H: int, W: int, D: int, *, head: bool, cost_read: bool,
+                c: OpCount) -> Tuple[float, float]:
+    """(read, written) bytes of a camera VJP: the images and statistics,
+    the cotangent volume (or the head's seven maps) and the cost volume
+    where read, A1 / B / GRMU written and read back by the combine, the
+    gradient."""
+    px, vol = H * W, (D + 1) * H * W * 4
     stats = (2 * px + 2 * H * (W + D)) * 4
     bytes_r = (c.bytes_r + stats
-               + (0 if head else vol)                      # cotangent
-               + (0 if recompute else vol)                 # cost
-               + (7 * px * 4 if head else 0)               # head maps
+               + (7 * px * 4 if head else vol)              # maps or g
+               + (vol if cost_read else 0)                 # cost
                + 3 * px * 4)                               # A1, B, GRMU
     bytes_w = c.bytes_w + 3 * px * 4 + px * 4              # A1, B, GRMU; grad
-    return _with_bytes(c, bytes_r, bytes_w)
+    return bytes_r, bytes_w
 
 
 def volume_backward_cost(H: int, W: int, D: int, k: int,
@@ -681,10 +782,58 @@ def fused_backward_c_cost(H: int, W: int, D: int, k: int) -> OpCount:
 
 
 def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
-    """K5 (``csrc/fused_pipeline_bwd.cu``): K4 with the cost recomputed
-    over the halo'd tile (a rows pass over (16 + 2p) x (64 + 4p) entries
-    and k column loads at each halo pixel, per plane)."""
-    return _camera_grad_cost(H, W, D, k, head=True, recompute=True)
+    """K5 (``fused_bwd_halo_kernel``, ``csrc/fused_pipeline_bwd.cu``): the
+    statistics passes, the combine, and the halo kernel: the entries'
+    eight constants staged, the camera tile staged once and the projector
+    once a chunk (:func:`halo_round`); per plane the register-blocked
+    cross-term rows pass over the halo'd rows and its column sums at every
+    halo entry, then at each entry inside the image the cost, g_d and gr_d
+    (two statistics loads, the sum read and gr written back, an rsqrt, an
+    expf and twelve FMA-pipe ops; the tile's own pixels add two FMAs and
+    two products for B and GRMU), gr's rows pass and column sums, and A1
+    (the box sum and the projector read, a select and an FMA); an entry
+    reads its constants once a round."""
+    p = k // 2
+    nbh, nbw = _grid(H, W)
+    blocks = nbh * nbw
+    t = halo_tile(k, 1, 1)
+    hr, hc, halo = t["halo_rows"], t["halo_cols"], t["halo"]
+    img_rows, img_w = t["img_rows"], t["img_w"]
+    px, planes = H * W, D + 1
+    P, chunk = halo_round(k, D)
+    if P < 1:
+        raise ValueError(f"K5 takes no k = {k} block on an H100")
+    rounds = sum(_cdiv(min(chunk, planes - d0), P)
+                 for d0 in range(0, planes, chunk))
+    stagings = _cdiv(planes, chunk)
+    inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
+                                                         0, W)
+    outside = blocks * halo - inside
+
+    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+    c = c + _combine_cost(H, W, k, W)
+    # Prologue: eight constants an entry (inside: two statistics and the
+    # seven head maps loaded, a division, four products); the image tiles.
+    c = c + OpCount(smem=17 * inside + HALO_CONSTS * outside
+                    + blocks * 2 * img_rows * (
+                        img_w + stagings * (img_w + chunk - 1)),
+                    rsqrt=inside, madd=4 * inside)
+    c = c + window_pass_cost(blocks * t["row_groups"] * img_w * planes,
+                             HALO_ROWS, k, True)
+    c = c + window_pass_cost(blocks * hr * _cdiv(hc, HALO_COLS) * planes,
+                             HALO_COLS, k, False)
+    c = c + OpCount(smem=planes * (4 * inside + outside)
+                    + rounds * HALO_CONSTS * inside,
+                    rsqrt=planes * inside, exp=planes * inside,
+                    madd=planes * (12 * inside + 4 * px))
+    c = c + window_pass_cost(
+        blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k, False)
+    c = c + window_pass_cost(
+        blocks * K_TILE_H * (K_TILE_W // GRAD_COLS) * planes, GRAD_COLS, k,
+        False)
+    c = c + OpCount(smem=2 * planes * px, madd=2 * planes * px)
+    return _with_bytes(c, *_grad_bytes(H, W, D, head=True, cost_read=False,
+                                       c=c))
 
 
 def projector_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
@@ -803,10 +952,11 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
 
 __all__ = ["OpCount", "allpairs_backward_cost", "allpairs_forward_cost",
            "box_pass_loads", "fused_backward_c_cost", "fused_backward_cost",
-           "fused_forward_cost", "hbm_read_probe", "hbm_read_probe_cost",
+           "fused_block_floats", "fused_forward_cost", "halo_round",
+           "halo_tile", "hbm_read_probe", "hbm_read_probe_cost",
            "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
            "hbm_write_reference", "kernel_bound", "measure_vpu_rates",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
            "rate_probe_reference",
-           "transpose_volume_cost", "volume_backward_cost",
-           "volume_forward_cost"]
+           "round_planes", "transpose_volume_cost", "volume_backward_cost",
+           "volume_forward_cost", "window_pass_cost"]

@@ -219,18 +219,26 @@ def test_costs_scale_with_d_and_order_the_variants():
         / _compute(base) < 2.3
     assert 1.7 < _compute(km.volume_backward_cost(H, W, 2 * D, K)) \
         / _compute(km.volume_backward_cost(H, W, D, K)) < 2.3
-    # Reading the cost is cheaper than recomputing it.
-    assert _compute(km.fused_backward_c_cost(H, W, D, K)) \
-        < _compute(km.fused_backward_cost(H, W, D, K))
+    assert 1.7 < _compute(km.fused_backward_cost(H, W, 2 * D, K)) \
+        / _compute(km.fused_backward_cost(H, W, D, K)) < 2.3
+    # On K1's window pass reading the cost is cheaper than recomputing it.
     assert _compute(km.volume_backward_cost(H, W, D, K)) \
         < _compute(km.volume_backward_cost(H, W, D, K, with_cost=False))
     k3w = km.fused_forward_cost(H, W, D, K, write_volume=True)
     k3m = km.fused_forward_cost(H, W, D, K, residuals=True)
     assert k3w.bytes > k3m.bytes > base.bytes
     assert k3w.bytes_w - k3m.bytes_w == 4 * (D + 1) * H * W
-    # K5 recomputes over the halo'd tile: more than K6's recompute.
-    assert _compute(km.fused_backward_cost(H, W, D, K)) \
-        > _compute(km.volume_backward_cost(H, W, D, K, with_cost=False))
+    # The register-blocked pass: K3 costs less than K1, whose pass it
+    # replaced, and K5, recomputing the cost over the halo'd tile, less
+    # than K4 reading it and K6 recomputing it on K1's pass (PR 5's model
+    # had K5 above both).
+    assert _compute(base) < _compute(km.volume_forward_cost(H, W, D, K))
+    k5 = _compute(km.fused_backward_cost(H, W, D, K))
+    assert k5 < _compute(km.fused_backward_c_cost(H, W, D, K))
+    assert k5 < _compute(km.volume_backward_cost(H, W, D, K,
+                                                 with_cost=False))
+    assert base["boxadd"] == 0 and km.fused_backward_cost(
+        H, W, D, K)["boxadd"] == 0
 
 
 def test_cost_fns_populate_byte_pools():
@@ -266,17 +274,19 @@ def test_cost_fns_populate_byte_pools():
 
 
 def test_recompute_chunk_mirrors_camera_grad():
-    """K5 at k=15 stages all D+1 planes at once up to D = 567 and in
-    chunks beyond (fused_pipeline_bwd.cu); k=29 fits no plane."""
-    halo = 30 * 78
-    fixed = halo * (2 + 6) + 16 * 78
-    assert km._recompute_chunk(15, 567, True, fixed) == 568
-    assert km._recompute_chunk(15, 568, True, fixed) == 568
-    big = 44 * 92
-    assert km._recompute_chunk(29, 10, True, big * 8 + 16 * 92) >= 0
-    p = 14
-    fixed29 = (16 + 2 * p) * (64 + 2 * p) * 8 + 16 * (64 + 2 * p)
-    assert km._recompute_chunk(29, 10, True, fixed29) == 0
+    """K6 at k=15 stages all D+1 planes at once up to D = 1541 and in
+    chunks beyond (camera_grad.cuh); K5 (fused_pipeline_bwd.cu) takes
+    rounds of 5 planes and chunks of 125 at KITTI, one plane a round and
+    chunks of 50 at k=27, and no block at k=29."""
+    fixed6 = 2 * 30 * 78 + 16 * 78
+    assert km._recompute_chunk(15, 1541, fixed6) == 1542
+    assert km._recompute_chunk(15, 1600, fixed6) == 1542
+    assert km._recompute_chunk(15, 192, fixed6) == 193
+    assert km.halo_round(15, 192) == (5, 125)
+    assert km.halo_round(15, 600) == (5, 125)
+    assert km.halo_round(15, 3) == (4, 4)
+    assert km.halo_round(27, 64) == (1, 50)
+    assert km.halo_round(29, 10) == (0, 0)
 
 
 def test_zncc_roofline_matches_jax(monkeypatch):

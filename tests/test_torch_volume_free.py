@@ -38,6 +38,7 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     unnormalized_head,
 )
 from custereomatching_tpu_torch.ops.zncc import camera_grad_banded
+from custereomatching_tpu_torch.utils.kernel_model import halo_round, halo_tile
 
 # The JAX suite's gradient tolerance (tests/test_pallas_bwd.py:89) and its
 # forward tolerance (tests/test_pallas_zncc.py:47).
@@ -205,24 +206,21 @@ def test_volume_free_forward_has_no_volume():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def _k5_block_floats(k, chunk):
-    """K5's planes block in floats (camera_grad.cuh: GradTile with the six
-    head maps, then RecomputeTile over the halo'd tile) with the projector
-    staged ``chunk`` planes at a time."""
-    p = k // 2
-    rows, cam_w = 16 + 2 * p, 64 + 2 * p
-    halo = rows * cam_w
-    grad_tile = 8 * halo + 16 * cam_w
-    img_rows, x_w = 16 + 4 * p, 64 + 4 * p
-    return grad_tile + img_rows * (2 * x_w + chunk - 1) + rows * x_w + halo
+def _k5_block_floats(k, chunk, planes=1):
+    """K5's block in floats (fused_pipeline_bwd.cu: the halo entries'
+    eight constants, the image tiles with the projector staged ``chunk``
+    planes at a time, and ``planes`` planes of the round's two buffers)."""
+    return halo_tile(k, chunk, planes)["floats"]
 
 
 def test_k5_kernel_size_limit_follows_shared_memory():
     """The largest k whose K5 block fits an H100's 227 KB (58,112 floats)
-    at one plane a projector staging, as the wrapper states; k = 15 at
-    D = 192 needs no chunking (41,612 floats, the source note's count)."""
+    at one plane a round and a projector staging, as the wrapper states;
+    k = 15 at D = 192 takes rounds of 5 planes and chunks of 125 (58,072
+    floats, the source note's count)."""
     limit = 227 * 1024 // 4
-    assert _k5_block_floats(15, 193) == 41612
+    assert halo_round(15, 192) == (5, 125)
+    assert _k5_block_floats(15, 125, 5) == 58072
     assert _k5_block_floats(K5_MAX_KERNEL_SIZE, 1) <= limit
     assert _k5_block_floats(K5_MAX_KERNEL_SIZE + 2, 1) > limit
     _check_k5_kernel_size(K5_MAX_KERNEL_SIZE)

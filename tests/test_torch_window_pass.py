@@ -1,0 +1,190 @@
+"""PyTorch port: the register-blocked window pass of K3, K3w, K3m and K5
+(``csrc/common.cuh`` ``window_taps``, ``csrc/fused_pipeline.cu``,
+``csrc/fused_pipeline_bwd.cu``).  The kernels need the card
+(``chip_smoke.py``); here their control flow is mirrored in Python and
+held to what the sources and the bound model say: every output takes its
+k taps in order, the groups of a line cover it without reading past it,
+the Python mirrors of the blocking constants are the sources', and the
+shared memory and cost counts stay pinned."""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from custereomatching_tpu_torch.ops.cuda_pipeline import K5_MAX_KERNEL_SIZE
+from custereomatching_tpu_torch.utils import kernel_model as km
+
+CSRC = Path(km.__file__).resolve().parents[1] / "csrc"
+H, W, D, K = 375, 1242, 192, 15
+LIMIT = km.SMEM_OPTIN_BYTES // 4
+
+
+def _const(text: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+
+def test_blocking_constants_mirror_the_sources():
+    common = (CSRC / "common.cuh").read_text()
+    bwd = (CSRC / "fused_pipeline_bwd.cu").read_text()
+    assert (_const(common, "kRoundRows"), _const(common, "kRoundCols")) == (
+        km.ROUND_ROWS, km.ROUND_COLS)
+    assert tuple(_const(bwd, n) for n in (
+        "kHaloRows", "kHaloCols", "kGradRows", "kGradCols", "kHaloOwn",
+        "kHaloConsts")) == (km.HALO_ROWS, km.HALO_COLS, km.GRAD_ROWS,
+                            km.GRAD_COLS, km.HALO_OWN, km.HALO_CONSTS)
+    # K3's rows pass covers the tile height; K5's gr groups tile the tile.
+    assert km.ROUND_ROWS == km.K_TILE_H and km.K_TILE_W % km.ROUND_COLS == 0
+    assert km.K_TILE_H % km.GRAD_ROWS == 0
+    assert km.K_TILE_W % km.GRAD_COLS == 0
+
+
+def _tap_order(n_out: int, k: int):
+    """The line entries each output of ``window_taps<N>`` adds, in the
+    order it adds them (the source's three loops for k >= N - 1, the
+    predicated loop otherwise)."""
+    taps = [[] for _ in range(n_out)]
+    if k >= n_out - 1:
+        for i in range(n_out - 1):
+            for n in range(i + 1):
+                taps[n].append(i)
+        for i in range(n_out - 1, k):
+            for n in range(n_out):
+                taps[n].append(i)
+        for j in range(n_out - 1):
+            for n in range(j + 1, n_out):
+                taps[n].append(k + j)
+    else:
+        for i in range(n_out - 1 + k):
+            for n in range(n_out):
+                if 0 <= i - n < k:
+                    taps[n].append(i)
+    return taps
+
+
+@pytest.mark.parametrize("n_out, k", [
+    (16, 15), (16, 17), (16, 3), (16, 7), (15, 15), (15, 14), (15, 13),
+    (13, 15), (13, 11), (8, 27), (8, 7), (8, 5), (16, 16)])
+def test_window_taps_add_each_output_taps_in_order(n_out, k):
+    """Output n adds line entries n, n + 1, ..., n + k - 1 in that order
+    (t = 0..k-1, as vertical_products and horizontal_sum), reads no entry
+    past N + k - 2, and the k >= N - 1 loops add exactly N k taps."""
+    taps = _tap_order(n_out, k)
+    assert taps == [list(range(n, n + k)) for n in range(n_out)]
+    assert max(max(t) for t in taps) == n_out + k - 2
+
+
+def _group_starts(n: int, length: int):
+    return [min(q * n, length - n) for q in range(-(-length // n))]
+
+
+@pytest.mark.parametrize("k", [3, 5, 11, 15, 25, 27])
+def test_groups_cover_every_line_without_reading_past_it(k):
+    """``group_start``: the groups of K5's halo rows (15), halo columns
+    (13) and K3's / K5's tile lines cover every output once or twice and
+    stay inside the line; their reads stay inside the staged tiles."""
+    p = k // 2
+    for n, length, staged in (
+            (km.HALO_ROWS, 16 + 2 * p, 16 + 4 * p),   # cross-term rows
+            (km.HALO_COLS, 64 + 2 * p, 64 + 4 * p),   # its column sums
+            (km.GRAD_ROWS, 16, 16 + 2 * p),           # gr's rows pass
+            (km.GRAD_COLS, 64, 64 + 2 * p),           # gr's column sums
+            (km.ROUND_ROWS, 16, 16 + 2 * p),          # K3's rows pass
+            (km.ROUND_COLS, 64, 64 + 2 * p)):         # K3's column sums
+        starts = _group_starts(n, length)
+        covered = {s + i for s in starts for i in range(n)}
+        assert covered == set(range(length))
+        assert all(0 <= s and s + n <= length for s in starts)
+        assert max(starts) + n + k - 1 <= staged
+
+
+def test_shared_memory_of_the_blocks():
+    """The source notes' counts: K3 at KITTI 40,392 floats (13 planes a
+    round), K5 58,072 (5 planes a round, chunks of 125); K5's k limit
+    still 27; K3's largest D at k = 15 is 1704 (1739 on K1's pass)."""
+    assert km.round_planes(K, D) == 13
+    assert km.fused_block_floats(K, D) == 40392 <= LIMIT
+    assert km.round_planes(K, 1704) == 1 and km.round_planes(K, 1705) == 0
+    assert km.halo_tile(K, 125, 5)["floats"] == 58072 <= LIMIT
+    assert km.halo_tile(K5_MAX_KERNEL_SIZE, 1, 1)["floats"] == 54752
+    assert km.halo_tile(K5_MAX_KERNEL_SIZE + 2, 1, 1)["floats"] == 59080
+    assert km.halo_tile(K5_MAX_KERNEL_SIZE, 1, 1)["halo"] <= (
+        km.HALO_OWN * km.K_THREADS)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 11, 15, 21, 27])
+def test_rounds_fit_the_block(k):
+    """A K3 round gives each thread at most one rows-pass column; a K5
+    round at most one rows-pass item; both blocks fit 227 KB."""
+    for d in (0, 6, 192, 600):
+        planes = km.round_planes(k, d)
+        assert 1 <= planes <= d + 1
+        assert planes == 1 or planes * (64 + 2 * (k // 2)) <= km.K_THREADS
+        assert km.fused_block_floats(k, d) <= LIMIT
+        hp, chunk = km.halo_round(k, d)
+        t = km.halo_tile(k, chunk, hp)
+        assert 1 <= hp <= chunk <= d + 1
+        assert chunk == d + 1 or chunk % hp == 0
+        assert hp == 1 or hp * t["img_w"] * t["row_groups"] <= km.K_THREADS
+        assert t["floats"] <= LIMIT
+
+
+def test_window_pass_cost_counts_the_binding_pipe():
+    """K3's rows pass at k = 15: 76 shared accesses an item against 240
+    FMAs, so its accesses bind; its column sums: 46 against 240 adds, so
+    the adds bind (four FMAs an access)."""
+    rows = km.window_pass_cost(10, 16, 15, True)
+    assert rows["smem"] == 10 * (2 * 30 + 16) and rows["madd"] == 0
+    cols = km.window_pass_cost(10, 16, 15, False)
+    assert cols["madd"] == 10 * 16 * 15 and cols["smem"] == 0
+
+
+@pytest.mark.parametrize("fn, shape, want", [
+    ("fused_forward_cost", (24, 150, 10, 5),
+     {"madd": 422400, "smem": 736752, "exp": 39600, "rsqrt": 43200}),
+    ("fused_forward_cost", (H, W, D, K),
+     {"madd": 2166726690, "smem": 884046870, "exp": 89889750,
+      "rsqrt": 90355500}),
+    ("fused_backward_cost", (24, 150, 10, 5),
+     {"madd": 950112, "smem": 1986968, "exp": 48664, "rsqrt": 53088}),
+    ("fused_backward_cost", (H, W, D, K),
+     {"madd": 6255793512, "smem": 3515970318, "exp": 202857668,
+      "rsqrt": 203908744})])
+def test_counts_of_the_redesigned_kernels(fn, shape, want):
+    """K3's and K5's counts at a small shape and at KITTI, pinned: no
+    ``boxadd`` (that is K1's pass), the volume-free byte pools."""
+    cost = getattr(km, fn)(*shape)
+    assert {m: cost[m] for m in want} == want and cost["boxadd"] == 0
+    h, w, d, _ = shape
+    assert cost.bytes_w < 4 * (d + 1) * h * w
+
+
+def test_k5_needs_a_block_that_fits():
+    with pytest.raises(ValueError, match="k = 29"):
+        km.fused_backward_cost(40, 120, 16, 29)
+
+
+@pytest.mark.parametrize("kernel, fn, kwargs, want, bytes_rw", [
+    ("K1", "volume_forward_cost", {},
+     (382354290, 244987200, 0, 89889750, 4816787850), (11754000, 367587000)),
+    ("K2", "volume_backward_cost", {},
+     (1061238278, 1475555558, 0, 292747418, 3082567050),
+     (736461000, 15480000)),
+    ("K6", "volume_backward_cost", {"with_cost": False},
+     (1241017778, 1396153958, 0, 292747418, 7899354900),
+     (376902000, 15480000)),
+    ("K4", "fused_backward_c_cost", {},
+     (2484395182, 2502889554, 202857668, 293798494, 3082567050),
+     (389943000, 15480000)),
+    ("K7", "projector_backward_cost", {},
+     (991405717, 1395186993, 0, 271507991, 3082567050),
+     (735927000, 14946000))])
+def test_kernels_on_k1s_pass_keep_their_counts(kernel, fn, kwargs, want,
+                                               bytes_rw):
+    """K1, K2, K4, K6 and K7 keep K1's window pass, and their KITTI counts
+    (madd, smem, exp, rsqrt, boxadd; bytes read and written) are those the
+    bound model gave before the register-blocked pass."""
+    cost = getattr(km, fn)(H, W, D, K, **kwargs)
+    got = tuple(int(cost[m]) for m in ("madd", "smem", "exp", "rsqrt",
+                                       "boxadd"))
+    assert got == want and (int(cost.bytes_r), int(cost.bytes_w)) == bytes_rw
