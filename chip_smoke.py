@@ -29,7 +29,8 @@ imports nothing of JAX.  Phases, each printing its lines:
    tolerance);
 8. K4 (trainable backward) against its plain twin on the same residuals,
    and the whole trainable pipeline (K3w + K4) against its plain twin,
-   both head branches and KITTI speckle;
+   both head branches, KITTI speckle, the edge shapes of phase 4 and
+   k = 31 and 47 (planes a round falling to 4 and 1);
 9. the training path, with every launch counter reset just before it:
    ``entry()``'s soft disparity backpropagated to the camera (K1 + K2),
    then ``optimize_camera`` for 5 Adam steps at KITTI size (K3w + K4); the
@@ -53,17 +54,19 @@ imports nothing of JAX.  Phases, each printing its lines:
     closed forms fed the same head cotangent;
 14. K6 (camera VJP recomputing the cost) through both entries (the
     plane-major cotangent, and the parity one staged by K9b) against the
-    plain closed form on the same cotangent, at the small shapes, a D
-    whose projector tile is staged in chunks, and KITTI, and against K2
-    (with the cost residual) at the last two;
+    plain closed form on the same cotangent, at the small shapes, the
+    edge shapes of phase 4, k = 31 and 47, a D whose projector tile is
+    staged in chunks, and KITTI, and against K2 (with the cost residual)
+    at the last two (printed whether bit-equal);
 15. K9a and K9b (layout conversions) bit-equal to ``permute().contiguous()``;
 16. K3m (volume-free training forward): its four maps bit-equal to K3's,
     its argmax, s and t bit-equal to K3w's, no volume;
 17. K5 (volume-free trainable backward) against its plain twin on the same
     residual maps, and against K4 on K3w's, both head branches, KITTI and
     three (D, k) whose projector tile is staged in chunks (k up to
-    ``K5_MAX_KERNEL_SIZE``) and the edge shapes of phase 4; a larger k is
-    refused before any launch;
+    ``K5_MAX_KERNEL_SIZE``) and the edge shapes of phase 4 (printed
+    whether bit-equal to K4 at KITTI); a larger k is refused before any
+    launch;
 18. the volume-free training path, counters reset: 5 Adam steps at KITTI
     of ``optimize_camera``'s loss through
     ``stereo_pipeline_trainable(save_volume=False)``; K3m and K5 once a
@@ -77,7 +80,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     both host-clock step times;
 20. the camera VJP without the cost residual at KITTI, counters reset: K1's
     plane-major volume, K9a to parity, the plain head's cotangent, K9b and
-    K6; each once, the gradient against the plain closed form;
+    K6; each once, the gradient against the plain closed form; then the
+    step's host-clock time;
 21. K10a (the op-class rate probe, every mode, a small launch and its
     measuring size) against its plain twin within rtol 1e-5, K10b (HBM
     read) within rtol 1e-5 and K10c (HBM write) bit-equal, at KITTI's
@@ -94,8 +98,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     3.35 TB/s and the least operations its function needs (window sums
     taken separably) over 67 TFLOP/s (``utils/profiling.py``), and its
     model bound, its counted work priced at the rates of phase 22
-    (``utils/kernel_model.py``), which no kernel may beat; K3, K3w, K3m
-    and K5 beside their times before the register-blocked pass
+    (``utils/kernel_model.py``), which no kernel may beat; K3, K3w, K3m,
+    K4, K5 and K6 beside their times before the register-blocked pass
     (``MS_BEFORE``).
 
 The last three lines are the kernel summary (JSON), the card's name and
@@ -211,9 +215,11 @@ GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
 # 4 x iters elementwise calls.
 K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
 K10A_TIMED_ITERS = 1024
-# Device ms at KITTI before the register-blocked window pass (the K1-style
-# pass of PR 5's kernels; NVIDIA H100 80GB HBM3 at 700.00 W).
-MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410}
+# Device ms at KITTI of the kernels the register-blocked window pass
+# replaced, on K1's per-plane pass (NVIDIA H100 80GB HBM3 at 700.00 W;
+# PERF.md gives the runs).
+MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410,
+             "K4": 2.3372, "K6": 4.0753}
 
 
 def require(ok: bool, what: str) -> None:
@@ -338,12 +344,19 @@ EDGE = [((1, 37, 200, 24, 3), 50.0), ((1, 33, 140, 19, 11), 80.0),
         ((1, 40, 130, 30, 27), 50.0)]
 
 
+# K4 and K6 at k where their rounds fall to fewer planes (4 at k = 31, 1
+# for K4 at k = 47, the largest k its block takes), K5 refusing both.
+LARGE_K = [((1, 40, 130, 24, 31), 50.0), ((1, 40, 130, 24, 47), 50.0)]
+
+
 def edge_label(B: int, H: int, W: int, D: int, k: int, beta: float) -> str:
-    """The shape, with K3's planes a round and K5's (planes a round,
-    planes a projector staging) on an H100."""
+    """The shape, with K3's planes a round, K5's (planes a round, planes a
+    projector staging) and K4's and K6's on an H100."""
+    k5 = km.halo_round(k, D) if k <= K5_MAX_KERNEL_SIZE else "refused"
     return (f"edge B={B} H={H} W={W} D={D} k={k} beta={beta} (K3 round "
-            f"{km.round_planes(k, D)}, K5 round/chunk "
-            f"{km.halo_round(k, D)})")
+            f"{km.round_planes(k, D)}, K5 round/chunk {k5}, K4 "
+            f"{km.grad_round(k, D, True, False)}, K6 "
+            f"{km.grad_round(k, D, False, True)})")
 
 
 def phase_k3() -> float:
@@ -640,7 +653,13 @@ def cotangents(seed: int, B: int, H: int, W: int):
 
 def phase_k4() -> float:
     err = 0.0
-    for i, (label, cam, proj, D, k, beta) in enumerate(train_cases()):
+    large = []
+    for j, ((B, H, W, D, k), beta) in enumerate(LARGE_K):
+        cam, proj = uniform_pair(340 + j, B, H, W)
+        large.append((edge_label(B, H, W, D, k, beta), cam, proj, D, k,
+                      beta))
+    for i, (label, cam, proj, D, k, beta) in enumerate(train_cases()
+                                                       + large):
         B, H, W = cam.shape
         kitti = (H, W, D, k) == KITTI
         gs, gc = cotangents(400 + i, B, H, W)
@@ -928,9 +947,10 @@ def mean_loss_cotangent(seed: int, B: int, H: int, W: int, D: int):
 
 
 # Past the card's shared memory the recompute stages the projector tile in
-# chunks of planes: K6 at k=15 beyond D ~ 1540, K5 at k=15 beyond D = 567
-# and at k=25 beyond D ~ 97 (camera_grad.cuh).  (B, H, W, D, k); W > D,
-# so the planes of every chunk reach into the image.
+# chunks of planes: K6 at k=15 beyond D = 734 (camera_grad.cuh), K5 at
+# k=15 beyond D = 567 and at k=25 beyond D ~ 97 (fused_pipeline_bwd.cu).
+# (B, H, W, D, k); W > D, so the planes of every chunk reach into the
+# image.
 K6_CHUNKED = (1, 16, 1800, 1600, 15)
 K5_CHUNKED = [((1, 32, 800, 600, 15), 50.0), ((1, 40, 400, 192, 25), 50.0),
               ((1, 40, 300, 64, 27), 80.0)]
@@ -938,14 +958,16 @@ K5_CHUNKED = [((1, 32, 800, 600, 15), 50.0), ((1, 40, 400, 192, 25), 50.0),
 
 def phase_k6() -> float:
     err = 0.0
-    for i, (B, H, W, D, k) in enumerate(SHAPES + [K6_CHUNKED,
-                                                  (1,) + KITTI]):
+    shapes = (SHAPES + [shape for shape, _ in EDGE + LARGE_K]
+              + [K6_CHUNKED, (1,) + KITTI])
+    for i, (B, H, W, D, k) in enumerate(shapes):
         cam, proj = uniform_pair(700 + i, B, H, W)
         g = mean_loss_cotangent(700 + i, B, H, W, D)
         g_parity = g.permute(0, 2, 3, 1).contiguous()
         want = camera_grad_banded(cam, proj, g_parity, D, k, EPS)
         kitti = (H, W, D, k) == KITTI
-        label = f"B={B} H={H} W={W} D={D} k={k}"
+        label = (f"B={B} H={H} W={W} D={D} k={k} (round/chunk "
+                 f"{km.grad_round(k, D, False, True)})")
         got = camera_grad_banded_cuda(cam, proj, None, g, D, k, EPS)
         err = max(err, compare_grad(got, want, f"K6 plane-major {label}",
                                     elementwise=not kitti))
@@ -1045,6 +1067,9 @@ def phase_k5() -> float:
                                             EPS, beta)
         compare_grad(got, with_cost, f"K5 against K4 {label}",
                      elementwise=False)
+        if kitti:
+            print(f"K5 {label}: bit-equal to K4: "
+                  f"{torch.equal(got, with_cost)}")
         del res, got, want, res_w, with_cost
 
     # Past K5_MAX_KERNEL_SIZE not one plane's tiles fit: the volume-free
@@ -1232,15 +1257,19 @@ def phase_no_residual_path() -> dict:
     cam, proj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
     torch.cuda.synchronize()
 
+    def step():
+        with torch.no_grad():
+            parity_vol = plane_major_to_parity(
+                stereo_matching_hdw(cam, proj, D, k, cfg.epsilon))
+        parity_vol.requires_grad_(True)
+        soft = StereoMatcher(cfg).disparity(parity_vol).soft_disparity
+        (g,) = torch.autograd.grad(soft.mean(), parity_vol)
+        del parity_vol, soft
+        return g, camera_grad_banded_parity_cuda(cam, proj, g, D, k,
+                                                 cfg.epsilon)
+
     reset_counters()
-    with torch.no_grad():
-        parity_vol = plane_major_to_parity(
-            stereo_matching_hdw(cam, proj, D, k, cfg.epsilon))
-    parity_vol.requires_grad_(True)
-    soft = StereoMatcher(cfg).disparity(parity_vol).soft_disparity
-    (g,) = torch.autograd.grad(soft.mean(), parity_vol)
-    del parity_vol, soft
-    grad = camera_grad_banded_parity_cuda(cam, proj, g, D, k, cfg.epsilon)
+    g, grad = step()
     torch.cuda.synchronize()
     counts = read_counters()
     print(f"no-residual VJP path: counters {counts}")
@@ -1254,6 +1283,20 @@ def phase_no_residual_path() -> dict:
     want = camera_grad_banded(cam, proj, g, D, k, cfg.epsilon)
     compare_grad(grad, want, "no-residual VJP path: camera gradient against "
                  "the plain VJP on its head cotangent", elementwise=False)
+    del g, grad, want
+
+    # Host-clock time of the whole step, synchronised, the first dropped.
+    times = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts["step_ms"] = 1e3 * float(np.median(times[1:]))
+    print(f"no-residual VJP path: step (K1, K9a, plain head and its "
+          f"cotangent, K9b, K6) host-clock median {counts['step_ms']:.3f} "
+          f"ms at {H}x{W} D={D} k={k}")
     return counts
 
 

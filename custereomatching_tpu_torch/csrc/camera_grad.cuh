@@ -1,10 +1,8 @@
-// The closed-form camera VJP of the banded ZNCC volume: the one
-// accumulation and combine body that K2 and K6 (zncc_banded_bwd.cu,
-// cotangent read from memory) and K4 and K5 (fused_pipeline_bwd.cu,
-// cotangent formed from the disparity head's maps) all run.  Two template
-// axes: where the cotangent plane g_d comes from (Source), and where the
-// cost comes from (kRecompute): read from the forward's volume (K2, K4)
-// or recomputed from the staged images (K6, K5).
+// The closed-form camera VJP of the banded ZNCC volume: the accumulation
+// and combine bodies that K2 and K6 (zncc_banded_bwd.cu, cotangent read
+// from memory) and K4 and K5 (fused_pipeline_bwd.cu, cotangent formed from
+// the disparity head's maps) run.  The rounds kernel's template axis
+// `Source` says where the cotangent plane g_d comes from.
 //
 // Replaces the bodies of custereomatching_tpu/ops/pallas_zncc_bwd.py:
 // _bwd_kernel (have_c=True: K2; the no-cost modes: K6) and of
@@ -21,35 +19,48 @@
 // projector statistics at columns x - d < 0 come from the D-widened
 // statistics pass and are not zero there; proj(x - d) is.
 //
-// The recompute is K1's per-plane cross term (a rows pass of camera x
-// shifted projector products, then the columns pass):
-//   c_d = (box(cam proj(. - d)) - mux sy(. - d) + eps) r_d
-// With the cotangent read from memory (K6) the cost enters only the B
-// term of the tile's own pixels, so the recompute covers K1's kTileH x
-// kTileW tile.  The projector tile is staged once per chunk of planes: all
-// D + 1 when the block fits the card's shared memory that way (K6 at k =
-// 15 up to D ~ 1540), fewer otherwise, so any D runs; the chunk changes
-// where values sit, not the arithmetic.  K5, whose head cotangent needs
-// the cost over the halo'd tile, has a kernel of its own
-// (fused_pipeline_bwd.cu) and shares only the combine below.
-//
-// Two kernels:
-//   1. camera_grad_planes_kernel: one block per kTileH x kTileW pixel tile
-//      walks d = 0..D.  Per plane it forms gr_d over the halo'd tile in
-//      shared memory, box-sums it (rows, then columns), and accumulates A1,
-//      B and GRMU of its own pixels in registers; it writes the three
-//      [B, H, W] fields once.
-//   2. camera_grad_combine_kernel: the three [H, W] box filters and the
+// Three kernels:
+//   1. camera_grad_planes_kernel (K2): one block per kTileH x kTileW pixel
+//      tile walks d = 0..D.  Per plane it forms gr_d over the halo'd tile
+//      in shared memory, box-sums it with K1's pass (rows, then columns),
+//      and accumulates A1, B and GRMU of its own pixels in registers, three
+//      barriers a plane; it writes the three [B, H, W] fields once.
+//   2. camera_grad_rounds_kernel (K4, K6): the same fields, the planes in
+//      rounds of P on the register-blocked window pass of common.cuh
+//      (window_taps), as K5 runs them (fused_pipeline_bwd.cu).  A round:
+//        a. (K6) the cost's cross term on the tile's own pixels: K3's
+//           round_products and round_column_sums (common.cuh), the
+//           projector tile staged in chunks of planes, so any D runs;
+//        b. gr_d at every halo entry for the round's P planes: an entry
+//           reads its constants (ex2 and the source's maps) once a round
+//           and issues its P planes' global loads (the cost or the
+//           cotangent, ey2; at the tile's own pixels also sy) before it
+//           uses the first.  The tile's own pixels are their own threads'
+//           entries, which add B and GRMU in registers from the same c_d
+//           and r_d; the ring of the halo around them is spread over the
+//           block;
+//        c. gr's rows pass and column sums (grad_rows, grad_column_sums,
+//           which K5 runs too);
+//        d. A1 of each pixel, by its thread, in plane order.
+//      Four barriers a round (six with the recompute, and one more stage
+//      of the projector a chunk).  P is a template constant (kGradPlanes,
+//      or the largest power of two below it whose buffers fit), so the
+//      per-plane loops have a fixed count; a short last round is
+//      predicated.
+//   3. camera_grad_combine_kernel: the three [H, W] box filters and the
 //      final sum.
+// Every output of every pass adds its taps in K1's order, and A1, B and
+// GRMU accumulate in plane order, so both kernels give the same values bit
+// for bit: K6, recomputing the cost, gives K2's gradient on one cotangent.
 //
 // What bounds it on the H100: with the cost read from memory, the cost
 // (and for K2 the cotangent) volume is read once, 360 MB a KITTI frame
 // each (about 0.11 ms at 3.35 TB/s); the halo'd gr tile re-reads a
-// neighbour's cotangent through L2.  Beyond that, as K1, the per-plane row
-// and column passes through shared memory and three barriers a plane
-// (four with the recompute, which adds K1's rows pass); per-pixel
-// constants of the tile (ex2, the head maps) are staged once in shared
-// memory.
+// neighbour's values through L2.  Beyond that the window passes and, at
+// every halo entry and plane, an rsqrt (K4 also an exp).  K2's per-plane
+// passes stall the block behind three barriers a plane on each plane's
+// global loads; a round issues P planes of loads at once and passes its
+// four to six barriers once for P planes.
 #pragma once
 
 #include "common.cuh"
@@ -57,10 +68,10 @@
 namespace custereo {
 namespace {
 
-// Shared-memory geometry of the planes kernel, in floats: the camera
-// second moment and the gr_d plane over the halo'd tile (rows x cam_w
-// each), the rows pass (kTileH x cam_w), then `maps` more halo'd tiles of
-// the cotangent source's per-pixel constants.
+// Shared-memory geometry of the planes kernel (K2) and of K7's, in floats:
+// the camera second moment and the gr_d plane over the halo'd tile (rows x
+// cam_w each), the rows pass (kTileH x cam_w), then `maps` more halo'd
+// tiles of per-pixel constants.
 struct GradTile {
   int p, rows, cam_w;
   __host__ __device__ explicit GradTile(int k)
@@ -68,25 +79,6 @@ struct GradTile {
   __host__ __device__ int halo() const { return rows * cam_w; }
   __host__ __device__ size_t floats(int maps) const {
     return static_cast<size_t>(2 + maps) * halo() +
-           static_cast<size_t>(kTileH) * cam_w;
-  }
-};
-
-// Shared-memory geometry of K6's cost recompute, in floats, after
-// GradTile's: the camera tile (img_rows x cam_w) and the projector tile
-// widened left by `chunk` - 1 columns (img_rows x proj_w) over the image
-// region the recomputed windows of `chunk` planes read, and the cross
-// term's rows pass (kTileH x cam_w).
-struct RecomputeTile {
-  int p, chunk, img_rows, cam_w, proj_w;
-  __host__ __device__ RecomputeTile(int k, int chunk)
-      : p(k / 2),
-        chunk(chunk),
-        img_rows(kTileH + 2 * (k / 2)),
-        cam_w(kTileW + 2 * (k / 2)),
-        proj_w(kTileW + 2 * (k / 2) + chunk - 1) {}
-  __host__ __device__ size_t floats() const {
-    return static_cast<size_t>(img_rows) * (cam_w + proj_w) +
            static_cast<size_t>(kTileH) * cam_w;
   }
 };
@@ -105,22 +97,6 @@ inline int staging_chunk(int D, size_t fixed, size_t one_plane, int rows,
                               : static_cast<size_t>(D) + 1);
 }
 
-// The cross term's rows pass for shift = D - d (K1's vertical_products):
-// xsum[r][c] = sum_{t<k} cam_t[r + t][c] * proj_t[r + t][c + shift].
-__device__ inline void cross_rows(float* xsum, const float* cam_t,
-                                  const float* proj_t,
-                                  const RecomputeTile& x, int k, int shift) {
-  for (int i = threadIdx.x; i < kTileH * x.cam_w; i += blockDim.x) {
-    const int r = i / x.cam_w, c = i - r * x.cam_w;
-    const float* a = cam_t + r * x.cam_w + c;
-    const float* b = proj_t + r * x.proj_w + c + shift;
-    float acc = 0.f;
-    for (int t = 0; t < k; ++t)
-      acc = fmaf(a[t * x.cam_w], b[t * x.proj_w], acc);
-    xsum[i] = acc;
-  }
-}
-
 // Rows pass of one halo'd tile: vsum[r][c] = sum_{t<k} tile[r + t][c] for
 // r < kTileH, c < width (i = r * width + c, so tile[(r + t) * width + c]
 // is tile[i + t * width]).
@@ -135,25 +111,11 @@ __device__ inline void vertical_sum(float* vsum, const float* tile,
 }
 
 // Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
-// shared memory GradTile(k).floats(Source::kMaps) floats, plus
-// RecomputeTile(k, chunk).floats() with kRecompute.
-//
-// Source: the cotangent plane.
-//   kMaps       halo'd tiles of per-pixel constants it stages
-//   kNeedsCost  whether value() reads the cost at every halo pixel
-//   stage(maps, halo, i, pix, inside)  fill entry i of its tiles
-//   value(maps, halo, i, vidx, c, df)  g_d at halo entry i (inside the
-//     image), volume offset vidx, cost c, disparity df
-// kRecompute: the cost is recomputed from camera and projector on the
-// tile's own pixels (cost is not read), the projector tile staged anew
-// every `chunk` planes; otherwise it is read from the plane-major volume
-// `cost` (chunk unused).  The recompute serves a Source that does not
-// read the cost at the halo (K6).
-template <class Source, bool kRecompute>
+// shared memory GradTile(k).floats(0) floats.  The cotangent `cot` and the
+// cost are plane-major [B, D + 1, H, W] volumes (K2).
 __global__ void __launch_bounds__(kThreads)
-    camera_grad_planes_kernel(Source src, const float* __restrict__ camera,
+    camera_grad_planes_kernel(const float* __restrict__ cot,
                               const float* __restrict__ projector,
-                              const float* __restrict__ cam_s,
                               const float* __restrict__ cam_e2,
                               const float* __restrict__ proj_s,
                               const float* __restrict__ proj_e2,
@@ -161,42 +123,32 @@ __global__ void __launch_bounds__(kThreads)
                               float* __restrict__ a1_out,
                               float* __restrict__ b_out,
                               float* __restrict__ grmu_out, int H, int W,
-                              int D, int k, int chunk, float eps) {
-  static_assert(!(kRecompute && Source::kNeedsCost),
-                "K5 recomputes the halo's cost in its own kernel");
+                              int D, int k, float eps) {
   extern __shared__ float smem[];
   const GradTile g(k);
   const int halo = g.halo();
   float* ex2_t = smem;
   float* gr_t = ex2_t + halo;
   float* vsum = gr_t + halo;
-  float* maps = vsum + kTileH * g.cam_w;
-  const RecomputeTile x(k, chunk);
-  float* cam_x = maps + Source::kMaps * halo;
-  float* proj_x = cam_x + x.img_rows * x.cam_w;
-  float* xsum = proj_x + x.img_rows * x.proj_w;
 
   const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t frame = static_cast<size_t>(b) * plane;
   const size_t stats_w = static_cast<size_t>(W) + D;
-  const float* cost_b =
-      kRecompute ? nullptr : cost + static_cast<size_t>(b) * (D + 1) * plane;
+  const float* cost_b = cost + static_cast<size_t>(b) * (D + 1) * plane;
+  const float* cot_b = cot + static_cast<size_t>(b) * (D + 1) * plane;
   const float inv_k2 = 1.f / static_cast<float>(k * k);
 
-  // Per-pixel constants of the halo'd tile, zero outside the image.
+  // The camera's second moment over the halo'd tile, zero outside the
+  // image.
   for (int i = threadIdx.x; i < halo; i += blockDim.x) {
     const int rr = i / g.cam_w, cc = i - rr * g.cam_w;
     const int y = h0 - g.p + rr, xx = w0 - g.p + cc;
     const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
-    const size_t pix = frame + static_cast<size_t>(y) * W + xx;
-    ex2_t[i] = inside ? __ldg(cam_e2 + pix) : 0.f;
-    src.stage(maps, halo, i, pix, inside);
+    ex2_t[i] = inside ? __ldg(cam_e2 + frame + static_cast<size_t>(y) * W +
+                              xx)
+                      : 0.f;
   }
-  const int row0 = h0 - x.p, col0 = w0 - x.p;
-  if (kRecompute)
-    stage_tile(cam_x, camera + frame, H, W, row0, col0, x.img_rows, x.cam_w,
-               1.f);
 
   const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
   const int h = h0 + r, w = w0 + c;
@@ -205,29 +157,10 @@ __global__ void __launch_bounds__(kThreads)
   // Image column x of the projector statistics sits at index x + D.
   const size_t o = frame + static_cast<size_t>(h) * W + w;
   const size_t stats_row = (static_cast<size_t>(b) * H + h) * stats_w + D + w;
-  // The camera's window mean at the tile's own pixel (K6's recompute).
-  const float mux = kRecompute && valid ? __ldg(cam_s + o) * inv_k2 : 0.f;
   float a1 = 0.f, bacc = 0.f, grmu = 0.f;
-  // The last plane of the staged projector chunk: its tile starts at image
-  // column col0 - last, so plane d reads it at shift last - d.
-  int last = -1;
   __syncthreads();
 
   for (int d = 0; d <= D; ++d) {
-    const float* cost_d = cost_b + d * plane;
-    const float df = static_cast<float>(d);
-    if (kRecompute) {
-      if (d > last) {
-        // The previous plane's closing barrier has retired every read of
-        // the old chunk.
-        last = min(d + x.chunk - 1, D);
-        stage_tile(proj_x, projector + frame, H, W, row0, col0 - last,
-                   x.img_rows, x.proj_w, 1.f);
-        __syncthreads();
-      }
-      cross_rows(xsum, cam_x, proj_x, x, k, last - d);
-      __syncthreads();
-    }
     for (int i = threadIdx.x; i < halo; i += blockDim.x) {
       const int rr = i / g.cam_w, cc = i - rr * g.cam_w;
       const int y = h0 - g.p + rr, xx = w0 - g.p + cc;
@@ -237,12 +170,7 @@ __global__ void __launch_bounds__(kThreads)
         const size_t srow =
             (static_cast<size_t>(b) * H + y) * stats_w + D + xx - d;
         const float ri = rsqrtf(ex2_t[i] * __ldg(proj_e2 + srow) + eps);
-        float cv = 0.f;
-        if (Source::kNeedsCost) cv = __ldg(cost_d + px);
-        const float gd = src.value(
-            maps, halo, i, (static_cast<size_t>(b) * (D + 1) + d) * plane + px,
-            cv, df);
-        v = gd * ri;
+        v = __ldg(cot_b + d * plane + px) * ri;
       }
       gr_t[i] = v;
     }
@@ -257,17 +185,349 @@ __global__ void __launch_bounds__(kThreads)
       const float e2 = __ldg(proj_e2 + stats_row - d);
       const float sy = __ldg(proj_s + stats_row - d);
       const float rc = rsqrtf(ex2_t[centre] * e2 + eps);
-      float cv;
-      if (kRecompute) {
-        const float sxy = horizontal_sum(xsum, x.cam_w, r, c, k);
-        cv = (sxy - mux * sy + eps) * rc;
-      } else {
-        cv = __ldg(cost_d + (o - frame));
-      }
+      const float cv = __ldg(cost_b + d * plane + (o - frame));
       bacc = fmaf(gr * cv, rc * e2, bacc);
       grmu = fmaf(gr, sy * inv_k2, grmu);
     }
     __syncthreads();
+  }
+
+  if (!valid) return;
+  a1_out[o] = a1;
+  b_out[o] = bacc;
+  grmu_out[o] = grmu;
+}
+
+// ---------------------------------------------------------------------------
+// gr's passes on the register-blocked window pass (K4, K5, K6).  Outputs an
+// item of gr's rows pass (kGradRows) and of its column sums (kGradCols).
+constexpr int kGradRows = 8;
+constexpr int kGradCols = 8;
+static_assert(kTileH % kGradRows == 0 && kTileW % kGradCols == 0,
+              "gr's groups tile the tile");
+
+// Where gr's passes find their planes, in floats: buffer Y holds gr_d over
+// the halo'd rows (row stride ys, plane stride ysz, halo_cols entries a
+// row) and then gr's box sums (row stride bs); buffer X holds gr's rows
+// pass (row stride vs, plane stride xsz).
+struct GradStrides {
+  int halo_cols, ys, ysz, vs, xsz, bs;
+};
+
+// gr's rows pass: X[j][r][c] = sum_{t<k} Y[j][r + t][c] for r < kTileH,
+// c < halo_cols (vertical_sum).  An item is kGradRows rows of one column
+// and plane.
+__device__ inline void grad_rows(float* xbuf, const float* ybuf,
+                                 const GradStrides& x, int k, int np) {
+  constexpr int kGroups = kTileH / kGradRows;
+  for (int i = threadIdx.x; i < np * kGroups * x.halo_cols;
+       i += blockDim.x) {
+    const int line = i / x.halo_cols, c = i - line * x.halo_cols;
+    const int j = line / kGroups, s = (line - j * kGroups) * kGradRows;
+    float acc[kGradRows];
+    window_taps<kGradRows, false>(acc, ybuf + j * x.ysz + s * x.ys + c, x.ys,
+                                  nullptr, 0, k);
+    float* out = xbuf + j * x.xsz + s * x.vs + c;
+#pragma unroll
+    for (int n = 0; n < kGradRows; ++n) out[n * x.vs] = acc[n];
+  }
+}
+
+// Its column sums, box(gr_d) at each pixel of the tile: Y[j][r][c] =
+// sum_{t<k} X[j][r][c + t] (horizontal_sum).  An item is kGradCols pixels
+// of a row; a warp's items are consecutive rows.
+__device__ inline void grad_column_sums(float* ybuf, const float* xbuf,
+                                        const GradStrides& x, int k,
+                                        int np) {
+  constexpr int kGroups = kTileW / kGradCols;
+  const int lines = np * kTileH;
+  for (int i = threadIdx.x; i < lines * kGroups; i += blockDim.x) {
+    const int q = i / lines, line = i - q * lines;
+    const int j = line / kTileH, r = line - j * kTileH;
+    float acc[kGradCols];
+    window_taps<kGradCols, false>(
+        acc, xbuf + j * x.xsz + r * x.vs + q * kGradCols, 1, nullptr, 0, k);
+    float* out = ybuf + j * x.ysz + r * x.bs + q * kGradCols;
+#pragma unroll
+    for (int n = 0; n < kGradCols; ++n) out[n] = acc[n];
+  }
+}
+
+// The most planes a round of the rounds kernel takes; where their buffers
+// do not fit, or D + 1 is smaller, it takes the largest power of two below
+// that does (launch_camera_grad_rounds instantiates each).
+constexpr int kGradPlanes = 8;
+
+// Shared-memory geometry of the rounds kernel, in floats: the entries'
+// constants (consts x halo: ex2, then the source's maps); with the
+// recompute, the camera tile (halo_rows x halo_cols) and the projector
+// tile widened left by chunk - 1 columns (halo_rows x proj_w); then
+// `planes` planes of buffer Y (gr_d over the halo'd tile, halo_rows x ys;
+// then gr's box sums, kTileH x bs) and of buffer X (gr's rows pass, kTileH
+// x vs).  Before gr's passes the recompute runs K3's round in the same
+// space: its rows pass (RoundTile's vsum, planes x kTileH x vs) in Y, its
+// window sums (planes x kTileH x bs) in X.  Row strides are odd, so a
+// warp's 32 rows hit 32 banks.
+struct GradRoundTile {
+  int p, halo_rows, halo_cols, halo, consts, proj_w, ys, ysz, vs, xsz, bs,
+      planes;
+  bool recompute;
+  __host__ __device__ GradRoundTile(int k, int consts, bool recompute,
+                                    int chunk, int planes)
+      : p(k / 2),
+        halo_rows(kTileH + 2 * (k / 2)),
+        halo_cols(kTileW + 2 * (k / 2)),
+        halo(halo_rows * halo_cols),
+        consts(consts),
+        proj_w(halo_cols + chunk - 1),
+        ys(halo_cols + 1),
+        ysz(halo_rows * (halo_cols + 1)),
+        vs(halo_cols + 1),
+        xsz(kTileH * (halo_cols + 1)),
+        bs(kTileW + 1),
+        planes(planes),
+        recompute(recompute) {}
+  __host__ __device__ size_t fixed_floats() const {
+    return static_cast<size_t>(consts + (recompute ? 1 : 0)) * halo;
+  }
+  __host__ __device__ size_t proj_floats() const {
+    return recompute ? static_cast<size_t>(halo_rows) * proj_w : 0;
+  }
+  __host__ __device__ size_t plane_floats() const {
+    return static_cast<size_t>(ysz) + xsz;
+  }
+  __host__ __device__ size_t floats() const {
+    return fixed_floats() + proj_floats() + planes * plane_floats();
+  }
+  __host__ __device__ GradStrides strides() const {
+    return {halo_cols, ys, ysz, vs, xsz, bs};
+  }
+};
+
+struct GradRound {
+  int planes, chunk;
+};
+
+// Planes a round and a projector staging of the rounds kernel within
+// `budget` floats: the most planes (kGradPlanes, halving) whose buffers
+// fit beside the constants (and with the recompute one plane's projector
+// tile) and that D + 1 fills; with the recompute the staging takes what
+// is left, a multiple of the round, and the round halves where fewer
+// planes than that fit.  {0, 0} when not one plane fits.
+inline GradRound grad_round(int k, int D, int consts, bool recompute,
+                            size_t budget) {
+  for (int planes = kGradPlanes; planes >= 1; planes /= 2) {
+    if (planes > 1 && planes > D + 1) continue;
+    const GradRoundTile t(k, consts, recompute, 1, planes);
+    if (t.floats() > budget) continue;
+    if (!recompute) return {planes, D + 1};
+    const int chunk =
+        staging_chunk(D, t.fixed_floats() + planes * t.plane_floats(),
+                      t.proj_floats(), t.halo_rows, budget);
+    if (chunk >= D + 1) return {planes, chunk};
+    if (chunk >= planes) return {planes, chunk - chunk % planes};
+  }
+  return {0, 0};
+}
+
+// Halo index of ring entry q, the halo'd tile less the tile's own pixels:
+// the top p rows, the bottom p rows, then the left and right p columns of
+// the kTileH rows between.
+__device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
+  const int band = p * halo_cols;
+  if (q < band) return q;
+  if (q < 2 * band) return (kTileH + p) * halo_cols + (q - band);
+  const int s = q - 2 * band, row = s / (2 * p), col = s - row * 2 * p;
+  return (p + row) * halo_cols + (col < p ? col : col + kTileW);
+}
+
+// Source: the cotangent plane.
+//   kMaps       halo'd tiles of per-pixel constants it stages
+//   kReadsCost  whether its volume is the cost, g_d formed from it (K4),
+//               or the cotangent itself (K6)
+//   vol         the plane-major [B, D + 1, H, W] volume it reads at every
+//               halo entry and plane
+//   stage(maps, halo, i, pix, inside)  fill entry i of its tiles
+//   Entry, entry(maps, halo, i)        entry i's staged constants
+//   cotangent(entry, v, df)            g_d from them and vol's value v
+//
+// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads, one
+// block an SM; dynamic shared memory GradRoundTile(k, 1 + Source::kMaps,
+// kRecompute, chunk, P).floats() floats.  kRecompute: the cost is
+// recomputed from camera and projector on the tile's own pixels, the
+// projector tile staged anew every `chunk` planes (K6, whose source reads
+// the cotangent); otherwise the source's volume is the cost (K4), and
+// camera, cam_s and `chunk` are unused.
+template <class Source, bool kRecompute, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    camera_grad_rounds_kernel(Source src, const float* __restrict__ camera,
+                              const float* __restrict__ projector,
+                              const float* __restrict__ cam_s,
+                              const float* __restrict__ cam_e2,
+                              const float* __restrict__ proj_s,
+                              const float* __restrict__ proj_e2,
+                              float* __restrict__ a1_out,
+                              float* __restrict__ b_out,
+                              float* __restrict__ grmu_out, int H, int W,
+                              int D, int k, int chunk, float eps) {
+  static_assert(kRecompute != Source::kReadsCost,
+                "the cost is read by the source (K4) or recomputed (K6)");
+  extern __shared__ float smem[];
+  const GradRoundTile x(k, 1 + Source::kMaps, kRecompute, chunk, P);
+  const GradStrides gs = x.strides();
+  const int halo = x.halo, hc = x.halo_cols, p = x.p;
+  float* ex2_t = smem;
+  float* maps = ex2_t + halo;
+  float* cam_x = maps + Source::kMaps * halo;
+  float* proj_x = cam_x + (kRecompute ? halo : 0);
+  float* ybuf = proj_x + x.proj_floats();
+  float* xbuf = ybuf + P * x.ysz;
+  // The recompute's round (K3's geometry, the projector tile `chunk`
+  // planes wide).
+  const PlaneTile pt(k, chunk - 1);
+  const RoundTile rt(pt, P);
+
+  const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t frame = static_cast<size_t>(b) * plane;
+  const size_t stats_w = static_cast<size_t>(W) + D;
+  const float* vol_b = src.vol + static_cast<size_t>(b) * (D + 1) * plane;
+  const float inv_k2 = 1.f / static_cast<float>(k * k);
+
+  // Per-entry constants of the halo'd tile, zero outside the image.
+  for (int i = threadIdx.x; i < halo; i += blockDim.x) {
+    const int rr = i / hc, cc = i - rr * hc;
+    const int y = h0 - p + rr, xx = w0 - p + cc;
+    const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
+    const size_t pix = frame + static_cast<size_t>(y) * W + xx;
+    ex2_t[i] = inside ? __ldg(cam_e2 + pix) : 0.f;
+    src.stage(maps, halo, i, pix, inside);
+  }
+  if constexpr (kRecompute)
+    stage_tile(cam_x, camera + frame, H, W, h0 - p, w0 - p, x.halo_rows, hc,
+               1.f);
+
+  const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
+  const int h = h0 + r, w = w0 + c;
+  const bool valid = h < H && w < W;
+  const int centre = (r + p) * hc + c + p;
+  float* centre_y = ybuf + (r + p) * x.ys + c + p;
+  const size_t o = frame + static_cast<size_t>(h) * W + w;
+  // Image column x of the projector statistics sits at index x + D.
+  const size_t stats_row = (static_cast<size_t>(b) * H + h) * stats_w + D + w;
+  // The camera's window mean at the tile's own pixel (the recompute).
+  const float mux = kRecompute && valid ? __ldg(cam_s + o) * inv_k2 : 0.f;
+  const int ring = halo - kThreads;
+  float a1 = 0.f, bacc = 0.f, grmu = 0.f;
+  // The last plane of the staged projector chunk: its tile starts at image
+  // column w0 - p - last, so plane d reads it at shift last - d.
+  int last = kRecompute ? -1 : D;
+
+  for (int d0 = 0; d0 <= D;) {
+    if constexpr (kRecompute) {
+      // The round before's barriers have retired every read of the old
+      // chunk.
+      if (d0 > last) {
+        last = min(d0 + chunk - 1, D);
+        stage_tile(proj_x, projector + frame, H, W, h0 - p, w0 - p - last,
+                   x.halo_rows, x.proj_w, 1.f);
+      }
+    }
+    const int np = min(P, last + 1 - d0);
+    if constexpr (kRecompute) {
+      // a. The cross term's window sums at the tile's pixels, in X.
+      __syncthreads();
+      round_products(ybuf, cam_x, proj_x, pt, rt, k, last - d0, np);
+      __syncthreads();
+      round_column_sums(xbuf, ybuf, rt, k, np);
+    }
+    // The round before's A1 has read Y (and the recompute's sums are in).
+    __syncthreads();
+
+    // b. gr_d of the tile's own pixel, with its B and GRMU terms.  Planes
+    // past D (a short last round) load plane D and add nothing.
+    if (valid) {
+      const auto e = src.entry(maps, halo, centre);
+      const float ex2 = ex2_t[centre];
+      float ey2[P], sy[P], v[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int d = min(d0 + j, D);
+        ey2[j] = __ldg(proj_e2 + stats_row - d);
+        sy[j] = __ldg(proj_s + stats_row - d);
+        v[j] = __ldg(vol_b + d * plane + (o - frame));
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float ri = rsqrtf(ex2 * ey2[j] + eps);
+        const float gr =
+            src.cotangent(e, v[j], static_cast<float>(d0 + j)) * ri;
+        float cv = v[j];
+        if constexpr (kRecompute)
+          cv = (xbuf[j * rt.box_floats() + r * rt.bs + c] - mux * sy[j] +
+                eps) *
+               ri;
+        centre_y[j * x.ysz] = gr;
+        if (j < np) {
+          bacc = fmaf(gr * cv, ri * ey2[j], bacc);
+          grmu = fmaf(gr, sy[j] * inv_k2, grmu);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) centre_y[j * x.ysz] = 0.f;
+    }
+    // gr_d at the ring's entries.
+    for (int q = threadIdx.x; q < ring; q += kThreads) {
+      const int i = ring_entry(q, p, hc);
+      const int rr = i / hc, cc = i - rr * hc;
+      const int y = h0 - p + rr, xx = w0 - p + cc;
+      float* ey = ybuf + rr * x.ys + cc;
+      if (!(y >= 0 && y < H && xx >= 0 && xx < W)) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) ey[j * x.ysz] = 0.f;
+        continue;
+      }
+      const auto e = src.entry(maps, halo, i);
+      const float ex2 = ex2_t[i];
+      const size_t px = static_cast<size_t>(y) * W + xx;
+      const size_t srow = (static_cast<size_t>(b) * H + y) * stats_w + D + xx;
+      float ey2[P], v[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int d = min(d0 + j, D);
+        ey2[j] = __ldg(proj_e2 + srow - d);
+        v[j] = __ldg(vol_b + d * plane + px);
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float ri = rsqrtf(ex2 * ey2[j] + eps);
+        ey[j * x.ysz] =
+            src.cotangent(e, v[j], static_cast<float>(d0 + j)) * ri;
+      }
+    }
+    __syncthreads();
+
+    // c. gr's rows pass (Y to X) and column sums (X to Y).
+    grad_rows(xbuf, ybuf, gs, k, np);
+    __syncthreads();
+    grad_column_sums(ybuf, xbuf, gs, k, np);
+    __syncthreads();
+
+    // d. A1 of the tile's pixels, in plane order.
+    if (valid) {
+      const float* box = ybuf + r * x.bs + c;
+      float pj[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int d = d0 + j;
+        pj[j] = j < np && w >= d ? __ldg(projector + o - d) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        if (j < np) a1 = fmaf(box[j * x.ysz], pj[j], a1);
+    }
+    d0 += np;
   }
 
   if (!valid) return;
@@ -373,42 +633,96 @@ inline cudaError_t launch_grad_combine(const float* camera,
   return cudaGetLastError();
 }
 
-// The statistics passes, the planes kernel and the combine.  Scratch:
+// K2: the statistics passes, the planes kernel and the combine.  Scratch:
 // cam_s/cam_e2 [B, H, W], proj_s/proj_e2 [B, H, W + D], a1/bm/grmu
-// [B, H, W].  With kRecompute `cost` is not read (pass nullptr).
-template <bool kRecompute, class Source>
-cudaError_t launch_camera_grad(const Source& src, const float* camera,
-                               const float* projector, float* cam_s,
-                               float* cam_e2, float* proj_s, float* proj_e2,
-                               const float* cost, float* a1, float* bm,
-                               float* grmu, float* grad, int B, int H, int W,
-                               int D, int k, float eps, cudaStream_t stream) {
+// [B, H, W].
+inline cudaError_t launch_camera_grad(const float* cot, const float* camera,
+                                      const float* projector, float* cam_s,
+                                      float* cam_e2, float* proj_s,
+                                      float* proj_e2, const float* cost,
+                                      float* a1, float* bm, float* grmu,
+                                      float* grad, int B, int H, int W, int D,
+                                      int k, float eps, cudaStream_t stream) {
   cudaError_t e = launch_grad_stats(camera, projector, cam_s, cam_e2, proj_s,
                                     proj_e2, B, H, W, D, k, stream);
   if (e != cudaSuccess) return e;
-
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  auto planes = camera_grad_planes_kernel<Source, kRecompute>;
-  const GradTile g(k);
-  size_t floats = g.floats(Source::kMaps);
-  int chunk = D + 1;
-  if (kRecompute) {
-    size_t budget = 0;
-    e = optin_floats(&budget);
-    if (e != cudaSuccess) return e;
-    const RecomputeTile one(k, 1);
-    chunk = staging_chunk(D, floats, one.floats(), one.img_rows, budget);
-    // Not even one plane's projector tile fits beside the block's tiles.
-    if (chunk < 1) return cudaErrorInvalidConfiguration;
-    floats += RecomputeTile(k, chunk).floats();
-  }
-  const size_t bytes = floats * sizeof(float);
-  e = allow_smem(planes, bytes);
+  const size_t bytes = GradTile(k).floats(0) * sizeof(float);
+  e = allow_smem(camera_grad_planes_kernel, bytes);
   if (e != cudaSuccess) return e;
-  planes<<<grid, kThreads, bytes, stream>>>(src, camera, projector, cam_s,
-                                            cam_e2, proj_s, proj_e2, cost, a1,
-                                            bm, grmu, H, W, D, k, chunk, eps);
+  camera_grad_planes_kernel<<<grid, kThreads, bytes, stream>>>(
+      cot, projector, cam_e2, proj_s, proj_e2, cost, a1, bm, grmu, H, W, D, k,
+      eps);
   e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
+                             stream);
+}
+
+template <class Source, bool kRecompute, int P>
+cudaError_t launch_rounds(const Source& src, const float* camera,
+                          const float* projector, const float* cam_s,
+                          const float* cam_e2, const float* proj_s,
+                          const float* proj_e2, float* a1, float* bm,
+                          float* grmu, int B, int H, int W, int D, int k,
+                          int chunk, float eps, cudaStream_t stream) {
+  auto kernel = camera_grad_rounds_kernel<Source, kRecompute, P>;
+  const size_t bytes =
+      GradRoundTile(k, 1 + Source::kMaps, kRecompute, chunk, P).floats() *
+      sizeof(float);
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(src, camera, projector, cam_s,
+                                            cam_e2, proj_s, proj_e2, a1, bm,
+                                            grmu, H, W, D, k, chunk, eps);
+  return cudaGetLastError();
+}
+
+// K4 and K6: the statistics passes, the rounds kernel at the planes a
+// round grad_round gives, and the combine.  Scratch as launch_camera_grad.
+template <class Source, bool kRecompute>
+cudaError_t launch_camera_grad_rounds(const Source& src, const float* camera,
+                                      const float* projector, float* cam_s,
+                                      float* cam_e2, float* proj_s,
+                                      float* proj_e2, float* a1, float* bm,
+                                      float* grmu, float* grad, int B, int H,
+                                      int W, int D, int k, float eps,
+                                      cudaStream_t stream) {
+  static_assert(kGradPlanes == 8, "the planes a round instantiated below");
+  cudaError_t e = launch_grad_stats(camera, projector, cam_s, cam_e2, proj_s,
+                                    proj_e2, B, H, W, D, k, stream);
+  if (e != cudaSuccess) return e;
+  size_t budget = 0;
+  e = optin_floats(&budget);
+  if (e != cudaSuccess) return e;
+  const GradRound round =
+      grad_round(k, D, 1 + Source::kMaps, kRecompute, budget);
+  switch (round.planes) {
+    case 8:
+      e = launch_rounds<Source, kRecompute, 8>(
+          src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
+          grmu, B, H, W, D, k, round.chunk, eps, stream);
+      break;
+    case 4:
+      e = launch_rounds<Source, kRecompute, 4>(
+          src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
+          grmu, B, H, W, D, k, round.chunk, eps, stream);
+      break;
+    case 2:
+      e = launch_rounds<Source, kRecompute, 2>(
+          src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
+          grmu, B, H, W, D, k, round.chunk, eps, stream);
+      break;
+    case 1:
+      e = launch_rounds<Source, kRecompute, 1>(
+          src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
+          grmu, B, H, W, D, k, round.chunk, eps, stream);
+      break;
+    default:
+      // Not one plane's buffers fit beside the block's tiles.
+      return cudaErrorInvalidConfiguration;
+  }
   if (e != cudaSuccess) return e;
   return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
                              stream);

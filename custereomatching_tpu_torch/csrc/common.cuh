@@ -81,7 +81,7 @@ __device__ inline float horizontal_sum(const float* vsum, int cam_w, int r,
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked window pass (K3, K3w, K3m and K5).  K1, K2, K4, K6,
+// The register-blocked window pass (K3, K3w, K3m, K4, K5 and K6).  K1, K2,
 // K7 and the boxadd rate probe keep the pass above.
 //
 // One work item makes N adjacent outputs of a window of k taps along one
@@ -90,8 +90,8 @@ __device__ inline float horizontal_sum(const float* vsum, int cam_w, int r,
 //   acc[n] = sum_{t<k} a[(n + t) as] * b[(n + t) bs]    (kProducts: fmaf)
 //   acc[n] = sum_{t<k} a[(n + t) as]                    (sums: +)
 // Each output adds its taps t = 0..k-1 in order, from 0, with fmaf for
-// products and + for sums, as vertical_products, horizontal_sum,
-// cross_rows and vertical_sum do: the operands come from registers, the
+// products and + for sums, as vertical_products, horizontal_sum and
+// vertical_sum do: the operands come from registers, the
 // arithmetic is theirs, so the values are theirs bit for bit.  Line entry
 // i feeds the outputs n with 0 <= i - n < k; for k >= N - 1 the first and
 // last N - 1 entries feed a set of outputs known at compile time, and the

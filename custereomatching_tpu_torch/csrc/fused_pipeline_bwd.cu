@@ -11,10 +11,22 @@
 //       = e^{beta (c_d - conf)} / s   (rescaled head, s relative to e^m)
 // where gs_hat and gc_hat are the cotangents of the soft disparity and the
 // confidence map.  The gradient of the confidence goes to the first argmax
-// only, as the Pallas kernel's 1[d = am] does.  The rest is the body K2
-// runs (camera_grad.cuh).  1/s, t/s, gs_hat mask beta, gc_hat, am and conf
-// are staged once a tile in shared memory, zero outside the image, as
-// _fused_bwd_c_kernel derives them once per row tile.
+// only, as the Pallas kernel's 1[d = am] does.  1/s, t/s, gs_hat mask
+// beta, gc_hat, am and conf are staged once a tile in shared memory, zero
+// outside the image, as _fused_bwd_c_kernel derives them once per row
+// tile.
+//
+// K4 is camera_grad.cuh's rounds kernel with HeadSource: K5's round
+// without the cost recompute, the cost read from K3w's plane-major volume
+// at every halo entry.  A round of P planes forms g_d and gr_d at the
+// halo's entries (each entry's seven constants read once a round, its P
+// planes of cost and ey2 loaded before the first is used; the tile's own
+// pixels also add B and GRMU), then gr's rows pass and column sums, then
+// A1, behind four barriers where the first version had three a plane.  At
+// k = 15, D = 192: P = 8, the constants (7 x 30 x 78) and 8 planes of the
+// two buffers (30 x 79 + 16 x 79): 45,452 floats = 181,808 bytes, one
+// 1024-thread block an SM.  A larger k takes P = 4, 2 or 1; at P = 1 the
+// block fits up to k = 47 (56,398 floats), as the first version's did.
 //
 // K5 recomputes the cost at every pixel of the halo'd 30 x 78 tile (k =
 // 15), since g_d needs it there, in a kernel of its own on the
@@ -51,11 +63,11 @@
 //
 // What bounds it on the H100: K4 reads one volume, the cost (360 MB a
 // KITTI frame, about 0.11 ms at 3.35 TB/s); per plane and halo pixel it
-// adds one exp to K2's work.  K5 reads no volume; it does K1's per-plane
-// cross-term work over 2.2 times K1's region.  The least work of its
-// function, one cost, head cotangent and VJP body an entry (about
-// 4k + 25 flops with the k x k window sums taken separably), puts its
-// floor at 0.11 ms a KITTI frame at 67 TFLOP/s.  Otherwise as K2
+// adds one exp to K6's work without the recompute.  K5 reads no volume;
+// it does K1's per-plane cross-term work over 2.2 times K1's region.  The
+// least work of its function, one cost, head cotangent and VJP body an
+// entry (about 4k + 25 flops with the k x k window sums taken separably),
+// puts its floor at 0.11 ms a KITTI frame at 67 TFLOP/s.  Otherwise as K6
 // (camera_grad.cuh).
 #include "camera_grad.cuh"
 
@@ -77,14 +89,21 @@ __device__ __forceinline__ float head_cotangent(float gs, float tos,
   return gs * w * (df - tos) + gc * hit;
 }
 
-// g_d formed from the head's maps [B, H, W] and the cost.
+// g_d formed from the head's maps [B, H, W] and the cost (camera_grad.cuh's
+// Source; K5 reads the maps itself).
 template <bool kUnnormalized>
 struct HeadSource {
   // Staged tiles: gs_hat mask beta, t/s, 1/s, am, gc_hat, conf.
   static constexpr int kMaps = 6;
-  static constexpr bool kNeedsCost = true;
+  static constexpr bool kReadsCost = true;
   const float *am, *mask, *conf, *s, *t, *gsoft, *gconf;
   float beta;
+  // The cost volume (K4; K5 recomputes the cost and leaves it null).
+  const float* vol;
+
+  struct Entry {
+    float gs, tos, inv_s, am, gc, conf;
+  };
 
   __device__ void stage(float* maps, int halo, int i, size_t pix,
                         bool inside) const {
@@ -105,27 +124,26 @@ struct HeadSource {
     maps[5 * halo + i] = m;
   }
 
-  __device__ float value(const float* maps, int halo, int i, size_t,
-                         float c, float df) const {
-    return head_cotangent<kUnnormalized>(
-        maps[i], maps[halo + i], maps[2 * halo + i], maps[3 * halo + i],
-        maps[4 * halo + i], maps[5 * halo + i], beta, c, df);
+  __device__ Entry entry(const float* maps, int halo, int i) const {
+    return {maps[i], maps[halo + i], maps[2 * halo + i], maps[3 * halo + i],
+            maps[4 * halo + i], maps[5 * halo + i]};
+  }
+
+  __device__ float cotangent(const Entry& e, float c, float df) const {
+    return head_cotangent<kUnnormalized>(e.gs, e.tos, e.inv_s, e.am, e.gc,
+                                         e.conf, beta, c, df);
   }
 };
 
 // K5's register blocking: outputs an item of the cross term's rows pass
-// (kHaloRows) and of its column sums (kHaloCols), of gr's rows pass
-// (kGradRows) and of its column sums (kGradCols); the halo entries a
-// thread owns (kHaloOwn: the halo'd tile at k = 27 has 3,780); the
-// constants staged an entry (ex2, mux and HeadSource's six maps).
+// (kHaloRows) and of its column sums (kHaloCols; gr's passes are
+// camera_grad.cuh's, kGradRows and kGradCols); the halo entries a thread
+// owns (kHaloOwn: the halo'd tile at k = 27 has 3,780); the constants
+// staged an entry (ex2, mux and HeadSource's six maps).
 constexpr int kHaloRows = 15;
 constexpr int kHaloCols = 13;
-constexpr int kGradRows = 8;
-constexpr int kGradCols = 8;
 constexpr int kHaloOwn = 4;
 constexpr int kHaloConsts = 8;
-static_assert(kTileH % kGradRows == 0 && kTileW % kGradCols == 0,
-              "gr's groups tile the tile");
 
 // Shared-memory geometry of K5, in floats: the entries' constants
 // (kHaloConsts x halo), the camera tile (img_rows x img_w), the projector
@@ -163,6 +181,10 @@ struct HaloTile {
   __host__ __device__ size_t floats() const {
     return fixed_floats() + static_cast<size_t>(img_rows) * proj_w +
            static_cast<size_t>(planes) * (xsz + ysz);
+  }
+  // Where gr's passes (camera_grad.cuh) find buffers Y and X.
+  __host__ __device__ GradStrides grad() const {
+    return {halo_cols, ys, ysz, vs, xsz, bs};
   }
 };
 
@@ -238,44 +260,8 @@ __device__ inline void halo_column_sums(float* ybuf, const float* xbuf,
   }
 }
 
-// 4. gr's rows pass: X[j][r][c] = sum_{t<k} Y[j][r + t][c] for r <
-// kTileH, c < halo_cols (camera_grad.cuh's vertical_sum).
-__device__ inline void grad_rows(float* xbuf, const float* ybuf,
-                                 const HaloTile& x, int k, int np) {
-  constexpr int kGroups = kTileH / kGradRows;
-  for (int i = threadIdx.x; i < np * kGroups * x.halo_cols;
-       i += blockDim.x) {
-    const int line = i / x.halo_cols, c = i - line * x.halo_cols;
-    const int j = line / kGroups, s = (line - j * kGroups) * kGradRows;
-    float acc[kGradRows];
-    window_taps<kGradRows, false>(acc, ybuf + j * x.ysz + s * x.ys + c, x.ys,
-                                  nullptr, 0, k);
-    float* out = xbuf + j * x.xsz + s * x.vs + c;
-#pragma unroll
-    for (int n = 0; n < kGradRows; ++n) out[n * x.vs] = acc[n];
-  }
-}
-
-// 5. Its column sums, box(gr_d) at each pixel of the tile: Y[j][r][c] =
-// sum_{t<k} X[j][r][c + t] (horizontal_sum).
-__device__ inline void grad_column_sums(float* ybuf, const float* xbuf,
-                                        const HaloTile& x, int k, int np) {
-  constexpr int kGroups = kTileW / kGradCols;
-  const int lines = np * kTileH;
-  for (int i = threadIdx.x; i < lines * kGroups; i += blockDim.x) {
-    const int q = i / lines, line = i - q * lines;
-    const int j = line / kTileH, r = line - j * kTileH;
-    float acc[kGradCols];
-    window_taps<kGradCols, false>(
-        acc, xbuf + j * x.xsz + r * x.vs + q * kGradCols, 1, nullptr, 0, k);
-    float* out = ybuf + j * x.ysz + r * x.bs + q * kGradCols;
-#pragma unroll
-    for (int n = 0; n < kGradCols; ++n) out[n] = acc[n];
-  }
-}
-
 // K5's planes kernel: A1, B and GRMU of each pixel, as
-// camera_grad_planes_kernel computes them for K4, with the cost
+// camera_grad_rounds_kernel computes them for K4, with the cost
 // recomputed over the halo'd tile.  Grid: (ceil(W / kTileW),
 // ceil(H / kTileH), B); kThreads threads, one block an SM; dynamic shared
 // memory HaloTile(k, chunk, planes).floats() floats.
@@ -389,9 +375,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();
-    grad_rows(xbuf, ybuf, x, k, np);
+    // 4-5. gr's rows pass and its column sums (camera_grad.cuh).
+    grad_rows(xbuf, ybuf, x.grad(), k, np);
     __syncthreads();
-    grad_column_sums(ybuf, xbuf, x, k, np);
+    grad_column_sums(ybuf, xbuf, x.grad(), k, np);
     __syncthreads();
     // 6. A1 of the tile's pixels, in plane order.
     if (valid) {
@@ -463,15 +450,15 @@ int run(const float* camera, const float* projector, float* cam_s,
         float* bm, float* grmu, float* grad, int B, int H, int W, int D,
         int k, float eps, float beta, cudaStream_t stream) {
   const HeadSource<kUnnormalized> src{am, mask, conf, s, t, gsoft, gconf,
-                                      beta};
+                                      beta, cost};
   if constexpr (kRecompute)
     return launch_fused_bwd_halo(src, camera, projector, cam_s, cam_e2,
                                  proj_s, proj_e2, a1, bm, grmu, grad, B, H, W,
                                  D, k, eps, stream);
   else
-    return launch_camera_grad<false>(src, camera, projector, cam_s, cam_e2,
-                                     proj_s, proj_e2, cost, a1, bm, grmu,
-                                     grad, B, H, W, D, k, eps, stream);
+    return launch_camera_grad_rounds<HeadSource<kUnnormalized>, false>(
+        src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu,
+        grad, B, H, W, D, k, eps, stream);
 }
 
 // The head branch `unnormalized` selects.

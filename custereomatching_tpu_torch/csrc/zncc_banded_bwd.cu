@@ -8,35 +8,41 @@
 // pallas_camera_grad_banded, direct_g=False, whose restaged [H, W, D+1]
 // cotangent the port stages plane-major with K9b).  The cotangent g (and
 // for K2 the cost c) arrive plane-major, [B, D+1, H, W], the layout K1
-// writes; the body (the accumulation of A1, B and GRMU and the combine) is
-// camera_grad.cuh, shared with K4 and K5.  K6 recomputes each cost plane
-// over K1's 16 x 64 tile for the B term; its planes kernel stages K1's two
-// image tiles beside K2's, 17,616 floats = 70,464 bytes of shared memory
-// at k = 15, D = 192 (past the card's limit the projector tile is staged
-// in chunks of planes, camera_grad.cuh).
+// writes; the bodies (the accumulation of A1, B and GRMU and the combine)
+// are camera_grad.cuh's.  K2 runs its planes kernel, on K1's per-plane
+// pass.  K6 runs its rounds kernel, shared with K4: a round of P planes
+// recomputes the cost's cross term on K1's 16 x 64 tile for the B term
+// (K3's round), forms gr_d = g_d r_d over the halo'd tile, box-sums it on
+// the register-blocked pass and adds A1.  At k = 15, D = 192: P = 8, ex2
+// and the camera tile (30 x 78 each), the projector tile 30 x (78 + 192)
+// and 8 planes of the two buffers (30 x 79 + 16 x 79): 41,852 floats =
+// 167,408 bytes; past the card's limit the projector tile is staged in
+// chunks of planes, so any D runs, and k runs up to 81 at P = 1.
 //
 // What bounds it on the H100: K2 reads two volumes, g and c (720 MB a
 // KITTI frame, about 0.21 ms at 3.35 TB/s); K6 one, g (0.11 ms), and
 // instead does K1's per-plane cross-term work, about 4k + 17 flops a pixel
 // and plane with the k x k window sums taken separably (0.10 ms a KITTI
-// frame at 67 TFLOP/s), so its read still bounds it.  Both take far
-// longer, as K1 does, for the per-plane row and column passes in shared
-// memory (see camera_grad.cuh).
+// frame at 67 TFLOP/s), so its read still bounds it.  K2 takes far longer,
+// as K1 does, for the per-plane row and column passes in shared memory
+// (see camera_grad.cuh).
 #include "camera_grad.cuh"
 
 namespace custereo {
 namespace {
 
-// g_d read from the plane-major cotangent volume.
+// g_d read from the plane-major cotangent volume (K6; camera_grad.cuh's
+// Source).
 struct CotangentSource {
   static constexpr int kMaps = 0;
-  static constexpr bool kNeedsCost = false;
-  const float* g;
+  static constexpr bool kReadsCost = false;
+  const float* vol;
 
+  struct Entry {};
   __device__ void stage(float*, int, int, size_t, bool) const {}
-  __device__ float value(const float*, int, int, size_t vidx, float,
-                         float) const {
-    return __ldg(g + vidx);
+  __device__ Entry entry(const float*, int, int) const { return {}; }
+  __device__ float cotangent(const Entry&, float v, float) const {
+    return v;
   }
 };
 
@@ -59,10 +65,10 @@ extern "C" int custereo_camera_grad(const float* camera,
                                     float* bm, float* grmu, float* grad,
                                     int B, int H, int W, int D, int k,
                                     float eps, void* stream_ptr) {
-  return launch_camera_grad<false>(CotangentSource{cotangent}, camera,
-                                   projector, cam_s, cam_e2, proj_s, proj_e2,
-                                   cost, a1, bm, grmu, grad, B, H, W, D, k,
-                                   eps, static_cast<cudaStream_t>(stream_ptr));
+  return launch_camera_grad(cotangent, camera, projector, cam_s, cam_e2,
+                            proj_s, proj_e2, cost, a1, bm, grmu, grad, B, H,
+                            W, D, k, eps,
+                            static_cast<cudaStream_t>(stream_ptr));
 }
 
 // K6: as custereo_camera_grad without the cost volume; each cost plane is
@@ -72,8 +78,8 @@ extern "C" int custereo_camera_grad_recompute(
     float* proj_s, float* proj_e2, const float* cotangent, float* a1,
     float* bm, float* grmu, float* grad, int B, int H, int W, int D, int k,
     float eps, void* stream_ptr) {
-  return launch_camera_grad<true>(CotangentSource{cotangent}, camera,
-                                  projector, cam_s, cam_e2, proj_s, proj_e2,
-                                  nullptr, a1, bm, grmu, grad, B, H, W, D, k,
-                                  eps, static_cast<cudaStream_t>(stream_ptr));
+  return launch_camera_grad_rounds<CotangentSource, true>(
+      CotangentSource{cotangent}, camera, projector, cam_s, cam_e2, proj_s,
+      proj_e2, a1, bm, grmu, grad, B, H, W, D, k, eps,
+      static_cast<cudaStream_t>(stream_ptr));
 }

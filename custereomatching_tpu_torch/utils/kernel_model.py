@@ -38,9 +38,9 @@ them):
     of products: two loads a tap; a rows pass of sums: one; a columns
     tap: one), the pass's barriers included.  Probe: K1's own pass, at
     K1's geometry and occupancy; normalised by :func:`box_pass_loads`,
-    the count the cost functions charge.  It prices K1, K2, K4, K6 and
-    K7, which run that pass.  The register-blocked pass of K3, K3w, K3m
-    and K5 (:func:`window_pass_cost`) is priced in ``smem`` or ``madd``.
+    the count the cost functions charge.  It prices K1, K2 and K7, which
+    run that pass.  The register-blocked pass of K3, K3w, K3m, K4, K5 and
+    K6 (:func:`window_pass_cost`) is priced in ``smem`` or ``madd``.
 
 Rate keys: the classes (seconds an element), ``hbm_r3d`` and ``hbm_w3d``
 (seconds a byte, K10b and K10c), ``t3d`` and ``dus3d`` (seconds a byte
@@ -82,14 +82,15 @@ BOX_PROBE_K, BOX_PROBE_D = 15, 192
 # The shared memory a block may opt into on an H100 (227 KB).
 SMEM_OPTIN_BYTES = 232448
 # The register-blocked window pass: outputs a work item of K3's rows pass
-# and column sums (csrc/common.cuh kRoundRows, kRoundCols), and of K5's
-# cross-term rows pass, its column sums, gr's rows pass and gr's column
-# sums; the halo entries a K5 thread owns and the constants staged an
-# entry (csrc/fused_pipeline_bwd.cu kHaloRows, kHaloCols, kGradRows,
-# kGradCols, kHaloOwn, kHaloConsts).
+# and column sums (csrc/common.cuh kRoundRows, kRoundCols); of K5's
+# cross-term rows pass and its column sums, the halo entries a K5 thread
+# owns and the constants staged an entry (csrc/fused_pipeline_bwd.cu
+# kHaloRows, kHaloCols, kHaloOwn, kHaloConsts); of gr's rows pass and
+# column sums (K4, K5, K6) and the most planes a round of K4 and K6 takes
+# (csrc/camera_grad.cuh kGradRows, kGradCols, kGradPlanes).
 ROUND_ROWS, ROUND_COLS = 16, 16
-HALO_ROWS, HALO_COLS, GRAD_ROWS, GRAD_COLS = 15, 13, 8, 8
-HALO_OWN, HALO_CONSTS = 4, 8
+HALO_ROWS, HALO_COLS, HALO_OWN, HALO_CONSTS = 15, 13, 4, 8
+GRAD_ROWS, GRAD_COLS, GRAD_PLANES = 8, 8, 8
 # An H100 SM issues four warp-wide FP32 instructions a clock for each
 # warp-wide shared-memory access (128 FP32 lanes, 32 load/store lanes).
 FMA_PER_SMEM = 4
@@ -483,7 +484,7 @@ def box_pass_loads(k: int, rows: int, width: int, pixels: int,
                    products: bool = True) -> int:
     """Shared loads of one per-plane window pass of a block: a rows pass
     over ``rows`` x ``width`` entries of k taps (two loads a tap for
-    products, ``vertical_products`` / ``cross_rows``; one for sums,
+    products, ``vertical_products``; one for sums,
     ``vertical_sum``), then k column taps (``horizontal_sum``) for each of
     ``pixels`` outputs.  The ``boxadd`` element."""
     return rows * width * k * (2 if products else 1) + pixels * k
@@ -676,31 +677,14 @@ def fused_forward_cost(H: int, W: int, D: int, k: int,
         c.bytes_w + maps * px * 4 + (planes * px * 4 if write_volume else 0))
 
 
-def _recompute_chunk(k: int, D: int, fixed: int) -> int:
-    """Planes a projector staging of K6's cost recompute covers
-    (``staging_chunk`` of camera_grad.cuh with ``RecomputeTile`` on an
-    H100)."""
-    p = k // 2
-    img_rows = K_TILE_H + 2 * p
-    cam_w = K_TILE_W + 2 * p
-    one = fixed + img_rows * (2 * cam_w) + K_TILE_H * cam_w
-    budget = SMEM_OPTIN_BYTES // 4
-    if one > budget:
-        return 0
-    return min((budget - one) // img_rows + 1, D + 1)
+def _camera_grad_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K2, the planes kernel of ``csrc/camera_grad.cuh`` (cotangent and
+    cost read, K1's window pass): the statistics passes, the planes kernel
+    and the combine.
 
-
-def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
-                      recompute: bool) -> OpCount:
-    """The camera VJP body of ``csrc/camera_grad.cuh``: K2 (cotangent and
-    cost read), K6 (cotangent read, cost recomputed on K1's tile), K4
-    (head maps, cost read); the statistics passes, the planes kernel and
-    the combine.
-
-    Per plane and block: the recompute's rows pass of products (one pass),
-    gr_d over the halo'd tile (its source, an rsqrt), ``vertical_sum``
-    and the column sums of gr (one pass), the A1 / B / GRMU accumulation
-    of the block's pixels; three (four with the recompute) barriers."""
+    Per plane and block: gr_d over the halo'd tile (g read, an rsqrt),
+    ``vertical_sum`` and the column sums of gr (one pass), the A1 / B /
+    GRMU accumulation of the block's pixels; three barriers."""
     p = k // 2
     nbh, nbw = _grid(H, W)
     blocks = nbh * nbw
@@ -710,42 +694,139 @@ def _camera_grad_cost(H: int, W: int, D: int, k: int, *, head: bool,
     inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
                                                          0, W)
     outside = blocks * halo - inside
-    maps = 6 if head else 0
 
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
     c = c + _combine_cost(H, W, k, W)
-    # Prologue: ex2 and the source's maps over the halo (a head map's 1/s
-    # is a division); the recompute's image tiles, one staging of the
-    # projector per chunk of planes.
-    c = c + OpCount(smem=(2 + 2 * maps) * inside + (1 + maps) * outside,
-                    rsqrt=inside if head else 0,
-                    madd=(3 * inside if head else 0))
-    if recompute:
-        img_rows, x_w = K_TILE_H + 2 * p, cam_w
-        chunk = _recompute_chunk(k, D, halo * 2 + K_TILE_H * cam_w)
-        stagings = _cdiv(planes, max(chunk, 1))
-        c = c + OpCount(
-            smem=blocks * 2 * img_rows * (x_w + stagings * (x_w + chunk - 1))
-            + px,
-            boxadd=planes * blocks * box_pass_loads(k, K_TILE_H, x_w, 0))
-    # gr_d over the halo: ex2 (shared), ey2 (cached), the source, the
+    # Prologue: ex2 over the halo.
+    c = c + OpCount(smem=2 * inside + outside)
+    # gr_d over the halo: ex2 (shared), ey2 (cached), g (global), the
     # store.
-    src_smem = 5 if head else 1               # head maps, or g (global)
-    src_madd = 7 if head else 0
-    cost_smem = 1 if head else 0
-    per_inside = OpCount(smem=3 + src_smem + cost_smem, rsqrt=1,
-                         exp=1 if head else 0, madd=2 + src_madd)
+    per_inside = OpCount(smem=4, rsqrt=1, madd=2)
     c = c + per_inside.scaled(planes * inside) + OpCount(
         smem=planes * outside)
     # vertical_sum of gr and the column sums of the block's pixels.
     c = c + OpCount(boxadd=planes * (blocks * box_pass_loads(
         k, K_TILE_H, cam_w, 0, products=False) + px * k))
-    # A1 / B / GRMU of each pixel: projector, gr, ey2, sy, ex2 and the cost
-    # (read, or the recompute's column sums).
-    c = c + OpCount(smem=planes * px * (5 + (0 if recompute else 1)),
-                    boxadd=planes * px * (k if recompute else 0),
-                    rsqrt=planes * px,
-                    madd=planes * px * (7 + (2 if recompute else 0)))
+    # A1 / B / GRMU of each pixel: projector, gr, ey2, sy, ex2, the cost.
+    c = c + OpCount(smem=planes * px * 6, rsqrt=planes * px,
+                    madd=planes * px * 7)
+    return _with_bytes(c, *_grad_bytes(H, W, D, head=False, cost_read=True,
+                                       c=c))
+
+
+def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
+                    recompute: bool) -> Dict[str, int]:
+    """Shared-memory geometry of the rounds kernel of K4 (``head``) and K6
+    (``recompute``), ``GradRoundTile`` of camera_grad.cuh; ``floats`` its
+    block's total."""
+    p = k // 2
+    t = {"p": p, "halo_rows": K_TILE_H + 2 * p,
+         "halo_cols": K_TILE_W + 2 * p}
+    t["halo"] = t["halo_rows"] * t["halo_cols"]
+    t["consts"] = 7 if head else 1          # ex2 and the source's maps
+    t["proj_w"] = t["halo_cols"] + chunk - 1
+    t["ysz"] = t["halo_rows"] * (t["halo_cols"] + 1)
+    t["xsz"] = K_TILE_H * (t["halo_cols"] + 1)
+    t["fixed"] = (t["consts"] + int(recompute)) * t["halo"]
+    t["proj"] = t["halo_rows"] * t["proj_w"] if recompute else 0
+    t["floats"] = t["fixed"] + t["proj"] + planes * (t["ysz"] + t["xsz"])
+    return t
+
+
+def grad_round(k: int, D: int, head: bool, recompute: bool
+               ) -> Tuple[int, int]:
+    """(planes a round, planes a projector staging) of K4 (``head``) or K6
+    (``recompute``): ``grad_round`` of camera_grad.cuh on an H100; (0, 0)
+    when not one plane fits."""
+    budget = SMEM_OPTIN_BYTES // 4
+    planes = GRAD_PLANES
+    while planes >= 1:
+        t = grad_round_tile(k, 1, planes, head=head, recompute=recompute)
+        if (planes == 1 or planes <= D + 1) and t["floats"] <= budget:
+            if not recompute:
+                return planes, D + 1
+            one = t["floats"]
+            chunk = min((budget - one) // t["halo_rows"] + 1, D + 1)
+            if chunk >= D + 1:
+                return planes, chunk
+            if chunk >= planes:
+                return planes, chunk - chunk % planes
+        planes //= 2
+    return 0, 0
+
+
+def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
+                            recompute: bool) -> OpCount:
+    """The rounds kernel of ``csrc/camera_grad.cuh``: K4 (``head``: g_d
+    formed from six staged maps and the cost read) or K6 (``recompute``:
+    the cotangent read, the cost recomputed on the tile's own pixels); the
+    statistics passes, the rounds kernel at :func:`grad_round`'s planes
+    and chunk, and the combine.
+
+    A round of P planes: (K6) K3's cross-term rows pass and column sums
+    over the tile; at every halo entry inside the image its constants
+    read once (seven, or ex2 alone) and, for each of the P planes (a short
+    last round computes all P and keeps np), ey2 and the cost or cotangent
+    loaded, an rsqrt, gr_d stored (K4 also the head cotangent: an expf
+    and seven FMA-pipe ops); the tile's own pixels also load sy (K6 also
+    read their window sum and form the cost) and add B and GRMU; entries
+    outside store zeros; gr's rows pass and column sums; A1 (the box sum
+    and the projector read, a select and an FMA) for the round's np
+    planes."""
+    p = k // 2
+    nbh, nbw = _grid(H, W)
+    blocks = nbh * nbw
+    P, chunk = grad_round(k, D, head, recompute)
+    if P < 1:
+        raise ValueError(f"{'K4' if head else 'K6'} takes no k = {k}, "
+                         f"D = {D} block on an H100")
+    t = grad_round_tile(k, chunk, P, head=head, recompute=recompute)
+    hc, halo = t["halo_cols"], t["halo"]
+    px, planes = H * W, D + 1
+    rounds = sum(_cdiv(min(chunk, planes - d0), P)
+                 for d0 in range(0, planes, chunk))
+    slots = rounds * P                       # planes step b computes
+    inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
+                                                         0, W)
+    outside = blocks * halo - inside
+    maps = 6 if head else 0
+
+    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+    c = c + _combine_cost(H, W, k, W)
+    # Prologue: ex2 and the source's maps over the halo (a head map's 1/s
+    # is a division).
+    c = c + OpCount(smem=(2 + 2 * maps) * inside + (1 + maps) * outside,
+                    rsqrt=inside if head else 0,
+                    madd=(3 * inside if head else 0))
+    if recompute:
+        # The camera tile once, the projector tile once a chunk, mux; the
+        # cross term's rows pass (a tile column of a plane an item) and
+        # column sums (ROUND_COLS pixels of a row an item).
+        rows = t["halo_rows"]
+        stagings = _cdiv(planes, chunk)
+        c = c + OpCount(smem=blocks * 2 * rows * (
+            hc + stagings * (hc + chunk - 1)) + px)
+        c = c + window_pass_cost(blocks * hc * planes, ROUND_ROWS, k, True)
+        c = c + window_pass_cost(
+            blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes,
+            ROUND_COLS, k, False)
+    # Step b: an entry's constants once a round; per entry and plane slot
+    # ey2 and the volume loaded, the store, an rsqrt, two FMA-pipe ops
+    # (and the head's); outside the image a zero stored.
+    c = c + OpCount(smem=rounds * t["consts"] * inside
+                    + slots * (3 * inside + outside),
+                    rsqrt=slots * inside, exp=slots * inside if head else 0,
+                    madd=slots * inside * (2 + (7 if head else 0)))
+    # The tile's own pixels: sy, B and GRMU (five FMA-pipe ops), and with
+    # the recompute the window sum read and the cost formed (three).
+    c = c + OpCount(smem=slots * px * (2 if recompute else 1),
+                    madd=slots * px * (8 if recompute else 5))
+    c = c + window_pass_cost(
+        blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k, False)
+    c = c + window_pass_cost(
+        blocks * K_TILE_H * (K_TILE_W // GRAD_COLS) * planes, GRAD_COLS, k,
+        False)
+    c = c + OpCount(smem=2 * planes * px, madd=2 * planes * px)
     return _with_bytes(c, *_grad_bytes(H, W, D, head=head,
                                        cost_read=not recompute, c=c))
 
@@ -768,17 +849,19 @@ def _grad_bytes(H: int, W: int, D: int, *, head: bool, cost_read: bool,
 
 def volume_backward_cost(H: int, W: int, D: int, k: int,
                          with_cost: bool = True) -> OpCount:
-    """K2 (``with_cost``, ``csrc/zncc_banded_bwd.cu``) or K6 (the cost
-    recomputed on K1's tile): reads the plane-major cotangent (and K2 the
-    cost)."""
-    return _camera_grad_cost(H, W, D, k, head=False, recompute=not with_cost)
+    """K2 (``with_cost``, ``csrc/zncc_banded_bwd.cu``, the planes kernel)
+    or K6 (the rounds kernel, the cost recomputed on the tile's own
+    pixels): reads the plane-major cotangent (and K2 the cost)."""
+    if with_cost:
+        return _camera_grad_cost(H, W, D, k)
+    return camera_grad_rounds_cost(H, W, D, k, head=False, recompute=True)
 
 
 def fused_backward_c_cost(H: int, W: int, D: int, k: int) -> OpCount:
-    """K4 (``csrc/fused_pipeline_bwd.cu``): the head's cotangent formed
-    per plane from six staged maps and the cost read (one expf a halo
-    pixel), then K2's body."""
-    return _camera_grad_cost(H, W, D, k, head=True, recompute=False)
+    """K4 (``csrc/fused_pipeline_bwd.cu``, the rounds kernel): the head's
+    cotangent formed per plane from six staged maps and the cost read (one
+    expf a halo entry and plane)."""
+    return camera_grad_rounds_cost(H, W, D, k, head=True, recompute=False)
 
 
 def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
@@ -951,8 +1034,10 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
 
 
 __all__ = ["OpCount", "allpairs_backward_cost", "allpairs_forward_cost",
-           "box_pass_loads", "fused_backward_c_cost", "fused_backward_cost",
-           "fused_block_floats", "fused_forward_cost", "halo_round",
+           "box_pass_loads", "camera_grad_rounds_cost",
+           "fused_backward_c_cost", "fused_backward_cost",
+           "fused_block_floats", "fused_forward_cost", "grad_round",
+           "grad_round_tile", "halo_round",
            "halo_tile", "hbm_read_probe", "hbm_read_probe_cost",
            "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
            "hbm_write_reference", "kernel_bound", "measure_vpu_rates",

@@ -221,24 +221,27 @@ def test_costs_scale_with_d_and_order_the_variants():
         / _compute(km.volume_backward_cost(H, W, D, K)) < 2.3
     assert 1.7 < _compute(km.fused_backward_cost(H, W, 2 * D, K)) \
         / _compute(km.fused_backward_cost(H, W, D, K)) < 2.3
-    # On K1's window pass reading the cost is cheaper than recomputing it.
-    assert _compute(km.volume_backward_cost(H, W, D, K)) \
-        < _compute(km.volume_backward_cost(H, W, D, K, with_cost=False))
+    # K2 reads the cost on K1's window pass; K6, recomputing it on the
+    # register-blocked pass, costs less (on K1's pass it cost more).
+    k2 = _compute(km.volume_backward_cost(H, W, D, K))
+    k6 = _compute(km.volume_backward_cost(H, W, D, K, with_cost=False))
+    assert k6 < k2
     k3w = km.fused_forward_cost(H, W, D, K, write_volume=True)
     k3m = km.fused_forward_cost(H, W, D, K, residuals=True)
     assert k3w.bytes > k3m.bytes > base.bytes
     assert k3w.bytes_w - k3m.bytes_w == 4 * (D + 1) * H * W
     # The register-blocked pass: K3 costs less than K1, whose pass it
-    # replaced, and K5, recomputing the cost over the halo'd tile, less
-    # than K4 reading it and K6 recomputing it on K1's pass (PR 5's model
-    # had K5 above both).
+    # replaced; K4 is K5's round without the halo's cost recompute, so it
+    # costs less than K5, and so does K6, recomputing the cost on the
+    # tile's own pixels only.
     assert _compute(base) < _compute(km.volume_forward_cost(H, W, D, K))
+    k4 = _compute(km.fused_backward_c_cost(H, W, D, K))
     k5 = _compute(km.fused_backward_cost(H, W, D, K))
-    assert k5 < _compute(km.fused_backward_c_cost(H, W, D, K))
-    assert k5 < _compute(km.volume_backward_cost(H, W, D, K,
-                                                 with_cost=False))
-    assert base["boxadd"] == 0 and km.fused_backward_cost(
-        H, W, D, K)["boxadd"] == 0
+    assert k4 < k5 and k6 < k5
+    for cost in (base, km.fused_backward_cost(H, W, D, K),
+                 km.fused_backward_c_cost(H, W, D, K),
+                 km.volume_backward_cost(H, W, D, K, with_cost=False)):
+        assert cost["boxadd"] == 0
 
 
 def test_cost_fns_populate_byte_pools():
@@ -274,14 +277,16 @@ def test_cost_fns_populate_byte_pools():
 
 
 def test_recompute_chunk_mirrors_camera_grad():
-    """K6 at k=15 stages all D+1 planes at once up to D = 1541 and in
-    chunks beyond (camera_grad.cuh); K5 (fused_pipeline_bwd.cu) takes
-    rounds of 5 planes and chunks of 125 at KITTI, one plane a round and
-    chunks of 50 at k=27, and no block at k=29."""
-    fixed6 = 2 * 30 * 78 + 16 * 78
-    assert km._recompute_chunk(15, 1541, fixed6) == 1542
-    assert km._recompute_chunk(15, 1600, fixed6) == 1542
-    assert km._recompute_chunk(15, 192, fixed6) == 193
+    """K6 at k=15 stages all D+1 planes at once up to D = 734 and in
+    chunks beyond, a multiple of its 8 planes a round (camera_grad.cuh
+    grad_round); K5 (fused_pipeline_bwd.cu) takes rounds of 5 planes and
+    chunks of 125 at KITTI, one plane a round and chunks of 50 at k=27,
+    and no block at k=29."""
+    assert km.grad_round(15, 734, False, True) == (8, 735)
+    assert km.grad_round(15, 735, False, True) == (8, 728)
+    assert km.grad_round(15, 1600, False, True) == (8, 728)
+    assert km.grad_round(15, 192, False, True) == (8, 193)
+    assert km.grad_round(15, 3, False, True) == (4, 4)
     assert km.halo_round(15, 192) == (5, 125)
     assert km.halo_round(15, 600) == (5, 125)
     assert km.halo_round(15, 3) == (4, 4)
@@ -358,7 +363,8 @@ def test_sass_counts_reads_cuobjdump_output():
 
 @pytest.mark.parametrize("module", [
     "custereomatching_tpu_torch.utils.kernel_model",
-    "custereomatching_tpu_torch.scripts.device_probe", "chip_smoke"])
+    "custereomatching_tpu_torch.scripts.device_probe",
+    "custereomatching_tpu_torch.scripts.kernel_variants", "chip_smoke"])
 def test_imports_no_jax(module):
     """The bound model, the health probe and the smoke script, which takes
     its least-work bounds from ``utils/profiling.py``, import no JAX."""

@@ -1,10 +1,13 @@
-"""CPU tests of the port's measurement script: the Chrome-trace reading
-behind its busy time and idle share, and its refusal to run without a
-card."""
+"""CPU tests of the port's measurement scripts: the Chrome-trace reading
+behind ``device_profile``'s busy time and idle share, the edits
+``kernel_variants`` makes to the kernels' sources, and both scripts'
+refusal to run without a card."""
 
 import pytest
+import torch
 
 from custereomatching_tpu_torch.scripts import device_profile as dp
+from custereomatching_tpu_torch.scripts import kernel_variants as kv
 
 
 def _event(name, ts, dur, cat="kernel", ph="X"):
@@ -50,3 +53,30 @@ def test_main_needs_a_mode_and_a_card(capsys):
     if not dp.torch.cuda.is_available():
         assert dp.main(["train"]) == 1
         assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", sorted(kv.VARIANTS))
+def test_kernel_variants_edit_the_current_source(name, tmp_path):
+    """Every variant's edits find their text once in camera_grad.cuh and
+    change it; the copy holds the whole package, so its kernels build on
+    their own; a variant that keeps the values changes no arithmetic of
+    the cut kind (no phase skipped on ``d0 < 0``)."""
+    source = (kv.ROOT / kv.PACKAGE / kv.SOURCE).read_text()
+    edited = kv.edit_source(source, name)
+    assert edited != source
+    keeps, _ = kv.VARIANTS[name]
+    assert keeps == ("d0 < 0" not in edited
+                     and "ex2 + 0.25f" not in edited
+                     and "grad_rows(xbuf, ybuf, gs, k, np);" in edited)
+    tree = kv.make_variant(name, tmp_path)
+    assert (tree / kv.PACKAGE / kv.SOURCE).read_text() == edited
+    assert (tree / kv.PACKAGE / "ops" / "_build.py").is_file()
+
+
+def test_kernel_variants_refuse_unknown_names_and_need_a_card(capsys):
+    with pytest.raises(SystemExit):
+        kv.main(["p7"])
+    assert "unknown variants" in capsys.readouterr().err
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the path without one")
+    assert kv.main([]) == 1

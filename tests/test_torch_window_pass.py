@@ -1,6 +1,7 @@
-"""PyTorch port: the register-blocked window pass of K3, K3w, K3m and K5
-(``csrc/common.cuh`` ``window_taps``, ``csrc/fused_pipeline.cu``,
-``csrc/fused_pipeline_bwd.cu``).  The kernels need the card
+"""PyTorch port: the register-blocked window pass of K3, K3w, K3m, K4, K5
+and K6 (``csrc/common.cuh`` ``window_taps``, ``csrc/fused_pipeline.cu``,
+``csrc/fused_pipeline_bwd.cu``, ``csrc/camera_grad.cuh``).  The kernels
+need the card
 (``chip_smoke.py``); here their control flow is mirrored in Python and
 held to what the sources and the bound model say: every output takes its
 k taps in order, the groups of a line cover it without reading past it,
@@ -18,6 +19,15 @@ from custereomatching_tpu_torch.utils import kernel_model as km
 CSRC = Path(km.__file__).resolve().parents[1] / "csrc"
 H, W, D, K = 375, 1242, 192, 15
 LIMIT = km.SMEM_OPTIN_BYTES // 4
+# K4's and K6's counts on the rounds kernel (madd, smem, exp, rsqrt), at a
+# small shape and at KITTI.
+PIN_K4_SMALL = {"madd": 1128376, "smem": 1269424, "exp": 70784,
+                "rsqrt": 75208}
+PIN_K4_KITTI = {"madd": 2566914220, "smem": 2015143110, "exp": 210215200,
+                "rsqrt": 211266276}
+PIN_K6_SMALL = {"madd": 792416, "smem": 1640464, "exp": 0, "rsqrt": 70784}
+PIN_K6_KITTI = {"madd": 2794654992, "smem": 2497244124, "exp": 0,
+                "rsqrt": 210215200}
 
 
 def _const(text: str, name: str) -> int:
@@ -27,13 +37,26 @@ def _const(text: str, name: str) -> int:
 def test_blocking_constants_mirror_the_sources():
     common = (CSRC / "common.cuh").read_text()
     bwd = (CSRC / "fused_pipeline_bwd.cu").read_text()
+    grad = (CSRC / "camera_grad.cuh").read_text()
     assert (_const(common, "kRoundRows"), _const(common, "kRoundCols")) == (
         km.ROUND_ROWS, km.ROUND_COLS)
     assert tuple(_const(bwd, n) for n in (
-        "kHaloRows", "kHaloCols", "kGradRows", "kGradCols", "kHaloOwn",
-        "kHaloConsts")) == (km.HALO_ROWS, km.HALO_COLS, km.GRAD_ROWS,
-                            km.GRAD_COLS, km.HALO_OWN, km.HALO_CONSTS)
-    # K3's rows pass covers the tile height; K5's gr groups tile the tile.
+        "kHaloRows", "kHaloCols", "kHaloOwn", "kHaloConsts")) == (
+            km.HALO_ROWS, km.HALO_COLS, km.HALO_OWN, km.HALO_CONSTS)
+    assert tuple(_const(grad, n) for n in (
+        "kGradRows", "kGradCols", "kGradPlanes")) == (
+            km.GRAD_ROWS, km.GRAD_COLS, km.GRAD_PLANES)
+    # gr's passes exist once, in camera_grad.cuh, and K5 calls them there.
+    assert "void grad_rows(" not in bwd and "grad_rows(xbuf, ybuf, x.grad()" \
+        in bwd
+    # The rounds kernel is instantiated at every power of two up to
+    # kGradPlanes, the planes grad_round may give.
+    planes = km.GRAD_PLANES
+    while planes >= 1:
+        assert f"case {planes}:" in grad and (
+            f"launch_rounds<Source, kRecompute, {planes}>" in grad)
+        planes //= 2
+    # K3's rows pass covers the tile height; gr's groups tile the tile.
     assert km.ROUND_ROWS == km.K_TILE_H and km.K_TILE_W % km.ROUND_COLS == 0
     assert km.K_TILE_H % km.GRAD_ROWS == 0
     assert km.K_TILE_W % km.GRAD_COLS == 0
@@ -112,6 +135,48 @@ def test_shared_memory_of_the_blocks():
         km.HALO_OWN * km.K_THREADS)
 
 
+def test_shared_memory_of_the_rounds_kernel():
+    """K4 at KITTI: P = 8, 45,452 floats; K6: P = 8, all 193 planes of the
+    projector at once, 41,852 floats, in chunks of 728 at D = 1600; K4
+    falls to P = 4 at k = 27 and P = 1 at k = 47 (56,398 floats), where
+    the planes kernel it replaced stopped too (k = 49 fits neither)."""
+    assert km.grad_round(K, D, True, False) == (8, D + 1)
+    assert km.grad_round_tile(K, D + 1, 8, head=True,
+                              recompute=False)["floats"] == 45452
+    assert km.grad_round(K, D, False, True) == (8, D + 1)
+    assert km.grad_round_tile(K, D + 1, 8, head=False,
+                              recompute=True)["floats"] == 41852
+    assert km.grad_round(K, 1600, False, True) == (8, 728)
+    assert km.grad_round(27, D, True, False) == (4, D + 1)
+    assert km.grad_round(47, D, True, False) == (1, D + 1)
+    assert km.grad_round_tile(47, 1, 1, head=True,
+                              recompute=False)["floats"] == 56398 <= LIMIT
+    assert km.grad_round(49, D, True, False) == (0, 0)
+    p = 49 // 2
+    assert 8 * (16 + 2 * p) * (64 + 2 * p) + 16 * (64 + 2 * p) > LIMIT
+
+
+@pytest.mark.parametrize("k", list(range(3, 49, 2)))
+def test_k4_and_k6_take_every_k_they_took(k):
+    """Every odd k up to 47 ran on the planes kernel before the rounds
+    kernel: K4 at D = 192, K6 at every D.  The mirrored geometry gives at
+    least one plane a round there, a power of two up to kGradPlanes, a
+    chunk that is D + 1 or a multiple of the round, and a block that fits
+    227 KB."""
+    for head, recompute, ds in ((True, False, (D,)),
+                                (False, True, (0, D, 1600))):
+        for d in ds:
+            planes, chunk = km.grad_round(k, d, head, recompute)
+            assert planes >= 1 and planes & (planes - 1) == 0
+            assert planes <= km.GRAD_PLANES and (planes == 1
+                                                 or planes <= d + 1)
+            assert 1 <= chunk <= d + 1
+            assert chunk == d + 1 or chunk % planes == 0
+            t = km.grad_round_tile(k, chunk, planes, head=head,
+                                   recompute=recompute)
+            assert t["floats"] <= LIMIT
+
+
 @pytest.mark.parametrize("k", [3, 5, 7, 11, 15, 21, 27])
 def test_rounds_fit_the_block(k):
     """A K3 round gives each thread at most one rows-pass column; a K5
@@ -140,6 +205,10 @@ def test_window_pass_cost_counts_the_binding_pipe():
 
 
 @pytest.mark.parametrize("fn, shape, want", [
+    ("fused_backward_c_cost", (24, 150, 10, 5), PIN_K4_SMALL),
+    ("fused_backward_c_cost", (H, W, D, K), PIN_K4_KITTI),
+    ("k6_cost", (24, 150, 10, 5), PIN_K6_SMALL),
+    ("k6_cost", (H, W, D, K), PIN_K6_KITTI),
     ("fused_forward_cost", (24, 150, 10, 5),
      {"madd": 422400, "smem": 736752, "exp": 39600, "rsqrt": 43200}),
     ("fused_forward_cost", (H, W, D, K),
@@ -151,9 +220,10 @@ def test_window_pass_cost_counts_the_binding_pipe():
      {"madd": 6255793512, "smem": 3515970318, "exp": 202857668,
       "rsqrt": 203908744})])
 def test_counts_of_the_redesigned_kernels(fn, shape, want):
-    """K3's and K5's counts at a small shape and at KITTI, pinned: no
-    ``boxadd`` (that is K1's pass), the volume-free byte pools."""
-    cost = getattr(km, fn)(*shape)
+    """K3's, K4's, K5's and K6's counts at a small shape and at KITTI,
+    pinned: no ``boxadd`` (that is K1's pass), no volume written."""
+    cost = (km.volume_backward_cost(*shape, with_cost=False)
+            if fn == "k6_cost" else getattr(km, fn)(*shape))
     assert {m: cost[m] for m in want} == want and cost["boxadd"] == 0
     h, w, d, _ = shape
     assert cost.bytes_w < 4 * (d + 1) * h * w
@@ -170,20 +240,14 @@ def test_k5_needs_a_block_that_fits():
     ("K2", "volume_backward_cost", {},
      (1061238278, 1475555558, 0, 292747418, 3082567050),
      (736461000, 15480000)),
-    ("K6", "volume_backward_cost", {"with_cost": False},
-     (1241017778, 1396153958, 0, 292747418, 7899354900),
-     (376902000, 15480000)),
-    ("K4", "fused_backward_c_cost", {},
-     (2484395182, 2502889554, 202857668, 293798494, 3082567050),
-     (389943000, 15480000)),
     ("K7", "projector_backward_cost", {},
      (991405717, 1395186993, 0, 271507991, 3082567050),
      (735927000, 14946000))])
 def test_kernels_on_k1s_pass_keep_their_counts(kernel, fn, kwargs, want,
                                                bytes_rw):
-    """K1, K2, K4, K6 and K7 keep K1's window pass, and their KITTI counts
-    (madd, smem, exp, rsqrt, boxadd; bytes read and written) are those the
-    bound model gave before the register-blocked pass."""
+    """K1, K2 and K7 keep K1's window pass, and their KITTI counts (madd,
+    smem, exp, rsqrt, boxadd; bytes read and written) are those the bound
+    model gave before the register-blocked pass."""
     cost = getattr(km, fn)(H, W, D, K, **kwargs)
     got = tuple(int(cost[m]) for m in ("madd", "smem", "exp", "rsqrt",
                                        "boxadd"))
