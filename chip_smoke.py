@@ -12,7 +12,10 @@ imports nothing of JAX.  Phases, each printing its lines:
 1. environment: Python, torch, CUDA and nvcc versions, the card;
 2. build: every kernel from ``custereomatching_tpu_torch/csrc``, one nvcc
    per source, in parallel;
-3. K1 (banded volume) against its plain PyTorch version on the card;
+3. K1 (banded volume) against its plain PyTorch version on the card, at
+   the small shapes, KITTI, k = 3, 31, 47 and 127, and a D whose projector
+   tile is staged in chunks (D = 1800 at k = 15, past the first version's
+   D <= 1739);
 4. K3 (fused pipeline) against its plain version, both head branches,
    also at shapes on the edges of its register blocking (H not a multiple
    of 16, W not of 64, D + 1 not of the planes a round, k = 3 to 27);
@@ -24,9 +27,8 @@ imports nothing of JAX.  Phases, each printing its lines:
    cotangent fed to both, at entry()'s shape and at KITTI too;
 7. K3w (training forward): its volume against the plain volume, its four
    maps bit-equal to K3's, its argmax, s and t against the plain head;
-   and at beta = 1 its volume against K1's on the same pair (K1 runs the
-   first window pass: printed whether bit-equal, held to the forward
-   tolerance);
+   and at beta = 1 its volume bit-equal to K1's on the same pair (K1 is
+   the same rounds kernel without the head);
 8. K4 (trainable backward) against its plain twin on the same residuals,
    and the whole trainable pipeline (K3w + K4) against its plain twin,
    both head branches, KITTI speckle, the edge shapes of phase 4 and
@@ -42,7 +44,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     shapes, a batch, the 330x422 verify shape and 375x1242 (the wide y
     extent);
 11. K7 (projector VJP) against the plain closed form on the same cost and
-    cotangent, at the JAX suite's shapes, a batch and KITTI;
+    cotangent, at the JAX suite's shapes, a batch, the edge shapes of phase
+    4, k = 47 and 93 (the largest its combine kernel takes) and KITTI;
 12. the all-pairs path, with every launch counter reset just before it:
     the default ``StereoMatcher`` (all-pairs) forward, plain head and
     backward of a mean soft-disparity loss at 330x422, k=15; K8 must run
@@ -98,9 +101,9 @@ imports nothing of JAX.  Phases, each printing its lines:
     3.35 TB/s and the least operations its function needs (window sums
     taken separably) over 67 TFLOP/s (``utils/profiling.py``), and its
     model bound, its counted work priced at the rates of phase 22
-    (``utils/kernel_model.py``), which no kernel may beat; K3, K3w, K3m,
-    K4, K5 and K6 beside their times before the register-blocked pass
-    (``MS_BEFORE``).
+    (``utils/kernel_model.py``), which no kernel may beat; K1, K3, K3w,
+    K3m, K4, K5, K6 and K7 beside their times before the register-blocked
+    pass (``MS_BEFORE``).
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -206,6 +209,9 @@ AP_WIDE = (1, 375, 1242, 15)
 # 277-281) and a batch; KITTI is added in the phase.
 K7_SHAPES = [(1, 16, 24, 5, 3), (1, 24, 150, 10, 5), (1, 40, 96, 12, 15),
              (2, 16, 48, 6, 5)]
+# K7 at k = 47 and 93, the largest k its combine kernel takes (its rounds
+# fall to 2 planes at k = 93).
+K7_LARGE_K = [(1, 40, 130, 24, 47), (1, 40, 130, 24, 93)]
 # Gradient checks: the JAX suite's elementwise tolerance
 # (tests/test_pallas_bwd.py:89) at the small shapes, and a bound on
 # ||got - want|| / ||want|| everywhere (KITTI included).
@@ -216,10 +222,10 @@ GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
 K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
 K10A_TIMED_ITERS = 1024
 # Device ms at KITTI of the kernels the register-blocked window pass
-# replaced, on K1's per-plane pass (NVIDIA H100 80GB HBM3 at 700.00 W;
+# replaced, on K1's first per-plane pass (NVIDIA H100 80GB HBM3 at 700.00 W;
 # PERF.md gives the runs).
 MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410,
-             "K4": 2.3372, "K6": 4.0753}
+             "K4": 2.3372, "K6": 4.0753, "K1": 1.4628, "K7": 2.3561}
 
 
 def require(ok: bool, what: str) -> None:
@@ -280,15 +286,25 @@ def compare_volume(got, want, label: str, kernel: str = "K1") -> float:
     return max_abs
 
 
+# K1 at k up to 127 (the largest its block takes: one plane a round and a
+# one-plane projector chunk at k = 127), and at D = 1800, k = 15, where its
+# projector tile is staged in chunks (the first version took D <= 1739).
+K1_LARGE_K = [(1, 40, 200, 24, k) for k in (3, 31, 47, 127)]
+K1_CHUNKED = (1, 16, 2100, 1800, 15)
+
+
 def phase_k1() -> float:
     err = 0.0
-    for i, (B, H, W, D, k) in enumerate(SHAPES + [(2,) + KITTI]):
+    shapes = SHAPES + [(2,) + KITTI] + K1_LARGE_K + [K1_CHUNKED]
+    for i, (B, H, W, D, k) in enumerate(shapes):
         cam, proj = uniform_pair(i, B, H, W)
         got = cost_volume_banded_cuda(cam, proj, D, k, EPS)
         want = forward_banded(cam, proj, D, k, EPS)
-        err = max(err, compare_volume(got, want,
-                                      f"B={B} H={H} W={W} D={D} k={k}"))
+        err = max(err, compare_volume(
+            got, want, f"B={B} H={H} W={W} D={D} k={k} (round/chunk "
+            f"{km.fused_round(k, D)})"))
         del got, want
+        torch.cuda.empty_cache()
     return err
 
 
@@ -350,11 +366,11 @@ LARGE_K = [((1, 40, 130, 24, 31), 50.0), ((1, 40, 130, 24, 47), 50.0)]
 
 
 def edge_label(B: int, H: int, W: int, D: int, k: int, beta: float) -> str:
-    """The shape, with K3's planes a round, K5's (planes a round, planes a
-    projector staging) and K4's and K6's on an H100."""
+    """The shape, with K3's, K5's, K4's and K6's (planes a round, planes
+    a projector staging) on an H100."""
     k5 = km.halo_round(k, D) if k <= K5_MAX_KERNEL_SIZE else "refused"
-    return (f"edge B={B} H={H} W={W} D={D} k={k} beta={beta} (K3 round "
-            f"{km.round_planes(k, D)}, K5 round/chunk {k5}, K4 "
+    return (f"edge B={B} H={H} W={W} D={D} k={k} beta={beta} (K3 round/chunk "
+            f"{km.fused_round(k, D)}, K5 round/chunk {k5}, K4 "
             f"{km.grad_round(k, D, True, False)}, K6 "
             f"{km.grad_round(k, D, False, True)})")
 
@@ -627,8 +643,8 @@ def phase_k3w() -> float:
               f"|dt|/s max {ts_max:.3e}")
         del maps, res, serving, want
 
-    # At beta = 1 K3w's volume is K1's function on the same pair; K1 keeps
-    # the first window pass, K3w runs the register-blocked one.
+    # At beta = 1 K3w's volume is K1's on the same pair: K1 is the same
+    # rounds kernel without the head.
     H, W, D, k = KITTI
     cams, projs, _ = speckle_frames(1, seed=7)
     cam, proj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
@@ -637,7 +653,9 @@ def phase_k3w() -> float:
     want = cost_volume_banded_cuda(cam, proj, D, k, EPS)
     label = f"beta=1 against K1, speckle B=1 H={H} W={W} D={D} k={k}"
     err = max(err, compare_volume(vol, want, label, kernel="K3w"))
-    print(f"K3w {label}: bit-equal to K1: {torch.equal(vol, want)}")
+    same = torch.equal(vol, want)
+    print(f"K3w {label}: bit-equal to K1: {same}")
+    require(same, f"K3w {label}: bit-equal to K1")
     del vol, want
     return err
 
@@ -806,7 +824,9 @@ def phase_k8() -> float:
 
 def phase_k7() -> float:
     err = 0.0
-    for i, (B, H, W, D, k) in enumerate(K7_SHAPES + [(1,) + KITTI]):
+    shapes = (K7_SHAPES + [shape for shape, _ in EDGE] + K7_LARGE_K
+              + [(1,) + KITTI])
+    for i, (B, H, W, D, k) in enumerate(shapes):
         cam, proj = uniform_pair(600 + i, B, H, W)
         # A random cotangent at a mean loss's scale, as phase_k2's.
         g = torch.randn((B, D + 1, H, W), device="cuda",
@@ -819,7 +839,8 @@ def phase_k7() -> float:
                                      D, k, EPS)
         kitti = (H, W, D, k) == KITTI
         err = max(err, compare_grad(
-            got, want, f"K7 B={B} H={H} W={W} D={D} k={k}",
+            got, want, f"K7 B={B} H={H} W={W} D={D} k={k} (planes a round "
+            f"{km.grad_round(k, D, False, False)[0]})",
             elementwise=not kitti))
         del g, cost, got, want
     return err

@@ -2,7 +2,9 @@
 // and combine bodies that K2 and K6 (zncc_banded_bwd.cu, cotangent read
 // from memory) and K4 and K5 (fused_pipeline_bwd.cu, cotangent formed from
 // the disparity head's maps) run.  The rounds kernel's template axis
-// `Source` says where the cotangent plane g_d comes from.
+// `Source` says where the cotangent plane g_d comes from.  K7's rounds
+// kernel (zncc_banded_proj_bwd.cu) is built from the same pieces:
+// GradRoundTile, grad_round, ring_entry, grad_rows and grad_column_sums.
 //
 // Replaces the bodies of custereomatching_tpu/ops/pallas_zncc_bwd.py:
 // _bwd_kernel (have_c=True: K2; the no-cost modes: K6) and of
@@ -68,34 +70,19 @@
 namespace custereo {
 namespace {
 
-// Shared-memory geometry of the planes kernel (K2) and of K7's, in floats:
-// the camera second moment and the gr_d plane over the halo'd tile (rows x
-// cam_w each), the rows pass (kTileH x cam_w), then `maps` more halo'd
-// tiles of per-pixel constants.
+// Shared-memory geometry of the planes kernel (K2), in floats: the camera
+// second moment and the gr_d plane over the halo'd tile (rows x cam_w
+// each), then the rows pass (kTileH x cam_w).
 struct GradTile {
   int p, rows, cam_w;
   __host__ __device__ explicit GradTile(int k)
       : p(k / 2), rows(kTileH + 2 * (k / 2)), cam_w(kTileW + 2 * (k / 2)) {}
   __host__ __device__ int halo() const { return rows * cam_w; }
-  __host__ __device__ size_t floats(int maps) const {
-    return static_cast<size_t>(2 + maps) * halo() +
+  __host__ __device__ size_t floats() const {
+    return 2 * static_cast<size_t>(halo()) +
            static_cast<size_t>(kTileH) * cam_w;
   }
 };
-
-// The most planes a projector staging can cover within `budget` floats
-// of shared memory, when a block holds `fixed` floats beside a staging of
-// `rows` image rows that grows by a column a plane and takes `one_plane`
-// floats at one plane; capped at D + 1; 0 when not even one plane fits.
-inline int staging_chunk(int D, size_t fixed, size_t one_plane, int rows,
-                         size_t budget) {
-  const size_t one = fixed + one_plane;
-  if (one > budget) return 0;
-  const size_t more = (budget - one) / rows;
-  return static_cast<int>(more + 1 < static_cast<size_t>(D) + 1
-                              ? more + 1
-                              : static_cast<size_t>(D) + 1);
-}
 
 // Rows pass of one halo'd tile: vsum[r][c] = sum_{t<k} tile[r + t][c] for
 // r < kTileH, c < width (i = r * width + c, so tile[(r + t) * width + c]
@@ -111,7 +98,7 @@ __device__ inline void vertical_sum(float* vsum, const float* tile,
 }
 
 // Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
-// shared memory GradTile(k).floats(0) floats.  The cotangent `cot` and the
+// shared memory GradTile(k).floats() floats.  The cotangent `cot` and the
 // cost are plane-major [B, D + 1, H, W] volumes (K2).
 __global__ void __launch_bounds__(kThreads)
     camera_grad_planes_kernel(const float* __restrict__ cot,
@@ -304,17 +291,13 @@ struct GradRoundTile {
   }
 };
 
-struct GradRound {
-  int planes, chunk;
-};
-
 // Planes a round and a projector staging of the rounds kernel within
 // `budget` floats: the most planes (kGradPlanes, halving) whose buffers
 // fit beside the constants (and with the recompute one plane's projector
 // tile) and that D + 1 fills; with the recompute the staging takes what
 // is left, a multiple of the round, and the round halves where fewer
 // planes than that fit.  {0, 0} when not one plane fits.
-inline GradRound grad_round(int k, int D, int consts, bool recompute,
+inline Rounds grad_round(int k, int D, int consts, bool recompute,
                             size_t budget) {
   for (int planes = kGradPlanes; planes >= 1; planes /= 2) {
     if (planes > 1 && planes > D + 1) continue;
@@ -647,7 +630,7 @@ inline cudaError_t launch_camera_grad(const float* cot, const float* camera,
                                     proj_e2, B, H, W, D, k, stream);
   if (e != cudaSuccess) return e;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  const size_t bytes = GradTile(k).floats(0) * sizeof(float);
+  const size_t bytes = GradTile(k).floats() * sizeof(float);
   e = allow_smem(camera_grad_planes_kernel, bytes);
   if (e != cudaSuccess) return e;
   camera_grad_planes_kernel<<<grid, kThreads, bytes, stream>>>(
@@ -696,7 +679,7 @@ cudaError_t launch_camera_grad_rounds(const Source& src, const float* camera,
   size_t budget = 0;
   e = optin_floats(&budget);
   if (e != cudaSuccess) return e;
-  const GradRound round =
+  const Rounds round =
       grad_round(k, D, 1 + Source::kMaps, kRecompute, budget);
   switch (round.planes) {
     case 8:

@@ -1,7 +1,7 @@
 // Shared pieces of the port's hand-written Hopper kernels (sm_90a):
 // the block tile, the zero-padded staging of a halo'd image tile, the
-// separable k x k window sums, and the window-statistics pass that both
-// plane kernels (zncc_banded.cu, fused_pipeline.cu) run first.
+// separable k x k window sums, and the window-statistics pass that every
+// banded kernel runs first.
 //
 // Numerical contract (as custereomatching_tpu/ops/zncc.py): windows read
 // zeros outside the image, means divide by k^2 including the padding, and
@@ -53,7 +53,10 @@ __device__ inline void stage_tile(float* dst, const float* __restrict__ src,
   }
 }
 
-// Rows pass of one disparity plane's cross term:
+// K1's first window pass, which K2's planes kernel (vertical_sum and
+// horizontal_sum, camera_grad.cuh) and the boxadd rate probe
+// (rate_probes.cu) still run.  Rows pass of one disparity plane's cross
+// term:
 //   vsum[r][c] = sum_{t<k} cam_t[r+t][c] * proj_t[r+t][c + shift]
 // for r < kTileH, c < cam_w.  Camera tile column c pairs with projector
 // tile column c + D - d for disparity d, so shift = D - d.
@@ -81,8 +84,8 @@ __device__ inline float horizontal_sum(const float* vsum, int cam_w, int r,
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked window pass (K3, K3w, K3m, K4, K5 and K6).  K1, K2,
-// K7 and the boxadd rate probe keep the pass above.
+// The register-blocked window pass (K1, K3, K3w, K3m, K4, K5, K6 and K7).
+// K2 and the boxadd rate probe keep the pass above.
 //
 // One work item makes N adjacent outputs of a window of k taps along one
 // line (a column of rows, or a row of columns) from N + k - 1 loads of each
@@ -157,11 +160,12 @@ __device__ __forceinline__ int group_start(int q, int len) {
   return min(q * N, len - N);
 }
 
-// K3's round: P planes of the rows pass (kRoundRows output rows a column,
-// the whole tile height), one barrier, P planes of column sums
-// (kRoundCols outputs a row), one barrier; then each pixel's thread reads
-// its P sums in plane order.  Rows of the round's buffers are padded to an
-// odd stride, so the column sums' 32 rows of a warp hit 32 banks.
+// K3's round, which K1 and K6 run too: P planes of the rows pass
+// (kRoundRows output rows a column, the whole tile height), one barrier, P
+// planes of column sums (kRoundCols outputs a row), one barrier; then each
+// pixel's thread reads its P sums in plane order.  Rows of the round's
+// buffers are padded to an odd stride, so the column sums' 32 rows of a
+// warp hit 32 banks.
 constexpr int kRoundRows = 16;
 constexpr int kRoundCols = 16;
 static_assert(kRoundRows == kTileH, "the rows pass covers the tile height");
@@ -185,20 +189,58 @@ struct RoundTile {
   }
 };
 
-// Planes a K3 round takes within `budget` floats of shared memory: as many
-// as give every thread one rows-pass column (kThreads / cam_w), capped by
-// the budget and by D + 1; 0 when not one plane fits.
-inline int round_planes(int k, int D, size_t budget) {
-  const PlaneTile g(k, D);
+// The most planes a projector staging can cover within `budget` floats
+// of shared memory, when a block holds `fixed` floats beside a staging of
+// `rows` image rows that grows by a column a plane and takes `one_plane`
+// floats at one plane; capped at D + 1; 0 when not even one plane fits.
+inline int staging_chunk(int D, size_t fixed, size_t one_plane, int rows,
+                         size_t budget) {
+  const size_t one = fixed + one_plane;
+  if (one > budget) return 0;
+  const size_t more = (budget - one) / rows;
+  return static_cast<int>(more + 1 < static_cast<size_t>(D) + 1
+                              ? more + 1
+                              : static_cast<size_t>(D) + 1);
+}
+
+// Planes a round, and planes a staging of the projector tile, of a kernel
+// that walks the planes in rounds (K1 and K3, K4, K5, K6, K7).
+struct Rounds {
+  int planes, chunk;
+};
+
+// {planes, chunk} with a chunk short of D + 1 cut to a whole number of
+// rounds, or the round cut to the chunk where the chunk is the smaller.
+inline Rounds whole_rounds(int planes, int chunk, int D) {
+  if (chunk < D + 1) {
+    if (chunk < planes)
+      planes = chunk;
+    else
+      chunk -= chunk % planes;
+  }
+  return {planes, chunk};
+}
+
+// Planes a round and a projector staging of K1 and K3 within `budget`
+// floats of shared memory: as many planes a round as give every thread one
+// rows-pass column (kThreads / cam_w), fewer where they do not fit beside
+// the camera tile and a one-plane projector tile, and no more than D + 1;
+// the projector staging takes what is left: all D + 1 planes where they
+// fit, else a multiple of the round.  {0, 0} when not one plane fits.
+inline Rounds fused_round(int k, int D, size_t budget) {
+  const PlaneTile g(k, 0);
   const RoundTile one(g, 1);
   const size_t fixed = RoundTile::image_floats(g);
   const size_t per = static_cast<size_t>(one.vsum_floats()) + one.box_floats();
-  if (fixed + per > budget) return 0;
+  if (fixed + per > budget) return {0, 0};
   size_t planes = kThreads / g.cam_w;
   if (planes < 1) planes = 1;
   if (planes > (budget - fixed) / per) planes = (budget - fixed) / per;
   if (planes > static_cast<size_t>(D) + 1) planes = static_cast<size_t>(D) + 1;
-  return static_cast<int>(planes);
+  const size_t cam = static_cast<size_t>(g.rows) * g.cam_w;
+  return whole_rounds(
+      static_cast<int>(planes),
+      staging_chunk(D, cam + planes * per, cam, g.rows, budget), D);
 }
 
 // Rows pass of `np` planes: vsum[j][r][c] = sum_{t<k} cam_t[r + t][c] *

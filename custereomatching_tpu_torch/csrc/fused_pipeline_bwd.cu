@@ -188,16 +188,12 @@ struct HaloTile {
   }
 };
 
-struct HaloRound {
-  int planes, chunk;
-};
-
 // Planes a round and a projector staging of K5 within `budget` floats:
 // as many planes a round as give each thread one rows-pass item, fewer if
 // they do not fit beside one plane's projector tile; the projector chunk
 // takes what is left, a multiple of the round; {0, 0} when not one plane
 // fits.
-inline HaloRound halo_round(int k, int D, size_t budget) {
+inline Rounds halo_round(int k, int D, size_t budget) {
   const HaloTile one(k, 1, 1);
   const size_t fixed = one.fixed_floats();
   const size_t proj1 = static_cast<size_t>(one.img_rows) * one.proj_w;
@@ -208,15 +204,9 @@ inline HaloRound halo_round(int k, int D, size_t budget) {
   if (planes > D + 1) planes = D + 1;
   if (fixed + proj1 + planes * per > budget)
     planes = static_cast<int>((budget - fixed - proj1) / per);
-  int chunk =
-      staging_chunk(D, fixed + planes * per, proj1, one.img_rows, budget);
-  if (chunk < D + 1) {
-    if (chunk < planes)
-      planes = chunk;
-    else
-      chunk -= chunk % planes;
-  }
-  return {planes, chunk};
+  return whole_rounds(
+      planes,
+      staging_chunk(D, fixed + planes * per, proj1, one.img_rows, budget), D);
 }
 
 // 1. The cross term's rows pass of `np` planes over the halo'd rows:
@@ -423,7 +413,7 @@ cudaError_t launch_fused_bwd_halo(const HeadSource<kUnnormalized>& src,
   size_t budget = 0;
   e = optin_floats(&budget);
   if (e != cudaSuccess) return e;
-  const HaloRound round = halo_round(k, D, budget);
+  const Rounds round = halo_round(k, D, budget);
   const HaloTile x(k, round.chunk, round.planes);
   // Not one plane fits, or the halo has more entries than threads own.
   if (round.planes < 1 || x.halo > kHaloOwn * kThreads)

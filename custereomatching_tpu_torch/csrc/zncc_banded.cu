@@ -18,79 +18,26 @@
 // volume is 4 * B * (D+1) * H * W (KITTI 375 x 1242, D = 192: 360 MB a
 // frame); the images and statistics add 4 * B * H * (6W + 2D).
 //
+// The kernel is K3's (fused_pipeline.cuh) without the head, at beta = 1:
+// the statistics passes, then a block a 16 x 64 pixel tile that stages
+// the camera tile once and the projector tile in chunks of planes (all
+// D + 1 at once where they fit: one staging at KITTI), and runs the planes
+// in rounds of P on the register-blocked pass (K3's round_products and
+// round_column_sums, common.cuh); each pixel's thread reads its P window
+// sums in plane order and stores its cost planes.  Every window sum adds
+// its taps in the order of common.cuh's first pass (vertical_products,
+// horizontal_sum), so the volume is that pass's bit for bit, and K3w's at
+// beta = 1 is K1's.  At KITTI (k = 15, D = 192): P = 13, 40,392 floats =
+// 161,568 bytes a block, one 1024-thread block an SM.  Every odd k <= 127
+// runs at every D (at k = 127 one plane a round and a one-plane projector
+// chunk: 58,056 of the 58,112 floats a block may hold).
+//
 // What bounds it on the H100: the volume write is the floor (360 MB at
-// 3.35 TB/s is about 0.11 ms a KITTI frame).  This first kernel is
-// simple, not tuned: it is bound by shared-memory traffic, since each
-// plane recomputes its k-row products (2k shared loads for each of the
-// kTileH x (kTileW + 2p) row-pass entries) and pays two barriers.  What
-// the design does about it: one pass over the image per block (both
-// tiles staged once in shared memory and reused by all D+1 planes), the
-// window sum separable (rows, then columns: 2k operations, not k^2), the
-// statistics computed once per image by a small pass and read through the
-// read-only cache, and stores coalesced along W.
-#include "common.cuh"
-
-namespace custereo {
-namespace {
-
-// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
-// shared memory PlaneTile(k, D).floats() floats.
-__global__ void __launch_bounds__(kThreads)
-    banded_volume_kernel(const float* __restrict__ camera,
-                         const float* __restrict__ projector,
-                         const float* __restrict__ cam_s,
-                         const float* __restrict__ cam_e2,
-                         const float* __restrict__ proj_s,
-                         const float* __restrict__ proj_e2,
-                         float* __restrict__ out, int H, int W, int D, int k,
-                         float eps) {
-  extern __shared__ float smem[];
-  const PlaneTile g(k, D);
-  float* cam_t = smem;
-  float* proj_t = cam_t + g.rows * g.cam_w;
-  float* vsum = proj_t + g.rows * g.proj_w;
-
-  const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
-  const size_t plane = static_cast<size_t>(H) * W;
-  stage_tile(cam_t, camera + b * plane, H, W, h0 - g.p, w0 - g.p, g.rows,
-             g.cam_w, 1.f);
-  stage_tile(proj_t, projector + b * plane, H, W, h0 - g.p, w0 - g.p - D,
-             g.rows, g.proj_w, 1.f);
-
-  const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
-  const int h = h0 + r, w = w0 + c;
-  const bool valid = h < H && w < W;
-  float mux = 0.f, ex2 = 0.f;
-  // Projector statistics row; image column x sits at index x + D.
-  const float* sy_row = proj_s;
-  const float* ey2_row = proj_e2;
-  float* out_px = out;
-  if (valid) {
-    const size_t o = b * plane + static_cast<size_t>(h) * W + w;
-    mux = cam_s[o] * (1.f / static_cast<float>(k * k));
-    ex2 = cam_e2[o];
-    const size_t row = (static_cast<size_t>(b) * H + h) * (W + D) + D + w;
-    sy_row = proj_s + row;
-    ey2_row = proj_e2 + row;
-    out_px = out + static_cast<size_t>(b) * (D + 1) * plane +
-             static_cast<size_t>(h) * W + w;
-  }
-  __syncthreads();
-
-  for (int d = 0; d <= D; ++d) {
-    vertical_products(vsum, cam_t, proj_t, g, k, D - d);
-    __syncthreads();
-    if (valid) {
-      const float sxy = horizontal_sum(vsum, g.cam_w, r, c, k);
-      const float exy = sxy - mux * __ldg(sy_row - d);
-      out_px[d * plane] = (exy + eps) * rsqrtf(ex2 * __ldg(ey2_row - d) + eps);
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace
-}  // namespace custereo
+// 3.35 TB/s is about 0.11 ms a KITTI frame; the card writes a pixel's
+// planes in turn at about 1.23 TB/s, 0.30 ms).  Beside it, a round makes
+// about 11 shared accesses a pixel and plane at k = 15 and passes two
+// barriers for P planes.
+#include "fused_pipeline.cuh"
 
 using namespace custereo;
 
@@ -105,21 +52,10 @@ extern "C" int custereo_banded_volume(const float* camera,
                                       float* proj_e2, float* out, int B,
                                       int H, int W, int D, int k, float eps,
                                       void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t e =
-      launch_box_stats(camera, cam_s, cam_e2, B, H, W, k, 0, W, 1.f, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_box_stats(projector, proj_s, proj_e2, B, H, W, k, D, W + D, 1.f,
-                       stream);
-  if (e != cudaSuccess) return e;
-
-  const size_t bytes = PlaneTile(k, D).floats() * sizeof(float);
-  e = allow_smem(banded_volume_kernel, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  banded_volume_kernel<<<grid, kThreads, bytes, stream>>>(
-      camera, projector, cam_s, cam_e2, proj_s, proj_e2, out, H, W, D, k, eps);
-  return cudaGetLastError();
+  return run_pipeline<false, false, true>(
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, nullptr, nullptr,
+      nullptr, nullptr, out, nullptr, nullptr, nullptr, B, H, W, D, k, eps,
+      1.f, 0.f, 0, static_cast<cudaStream_t>(stream_ptr));
 }
 
 extern "C" const char* custereo_error_string(int code) {

@@ -159,10 +159,9 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def kernels() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(str(build()))
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library, its entry points typed."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -170,6 +169,12 @@ def kernels() -> ctypes.CDLL:
     lib.custereo_error_string.argtypes = [ctypes.c_int]
     lib.custereo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    return load(build())
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

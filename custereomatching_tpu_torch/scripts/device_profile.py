@@ -27,7 +27,7 @@ speckle frame and prints its lines, then one JSON object:
 * ``kernels``: device time of each banded kernel, K1, K3, K3w, K3m, K2,
   K7, K4, K6 and K5 (CUDA events, the median of 10 chained calls of 3),
   on the speckle pair, a random volume cotangent and random head
-  cotangents.
+  cotangents, and of K8 on a random 330x422 pair (k=15).
 * ``engine``: host-clock latency of ``StereoEngine.infer`` on KITTI
   frames, as ``chip_smoke.py``'s serving phase measures it.
 * ``allpairs``: the all-pairs step at 330x422, k=15 (the default
@@ -259,7 +259,12 @@ def mode_k3() -> dict:
     return {"k3_ms": ms}
 
 
-def mode_kernels() -> dict:
+def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
+    """(name, wrapper, arguments) of each kernel ``kernels`` times: the
+    banded ones at KITTI, K8 at 330x422."""
+    from custereomatching_tpu_torch.ops.cuda_allpairs import (
+        cost_volume_allpairs_cuda,
+    )
     from custereomatching_tpu_torch.ops.cuda_pipeline import (
         fused_pipeline_bwd_cuda,
         fused_pipeline_train_cuda,
@@ -281,20 +286,26 @@ def mode_kernels() -> dict:
         g = torch.randn((1, D + 1, H, W), device="cuda", generator=gen)
     gs = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
     gc = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
+    acam, aproj = torch.rand((2, 1, 330, 422), device="cuda", generator=gen)
     vjp = (cam, proj, cost.permute(0, 3, 1, 2), g, D, k, 1e-8)
+    return [
+        ("K1", cost_volume_banded_cuda, (cam, proj, D, k, 1e-8)),
+        ("K3", stereo_pipeline_cuda, pipe),
+        ("K3w", fused_pipeline_train_cuda, pipe),
+        ("K3m", fused_pipeline_train_cuda, pipe + (False,)),
+        ("K2", camera_grad_banded_cuda, vjp),
+        ("K7", projector_grad_banded_cuda, vjp),
+        ("K4", fused_pipeline_bwd_cuda,
+         (cam, proj, res, gs, gc, D, k, 1e-8, 50.0)),
+        ("K6", camera_grad_banded_cuda, (cam, proj, None, g, D, k, 1e-8)),
+        ("K5", fused_pipeline_bwd_cuda,
+         (cam, proj, res_m, gs, gc, D, k, 1e-8, 50.0)),
+        ("K8", cost_volume_allpairs_cuda, (acam, aproj, 15, 1e-8))]
+
+
+def mode_kernels() -> dict:
     out = {}
-    for name, fn, args in (
-            ("K1", cost_volume_banded_cuda, (cam, proj, D, k, 1e-8)),
-            ("K3", stereo_pipeline_cuda, pipe),
-            ("K3w", fused_pipeline_train_cuda, pipe),
-            ("K3m", fused_pipeline_train_cuda, pipe + (False,)),
-            ("K2", camera_grad_banded_cuda, vjp),
-            ("K7", projector_grad_banded_cuda, vjp),
-            ("K4", fused_pipeline_bwd_cuda,
-             (cam, proj, res, gs, gc, D, k, 1e-8, 50.0)),
-            ("K6", camera_grad_banded_cuda, (cam, proj, None, g, D, k, 1e-8)),
-            ("K5", fused_pipeline_bwd_cuda,
-             (cam, proj, res_m, gs, gc, D, k, 1e-8, 50.0))):
+    for name, fn, args in kernel_cases():
         with torch.no_grad():
             out[name] = 1e3 * benchmark(fn, *args, warmup=2, iters=10,
                                         chain=3)["median_s"]

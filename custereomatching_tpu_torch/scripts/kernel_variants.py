@@ -3,20 +3,33 @@ tree bit for bit and timed against it on one CUDA card.
 
     python -m custereomatching_tpu_torch.scripts.kernel_variants \\
         [--against DIR]... NAME...
+    python -m custereomatching_tpu_torch.scripts.kernel_variants \\
+        --ab DIR [--rounds N]
 
 Each NAME of ``VARIANTS`` is a copy of the package under
-``build/variants/NAME`` with one edit of ``csrc/camera_grad.cuh``: another
-round size of the rounds kernel (K4, K6), the ring's entries split in half
-rounds, or one phase of the rounds kernel cut (timing only: the values
+``build/variants/NAME`` with one edit of ``csrc/camera_grad.cuh`` (the
+rounds kernel of K4 and K6) or, for a ``k7_`` name, of
+``csrc/zncc_banded_proj_bwd.cu`` (K7's): another round size, the ring's
+entries split in half rounds, or one phase cut (timing only: the values
 are then wrong).  Each tree runs in its own process, with ``PYTHONPATH``
 at it:
 
-1. K4's and K6's gradients on fixed inputs (KITTI and three small shapes,
-   k = 3, 31 and 47), compared bit for bit with this tree's: every
-   variant that keeps the values, and every ``--against`` tree (another
-   checkout, e.g. the parent commit's ``git archive``);
-2. ``device_profile kernels`` (K1-K7 device ms at KITTI) for this tree and
-   every variant in turns, then in the reverse order.
+1. K1's volume and K4's, K6's and K7's gradients on fixed inputs (KITTI
+   and three small shapes, k = 3, 31 and 47), compared bit for bit with
+   this tree's: every variant that keeps the values, and every
+   ``--against`` tree (another checkout, e.g. the parent commit's ``git
+   archive``);
+2. ``device_profile kernels`` (K1-K8 device ms) for this tree and every
+   variant in turns, then in the reverse order.
+
+With ``--ab DIR`` it instead times every kernel of ``device_profile
+kernels`` in one process on the same inputs, through this tree's
+wrappers, on this tree's kernel library and on the one DIR's sources
+build (their C interface must be this tree's), the two back to back for
+each kernel and which goes first alternating from round to round; it
+prints each kernel's medians, their ratio and the rounds each side won.
+Between processes the same kernel's time moves by a few percent; this
+comparison does not pay for that.
 
 Needs a CUDA card and nvcc; imports nothing of JAX.
 """
@@ -24,6 +37,7 @@ Needs a CUDA card and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import shutil
 import subprocess
@@ -34,6 +48,7 @@ from typing import Dict, List, Tuple
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = "custereomatching_tpu_torch"
 SOURCE = "csrc/camera_grad.cuh"
+K7_SOURCE = "csrc/zncc_banded_proj_bwd.cu"
 CASES = ((375, 1242, 192, 15), (40, 130, 24, 31), (40, 130, 24, 47),
          (37, 200, 24, 3))
 
@@ -129,7 +144,12 @@ _RING_HALVES = """    // gr_d at the ring's entries, half a round an item.
     }
 """
 
-# name -> (whether the values stay the source's, edits (old, new) of SOURCE)
+_K7_ROUND = "grad_round(k, D, 1, false, budget).planes"
+_K7_CENTRE = ("    if (valid) {\n"
+              "      const float ey2 = ey2_t[centre];")
+
+# name -> (whether the values stay the source's, edits (old, new) of SOURCE,
+# or of K7_SOURCE for a k7_ name)
 VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
     "p4": (True, _start(4)),
     "p10": (True, _start(10, 10, 5)),
@@ -156,16 +176,36 @@ VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
         ("    if (valid) {\n      const float* box = ybuf + r * x.bs + c;",
          "    if (valid && d0 < 0) {\n"
          "      const float* box = ybuf + r * x.bs + c;")]),
+    "k7_p4": (True, [(_K7_ROUND, f"min(4, {_K7_ROUND})")]),
+    "k7_cut_entries": (False, [
+        (_K7_CENTRE, _K7_CENTRE.replace("if (valid)", "if (valid && d0 < 0)")),
+        (_RING, _RING.replace("q < ring;", "q < ring && d0 < 0;"))]),
+    "k7_cut_cost": (False, [
+        ("        cv[j] = __ldg(c_b + d * plane + px);",
+         "        cv[j] = e2[j] + 0.25f * d;")]),
+    "k7_cut_passes": (False, [
+        ("    grad_rows(xbuf, ybuf, gs, k, np);\n", ""),
+        ("    grad_column_sums(ybuf, xbuf, gs, k, np);\n", "")]),
+    "k7_cut_a1": (False, [
+        ("    if (valid && xc >= 0) {",
+         "    if (valid && xc >= 0 && d0 < 0) {")]),
 }
+# What a cut variant's edits leave in the source: its values are wrong.
+CUT_MARKS = ("d0 < 0", "+ 0.25f")
+
+
+def source_of(name: str) -> str:
+    """The source, under the package, that variant ``name`` edits."""
+    return K7_SOURCE if name.startswith("k7_") else SOURCE
 
 
 def edit_source(text: str, name: str) -> str:
-    """``text`` (camera_grad.cuh) with variant ``name``'s edits; each edit's
-    text must occur once."""
+    """``text`` (the source :func:`source_of` names) with variant
+    ``name``'s edits; each edit's text must occur once."""
     for old, new in VARIANTS[name][1]:
         if text.count(old) != 1:
             raise ValueError(f"variant {name}: the edited text occurs "
-                             f"{text.count(old)} times in {SOURCE}")
+                             f"{text.count(old)} times in {source_of(name)}")
         text = text.replace(old, new)
     return text
 
@@ -177,13 +217,15 @@ def make_variant(name: str, dest: Path) -> Path:
     shutil.rmtree(tree, ignore_errors=True)
     shutil.copytree(ROOT / PACKAGE, tree / PACKAGE,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = tree / PACKAGE / SOURCE
+    path = tree / PACKAGE / source_of(name)
     path.write_text(edit_source(path.read_text(), name))
     return tree
 
 
-def save_grads(out: str) -> None:
-    """K4's and K6's gradients at ``CASES`` from fixed inputs, saved."""
+def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
+    """K1's volume and K4's, K6's and K7's gradients at ``cases`` (H, W, D,
+    k) from fixed inputs, on the CPU tensors of ``device`` (a CPU device
+    takes the wrappers' plain versions)."""
     import torch
 
     from custereomatching_tpu_torch.data import make_stereo_pair
@@ -193,25 +235,43 @@ def save_grads(out: str) -> None:
     )
     from custereomatching_tpu_torch.ops.cuda_zncc import (
         camera_grad_banded_cuda,
+        cost_volume_banded_cuda,
+        projector_grad_banded_cuda,
     )
 
-    grads = {}
-    for H, W, D, k in CASES:
+    outs = {}
+    for H, W, D, k in cases:
         cam, proj, _ = make_stereo_pair(H, W, d_min=4.0, d_max=min(D, 184.0),
                                         seed=7)
-        cam = torch.from_numpy(cam[None]).cuda()
-        proj = torch.from_numpy(proj[None]).cuda()
-        gen = torch.Generator("cuda").manual_seed(0)
-        gs = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
-        gc = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
-        g = torch.randn((1, D + 1, H, W), device="cuda",
+        cam = torch.from_numpy(cam[None]).to(device)
+        proj = torch.from_numpy(proj[None]).to(device)
+        gen = torch.Generator(device).manual_seed(0)
+        gs = torch.randn((1, H, W), device=device, generator=gen) / (H * W)
+        gc = torch.randn((1, H, W), device=device, generator=gen) / (H * W)
+        g = torch.randn((1, D + 1, H, W), device=device,
                         generator=gen) / (H * W)
+        # K7 reads the cost as data: a fixed volume of its range, not K1's.
+        cost = torch.rand((1, D + 1, H, W), device=device,
+                          generator=gen) * 2 - 1
+        tag = f"{H}x{W} D={D} k={k}"
         res = fused_pipeline_train_cuda(cam, proj, D, k, 1e-8, 50.0, 0.6)[1]
-        grads[f"K4 {H}x{W} D={D} k={k}"] = fused_pipeline_bwd_cuda(
+        outs[f"K4 {tag}"] = fused_pipeline_bwd_cuda(
             cam, proj, res, gs, gc, D, k, 1e-8, 50.0).cpu()
-        grads[f"K6 {H}x{W} D={D} k={k}"] = camera_grad_banded_cuda(
+        outs[f"K6 {tag}"] = camera_grad_banded_cuda(
             cam, proj, None, g, D, k, 1e-8).cpu()
-    torch.save(grads, out)
+        outs[f"K1 {tag}"] = cost_volume_banded_cuda(cam, proj, D, k,
+                                                    1e-8).cpu()
+        outs[f"K7 {tag}"] = projector_grad_banded_cuda(
+            cam, proj, cost, g, D, k, 1e-8).cpu()
+        del res
+    return outs
+
+
+def save_grads(out: str) -> None:
+    """:func:`kernel_outputs` on the card at ``CASES``, saved."""
+    import torch
+
+    torch.save(kernel_outputs(), out)
 
 
 def _run(tree: Path, *args: str) -> str:
@@ -221,12 +281,59 @@ def _run(tree: Path, *args: str) -> str:
     return out.stdout
 
 
+def library_of(tree: Path) -> ctypes.CDLL:
+    """The kernel library ``tree``'s own ``ops/_build.py`` builds from its
+    sources, loaded with this tree's entry-point types."""
+    from custereomatching_tpu_torch.ops import _build
+
+    out = subprocess.run(
+        [sys.executable, "-c", "from custereomatching_tpu_torch.ops import "
+         "_build; print(_build.build())"],
+        env=dict(os.environ, PYTHONPATH=str(tree)), cwd=tree, check=True,
+        capture_output=True, text=True).stdout
+    return _build.load(Path(out.split()[-1]))
+
+
+def ab_times(other: Path, rounds: int) -> Dict[str, Dict[str, List[float]]]:
+    """{kernel: {"this": ms..., "other": ms...}}: ``device_profile``'s
+    kernel cases on this tree's library and on ``other``'s, ``rounds``
+    rounds, the two back to back for each kernel, ``other`` first in even
+    rounds."""
+    import torch
+
+    from custereomatching_tpu_torch.ops import _build
+    from custereomatching_tpu_torch.scripts import device_profile
+    from custereomatching_tpu_torch.utils import benchmark
+
+    libs = {"this": _build.kernels(), "other": library_of(other)}
+    cases = device_profile.kernel_cases()
+    times = {name: {"this": [], "other": []} for name, _, _ in cases}
+    ours = _build.kernels
+    try:
+        for r in range(rounds):
+            order = ("other", "this") if r % 2 == 0 else ("this", "other")
+            for name, fn, args in cases:
+                for side in order:
+                    _build.kernels = lambda lib=libs[side]: lib
+                    with torch.no_grad():
+                        times[name][side].append(1e3 * benchmark(
+                            fn, *args, warmup=2, iters=10,
+                            chain=3)["median_s"])
+    finally:
+        _build.kernels = ours
+    return times
+
+
 def main(argv: List[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("names", nargs="*",
                         help=f"variants: {', '.join(VARIANTS)}")
     parser.add_argument("--against", action="append", default=[],
                         help="another checkout to compare bit for bit")
+    parser.add_argument("--ab", help="another checkout to time against in "
+                        "one process")
+    parser.add_argument("--rounds", type=int, default=10,
+                        help="rounds of --ab (default 10)")
     parser.add_argument("--save-grads", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     unknown = [n for n in args.names if n not in VARIANTS]
@@ -240,6 +347,18 @@ def main(argv: List[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
+    if args.ab:
+        other = Path(args.ab).resolve()
+        for name, t in ab_times(other, args.rounds).items():
+            mine, theirs = (sorted(t[side])[len(t[side]) // 2]
+                            for side in ("this", "other"))
+            wins = sum(a < b for a, b in zip(t["this"], t["other"]))
+            print(f"ab: {name} {other.name} {theirs:.4f} ms, this "
+                  f"{mine:.4f} ms, this / {other.name} {mine / theirs:.4f},"
+                  f" this faster in {wins} of {args.rounds} rounds; this "
+                  f"{' '.join(f'{v:.4f}' for v in t['this'])}; "
+                  f"{other.name} {' '.join(f'{v:.4f}' for v in t['other'])}")
+        return 0
     dest = ROOT / "build" / "variants"
     trees = {name: make_variant(name, dest) for name in args.names}
     me = Path(__file__).resolve()

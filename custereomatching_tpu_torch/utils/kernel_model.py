@@ -36,11 +36,11 @@ them):
 ``boxadd``
     one shared-memory load inside K1's per-plane window pass (a rows pass
     of products: two loads a tap; a rows pass of sums: one; a columns
-    tap: one), the pass's barriers included.  Probe: K1's own pass, at
-    K1's geometry and occupancy; normalised by :func:`box_pass_loads`,
-    the count the cost functions charge.  It prices K1, K2 and K7, which
-    run that pass.  The register-blocked pass of K3, K3w, K3m, K4, K5 and
-    K6 (:func:`window_pass_cost`) is priced in ``smem`` or ``madd``.
+    tap: one), the pass's barriers included.  Probe: K1's first pass, at
+    its geometry and occupancy; normalised by :func:`box_pass_loads`,
+    the count the cost functions charge.  It prices K2, which still runs
+    that pass.  The register-blocked pass of K1, K3, K3w, K3m, K4, K5, K6
+    and K7 (:func:`window_pass_cost`) is priced in ``smem`` or ``madd``.
 
 Rate keys: the classes (seconds an element), ``hbm_r3d`` and ``hbm_w3d``
 (seconds a byte, K10b and K10c), ``t3d`` and ``dus3d`` (seconds a byte
@@ -553,30 +553,52 @@ def window_pass_cost(items: int, n: int, k: int,
     return OpCount(madd=items * ops)
 
 
-def _round_floats(k: int, D: int) -> Tuple[int, int]:
-    """K3's block in floats (``RoundTile`` of common.cuh): the two image
-    tiles, and the rows-pass and window-sum buffers of one plane (rows
-    padded to an odd stride)."""
+def _round_floats(k: int, chunk: int) -> Tuple[int, int]:
+    """K1's and K3's block in floats (``RoundTile`` of common.cuh): the
+    camera tile and a projector tile of ``chunk`` planes, and the
+    rows-pass and window-sum buffers of one plane (rows padded to an odd
+    stride)."""
     p = k // 2
     rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
-    return (rows * (2 * cam_w + D),
+    return (rows * (2 * cam_w + chunk - 1),
             K_TILE_H * (cam_w + 1) + K_TILE_H * (K_TILE_W + 1))
 
 
-def round_planes(k: int, D: int) -> int:
-    """Planes of a K3 round (``round_planes`` of common.cuh on an H100)."""
-    fixed, per = _round_floats(k, D)
+def _whole_rounds(planes: int, chunk: int, D: int) -> Tuple[int, int]:
+    """``whole_rounds`` of common.cuh: a chunk short of D + 1 cut to a
+    whole number of rounds, or the round cut to the chunk."""
+    if chunk < D + 1:
+        if chunk < planes:
+            planes = chunk
+        else:
+            chunk -= chunk % planes
+    return planes, chunk
+
+
+def fused_round(k: int, D: int) -> Tuple[int, int]:
+    """(planes a round, planes a projector staging) of K1 and K3
+    (``fused_round`` of common.cuh on an H100): as many planes as give
+    every thread one rows-pass column, fewer where they do not fit beside
+    a one-plane projector tile, at most D + 1; the staging takes what is
+    left, D + 1 or a multiple of the round.  (0, 0) when not one plane
+    fits."""
+    fixed, per = _round_floats(k, 1)
     budget = SMEM_OPTIN_BYTES // 4
     if fixed + per > budget:
-        return 0
-    cam_w = K_TILE_W + 2 * (k // 2)
-    return min(max(1, K_THREADS // cam_w), (budget - fixed) // per, D + 1)
+        return 0, 0
+    p = k // 2
+    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    planes = min(max(1, K_THREADS // cam_w), (budget - fixed) // per, D + 1)
+    chunk = min((budget - fixed - planes * per) // rows + 1, D + 1)
+    return _whole_rounds(planes, chunk, D)
 
 
 def fused_block_floats(k: int, D: int) -> int:
-    """Shared memory of a K3 block in floats (``RoundTile::floats``)."""
-    fixed, per = _round_floats(k, D)
-    return fixed + round_planes(k, D) * per
+    """Shared memory of a K1 or K3 block in floats (``RoundTile::floats``
+    at :func:`fused_round`'s planes and chunk)."""
+    planes, chunk = fused_round(k, D)
+    fixed, per = _round_floats(k, chunk)
+    return fixed + planes * per
 
 
 def halo_tile(k: int, chunk: int, planes: int) -> Dict[str, int]:
@@ -614,31 +636,44 @@ def halo_round(k: int, D: int) -> Tuple[int, int]:
         planes = (budget - t["fixed"] - proj1) // per
     one = t["fixed"] + planes * per + proj1
     chunk = min((budget - one) // t["img_rows"] + 1, D + 1)
-    if chunk < D + 1:
-        if chunk < planes:
-            planes = chunk
-        else:
-            chunk -= chunk % planes
-    return planes, chunk
+    return _whole_rounds(planes, chunk, D)
 
 
-def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
-    """K1 (``csrc/zncc_banded.cu``): the statistics passes, then a block a
-    16 x 64 tile staging the camera and the D-widened projector tiles and,
-    per plane, ``vertical_products`` and ``horizontal_sum`` (one pass,
-    two barriers), two statistics loads, one rsqrt and the volume store."""
+def _fused_round_cost(H: int, W: int, D: int, k: int,
+                      what: str) -> OpCount:
+    """The part K1 and K3 share (fused_pipeline.cuh): the statistics
+    passes; a block a 16 x 64 tile staging the camera tile once and the
+    projector tile once a chunk (:func:`fused_round`, a load and a store an
+    entry); per plane the register-blocked rows pass (an item a tile
+    column) and column sums (an item ``ROUND_COLS`` pixels of a row); each
+    pixel's mux and ex2 read once, and per plane its window sum read back
+    and its two statistics loads."""
     p = k // 2
     nbh, nbw = _grid(H, W)
     blocks = nbh * nbw
     rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
     px, planes = H * W, D + 1
+    P, chunk = fused_round(k, D)
+    if P < 1:
+        raise ValueError(f"{what} takes no k = {k} block on an H100")
+    stagings = _cdiv(planes, chunk)
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
-    c = c + OpCount(
-        smem=blocks * 2 * rows * (2 * cam_w + D) + 2 * px
-        + planes * 2 * px,
-        boxadd=planes * (blocks * box_pass_loads(k, K_TILE_H, cam_w, 0)
-                         + px * k),
-        rsqrt=planes * px, madd=px + planes * 4 * px)
+    c = c + window_pass_cost(blocks * cam_w * planes, ROUND_ROWS, k, True)
+    c = c + window_pass_cost(
+        blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes, ROUND_COLS,
+        k, False)
+    return c + OpCount(
+        smem=blocks * 2 * rows * (cam_w + stagings * (cam_w + chunk - 1))
+        + 2 * px + planes * 3 * px)
+
+
+def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K1 (``csrc/zncc_banded.cu``): K3's rounds kernel without the head,
+    at beta = 1 (:func:`_fused_round_cost`); per pixel and plane one rsqrt,
+    five FMA-pipe ops and the volume store."""
+    px, planes = H * W, D + 1
+    c = _fused_round_cost(H, W, D, k, "K1") + OpCount(
+        rsqrt=planes * px, madd=px + planes * 5 * px)
     stats = (2 * px + 2 * H * (W + D)) * 4
     return _with_bytes(c, c.bytes_r + stats, c.bytes_w + planes * px * 4)
 
@@ -646,27 +681,14 @@ def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
 def fused_forward_cost(H: int, W: int, D: int, k: int,
                        write_volume: bool = False,
                        residuals: Optional[bool] = None) -> OpCount:
-    """K3 / K3w / K3m (``csrc/fused_pipeline.cu``): the image tiles staged,
-    then per plane the register-blocked rows pass (an item a tile column)
-    and column sums (an item ``ROUND_COLS`` pixels of a row), and the
-    online head in registers (the pixel's window sum read back, two
-    statistics loads, one rsqrt, one expf and eight FMA-pipe ops a pixel
-    and plane), four maps out; ``residuals`` adds am, s and t (K3m; K3w
-    always), ``write_volume`` the volume store (K3w)."""
+    """K3 / K3w / K3m (``csrc/fused_pipeline.cu``): the rounds of
+    :func:`_fused_round_cost`, and the online head in registers (one
+    rsqrt, one expf and eight FMA-pipe ops a pixel and plane), four maps
+    out; ``residuals`` adds am, s and t (K3m; K3w always), ``write_volume``
+    the volume store (K3w)."""
     residuals = write_volume if residuals is None else residuals
-    p = k // 2
-    nbh, nbw = _grid(H, W)
-    blocks = nbh * nbw
-    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
     px, planes = H * W, D + 1
-    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
-    c = c + window_pass_cost(blocks * cam_w * planes, ROUND_ROWS, k, True)
-    c = c + window_pass_cost(
-        blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes, ROUND_COLS,
-        k, False)
-    c = c + OpCount(
-        smem=blocks * 2 * rows * (2 * cam_w + D) + 2 * px
-        + planes * 3 * px,
+    c = _fused_round_cost(H, W, D, k, "K3") + OpCount(
         rsqrt=planes * px + px,                  # + t / s once a pixel
         exp=planes * px,
         madd=px + planes * (8 + int(write_volume)) * px + 4 * px)
@@ -735,9 +757,10 @@ def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
 
 def grad_round(k: int, D: int, head: bool, recompute: bool
                ) -> Tuple[int, int]:
-    """(planes a round, planes a projector staging) of K4 (``head``) or K6
-    (``recompute``): ``grad_round`` of camera_grad.cuh on an H100; (0, 0)
-    when not one plane fits."""
+    """(planes a round, planes a projector staging) of K4 (``head``), K6
+    (``recompute``) or K7 (neither: the projector's ey2 its one staged
+    map): ``grad_round`` of camera_grad.cuh on an H100; (0, 0) when not
+    one plane fits."""
     budget = SMEM_OPTIN_BYTES // 4
     planes = GRAD_PLANES
     while planes >= 1:
@@ -921,34 +944,51 @@ def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
 
 def projector_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
     """K7 (``csrc/zncc_banded_proj_bwd.cu``): the statistics passes
-    (projector on the p-widened columns), the planes kernel over the
-    extended columns e in [0, W + p) (per plane: g~r over the halo'd tile,
-    one pass of sums, A1p, z2, z3), and the combine."""
+    (projector on the p-widened columns), the rounds kernel over the
+    extended columns e in [0, W + p) at :func:`grad_round`'s planes (the
+    projector's ey2 its one staged map, no recompute), and the combine.
+
+    A round of P planes: every halo entry stores its P planes of g~r; where
+    an entry's camera column ei - p + d lies in the image, g and ex2
+    loaded, an rsqrt and two FMA-pipe ops; the tile's own pixels also load
+    cam_s and the cost there and add z2 and z3 (five FMA-pipe ops); gr's
+    rows pass and column sums; A1p (the box sum read, the camera read
+    where x + d lies in the image, a select and an FMA) at pixels with
+    x >= 0."""
     p = k // 2
     we = W + p
     nbh, nbw = _cdiv(H, K_TILE_H), _cdiv(we, K_TILE_W)
     blocks = nbh * nbw
-    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
-    halo = rows * cam_w
+    P, _ = grad_round(k, D, False, False)
+    if P < 1:
+        raise ValueError(f"K7 takes no k = {k} block on an H100")
+    t = grad_round_tile(k, 1, P, head=False, recompute=False)
+    hc, halo = t["halo_cols"], t["halo"]
     px, planes = H * W, D + 1
+    slots = _cdiv(planes, P) * P             # planes step b computes
     rows_in = _overlap(nbh, K_TILE_H, p, 0, H)
     # Halo entries whose camera column ei - p + d lies in the image.
     shifted = sum(_overlap(nbw, K_TILE_W, p, max(0, p - d), W + p - d)
                   for d in range(planes))
     g_entries = rows_in * shifted
     prologue_in = rows_in * _overlap(nbw, K_TILE_W, p, 0, we)
-    # Output pixels whose camera column x + d lies in the image.
+    # Output pixels whose camera column x + d lies in the image (z2, z3 on
+    # x in [-p, W); A1p's camera read on x in [0, W)).
     z_px = H * sum(W - d + min(p, d) for d in range(planes) if d < W)
+    a1_px = H * sum(W - d for d in range(planes) if d < W)
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, we)
     c = c + _combine_cost(H, W, k, we)
     c = c + OpCount(
         smem=2 * prologue_in + (blocks * halo - prologue_in)
-        + 4 * g_entries + (planes * blocks * halo - g_entries)
-        + planes * px + 5 * z_px,
-        rsqrt=g_entries + z_px,
-        madd=2 * g_entries + planes * px + 6 * z_px,
-        boxadd=planes * (blocks * box_pass_loads(k, K_TILE_H, cam_w, 0,
-                                                 products=False) + px * k))
+        + slots * blocks * halo + 2 * g_entries + 2 * z_px
+        + planes * px + a1_px,
+        rsqrt=g_entries,
+        madd=2 * g_entries + 5 * z_px + 2 * planes * px)
+    c = c + window_pass_cost(
+        blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k, False)
+    c = c + window_pass_cost(
+        blocks * K_TILE_H * (K_TILE_W // GRAD_COLS) * planes, GRAD_COLS, k,
+        False)
     vol = planes * px * 4
     stats = (2 * px + 2 * H * we) * 4
     bytes_r = c.bytes_r + 2 * vol + stats + (px + 2 * H * we) * 4
@@ -1036,12 +1076,13 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
 __all__ = ["OpCount", "allpairs_backward_cost", "allpairs_forward_cost",
            "box_pass_loads", "camera_grad_rounds_cost",
            "fused_backward_c_cost", "fused_backward_cost",
-           "fused_block_floats", "fused_forward_cost", "grad_round",
+           "fused_block_floats", "fused_forward_cost", "fused_round",
+           "grad_round",
            "grad_round_tile", "halo_round",
            "halo_tile", "hbm_read_probe", "hbm_read_probe_cost",
            "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
            "hbm_write_reference", "kernel_bound", "measure_vpu_rates",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
            "rate_probe_reference",
-           "round_planes", "transpose_volume_cost", "volume_backward_cost",
+           "transpose_volume_cost", "volume_backward_cost",
            "volume_forward_cost", "window_pass_cost"]

@@ -230,18 +230,24 @@ def test_costs_scale_with_d_and_order_the_variants():
     k3m = km.fused_forward_cost(H, W, D, K, residuals=True)
     assert k3w.bytes > k3m.bytes > base.bytes
     assert k3w.bytes_w - k3m.bytes_w == 4 * (D + 1) * H * W
-    # The register-blocked pass: K3 costs less than K1, whose pass it
-    # replaced; K4 is K5's round without the halo's cost recompute, so it
-    # costs less than K5, and so does K6, recomputing the cost on the
-    # tile's own pixels only.
-    assert _compute(base) < _compute(km.volume_forward_cost(H, W, D, K))
+    # The register-blocked pass: K1 is K3's rounds without the head, so it
+    # costs less than K3; K4 is K5's round without the halo's cost
+    # recompute, so it costs less than K5, and so does K6, recomputing the
+    # cost on the tile's own pixels only; K7, reading g and the cost on
+    # the same rounds, costs less than K2, which keeps K1's first pass.
+    k1 = km.volume_forward_cost(H, W, D, K)
+    assert _compute(k1) < _compute(base)
+    assert k1["smem"] == base["smem"] and k1["exp"] == 0
     k4 = _compute(km.fused_backward_c_cost(H, W, D, K))
     k5 = _compute(km.fused_backward_cost(H, W, D, K))
     assert k4 < k5 and k6 < k5
-    for cost in (base, km.fused_backward_cost(H, W, D, K),
+    assert _compute(km.projector_backward_cost(H, W, D, K)) < k2
+    for cost in (base, k1, km.fused_backward_cost(H, W, D, K),
                  km.fused_backward_c_cost(H, W, D, K),
-                 km.volume_backward_cost(H, W, D, K, with_cost=False)):
+                 km.volume_backward_cost(H, W, D, K, with_cost=False),
+                 km.projector_backward_cost(H, W, D, K)):
         assert cost["boxadd"] == 0
+    assert km.volume_backward_cost(H, W, D, K)["boxadd"] > 0
 
 
 def test_cost_fns_populate_byte_pools():
@@ -292,6 +298,30 @@ def test_recompute_chunk_mirrors_camera_grad():
     assert km.halo_round(15, 3) == (4, 4)
     assert km.halo_round(27, 64) == (1, 50)
     assert km.halo_round(29, 10) == (0, 0)
+
+
+def test_k1_k3_round_mirrors_common():
+    """K1 and K3 (common.cuh fused_round) at k=15 take 13 planes a round
+    and stage the projector's D + 1 planes at once up to D = 782, in
+    chunks of 780 (60 rounds) beyond; one plane a round at D = 0; at
+    k = 127 one plane a round and a one-plane chunk, and no block at k =
+    129, where the count refuses."""
+    assert km.fused_round(15, 192) == (13, 193)
+    assert km.fused_round(15, 782) == (13, 783)
+    assert km.fused_round(15, 783) == (13, 780)
+    assert km.fused_round(15, 1800) == (13, 780)
+    assert km.fused_round(15, 0) == (1, 1)
+    assert km.fused_round(5, 10) == (11, 11)
+    assert km.fused_round(127, 4000) == (1, 1)
+    assert km.fused_round(129, 0) == (0, 0)
+    with pytest.raises(ValueError, match="K1 takes no k = 129"):
+        km.volume_forward_cost(40, 200, 8, 129)
+    with pytest.raises(ValueError, match="K7 takes no k = 129"):
+        km.projector_backward_cost(40, 200, 8, 129)
+    # Chunked stagings cost one projector tile each.
+    one = km.volume_forward_cost(32, 800, 782, 15)
+    two = km.volume_forward_cost(32, 800, 783, 15)
+    assert two["smem"] - one["smem"] > 2 * 30 * (78 + 779) * 13 * 2
 
 
 def test_zncc_roofline_matches_jax(monkeypatch):

@@ -1,7 +1,7 @@
 """CPU tests of the port's measurement scripts: the Chrome-trace reading
 behind ``device_profile``'s busy time and idle share, the edits
-``kernel_variants`` makes to the kernels' sources, and both scripts'
-refusal to run without a card."""
+``kernel_variants`` makes to the kernels' sources and the outputs it holds
+bit for bit, and both scripts' refusal to run without a card."""
 
 import pytest
 import torch
@@ -57,20 +57,40 @@ def test_main_needs_a_mode_and_a_card(capsys):
 
 @pytest.mark.parametrize("name", sorted(kv.VARIANTS))
 def test_kernel_variants_edit_the_current_source(name, tmp_path):
-    """Every variant's edits find their text once in camera_grad.cuh and
-    change it; the copy holds the whole package, so its kernels build on
-    their own; a variant that keeps the values changes no arithmetic of
-    the cut kind (no phase skipped on ``d0 < 0``)."""
-    source = (kv.ROOT / kv.PACKAGE / kv.SOURCE).read_text()
+    """Every variant's edits find their text once in its source
+    (camera_grad.cuh, or K7's zncc_banded_proj_bwd.cu for a ``k7_`` name)
+    and change it; the copy holds the whole package, so its kernels build
+    on their own; a variant that keeps the values changes no arithmetic of
+    the cut kind (no phase skipped on ``d0 < 0``, no load replaced)."""
+    rel = kv.source_of(name)
+    assert rel == (kv.K7_SOURCE if name.startswith("k7_") else kv.SOURCE)
+    source = (kv.ROOT / kv.PACKAGE / rel).read_text()
     edited = kv.edit_source(source, name)
     assert edited != source
+    assert not any(mark in source for mark in kv.CUT_MARKS)
     keeps, _ = kv.VARIANTS[name]
-    assert keeps == ("d0 < 0" not in edited
-                     and "ex2 + 0.25f" not in edited
+    assert keeps == (not any(mark in edited for mark in kv.CUT_MARKS)
                      and "grad_rows(xbuf, ybuf, gs, k, np);" in edited)
     tree = kv.make_variant(name, tmp_path)
-    assert (tree / kv.PACKAGE / kv.SOURCE).read_text() == edited
+    assert (tree / kv.PACKAGE / rel).read_text() == edited
     assert (tree / kv.PACKAGE / "ops" / "_build.py").is_file()
+
+
+def test_kernel_variants_hold_k1_k4_k6_and_k7():
+    """The outputs ``--against`` compares bit for bit: K1's volume and K4's,
+    K6's and K7's gradients at every case, each of its shape and finite
+    (on the CPU the wrappers' plain versions give them)."""
+    cases = ((16, 48, 6, 3), (20, 40, 5, 5))
+    got = kv.kernel_outputs(cases, "cpu")
+    assert sorted(got) == sorted(f"{name} {H}x{W} D={D} k={k}"
+                                 for H, W, D, k in cases
+                                 for name in ("K1", "K4", "K6", "K7"))
+    for H, W, D, k in cases:
+        tag = f"{H}x{W} D={D} k={k}"
+        assert tuple(got[f"K1 {tag}"].shape) == (1, H, W, D + 1)
+        for name in ("K4", "K6", "K7"):
+            assert tuple(got[f"{name} {tag}"].shape) == (1, H, W)
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
 
 
 def test_kernel_variants_refuse_unknown_names_and_need_a_card(capsys):
@@ -80,3 +100,4 @@ def test_kernel_variants_refuse_unknown_names_and_need_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: this checks the path without one")
     assert kv.main([]) == 1
+    assert kv.main(["--ab", "build/parent", "--rounds", "2"]) == 1

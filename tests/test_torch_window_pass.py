@@ -1,6 +1,7 @@
-"""PyTorch port: the register-blocked window pass of K3, K3w, K3m, K4, K5
-and K6 (``csrc/common.cuh`` ``window_taps``, ``csrc/fused_pipeline.cu``,
-``csrc/fused_pipeline_bwd.cu``, ``csrc/camera_grad.cuh``).  The kernels
+"""PyTorch port: the register-blocked window pass of K1, K3, K3w, K3m, K4,
+K5, K6 and K7 (``csrc/common.cuh`` ``window_taps``,
+``csrc/fused_pipeline.cuh``, ``csrc/fused_pipeline_bwd.cu``,
+``csrc/camera_grad.cuh``, ``csrc/zncc_banded_proj_bwd.cu``).  The kernels
 need the card
 (``chip_smoke.py``); here their control flow is mirrored in Python and
 held to what the sources and the bound model say: every output takes its
@@ -28,6 +29,20 @@ PIN_K4_KITTI = {"madd": 2566914220, "smem": 2015143110, "exp": 210215200,
 PIN_K6_SMALL = {"madd": 792416, "smem": 1640464, "exp": 0, "rsqrt": 70784}
 PIN_K6_KITTI = {"madd": 2794654992, "smem": 2497244124, "exp": 0,
                 "rsqrt": 210215200}
+# K1's and K7's on the rounds of the register-blocked pass.
+PIN_K1_SMALL = {"madd": 289200, "smem": 736752, "exp": 0, "rsqrt": 39600}
+PIN_K1_KITTI = {"madd": 1895194440, "smem": 884046870, "exp": 0,
+                "rsqrt": 89889750}
+PIN_K7_SMALL = {"madd": 478576, "smem": 1102584, "exp": 0, "rsqrt": 47656}
+PIN_K7_KITTI = {"madd": 997857592, "smem": 1836900202, "exp": 0,
+                "rsqrt": 188070116}
+
+
+def _k7_combine_floats(k: int) -> int:
+    """Shared memory of K7's combine kernel in floats: three halo'd tiles
+    and their rows passes."""
+    p = k // 2
+    return 3 * (16 + 2 * p + 16) * (64 + 2 * p)
 
 
 def _const(text: str, name: str) -> int:
@@ -38,6 +53,9 @@ def test_blocking_constants_mirror_the_sources():
     common = (CSRC / "common.cuh").read_text()
     bwd = (CSRC / "fused_pipeline_bwd.cu").read_text()
     grad = (CSRC / "camera_grad.cuh").read_text()
+    proj = (CSRC / "zncc_banded_proj_bwd.cu").read_text()
+    volume = (CSRC / "zncc_banded.cu").read_text()
+    fused = (CSRC / "fused_pipeline.cuh").read_text()
     assert (_const(common, "kRoundRows"), _const(common, "kRoundCols")) == (
         km.ROUND_ROWS, km.ROUND_COLS)
     assert tuple(_const(bwd, n) for n in (
@@ -55,7 +73,22 @@ def test_blocking_constants_mirror_the_sources():
     while planes >= 1:
         assert f"case {planes}:" in grad and (
             f"launch_rounds<Source, kRecompute, {planes}>" in grad)
+        # K7's rounds kernel too.
+        assert f"case {planes}:" in proj and (
+            f"launch_proj_rounds<{planes}>" in proj)
         planes //= 2
+    # K1 is K3's rounds kernel without the head, through the shared
+    # launcher; neither it nor K7 runs K1's first pass any more, and K7's
+    # gr passes are camera_grad.cuh's.
+    assert "run_pipeline<false, false, true>(" in volume
+    assert '#include "fused_pipeline.cuh"' in volume
+    for text in (volume, fused, proj):
+        assert "vertical_products(" not in text
+        assert "vertical_sum(vsum" not in text
+    assert "horizontal_sum(" not in volume + fused
+    assert "grad_rows(xbuf, ybuf, gs, k, np);" in proj
+    assert "void grad_rows(" not in proj and "void ring_entry(" not in proj
+    assert "fused_round(k, D," in fused and "staging_chunk(" in common
     # K3's rows pass covers the tile height; gr's groups tile the tile.
     assert km.ROUND_ROWS == km.K_TILE_H and km.K_TILE_W % km.ROUND_COLS == 0
     assert km.K_TILE_H % km.GRAD_ROWS == 0
@@ -122,12 +155,18 @@ def test_groups_cover_every_line_without_reading_past_it(k):
 
 
 def test_shared_memory_of_the_blocks():
-    """The source notes' counts: K3 at KITTI 40,392 floats (13 planes a
-    round), K5 58,072 (5 planes a round, chunks of 125); K5's k limit
-    still 27; K3's largest D at k = 15 is 1704 (1739 on K1's pass)."""
-    assert km.round_planes(K, D) == 13
+    """The source notes' counts: K1 and K3 at KITTI 40,392 floats (13 planes
+    a round, the projector's 193 planes staged at once), K5 58,072 (5
+    planes a round, chunks of 125); K5's k limit still 27; past D = 782 at
+    k = 15 K1 and K3 stage the projector in chunks of 780 planes (60
+    rounds), so no D is refused (K3 stopped at 1704, K1 at 1739)."""
+    assert km.fused_round(K, D) == (13, D + 1)
     assert km.fused_block_floats(K, D) == 40392 <= LIMIT
-    assert km.round_planes(K, 1704) == 1 and km.round_planes(K, 1705) == 0
+    assert km.fused_round(K, 782) == (13, 783)
+    assert km.fused_round(K, 783) == (13, 780)
+    for d in (1704, 1705, 1739, 1740, 4000):
+        assert km.fused_round(K, d) == (13, 780)
+        assert km.fused_block_floats(K, d) == 30 * (156 + 779) + 13 * 2304
     assert km.halo_tile(K, 125, 5)["floats"] == 58072 <= LIMIT
     assert km.halo_tile(K5_MAX_KERNEL_SIZE, 1, 1)["floats"] == 54752
     assert km.halo_tile(K5_MAX_KERNEL_SIZE + 2, 1, 1)["floats"] == 59080
@@ -182,7 +221,7 @@ def test_rounds_fit_the_block(k):
     """A K3 round gives each thread at most one rows-pass column; a K5
     round at most one rows-pass item; both blocks fit 227 KB."""
     for d in (0, 6, 192, 600):
-        planes = km.round_planes(k, d)
+        planes, _ = km.fused_round(k, d)
         assert 1 <= planes <= d + 1
         assert planes == 1 or planes * (64 + 2 * (k // 2)) <= km.K_THREADS
         assert km.fused_block_floats(k, d) <= LIMIT
@@ -205,6 +244,10 @@ def test_window_pass_cost_counts_the_binding_pipe():
 
 
 @pytest.mark.parametrize("fn, shape, want", [
+    ("volume_forward_cost", (24, 150, 10, 5), PIN_K1_SMALL),
+    ("volume_forward_cost", (H, W, D, K), PIN_K1_KITTI),
+    ("projector_backward_cost", (24, 150, 10, 5), PIN_K7_SMALL),
+    ("projector_backward_cost", (H, W, D, K), PIN_K7_KITTI),
     ("fused_backward_c_cost", (24, 150, 10, 5), PIN_K4_SMALL),
     ("fused_backward_c_cost", (H, W, D, K), PIN_K4_KITTI),
     ("k6_cost", (24, 150, 10, 5), PIN_K6_SMALL),
@@ -220,13 +263,16 @@ def test_window_pass_cost_counts_the_binding_pipe():
      {"madd": 6255793512, "smem": 3515970318, "exp": 202857668,
       "rsqrt": 203908744})])
 def test_counts_of_the_redesigned_kernels(fn, shape, want):
-    """K3's, K4's, K5's and K6's counts at a small shape and at KITTI,
-    pinned: no ``boxadd`` (that is K1's pass), no volume written."""
+    """K1's, K3's, K4's, K5's, K6's and K7's counts at a small shape and at
+    KITTI, pinned: no ``boxadd`` (that is K1's first pass), no volume
+    written but K1's."""
     cost = (km.volume_backward_cost(*shape, with_cost=False)
             if fn == "k6_cost" else getattr(km, fn)(*shape))
     assert {m: cost[m] for m in want} == want and cost["boxadd"] == 0
     h, w, d, _ = shape
-    assert cost.bytes_w < 4 * (d + 1) * h * w
+    volume = 4 * (d + 1) * h * w
+    written = cost.bytes_w - (volume if fn == "volume_forward_cost" else 0)
+    assert 0 < written < volume
 
 
 def test_k5_needs_a_block_that_fits():
@@ -235,20 +281,46 @@ def test_k5_needs_a_block_that_fits():
 
 
 @pytest.mark.parametrize("kernel, fn, kwargs, want, bytes_rw", [
-    ("K1", "volume_forward_cost", {},
-     (382354290, 244987200, 0, 89889750, 4816787850), (11754000, 367587000)),
     ("K2", "volume_backward_cost", {},
      (1061238278, 1475555558, 0, 292747418, 3082567050),
-     (736461000, 15480000)),
-    ("K7", "projector_backward_cost", {},
-     (991405717, 1395186993, 0, 271507991, 3082567050),
-     (735927000, 14946000))])
+     (736461000, 15480000))])
 def test_kernels_on_k1s_pass_keep_their_counts(kernel, fn, kwargs, want,
                                                bytes_rw):
-    """K1, K2 and K7 keep K1's window pass, and their KITTI counts (madd,
-    smem, exp, rsqrt, boxadd; bytes read and written) are those the bound
-    model gave before the register-blocked pass."""
+    """K2 keeps K1's first window pass, and its KITTI counts (madd, smem,
+    exp, rsqrt, boxadd; bytes read and written) are those the bound model
+    gave before the register-blocked pass."""
     cost = getattr(km, fn)(H, W, D, K, **kwargs)
     got = tuple(int(cost[m]) for m in ("madd", "smem", "exp", "rsqrt",
                                        "boxadd"))
     assert got == want and (int(cost.bytes_r), int(cost.bytes_w)) == bytes_rw
+
+
+@pytest.mark.parametrize("k", list(range(3, 129, 2)))
+def test_k1_and_k7_take_every_k_at_every_d(k):
+    """K1 takes every odd k <= 127 at every D (the first version refused
+    D >= 1740 at k = 15): its mirrored round and projector chunk give at
+    least one plane, no more than D + 1, a chunk that is D + 1 or a
+    multiple of the round, and a block that fits 227 KB.  K7 takes every
+    odd k <= 93 at any D: its rounds fall as far as one plane (a power of
+    two up to kGradPlanes) and its block and its combine kernel's fit; from
+    k = 95 the combine kernel does not, as before its rounds."""
+    for d in (0, 192, 1739, 1740, 4000):
+        planes, chunk = km.fused_round(k, d)
+        assert 1 <= planes <= d + 1 and 1 <= chunk <= d + 1
+        assert chunk == d + 1 or chunk % planes == 0
+        assert km.fused_block_floats(k, d) <= LIMIT
+        if k > 93:
+            assert _k7_combine_floats(k) > LIMIT
+            continue
+        assert _k7_combine_floats(k) <= LIMIT
+        p7, c7 = km.grad_round(k, d, False, False)
+        assert 1 <= p7 <= km.GRAD_PLANES and p7 & (p7 - 1) == 0
+        assert p7 == 1 or p7 <= d + 1
+        assert c7 == d + 1
+        assert km.grad_round_tile(k, 1, p7, head=False,
+                                  recompute=False)["floats"] <= LIMIT
+    # K1's block at k = 127: one plane a round and a one-plane chunk, 56
+    # floats under the limit; k = 129 does not fit (nor did it before).
+    if k == 127:
+        assert km.fused_round(k, 4000) == (1, 1)
+        assert km.fused_block_floats(k, 4000) == 58056 == LIMIT - 56
