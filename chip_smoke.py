@@ -24,7 +24,9 @@ imports nothing of JAX.  Phases, each printing its lines:
    ``StereoEngine`` serving 8 KITTI-size frames; the kernel counters must
    rise by the number of calls and the plain versions must not run;
 6. K2 (camera VJP) against the plain closed form, the same random
-   cotangent fed to both, at entry()'s shape and at KITTI too;
+   cotangent fed to both, at the small shapes, entry()'s shape, KITTI and
+   k = 31, 47 and 127 (rounds of 8, 4 and 1 planes; at k = 127 the
+   combine filters its three maps one at a time);
 7. K3w (training forward): its volume against the plain volume, its four
    maps bit-equal to K3's, its argmax, s and t against the plain head;
    and at beta = 1 its volume bit-equal to K1's on the same pair (K1 is
@@ -41,7 +43,8 @@ imports nothing of JAX.  Phases, each printing its lines:
    the counted run, entry()'s camera gradient against the plain VJP fed
    the same head cotangent;
 10. K8 (all-pairs volume) against its plain version at the JAX suite's
-    shapes, a batch, the 330x422 verify shape and 375x1242 (the wide y
+    shapes, a batch, the 330x422 verify shape at k = 3, 15 and 129, a
+    width that is no multiple of the block tile and 375x1242 (the wide y
     extent);
 11. K7 (projector VJP) against the plain closed form on the same cost and
     cotangent, at the JAX suite's shapes, a batch, the edge shapes of phase
@@ -59,8 +62,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     plane-major cotangent, and the parity one staged by K9b) against the
     plain closed form on the same cotangent, at the small shapes, the
     edge shapes of phase 4, k = 31 and 47, a D whose projector tile is
-    staged in chunks, and KITTI, and against K2 (with the cost residual)
-    at the last two (printed whether bit-equal);
+    staged in chunks, and KITTI, and bit-equal to K2 (with the cost
+    residual) at the last two;
 15. K9a and K9b (layout conversions) bit-equal to ``permute().contiguous()``;
 16. K3m (volume-free training forward): its four maps bit-equal to K3's,
     its argmax, s and t bit-equal to K3w's, no volume;
@@ -101,9 +104,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     3.35 TB/s and the least operations its function needs (window sums
     taken separably) over 67 TFLOP/s (``utils/profiling.py``), and its
     model bound, its counted work priced at the rates of phase 22
-    (``utils/kernel_model.py``), which no kernel may beat; K1, K3, K3w,
-    K3m, K4, K5, K6 and K7 beside their times before the register-blocked
-    pass (``MS_BEFORE``).
+    (``utils/kernel_model.py``), which no kernel may beat; K1-K8 beside
+    their times before their redesigns (``MS_BEFORE``).
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -221,11 +223,12 @@ GRAD_RTOL, GRAD_ATOL, GRAD_NORM_REL = 1e-3, 1e-6, 1e-4
 # 4 x iters elementwise calls.
 K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
 K10A_TIMED_ITERS = 1024
-# Device ms at KITTI of the kernels the register-blocked window pass
-# replaced, on K1's first per-plane pass (NVIDIA H100 80GB HBM3 at 700.00 W;
-# PERF.md gives the runs).
+# Device ms of the kernels before their redesigns (at KITTI; K8 at
+# 330x422): K1-K7 on K1's first per-plane pass, K8 summing every output's
+# k^2 products (NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md gives the runs).
 MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410,
-             "K4": 2.3372, "K6": 4.0753, "K1": 1.4628, "K7": 2.3561}
+             "K4": 2.3372, "K6": 4.0753, "K1": 1.4628, "K7": 2.3561,
+             "K2": 2.2018, "K8": 1.2642}
 
 
 def require(ok: bool, what: str) -> None:
@@ -564,9 +567,16 @@ def compare_grad(got, want, label: str, elementwise: bool,
     return max_abs
 
 
+# K2 at larger k: rounds of 8, 4 and 1 planes; at k = 127 its combine
+# kernel box-filters the three maps one at a time (the three tiles
+# together fit up to k = 93).
+K2_LARGE_K = [(1, 40, 200, 24, k) for k in (31, 47, 127)]
+
+
 def phase_k2() -> float:
     err = 0.0
-    for i, (B, H, W, D, k) in enumerate(SHAPES + [ENTRY, (1,) + KITTI]):
+    shapes = SHAPES + [ENTRY, (1,) + KITTI] + K2_LARGE_K
+    for i, (B, H, W, D, k) in enumerate(shapes):
         cam, proj = uniform_pair(200 + i, B, H, W)
         # A random cotangent at the scale of a mean loss over the frame's
         # pixels (1 / (H W)), the regime of the JAX suite's tolerance.
@@ -580,7 +590,8 @@ def phase_k2() -> float:
                                   EPS)
         kitti = (H, W, D, k) == KITTI
         err = max(err, compare_grad(
-            got, want, f"K2 B={B} H={H} W={W} D={D} k={k}",
+            got, want, f"K2 B={B} H={H} W={W} D={D} k={k} (round "
+            f"{km.grad_round(k, D, False, False)[0]})",
             elementwise=not kitti))
         del g, cost, got, want
     return err
@@ -808,9 +819,15 @@ def phase_train_path() -> dict:
     return counts
 
 
+# K8 at the verify shape's height: k = 3 and 129 (the largest the JAX
+# op's shapes reach), and a width that is no multiple of the block tile.
+AP_EXTRA = [(1, 330, 422, 3), (1, 330, 422, 129), (1, 330, 401, 15)]
+
+
 def phase_k8() -> float:
     err = 0.0
-    for i, (B, H, W, k) in enumerate(AP_SHAPES + [(1,) + VERIFY, AP_WIDE]):
+    shapes = AP_SHAPES + [(1,) + VERIFY] + AP_EXTRA + [AP_WIDE]
+    for i, (B, H, W, k) in enumerate(shapes):
         cam, proj = uniform_pair(500 + i, B, H, W)
         got = cost_volume_allpairs_cuda(cam, proj, k, EPS)
         want = forward_allpairs(cam, proj, k, EPS)
@@ -1004,8 +1021,9 @@ def phase_k6() -> float:
                 cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
             compare_grad(got, with_cost, f"K6 against K2 (cost residual) "
                          f"{label}", elementwise=False)
-            print(f"K6 {label}: bit-equal to K2: "
-                  f"{torch.equal(got, with_cost)}")
+            same = torch.equal(got, with_cost)
+            print(f"K6 {label}: bit-equal to K2: {same}")
+            require(same, f"K6 {label} bit-equal to K2")
             del cost, with_cost
         del g, g_parity, want, got, got_p
     return err

@@ -21,26 +21,26 @@
 // projector statistics at columns x - d < 0 come from the D-widened
 // statistics pass and are not zero there; proj(x - d) is.
 //
-// Three kernels:
-//   1. camera_grad_planes_kernel (K2): one block per kTileH x kTileW pixel
-//      tile walks d = 0..D.  Per plane it forms gr_d over the halo'd tile
-//      in shared memory, box-sums it with K1's pass (rows, then columns),
-//      and accumulates A1, B and GRMU of its own pixels in registers, three
-//      barriers a plane; it writes the three [B, H, W] fields once.
-//   2. camera_grad_rounds_kernel (K4, K6): the same fields, the planes in
-//      rounds of P on the register-blocked window pass of common.cuh
-//      (window_taps), as K5 runs them (fused_pipeline_bwd.cu).  A round:
+// Two kernels:
+//   1. camera_grad_rounds_kernel (K2, K4, K6): A1, B and GRMU of a
+//      kTileH x kTileW pixel tile, the planes d = 0..D in rounds of P on
+//      the register-blocked window pass of common.cuh (window_taps), as K5
+//      runs them (fused_pipeline_bwd.cu).  Where the cost c_d comes from is
+//      the instantiation's: read at every halo entry as the source's
+//      volume (K4, which forms g_d from it), recomputed on the tile's own
+//      pixels (K6), or read there from a second volume beside the
+//      cotangent (K2).  A round:
 //        a. (K6) the cost's cross term on the tile's own pixels: K3's
 //           round_products and round_column_sums (common.cuh), the
 //           projector tile staged in chunks of planes, so any D runs;
 //        b. gr_d at every halo entry for the round's P planes: an entry
 //           reads its constants (ex2 and the source's maps) once a round
 //           and issues its P planes' global loads (the cost or the
-//           cotangent, ey2; at the tile's own pixels also sy) before it
-//           uses the first.  The tile's own pixels are their own threads'
-//           entries, which add B and GRMU in registers from the same c_d
-//           and r_d; the ring of the halo around them is spread over the
-//           block;
+//           cotangent, ey2; at the tile's own pixels also sy, and for K2
+//           the cost) before it uses the first.  The tile's own pixels
+//           are their own threads' entries, which add B and GRMU in
+//           registers from the same c_d and r_d; the ring of the halo
+//           around them is spread over the block;
 //        c. gr's rows pass and column sums (grad_rows, grad_column_sums,
 //           which K5 runs too);
 //        d. A1 of each pixel, by its thread, in plane order.
@@ -49,40 +49,25 @@
 //      or the largest power of two below it whose buffers fit), so the
 //      per-plane loops have a fixed count; a short last round is
 //      predicated.
-//   3. camera_grad_combine_kernel: the three [H, W] box filters and the
-//      final sum.
+//   2. camera_grad_combine_kernel: the three [H, W] box filters and the
+//      final sum, the three maps staged together, or one after another
+//      where their tiles do not fit together (k > 93).
 // Every output of every pass adds its taps in K1's order, and A1, B and
-// GRMU accumulate in plane order, so both kernels give the same values bit
-// for bit: K6, recomputing the cost, gives K2's gradient on one cotangent.
+// GRMU accumulate in plane order, so the three instantiations give the
+// same values bit for bit: K6, recomputing the cost, gives K2's gradient
+// on one cotangent.
 //
 // What bounds it on the H100: with the cost read from memory, the cost
 // (and for K2 the cotangent) volume is read once, 360 MB a KITTI frame
 // each (about 0.11 ms at 3.35 TB/s); the halo'd gr tile re-reads a
 // neighbour's values through L2.  Beyond that the window passes and, at
-// every halo entry and plane, an rsqrt (K4 also an exp).  K2's per-plane
-// passes stall the block behind three barriers a plane on each plane's
-// global loads; a round issues P planes of loads at once and passes its
-// four to six barriers once for P planes.
+// every halo entry and plane, an rsqrt (K4 also an exp).
 #pragma once
 
 #include "common.cuh"
 
 namespace custereo {
 namespace {
-
-// Shared-memory geometry of the planes kernel (K2), in floats: the camera
-// second moment and the gr_d plane over the halo'd tile (rows x cam_w
-// each), then the rows pass (kTileH x cam_w).
-struct GradTile {
-  int p, rows, cam_w;
-  __host__ __device__ explicit GradTile(int k)
-      : p(k / 2), rows(kTileH + 2 * (k / 2)), cam_w(kTileW + 2 * (k / 2)) {}
-  __host__ __device__ int halo() const { return rows * cam_w; }
-  __host__ __device__ size_t floats() const {
-    return 2 * static_cast<size_t>(halo()) +
-           static_cast<size_t>(kTileH) * cam_w;
-  }
-};
 
 // Rows pass of one halo'd tile: vsum[r][c] = sum_{t<k} tile[r + t][c] for
 // r < kTileH, c < width (i = r * width + c, so tile[(r + t) * width + c]
@@ -95,94 +80,6 @@ __device__ inline void vertical_sum(float* vsum, const float* tile,
     for (int t = 0; t < k; ++t) acc += a[t * width];
     vsum[i] = acc;
   }
-}
-
-// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads; dynamic
-// shared memory GradTile(k).floats() floats.  The cotangent `cot` and the
-// cost are plane-major [B, D + 1, H, W] volumes (K2).
-__global__ void __launch_bounds__(kThreads)
-    camera_grad_planes_kernel(const float* __restrict__ cot,
-                              const float* __restrict__ projector,
-                              const float* __restrict__ cam_e2,
-                              const float* __restrict__ proj_s,
-                              const float* __restrict__ proj_e2,
-                              const float* __restrict__ cost,
-                              float* __restrict__ a1_out,
-                              float* __restrict__ b_out,
-                              float* __restrict__ grmu_out, int H, int W,
-                              int D, int k, float eps) {
-  extern __shared__ float smem[];
-  const GradTile g(k);
-  const int halo = g.halo();
-  float* ex2_t = smem;
-  float* gr_t = ex2_t + halo;
-  float* vsum = gr_t + halo;
-
-  const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t frame = static_cast<size_t>(b) * plane;
-  const size_t stats_w = static_cast<size_t>(W) + D;
-  const float* cost_b = cost + static_cast<size_t>(b) * (D + 1) * plane;
-  const float* cot_b = cot + static_cast<size_t>(b) * (D + 1) * plane;
-  const float inv_k2 = 1.f / static_cast<float>(k * k);
-
-  // The camera's second moment over the halo'd tile, zero outside the
-  // image.
-  for (int i = threadIdx.x; i < halo; i += blockDim.x) {
-    const int rr = i / g.cam_w, cc = i - rr * g.cam_w;
-    const int y = h0 - g.p + rr, xx = w0 - g.p + cc;
-    const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
-    ex2_t[i] = inside ? __ldg(cam_e2 + frame + static_cast<size_t>(y) * W +
-                              xx)
-                      : 0.f;
-  }
-
-  const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
-  const int h = h0 + r, w = w0 + c;
-  const bool valid = h < H && w < W;
-  const int centre = (r + g.p) * g.cam_w + c + g.p;
-  // Image column x of the projector statistics sits at index x + D.
-  const size_t o = frame + static_cast<size_t>(h) * W + w;
-  const size_t stats_row = (static_cast<size_t>(b) * H + h) * stats_w + D + w;
-  float a1 = 0.f, bacc = 0.f, grmu = 0.f;
-  __syncthreads();
-
-  for (int d = 0; d <= D; ++d) {
-    for (int i = threadIdx.x; i < halo; i += blockDim.x) {
-      const int rr = i / g.cam_w, cc = i - rr * g.cam_w;
-      const int y = h0 - g.p + rr, xx = w0 - g.p + cc;
-      float v = 0.f;
-      if (y >= 0 && y < H && xx >= 0 && xx < W) {
-        const size_t px = static_cast<size_t>(y) * W + xx;
-        const size_t srow =
-            (static_cast<size_t>(b) * H + y) * stats_w + D + xx - d;
-        const float ri = rsqrtf(ex2_t[i] * __ldg(proj_e2 + srow) + eps);
-        v = __ldg(cot_b + d * plane + px) * ri;
-      }
-      gr_t[i] = v;
-    }
-    __syncthreads();
-    vertical_sum(vsum, gr_t, g.cam_w, k);
-    __syncthreads();
-    if (valid) {
-      const float box = horizontal_sum(vsum, g.cam_w, r, c, k);
-      const float pj = w >= d ? __ldg(projector + o - d) : 0.f;
-      a1 = fmaf(box, pj, a1);
-      const float gr = gr_t[centre];
-      const float e2 = __ldg(proj_e2 + stats_row - d);
-      const float sy = __ldg(proj_s + stats_row - d);
-      const float rc = rsqrtf(ex2_t[centre] * e2 + eps);
-      const float cv = __ldg(cost_b + d * plane + (o - frame));
-      bacc = fmaf(gr * cv, rc * e2, bacc);
-      grmu = fmaf(gr, sy * inv_k2, grmu);
-    }
-    __syncthreads();
-  }
-
-  if (!valid) return;
-  a1_out[o] = a1;
-  b_out[o] = bacc;
-  grmu_out[o] = grmu;
 }
 
 // ---------------------------------------------------------------------------
@@ -325,11 +222,13 @@ __device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
 }
 
 // Source: the cotangent plane.
-//   kMaps       halo'd tiles of per-pixel constants it stages
-//   kReadsCost  whether its volume is the cost, g_d formed from it (K4),
-//               or the cotangent itself (K6)
-//   vol         the plane-major [B, D + 1, H, W] volume it reads at every
-//               halo entry and plane
+//   kMaps        halo'd tiles of per-pixel constants it stages
+//   kReadsCost   whether its volume is the cost, g_d formed from it (K4),
+//                or the cotangent itself (K2, K6)
+//   kCentreCost  whether it reads the cost c_d at the tile's own pixels
+//                from a second plane-major volume, `cost` (K2)
+//   vol          the plane-major [B, D + 1, H, W] volume it reads at every
+//                halo entry and plane
 //   stage(maps, halo, i, pix, inside)  fill entry i of its tiles
 //   Entry, entry(maps, halo, i)        entry i's staged constants
 //   cotangent(entry, v, df)            g_d from them and vol's value v
@@ -339,8 +238,9 @@ __device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
 // kRecompute, chunk, P).floats() floats.  kRecompute: the cost is
 // recomputed from camera and projector on the tile's own pixels, the
 // projector tile staged anew every `chunk` planes (K6, whose source reads
-// the cotangent); otherwise the source's volume is the cost (K4), and
-// camera, cam_s and `chunk` are unused.
+// the cotangent); otherwise the source's volume is the cost (K4) or the
+// source reads it at the tile's own pixels (K2), and camera, cam_s and
+// `chunk` are unused.
 template <class Source, bool kRecompute, int P>
 __global__ void __launch_bounds__(kThreads, 1)
     camera_grad_rounds_kernel(Source src, const float* __restrict__ camera,
@@ -353,8 +253,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                               float* __restrict__ b_out,
                               float* __restrict__ grmu_out, int H, int W,
                               int D, int k, int chunk, float eps) {
-  static_assert(kRecompute != Source::kReadsCost,
-                "the cost is read by the source (K4) or recomputed (K6)");
+  static_assert(int(Source::kReadsCost) + int(kRecompute) +
+                        int(Source::kCentreCost) ==
+                    1,
+                "the cost is the source's volume (K4), recomputed (K6) or "
+                "read at the tile's own pixels (K2)");
   extern __shared__ float smem[];
   const GradRoundTile x(k, 1 + Source::kMaps, kRecompute, chunk, P);
   const GradStrides gs = x.strides();
@@ -432,13 +335,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (valid) {
       const auto e = src.entry(maps, halo, centre);
       const float ex2 = ex2_t[centre];
-      float ey2[P], sy[P], v[P];
+      float ey2[P], sy[P], v[P], cost[P];
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const int d = min(d0 + j, D);
         ey2[j] = __ldg(proj_e2 + stats_row - d);
         sy[j] = __ldg(proj_s + stats_row - d);
         v[j] = __ldg(vol_b + d * plane + (o - frame));
+        if constexpr (Source::kCentreCost)
+          cost[j] = __ldg(src.cost +
+                          (static_cast<size_t>(b) * (D + 1) + d) * plane +
+                          (o - frame));
       }
 #pragma unroll
       for (int j = 0; j < P; ++j) {
@@ -446,6 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float gr =
             src.cotangent(e, v[j], static_cast<float>(d0 + j)) * ri;
         float cv = v[j];
+        if constexpr (Source::kCentreCost) cv = cost[j];
         if constexpr (kRecompute)
           cv = (xbuf[j * rt.box_floats() + r * rt.bs + c] - mux * sy[j] +
                 eps) *
@@ -520,8 +428,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // grad = A1 - box(GRMU) + box(B mux) - cam * box(B), the boxes reading
-// zeros outside the image.  Grid: (ceil(W / kTileW), ceil(H / kTileH), B);
-// dynamic shared memory 3 * (rows * cols + kTileH * cols) floats.
+// zeros outside the image.  The three maps are box-filtered kAtOnce at a
+// time (3, or 1 where three tiles do not fit), each in the same order.
+// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); dynamic shared memory
+// combine_floats(k, kAtOnce) floats.
+inline size_t combine_floats(int k, int at_once) {
+  const size_t p = k / 2, cols = kTileW + 2 * p;
+  return at_once * ((kTileH + 2 * p) * cols + kTileH * cols);
+}
+
+template <int kAtOnce>
 __global__ void __launch_bounds__(kThreads)
     camera_grad_combine_kernel(const float* __restrict__ camera,
                                const float* __restrict__ cam_s,
@@ -530,47 +446,56 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ grmu,
                                float* __restrict__ grad, int H, int W,
                                int k) {
+  static_assert(3 % kAtOnce == 0, "the maps go in whole groups");
   extern __shared__ float smem[];
   const int p = k / 2, rows = kTileH + 2 * p, cols = kTileW + 2 * p;
   const int halo = rows * cols, vsz = kTileH * cols;
-  float* t_grmu = smem;
-  float* t_bmu = t_grmu + halo;
-  float* t_b = t_bmu + halo;
-  float* v_grmu = t_b + halo;
-  float* v_bmu = v_grmu + vsz;
-  float* v_b = v_bmu + vsz;
+  float* tiles = smem;
+  float* vsums = tiles + kAtOnce * halo;
   const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
   const size_t frame = static_cast<size_t>(b) * H * W;
   const float inv_k2 = 1.f / static_cast<float>(k * k);
-
-  for (int i = threadIdx.x; i < halo; i += blockDim.x) {
-    const int rr = i / cols, cc = i - rr * cols;
-    const int y = h0 - p + rr, x = w0 - p + cc;
-    float vg = 0.f, vbm = 0.f, vb = 0.f;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      const size_t pix = frame + static_cast<size_t>(y) * W + x;
-      vg = __ldg(grmu + pix);
-      vb = __ldg(bm + pix);
-      vbm = vb * (__ldg(cam_s + pix) * inv_k2);
-    }
-    t_grmu[i] = vg;
-    t_bmu[i] = vbm;
-    t_b[i] = vb;
-  }
-  __syncthreads();
-  vertical_sum(v_grmu, t_grmu, cols, k);
-  vertical_sum(v_bmu, t_bmu, cols, k);
-  vertical_sum(v_b, t_b, cols, k);
-  __syncthreads();
-
   const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
+  // box(GRMU), box(B mux), box(B) at the thread's pixel.
+  float s[3];
+
+#pragma unroll
+  for (int m0 = 0; m0 < 3; m0 += kAtOnce) {
+    // The group before has read its tiles.
+    if (m0 > 0) __syncthreads();
+    for (int i = threadIdx.x; i < halo; i += blockDim.x) {
+      const int rr = i / cols, cc = i - rr * cols;
+      const int y = h0 - p + rr, x = w0 - p + cc;
+      const bool inside = y >= 0 && y < H && x >= 0 && x < W;
+      const size_t pix = frame + static_cast<size_t>(y) * W + x;
+#pragma unroll
+      for (int m = m0; m < m0 + kAtOnce; ++m) {
+        float v = 0.f;
+        if (inside) {
+          if (m == 0)
+            v = __ldg(grmu + pix);
+          else if (m == 1)
+            v = __ldg(bm + pix) * (__ldg(cam_s + pix) * inv_k2);
+          else
+            v = __ldg(bm + pix);
+        }
+        tiles[(m - m0) * halo + i] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kAtOnce; ++m)
+      vertical_sum(vsums + m * vsz, tiles + m * halo, cols, k);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kAtOnce; ++m)
+      s[m0 + m] = horizontal_sum(vsums + m * vsz, cols, r, c, k);
+  }
+
   const int h = h0 + r, w = w0 + c;
   if (h >= H || w >= W) return;
   const size_t o = frame + static_cast<size_t>(h) * W + w;
-  const float s_grmu = horizontal_sum(v_grmu, cols, r, c, k);
-  const float s_bmu = horizontal_sum(v_bmu, cols, r, c, k);
-  const float s_b = horizontal_sum(v_b, cols, r, c, k);
-  grad[o] = (a1[o] - s_grmu) + (s_bmu - camera[o] * s_b);
+  grad[o] = (a1[o] - s[0]) + (s[1] - camera[o] * s[2]);
 }
 
 // The opt-in shared memory a block of the current device may hold, in
@@ -599,47 +524,24 @@ inline cudaError_t launch_grad_stats(const float* camera,
                           1.f, stream);
 }
 
+// The combine, its three maps together where their tiles fit in `budget`
+// floats, else one at a time.
 inline cudaError_t launch_grad_combine(const float* camera,
                                        const float* cam_s, const float* a1,
                                        const float* bm, const float* grmu,
                                        float* grad, int B, int H, int W,
-                                       int k, cudaStream_t stream) {
+                                       int k, size_t budget,
+                                       cudaStream_t stream) {
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  const int p = k / 2;
-  const size_t cols = kTileW + 2 * p;
-  const size_t combine_bytes =
-      sizeof(float) * 3 * ((kTileH + 2 * p) * cols + kTileH * cols);
-  const cudaError_t e = allow_smem(camera_grad_combine_kernel, combine_bytes);
+  const bool together = combine_floats(k, 3) <= budget;
+  const size_t bytes = combine_floats(k, together ? 3 : 1) * sizeof(float);
+  auto kernel = together ? camera_grad_combine_kernel<3>
+                         : camera_grad_combine_kernel<1>;
+  const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
-  camera_grad_combine_kernel<<<grid, kThreads, combine_bytes, stream>>>(
-      camera, cam_s, a1, bm, grmu, grad, H, W, k);
+  kernel<<<grid, kThreads, bytes, stream>>>(camera, cam_s, a1, bm, grmu,
+                                            grad, H, W, k);
   return cudaGetLastError();
-}
-
-// K2: the statistics passes, the planes kernel and the combine.  Scratch:
-// cam_s/cam_e2 [B, H, W], proj_s/proj_e2 [B, H, W + D], a1/bm/grmu
-// [B, H, W].
-inline cudaError_t launch_camera_grad(const float* cot, const float* camera,
-                                      const float* projector, float* cam_s,
-                                      float* cam_e2, float* proj_s,
-                                      float* proj_e2, const float* cost,
-                                      float* a1, float* bm, float* grmu,
-                                      float* grad, int B, int H, int W, int D,
-                                      int k, float eps, cudaStream_t stream) {
-  cudaError_t e = launch_grad_stats(camera, projector, cam_s, cam_e2, proj_s,
-                                    proj_e2, B, H, W, D, k, stream);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  const size_t bytes = GradTile(k).floats() * sizeof(float);
-  e = allow_smem(camera_grad_planes_kernel, bytes);
-  if (e != cudaSuccess) return e;
-  camera_grad_planes_kernel<<<grid, kThreads, bytes, stream>>>(
-      cot, projector, cam_e2, proj_s, proj_e2, cost, a1, bm, grmu, H, W, D, k,
-      eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
-                             stream);
 }
 
 template <class Source, bool kRecompute, int P>
@@ -662,8 +564,9 @@ cudaError_t launch_rounds(const Source& src, const float* camera,
   return cudaGetLastError();
 }
 
-// K4 and K6: the statistics passes, the rounds kernel at the planes a
-// round grad_round gives, and the combine.  Scratch as launch_camera_grad.
+// K2, K4 and K6: the statistics passes, the rounds kernel at the planes a
+// round grad_round gives, and the combine.  Scratch: cam_s/cam_e2
+// [B, H, W], proj_s/proj_e2 [B, H, W + D], a1/bm/grmu [B, H, W].
 template <class Source, bool kRecompute>
 cudaError_t launch_camera_grad_rounds(const Source& src, const float* camera,
                                       const float* projector, float* cam_s,
@@ -708,7 +611,7 @@ cudaError_t launch_camera_grad_rounds(const Source& src, const float* camera,
   }
   if (e != cudaSuccess) return e;
   return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
-                             stream);
+                             budget, stream);
 }
 
 }  // namespace

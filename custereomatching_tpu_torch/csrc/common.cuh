@@ -53,10 +53,9 @@ __device__ inline void stage_tile(float* dst, const float* __restrict__ src,
   }
 }
 
-// K1's first window pass, which K2's planes kernel (vertical_sum and
-// horizontal_sum, camera_grad.cuh) and the boxadd rate probe
-// (rate_probes.cu) still run.  Rows pass of one disparity plane's cross
-// term:
+// K1's first window pass, which the boxadd rate probe (rate_probes.cu)
+// still runs, and whose columns pass the statistics and combine kernels
+// run.  Rows pass of one disparity plane's cross term:
 //   vsum[r][c] = sum_{t<k} cam_t[r+t][c] * proj_t[r+t][c + shift]
 // for r < kTileH, c < cam_w.  Camera tile column c pairs with projector
 // tile column c + D - d for disparity d, so shift = D - d.
@@ -84,8 +83,9 @@ __device__ inline float horizontal_sum(const float* vsum, int cam_w, int r,
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked window pass (K1, K3, K3w, K3m, K4, K5, K6 and K7).
-// K2 and the boxadd rate probe keep the pass above.
+// The register-blocked window pass (K1, K2, K3, K3w, K3m, K4, K5, K6, K7
+// and, over whole row products, K8).  The boxadd rate probe keeps the pass
+// above.
 //
 // One work item makes N adjacent outputs of a window of k taps along one
 // line (a column of rows, or a row of columns) from N + k - 1 loads of each
@@ -108,47 +108,60 @@ __device__ __forceinline__ float window_tap(float acc, float x, float y) {
     return acc + x;
 }
 
+// The loop structure of window_taps for any types: entry i of a line is
+// load(i), and tap(acc[n], entry) adds it to output n, each output's taps
+// t = 0..k-1 in order.  K8 (zncc_allpairs.cu) sums whole register
+// tiles of row products so.
+template <int N, class T, class Load, class Tap>
+__device__ __forceinline__ void window_sweep(T (&acc)[N], int k,
+                                             const Load& load,
+                                             const Tap& tap) {
+  if (k >= N - 1) {
+#pragma unroll
+    for (int i = 0; i < N - 1; ++i) {
+      const auto x = load(i);
+#pragma unroll
+      for (int n = 0; n <= i; ++n) tap(acc[n], x);
+    }
+#pragma unroll 2
+    for (int i = N - 1; i < k; ++i) {
+      const auto x = load(i);
+#pragma unroll
+      for (int n = 0; n < N; ++n) tap(acc[n], x);
+    }
+#pragma unroll
+    for (int j = 0; j < N - 1; ++j) {
+      const auto x = load(k + j);
+#pragma unroll
+      for (int n = j + 1; n < N; ++n) tap(acc[n], x);
+    }
+  } else {
+    for (int i = 0; i < N - 1 + k; ++i) {
+      const auto x = load(i);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int t = i - n;
+        if (t >= 0 && t < k) tap(acc[n], x);
+      }
+    }
+  }
+}
+
 template <int N, bool kProducts>
 __device__ __forceinline__ void window_taps(float (&acc)[N], const float* a,
                                             int as, const float* b, int bs,
                                             int k) {
 #pragma unroll
   for (int n = 0; n < N; ++n) acc[n] = 0.f;
-  auto load = [&](int i, float& x, float& y) {
-    x = a[i * as];
-    if constexpr (kProducts) y = b[i * bs];
+  struct Entry {
+    float x, y;
   };
-  float x, y = 0.f;
-  if (k >= N - 1) {
-#pragma unroll
-    for (int i = 0; i < N - 1; ++i) {
-      load(i, x, y);
-#pragma unroll
-      for (int n = 0; n <= i; ++n) acc[n] = window_tap<kProducts>(acc[n], x, y);
-    }
-#pragma unroll 2
-    for (int i = N - 1; i < k; ++i) {
-      load(i, x, y);
-#pragma unroll
-      for (int n = 0; n < N; ++n) acc[n] = window_tap<kProducts>(acc[n], x, y);
-    }
-#pragma unroll
-    for (int j = 0; j < N - 1; ++j) {
-      load(k + j, x, y);
-#pragma unroll
-      for (int n = j + 1; n < N; ++n)
-        acc[n] = window_tap<kProducts>(acc[n], x, y);
-    }
-  } else {
-    for (int i = 0; i < N - 1 + k; ++i) {
-      load(i, x, y);
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const int t = i - n;
-        if (t >= 0 && t < k) acc[n] = window_tap<kProducts>(acc[n], x, y);
-      }
-    }
-  }
+  window_sweep(
+      acc, k,
+      [&](int i) { return Entry{a[i * as], kProducts ? b[i * bs] : 0.f}; },
+      [](float& s, const Entry& e) {
+        s = window_tap<kProducts>(s, e.x, e.y);
+      });
 }
 
 // The first output of group q of a line of `len` outputs cut in groups of

@@ -96,6 +96,7 @@ struct HeadSource {
   // Staged tiles: gs_hat mask beta, t/s, 1/s, am, gc_hat, conf.
   static constexpr int kMaps = 6;
   static constexpr bool kReadsCost = true;
+  static constexpr bool kCentreCost = false;
   const float *am, *mask, *conf, *s, *t, *gsoft, *gconf;
   float beta;
   // The cost volume (K4; K5 recomputes the cost and leaves it null).
@@ -429,7 +430,7 @@ cudaError_t launch_fused_bwd_halo(const HeadSource<kUnnormalized>& src,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
-                             stream);
+                             budget, stream);
 }
 
 template <bool kUnnormalized, bool kRecompute>

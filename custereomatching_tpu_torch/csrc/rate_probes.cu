@@ -20,9 +20,10 @@
 // the TPU's lshift/sshift: there a shifted slice is a relayout, here the
 // window sums' neighbour reads are shared-memory loads (common.cuh), so the
 // offset moves every iteration and no load is loop-invariant.  boxadd runs
-// one per-plane pass of common.cuh (K1's first pass, which K2 still runs)
-// at its geometry (16 x 64 pixels, k = 15, D = 192, 1024 threads, 46,752
-// bytes of shared memory: two blocks an SM): vertical_products, a barrier,
+// one per-plane pass of common.cuh (K1's first pass: no kernel runs it any
+// more, and JAX's bound model keeps the class) at its geometry (16 x 64
+// pixels, k = 15, D = 192, 1024 threads, 46,752 bytes of shared memory:
+// two blocks an SM): vertical_products, a barrier,
 // horizontal_sum, a barrier, over camera and projector tiles staged with
 // `fill` (0.125), so box = 225 * 0.015625 exactly, the value of JAX's
 // boxadd.  The shift walks the planes as that pass does.

@@ -8,35 +8,40 @@
 // pallas_camera_grad_banded, direct_g=False, whose restaged [H, W, D+1]
 // cotangent the port stages plane-major with K9b).  The cotangent g (and
 // for K2 the cost c) arrive plane-major, [B, D+1, H, W], the layout K1
-// writes; the bodies (the accumulation of A1, B and GRMU and the combine)
-// are camera_grad.cuh's.  K2 runs its planes kernel, on K1's per-plane
-// pass.  K6 runs its rounds kernel, shared with K4: a round of P planes
-// recomputes the cost's cross term on K1's 16 x 64 tile for the B term
-// (K3's round), forms gr_d = g_d r_d over the halo'd tile, box-sums it on
-// the register-blocked pass and adds A1.  At k = 15, D = 192: P = 8, ex2
-// and the camera tile (30 x 78 each), the projector tile 30 x (78 + 192)
-// and 8 planes of the two buffers (30 x 79 + 16 x 79): 41,852 floats =
-// 167,408 bytes; past the card's limit the projector tile is staged in
-// chunks of planes, so any D runs, and k runs up to 81 at P = 1.
+// writes.  Both run camera_grad.cuh's rounds kernel, which K4 shares: a
+// round of P planes forms gr_d = g_d r_d over the halo'd 16 x 64 tile,
+// box-sums it on the register-blocked pass and adds A1; the tile's own
+// pixels add B from the cost, which K2 reads there from its volume (the
+// P planes' loads issued with the cotangent's) and K6 recomputes (K3's
+// cross-term round).  At k = 15, D = 192 both take P = 8: K2 holds ex2 (30
+// x 78) and 8 planes of the two buffers (30 x 79 + 16 x 79), 31,412
+// floats = 125,648 bytes; K6 also the camera tile and the projector tile
+// 30 x (78 + 192), 41,852 floats = 167,408 bytes, and past the card's
+// limit stages the projector in chunks of planes, so any D runs.  K2
+// takes every odd k <= 127 at every D (P = 1 at k = 127: 57,158 floats;
+// its combine box-filters the three maps one at a time from k = 95), K6
+// k <= 81.
 //
 // What bounds it on the H100: K2 reads two volumes, g and c (720 MB a
 // KITTI frame, about 0.21 ms at 3.35 TB/s); K6 one, g (0.11 ms), and
 // instead does K1's per-plane cross-term work, about 4k + 17 flops a pixel
 // and plane with the k x k window sums taken separably (0.10 ms a KITTI
-// frame at 67 TFLOP/s), so its read still bounds it.  K2 takes far longer,
-// as K1 does, for the per-plane row and column passes in shared memory
-// (see camera_grad.cuh).
+// frame at 67 TFLOP/s), so its read still bounds it.
 #include "camera_grad.cuh"
 
 namespace custereo {
 namespace {
 
-// g_d read from the plane-major cotangent volume (K6; camera_grad.cuh's
-// Source).
+// g_d read from the plane-major cotangent volume (camera_grad.cuh's
+// Source), with the cost read at the tile's own pixels from a second
+// volume (K2, kCost) or recomputed there (K6, `cost` null).
+template <bool kCost>
 struct CotangentSource {
   static constexpr int kMaps = 0;
   static constexpr bool kReadsCost = false;
+  static constexpr bool kCentreCost = kCost;
   const float* vol;
+  const float* cost;
 
   struct Entry {};
   __device__ void stage(float*, int, int, size_t, bool) const {}
@@ -65,10 +70,10 @@ extern "C" int custereo_camera_grad(const float* camera,
                                     float* bm, float* grmu, float* grad,
                                     int B, int H, int W, int D, int k,
                                     float eps, void* stream_ptr) {
-  return launch_camera_grad(cotangent, camera, projector, cam_s, cam_e2,
-                            proj_s, proj_e2, cost, a1, bm, grmu, grad, B, H,
-                            W, D, k, eps,
-                            static_cast<cudaStream_t>(stream_ptr));
+  return launch_camera_grad_rounds<CotangentSource<true>, false>(
+      CotangentSource<true>{cotangent, cost}, camera, projector, cam_s,
+      cam_e2, proj_s, proj_e2, a1, bm, grmu, grad, B, H, W, D, k, eps,
+      static_cast<cudaStream_t>(stream_ptr));
 }
 
 // K6: as custereo_camera_grad without the cost volume; each cost plane is
@@ -78,8 +83,8 @@ extern "C" int custereo_camera_grad_recompute(
     float* proj_s, float* proj_e2, const float* cotangent, float* a1,
     float* bm, float* grmu, float* grad, int B, int H, int W, int D, int k,
     float eps, void* stream_ptr) {
-  return launch_camera_grad_rounds<CotangentSource, true>(
-      CotangentSource{cotangent}, camera, projector, cam_s, cam_e2, proj_s,
-      proj_e2, a1, bm, grmu, grad, B, H, W, D, k, eps,
+  return launch_camera_grad_rounds<CotangentSource<false>, true>(
+      CotangentSource<false>{cotangent, nullptr}, camera, projector, cam_s,
+      cam_e2, proj_s, proj_e2, a1, bm, grmu, grad, B, H, W, D, k, eps,
       static_cast<cudaStream_t>(stream_ptr));
 }

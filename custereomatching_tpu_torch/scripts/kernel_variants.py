@@ -8,17 +8,18 @@ tree bit for bit and timed against it on one CUDA card.
 
 Each NAME of ``VARIANTS`` is a copy of the package under
 ``build/variants/NAME`` with one edit of ``csrc/camera_grad.cuh`` (the
-rounds kernel of K4 and K6) or, for a ``k7_`` name, of
-``csrc/zncc_banded_proj_bwd.cu`` (K7's): another round size, the ring's
-entries split in half rounds, or one phase cut (timing only: the values
-are then wrong).  Each tree runs in its own process, with ``PYTHONPATH``
+rounds kernel of K2, K4 and K6), for a ``k7_`` name of
+``csrc/zncc_banded_proj_bwd.cu`` (K7's) or for a ``k8_`` name of
+``csrc/zncc_allpairs.cu``: another round size, the ring's entries split
+in half rounds, K8's rows in run-time loops, or one phase cut (timing
+only: the values are then wrong).  Each tree runs in its own process, with ``PYTHONPATH``
 at it:
 
-1. K1's volume and K4's, K6's and K7's gradients on fixed inputs (KITTI
-   and three small shapes, k = 3, 31 and 47), compared bit for bit with
-   this tree's: every variant that keeps the values, and every
-   ``--against`` tree (another checkout, e.g. the parent commit's ``git
-   archive``);
+1. K1's and K8's volumes and K2's, K4's, K6's and K7's gradients on
+   fixed inputs (KITTI and three small shapes, k = 3, 31 and 47; K8 at
+   the same k on the images' first rows), compared bit for bit with this
+   tree's: every variant that keeps the values, and every ``--against``
+   tree (another checkout, e.g. the parent commit's ``git archive``);
 2. ``device_profile kernels`` (K1-K8 device ms) for this tree and every
    variant in turns, then in the reverse order.
 
@@ -49,6 +50,7 @@ ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = "custereomatching_tpu_torch"
 SOURCE = "csrc/camera_grad.cuh"
 K7_SOURCE = "csrc/zncc_banded_proj_bwd.cu"
+K8_SOURCE = "csrc/zncc_allpairs.cu"
 CASES = ((375, 1242, 192, 15), (40, 130, 24, 31), (40, 130, 24, 47),
          (37, 200, 24, 3))
 
@@ -145,6 +147,58 @@ _RING_HALVES = """    // gr_d at the ring's entries, half a round an item.
 """
 
 _K7_ROUND = "grad_round(k, D, 1, false, budget).planes"
+
+_K8_SWEEP = """  window_sweep(acc, k, row_products, [](PairTile& s, const PairTile& r) {
+#pragma unroll
+    for (int a = 0; a < kApXPerThread; ++a)
+#pragma unroll
+      for (int c = 0; c < kApYPerThread; ++c) s.v[a][c] += r.v[a][c];
+  });
+"""
+# K8's rows in run-time loops: one row's code, its taps predicated (the
+# window sweep's order: row i adds to the outputs n with 0 <= i - n < k).
+_K8_FEED = """  const auto feed = [&](int i, bool every) {
+    const PairTile r = row_products(i);
+#pragma unroll
+    for (int n = 0; n < kApRows; ++n) {
+      const int t = i - n;
+      if (every || (t >= 0 && t < k))
+#pragma unroll
+        for (int a = 0; a < kApXPerThread; ++a)
+#pragma unroll
+          for (int c = 0; c < kApYPerThread; ++c)
+            acc[n].v[a][c] += r.v[a][c];
+    }
+  };
+"""
+_K8_ROWS_LOOP = _K8_FEED + """  for (int i = 0; i < kApRows - 1 + k; ++i) feed(i, false);
+"""
+# The same in three loops: the first kApRows - 1 rows and the rows from k
+# on predicated, the rows between (which feed every output) not.
+_K8_ROWS_THREE = _K8_FEED + """  int i = 0;
+  for (; i < min(kApRows - 1, k); ++i) feed(i, false);
+  for (; i < k; ++i) feed(i, true);
+  for (; i < kApRows - 1 + k; ++i) feed(i, false);
+"""
+_K8_STORE = ("        if (y < W) {\n"
+             "          const float sum =")
+# K8's grid with the strips fastest and the y tiles slowest (its first
+# order): the blocks that write one row of the volume run far apart.
+_K8_BLOCK = ("  const int b = blockIdx.z / strips, h0 = (blockIdx.z - b * strips) "
+             "* kApRows;\n"
+             "  const int x0 = blockIdx.y * kApTileX, y0 = blockIdx.x * "
+             "kApTileY;")
+_K8_GRID = """  const dim3 grid((W + kApTileY - 1) / kApTileY,
+                  (W + kApTileX - 1) / kApTileX,
+                  B * ((H + kApRows - 1) / kApRows));"""
+_K8_GRID_STRIPS_FIRST = [
+    (_K8_BLOCK, _K8_BLOCK.replace("blockIdx.x", "blockIdx.w").replace(
+        "blockIdx.z", "blockIdx.x").replace("blockIdx.w", "blockIdx.z")),
+    (_K8_GRID, """  const dim3 grid(B * ((H + kApRows - 1) / kApRows),
+                  (W + kApTileX - 1) / kApTileX,
+                  (W + kApTileY - 1) / kApTileY);""")]
+_K8_NORM = "#pragma unroll 1\n  for (int n = 0; n < kApRows; ++n) {"
+_K8_SUM = "          const float exy = sum - sx * sy[c] / k2;"
 _K7_CENTRE = ("    if (valid) {\n"
               "      const float ey2 = ey2_t[centre];")
 
@@ -189,14 +243,27 @@ VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
     "k7_cut_a1": (False, [
         ("    if (valid && xc >= 0) {",
          "    if (valid && xc >= 0 && d0 < 0) {")]),
+    "k8_rows8": (True, [("constexpr int kApRows = 16;",
+                         "constexpr int kApRows = 8;")]),
+    "k8_rows_loop": (True, [(_K8_SWEEP, _K8_ROWS_LOOP)]),
+    "k8_rows_three": (True, [(_K8_SWEEP, _K8_ROWS_THREE)]),
+    "k8_cut_rows": (False, [(_K8_SWEEP, "  if (k < 0)\n" + _K8_SWEEP)]),
+    "k8_grid_strips_first": (True, _K8_GRID_STRIPS_FIRST),
+    "k8_norm_unroll2": (True, [(_K8_NORM, _K8_NORM.replace("unroll 1",
+                                                          "unroll 2"))]),
+    "k8_cut_norm": (False, [
+        (_K8_SUM, _K8_SUM + "\n          orow[y] = sum + 0.25f;\n"
+         "          continue;")]),
+    "k8_cut_store": (False, [
+        (_K8_STORE, _K8_STORE.replace("if (y < W)", "if (y < W && k < 0)"))]),
 }
 # What a cut variant's edits leave in the source: its values are wrong.
-CUT_MARKS = ("d0 < 0", "+ 0.25f")
+CUT_MARKS = ("d0 < 0", "+ 0.25f", "k < 0")
 
 
 def source_of(name: str) -> str:
     """The source, under the package, that variant ``name`` edits."""
-    return K7_SOURCE if name.startswith("k7_") else SOURCE
+    return {"k7_": K7_SOURCE, "k8_": K8_SOURCE}.get(name[:3], SOURCE)
 
 
 def edit_source(text: str, name: str) -> str:
@@ -223,12 +290,16 @@ def make_variant(name: str, dest: Path) -> Path:
 
 
 def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
-    """K1's volume and K4's, K6's and K7's gradients at ``cases`` (H, W, D,
-    k) from fixed inputs, on the CPU tensors of ``device`` (a CPU device
-    takes the wrappers' plain versions)."""
+    """K1's volume and K2's, K4's, K6's and K7's gradients at ``cases``
+    (H, W, D, k) from fixed inputs, and K8's volume at (min(H, 40), W, k),
+    on the CPU tensors of ``device`` (a CPU device takes the wrappers'
+    plain versions)."""
     import torch
 
     from custereomatching_tpu_torch.data import make_stereo_pair
+    from custereomatching_tpu_torch.ops.cuda_allpairs import (
+        cost_volume_allpairs_cuda,
+    )
     from custereomatching_tpu_torch.ops.cuda_pipeline import (
         fused_pipeline_bwd_cuda,
         fused_pipeline_train_cuda,
@@ -259,11 +330,17 @@ def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
             cam, proj, res, gs, gc, D, k, 1e-8, 50.0).cpu()
         outs[f"K6 {tag}"] = camera_grad_banded_cuda(
             cam, proj, None, g, D, k, 1e-8).cpu()
-        outs[f"K1 {tag}"] = cost_volume_banded_cuda(cam, proj, D, k,
-                                                    1e-8).cpu()
+        volume = cost_volume_banded_cuda(cam, proj, D, k, 1e-8)
+        outs[f"K1 {tag}"] = volume.cpu()
+        outs[f"K2 {tag}"] = camera_grad_banded_cuda(
+            cam, proj, volume.permute(0, 3, 1, 2), g, D, k, 1e-8).cpu()
         outs[f"K7 {tag}"] = projector_grad_banded_cuda(
             cam, proj, cost, g, D, k, 1e-8).cpu()
-        del res
+        # K8 on a band of the rows: KITTI's whole [H, W, W] is 2.3 GB.
+        rows = min(H, 40)
+        outs[f"K8 {rows}x{W} k={k}"] = cost_volume_allpairs_cuda(
+            cam[:, :rows], proj[:, :rows], k, 1e-8).cpu()
+        del res, volume
     return outs
 
 

@@ -34,13 +34,14 @@ them):
     IEEE division: the multi-function unit and a few fix-up instructions).
     Probes: chains of ``expf(a * 0.25)`` and ``rsqrtf(a + 1)``.
 ``boxadd``
-    one shared-memory load inside K1's per-plane window pass (a rows pass
-    of products: two loads a tap; a rows pass of sums: one; a columns
-    tap: one), the pass's barriers included.  Probe: K1's first pass, at
-    its geometry and occupancy; normalised by :func:`box_pass_loads`,
-    the count the cost functions charge.  It prices K2, which still runs
-    that pass.  The register-blocked pass of K1, K3, K3w, K3m, K4, K5, K6
-    and K7 (:func:`window_pass_cost`) is priced in ``smem`` or ``madd``.
+    one shared-memory load inside K1's first per-plane window pass (a
+    rows pass of products: two loads a tap; a rows pass of sums: one; a
+    columns tap: one), the pass's barriers included.  Probe: that pass, at
+    its geometry and occupancy; normalised by :func:`box_pass_loads`.  A
+    rate class of the JAX bound model too; it prices no kernel of the
+    port: every kernel runs the register-blocked pass
+    (:func:`window_pass_cost`, K1-K7) or K8's register tiles, priced in
+    ``smem`` or ``madd``.
 
 Rate keys: the classes (seconds an element), ``hbm_r3d`` and ``hbm_w3d``
 (seconds a byte, K10b and K10c), ``t3d`` and ``dus3d`` (seconds a byte
@@ -91,6 +92,11 @@ SMEM_OPTIN_BYTES = 232448
 ROUND_ROWS, ROUND_COLS = 16, 16
 HALO_ROWS, HALO_COLS, HALO_OWN, HALO_CONSTS = 15, 13, 4, 8
 GRAD_ROWS, GRAD_COLS, GRAD_PLANES = 8, 8, 8
+# K8 (csrc/zncc_allpairs.cu kApWarps, kApXPerThread, kApYPerThread,
+# kApRows): a block's warps, a thread's camera and projector columns, and
+# the output rows of a block's strip.
+AP_WARPS, AP_X_PER_THREAD, AP_Y_PER_THREAD, AP_ROWS = 4, 4, 2, 16
+AP_TILE_X, AP_TILE_Y = AP_WARPS * AP_X_PER_THREAD, 32 * AP_Y_PER_THREAD
 # An H100 SM issues four warp-wide FP32 instructions a clock for each
 # warp-wide shared-memory access (128 FP32 lanes, 32 load/store lanes).
 FMA_PER_SMEM = 4
@@ -293,7 +299,7 @@ def rate_probe_size(mode: str) -> Tuple[int, int]:
 def rate_probe_elems(mode: str, blocks: int, iters: int) -> float:
     """The elements a K10a launch is normalised by: tile elements times
     iterations, or for boxadd the loads of its passes
-    (:func:`box_pass_loads`, the count the cost functions charge)."""
+    (:func:`box_pass_loads`)."""
     if mode == "boxadd":
         p = BOX_PROBE_K // 2
         return float(blocks * iters * box_pass_loads(
@@ -480,14 +486,12 @@ def _with_bytes(c: OpCount, bytes_r: float, bytes_w: float) -> OpCount:
     return c
 
 
-def box_pass_loads(k: int, rows: int, width: int, pixels: int,
-                   products: bool = True) -> int:
+def box_pass_loads(k: int, rows: int, width: int, pixels: int) -> int:
     """Shared loads of one per-plane window pass of a block: a rows pass
-    over ``rows`` x ``width`` entries of k taps (two loads a tap for
-    products, ``vertical_products``; one for sums,
-    ``vertical_sum``), then k column taps (``horizontal_sum``) for each of
-    ``pixels`` outputs.  The ``boxadd`` element."""
-    return rows * width * k * (2 if products else 1) + pixels * k
+    of products over ``rows`` x ``width`` entries of k taps (two loads a
+    tap, ``vertical_products``), then k column taps (``horizontal_sum``)
+    for each of ``pixels`` outputs.  The ``boxadd`` element."""
+    return rows * width * k * 2 + pixels * k
 
 
 def _overlap(n_tiles: int, tile: int, ext: int, lo: int, hi: int) -> int:
@@ -699,48 +703,11 @@ def fused_forward_cost(H: int, W: int, D: int, k: int,
         c.bytes_w + maps * px * 4 + (planes * px * 4 if write_volume else 0))
 
 
-def _camera_grad_cost(H: int, W: int, D: int, k: int) -> OpCount:
-    """K2, the planes kernel of ``csrc/camera_grad.cuh`` (cotangent and
-    cost read, K1's window pass): the statistics passes, the planes kernel
-    and the combine.
-
-    Per plane and block: gr_d over the halo'd tile (g read, an rsqrt),
-    ``vertical_sum`` and the column sums of gr (one pass), the A1 / B /
-    GRMU accumulation of the block's pixels; three barriers."""
-    p = k // 2
-    nbh, nbw = _grid(H, W)
-    blocks = nbh * nbw
-    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
-    halo = rows * cam_w
-    px, planes = H * W, D + 1
-    inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
-                                                         0, W)
-    outside = blocks * halo - inside
-
-    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
-    c = c + _combine_cost(H, W, k, W)
-    # Prologue: ex2 over the halo.
-    c = c + OpCount(smem=2 * inside + outside)
-    # gr_d over the halo: ex2 (shared), ey2 (cached), g (global), the
-    # store.
-    per_inside = OpCount(smem=4, rsqrt=1, madd=2)
-    c = c + per_inside.scaled(planes * inside) + OpCount(
-        smem=planes * outside)
-    # vertical_sum of gr and the column sums of the block's pixels.
-    c = c + OpCount(boxadd=planes * (blocks * box_pass_loads(
-        k, K_TILE_H, cam_w, 0, products=False) + px * k))
-    # A1 / B / GRMU of each pixel: projector, gr, ey2, sy, ex2, the cost.
-    c = c + OpCount(smem=planes * px * 6, rsqrt=planes * px,
-                    madd=planes * px * 7)
-    return _with_bytes(c, *_grad_bytes(H, W, D, head=False, cost_read=True,
-                                       c=c))
-
-
 def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
                     recompute: bool) -> Dict[str, int]:
-    """Shared-memory geometry of the rounds kernel of K4 (``head``) and K6
-    (``recompute``), ``GradRoundTile`` of camera_grad.cuh; ``floats`` its
-    block's total."""
+    """Shared-memory geometry of the rounds kernel of K4 (``head``), K6
+    (``recompute``) and K2 and K7 (neither), ``GradRoundTile`` of
+    camera_grad.cuh; ``floats`` its block's total."""
     p = k // 2
     t = {"p": p, "halo_rows": K_TILE_H + 2 * p,
          "halo_cols": K_TILE_W + 2 * p}
@@ -758,9 +725,9 @@ def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
 def grad_round(k: int, D: int, head: bool, recompute: bool
                ) -> Tuple[int, int]:
     """(planes a round, planes a projector staging) of K4 (``head``), K6
-    (``recompute``) or K7 (neither: the projector's ey2 its one staged
-    map): ``grad_round`` of camera_grad.cuh on an H100; (0, 0) when not
-    one plane fits."""
+    (``recompute``) or K2 and K7 (neither: ex2, or K7's projector ey2, the
+    one staged map): ``grad_round`` of camera_grad.cuh on an H100; (0, 0)
+    when not one plane fits."""
     budget = SMEM_OPTIN_BYTES // 4
     planes = GRAD_PLANES
     while planes >= 1:
@@ -781,28 +748,30 @@ def grad_round(k: int, D: int, head: bool, recompute: bool
 def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
                             recompute: bool) -> OpCount:
     """The rounds kernel of ``csrc/camera_grad.cuh``: K4 (``head``: g_d
-    formed from six staged maps and the cost read) or K6 (``recompute``:
-    the cotangent read, the cost recomputed on the tile's own pixels); the
-    statistics passes, the rounds kernel at :func:`grad_round`'s planes
-    and chunk, and the combine.
+    formed from six staged maps and the cost read), K6 (``recompute``: the
+    cotangent read, the cost recomputed on the tile's own pixels) or K2
+    (neither: the cotangent read, the cost read at the tile's own
+    pixels); the statistics passes, the rounds kernel at
+    :func:`grad_round`'s planes and chunk, and the combine.
 
     A round of P planes: (K6) K3's cross-term rows pass and column sums
     over the tile; at every halo entry inside the image its constants
     read once (seven, or ex2 alone) and, for each of the P planes (a short
     last round computes all P and keeps np), ey2 and the cost or cotangent
     loaded, an rsqrt, gr_d stored (K4 also the head cotangent: an expf
-    and seven FMA-pipe ops); the tile's own pixels also load sy (K6 also
-    read their window sum and form the cost) and add B and GRMU; entries
-    outside store zeros; gr's rows pass and column sums; A1 (the box sum
-    and the projector read, a select and an FMA) for the round's np
-    planes."""
+    and seven FMA-pipe ops); the tile's own pixels also load sy (K2 also
+    the cost, K6 read their window sum and form the cost) and add B and
+    GRMU; entries outside store zeros; gr's rows pass and column sums; A1
+    (the box sum and the projector read, a select and an FMA) for the
+    round's np planes."""
     p = k // 2
     nbh, nbw = _grid(H, W)
     blocks = nbh * nbw
     P, chunk = grad_round(k, D, head, recompute)
     if P < 1:
-        raise ValueError(f"{'K4' if head else 'K6'} takes no k = {k}, "
-                         f"D = {D} block on an H100")
+        name = "K4" if head else "K6" if recompute else "K2"
+        raise ValueError(f"{name} takes no k = {k}, D = {D} block on an "
+                         f"H100")
     t = grad_round_tile(k, chunk, P, head=head, recompute=recompute)
     hc, halo = t["halo_cols"], t["halo"]
     px, planes = H * W, D + 1
@@ -840,9 +809,10 @@ def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
                     + slots * (3 * inside + outside),
                     rsqrt=slots * inside, exp=slots * inside if head else 0,
                     madd=slots * inside * (2 + (7 if head else 0)))
-    # The tile's own pixels: sy, B and GRMU (five FMA-pipe ops), and with
-    # the recompute the window sum read and the cost formed (three).
-    c = c + OpCount(smem=slots * px * (2 if recompute else 1),
+    # The tile's own pixels: sy (K2 also the cost), B and GRMU (five
+    # FMA-pipe ops), and with the recompute the window sum read and the
+    # cost formed (three).
+    c = c + OpCount(smem=slots * px * (1 if head else 2),
                     madd=slots * px * (8 if recompute else 5))
     c = c + window_pass_cost(
         blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k, False)
@@ -872,12 +842,11 @@ def _grad_bytes(H: int, W: int, D: int, *, head: bool, cost_read: bool,
 
 def volume_backward_cost(H: int, W: int, D: int, k: int,
                          with_cost: bool = True) -> OpCount:
-    """K2 (``with_cost``, ``csrc/zncc_banded_bwd.cu``, the planes kernel)
-    or K6 (the rounds kernel, the cost recomputed on the tile's own
-    pixels): reads the plane-major cotangent (and K2 the cost)."""
-    if with_cost:
-        return _camera_grad_cost(H, W, D, k)
-    return camera_grad_rounds_cost(H, W, D, k, head=False, recompute=True)
+    """K2 (``with_cost``) or K6 (``csrc/zncc_banded_bwd.cu``), the rounds
+    kernel: reads the plane-major cotangent and K2 the cost at the tile's
+    own pixels, where K6 recomputes it."""
+    return camera_grad_rounds_cost(H, W, D, k, head=False,
+                                   recompute=not with_cost)
 
 
 def fused_backward_c_cost(H: int, W: int, D: int, k: int) -> OpCount:
@@ -996,22 +965,48 @@ def projector_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
     return _with_bytes(c, bytes_r, bytes_w)
 
 
-def allpairs_forward_cost(H: int, W: int, k: int) -> OpCount:
-    """K8 (``csrc/zncc_allpairs.cu``): a block of 256 threads a 64 x 128
-    output tile of one row; per tap (i, j) a thread makes 12 shared loads
-    and 32 FMAs, per row i 32 adds; each output a division, a sqrtf and a
-    division (three multi-function ops) and three FMA-pipe ops; the exact
-    [H, W, W] volume written.  The taps' loop is bound by the load pipe
-    (one warp-wide shared load a clock an SM, four warp-wide FMAs): its 32
-    FMAs run beside its 12 loads and are not counted again."""
+def allpairs_block_floats(k: int) -> int:
+    """Shared memory of a K8 block in floats (``allpairs_smem_floats`` of
+    zncc_allpairs.cu): the strip's ``AP_ROWS + k - 1`` camera and
+    projector rows of the halo'd tile, or the block's window sums where
+    they take more."""
     p = k // 2
-    tiles = H * _cdiv(W, 64) * _cdiv(W, 128)
-    thread_steps = tiles * 256
+    sums = AP_ROWS * AP_X_PER_THREAD * AP_Y_PER_THREAD * 32 * AP_WARPS
+    return max((AP_ROWS + k - 1) * (AP_TILE_X + AP_TILE_Y + 4 * p), sums)
+
+
+def allpairs_forward_cost(H: int, W: int, k: int) -> OpCount:
+    """K8 (``csrc/zncc_allpairs.cu``): a block of ``32 AP_WARPS`` threads
+    an ``AP_TILE_X x AP_TILE_Y`` (x, y) tile and a strip of ``AP_ROWS``
+    output rows.  It stages the strip's ``AP_ROWS + k - 1`` camera and
+    projector rows (a load and a store an entry); each thread computes
+    the row product of its ``AP_X_PER_THREAD x AP_Y_PER_THREAD`` pairs
+    for each of those rows: ``AP_X_PER_THREAD - 1`` camera loads to start,
+    then per tap one camera load, ``AP_Y_PER_THREAD`` projector loads and
+    a pair's FMA each.  Four FMAs issue beside a shared access, so the
+    loads bind and the FMAs are not counted again (as
+    :func:`window_pass_cost`).  Then k adds an output (the window sum over
+    the rows), the sum stored to shared memory and read back, and per
+    output a division, a sqrtf and a division (three multi-function ops)
+    and three FMA-pipe ops; the exact [H, W, W] volume written."""
+    if allpairs_block_floats(k) > SMEM_OPTIN_BYTES // 4:
+        raise ValueError(f"K8 takes no k = {k} block on an H100")
+    p = k // 2
+    blocks = (_cdiv(H, AP_ROWS) * _cdiv(W, AP_TILE_X)
+              * _cdiv(W, AP_TILE_Y))
+    threads = blocks * 32 * AP_WARPS
+    rows = AP_ROWS + k - 1
+    pairs = AP_X_PER_THREAD * AP_Y_PER_THREAD
+    access = AP_X_PER_THREAD - 1 + k * (1 + AP_Y_PER_THREAD)
+    products = (OpCount(smem=threads * rows * access)
+                if access * FMA_PER_SMEM >= k * pairs
+                else OpCount(madd=threads * rows * k * pairs))
     out = H * W * W
-    c = _stats_cost(H, W, k, W).scaled(2)
+    c = _stats_cost(H, W, k, W).scaled(2) + products
     c = c + OpCount(
-        smem=tiles * 2 * k * (192 + 4 * p) + thread_steps * k * k * 12,
-        madd=thread_steps * k * 32 + 3 * out,
+        smem=blocks * 2 * rows * (AP_TILE_X + AP_TILE_Y + 4 * p)
+        + threads * AP_ROWS * pairs * 2,
+        madd=threads * AP_ROWS * pairs * k + 3 * out,
         rsqrt=3 * out)
     return _with_bytes(c, c.bytes_r + 4 * H * W * 4, c.bytes_w + out * 4)
 
@@ -1073,7 +1068,8 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
     return out
 
 
-__all__ = ["OpCount", "allpairs_backward_cost", "allpairs_forward_cost",
+__all__ = ["OpCount", "allpairs_backward_cost", "allpairs_block_floats",
+           "allpairs_forward_cost",
            "box_pass_loads", "camera_grad_rounds_cost",
            "fused_backward_c_cost", "fused_backward_cost",
            "fused_block_floats", "fused_forward_cost", "fused_round",

@@ -58,38 +58,52 @@ def test_main_needs_a_mode_and_a_card(capsys):
 @pytest.mark.parametrize("name", sorted(kv.VARIANTS))
 def test_kernel_variants_edit_the_current_source(name, tmp_path):
     """Every variant's edits find their text once in its source
-    (camera_grad.cuh, or K7's zncc_banded_proj_bwd.cu for a ``k7_`` name)
-    and change it; the copy holds the whole package, so its kernels build
-    on their own; a variant that keeps the values changes no arithmetic of
-    the cut kind (no phase skipped on ``d0 < 0``, no load replaced)."""
+    (camera_grad.cuh, K7's zncc_banded_proj_bwd.cu for a ``k7_`` name, K8's
+    zncc_allpairs.cu for a ``k8_`` name) and change it; the copy holds the
+    whole package, so its kernels build on their own; a variant that keeps
+    the values changes no arithmetic of the cut kind (no phase skipped on
+    ``d0 < 0`` or ``k < 0``, no load replaced)."""
     rel = kv.source_of(name)
-    assert rel == (kv.K7_SOURCE if name.startswith("k7_") else kv.SOURCE)
+    assert rel == {"k7": kv.K7_SOURCE, "k8": kv.K8_SOURCE}.get(
+        name[:2], kv.SOURCE)
     source = (kv.ROOT / kv.PACKAGE / rel).read_text()
     edited = kv.edit_source(source, name)
     assert edited != source
     assert not any(mark in source for mark in kv.CUT_MARKS)
     keeps, _ = kv.VARIANTS[name]
+    passes = ("row_products" if rel == kv.K8_SOURCE
+              else "grad_rows(xbuf, ybuf, gs, k, np);")
     assert keeps == (not any(mark in edited for mark in kv.CUT_MARKS)
-                     and "grad_rows(xbuf, ybuf, gs, k, np);" in edited)
+                     and passes in edited)
     tree = kv.make_variant(name, tmp_path)
     assert (tree / kv.PACKAGE / rel).read_text() == edited
     assert (tree / kv.PACKAGE / "ops" / "_build.py").is_file()
 
 
 def test_kernel_variants_hold_k1_k4_k6_and_k7():
-    """The outputs ``--against`` compares bit for bit: K1's volume and K4's,
-    K6's and K7's gradients at every case, each of its shape and finite
-    (on the CPU the wrappers' plain versions give them)."""
-    cases = ((16, 48, 6, 3), (20, 40, 5, 5))
+    """The outputs ``--against`` compares bit for bit: K1's and K8's
+    volumes and K2's, K4's, K6's and K7's gradients at every case, each of
+    its shape and finite (on the CPU the wrappers' plain versions give
+    them)."""
+    cases = ((16, 48, 6, 3), (44, 40, 5, 5))
     got = kv.kernel_outputs(cases, "cpu")
-    assert sorted(got) == sorted(f"{name} {H}x{W} D={D} k={k}"
-                                 for H, W, D, k in cases
-                                 for name in ("K1", "K4", "K6", "K7"))
+    assert sorted(got) == sorted(
+        [f"{name} {H}x{W} D={D} k={k}" for H, W, D, k in cases
+         for name in ("K1", "K2", "K4", "K6", "K7")]
+        + [f"K8 {min(H, 40)}x{W} k={k}" for H, W, _, k in cases])
     for H, W, D, k in cases:
         tag = f"{H}x{W} D={D} k={k}"
         assert tuple(got[f"K1 {tag}"].shape) == (1, H, W, D + 1)
-        for name in ("K4", "K6", "K7"):
+        for name in ("K2", "K4", "K6", "K7"):
             assert tuple(got[f"{name} {tag}"].shape) == (1, H, W)
+        rows = min(H, 40)
+        assert tuple(got[f"K8 {rows}x{W} k={k}"].shape) == (1, rows, W, W)
+    # K2 reads K1's volume as the cost; K6 recomputes it: the same
+    # gradient.
+    for H, W, D, k in cases:
+        tag = f"{H}x{W} D={D} k={k}"
+        torch.testing.assert_close(got[f"K2 {tag}"], got[f"K6 {tag}"],
+                                   rtol=1e-5, atol=1e-9)
     assert all(bool(torch.isfinite(v).all()) for v in got.values())
 
 

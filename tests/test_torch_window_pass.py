@@ -1,8 +1,9 @@
-"""PyTorch port: the register-blocked window pass of K1, K3, K3w, K3m, K4,
-K5, K6 and K7 (``csrc/common.cuh`` ``window_taps``,
-``csrc/fused_pipeline.cuh``, ``csrc/fused_pipeline_bwd.cu``,
-``csrc/camera_grad.cuh``, ``csrc/zncc_banded_proj_bwd.cu``).  The kernels
-need the card
+"""PyTorch port: the register-blocked window pass of K1-K7
+(``csrc/common.cuh`` ``window_taps``, ``csrc/fused_pipeline.cuh``,
+``csrc/fused_pipeline_bwd.cu``, ``csrc/camera_grad.cuh``,
+``csrc/zncc_banded_bwd.cu``, ``csrc/zncc_banded_proj_bwd.cu``) and K8's
+strips of row products (``csrc/zncc_allpairs.cu``).  The kernels need the
+card
 (``chip_smoke.py``); here their control flow is mirrored in Python and
 held to what the sources and the bound model say: every output takes its
 k taps in order, the groups of a line cover it without reading past it,
@@ -36,13 +37,18 @@ PIN_K1_KITTI = {"madd": 1895194440, "smem": 884046870, "exp": 0,
 PIN_K7_SMALL = {"madd": 478576, "smem": 1102584, "exp": 0, "rsqrt": 47656}
 PIN_K7_KITTI = {"madd": 997857592, "smem": 1836900202, "exp": 0,
                 "rsqrt": 188070116}
+# K2's on the rounds kernel (the cost read at the tile's own pixels).
+PIN_K2_SMALL = {"madd": 619616, "smem": 1198432, "exp": 0, "rsqrt": 70784}
+PIN_K2_KITTI = {"madd": 1092254592, "smem": 1937586054, "exp": 0,
+                "rsqrt": 210215200}
 
 
-def _k7_combine_floats(k: int) -> int:
+def _k7_combine_floats(k: int, at_once: int = 3) -> int:
     """Shared memory of K7's combine kernel in floats: three halo'd tiles
-    and their rows passes."""
+    and their rows passes; that of K2's, K4's and K6's with ``at_once``
+    maps staged together (``combine_floats`` of camera_grad.cuh)."""
     p = k // 2
-    return 3 * (16 + 2 * p + 16) * (64 + 2 * p)
+    return at_once * (16 + 2 * p + 16) * (64 + 2 * p)
 
 
 def _const(text: str, name: str) -> int:
@@ -56,6 +62,8 @@ def test_blocking_constants_mirror_the_sources():
     proj = (CSRC / "zncc_banded_proj_bwd.cu").read_text()
     volume = (CSRC / "zncc_banded.cu").read_text()
     fused = (CSRC / "fused_pipeline.cuh").read_text()
+    k2 = (CSRC / "zncc_banded_bwd.cu").read_text()
+    allpairs = (CSRC / "zncc_allpairs.cu").read_text()
     assert (_const(common, "kRoundRows"), _const(common, "kRoundCols")) == (
         km.ROUND_ROWS, km.ROUND_COLS)
     assert tuple(_const(bwd, n) for n in (
@@ -64,6 +72,19 @@ def test_blocking_constants_mirror_the_sources():
     assert tuple(_const(grad, n) for n in (
         "kGradRows", "kGradCols", "kGradPlanes")) == (
             km.GRAD_ROWS, km.GRAD_COLS, km.GRAD_PLANES)
+    assert tuple(_const(allpairs, n) for n in (
+        "kApWarps", "kApXPerThread", "kApYPerThread", "kApRows")) == (
+            km.AP_WARPS, km.AP_X_PER_THREAD, km.AP_Y_PER_THREAD, km.AP_ROWS)
+    # K2 is the rounds kernel's third instantiation, K6's source reading
+    # the cost at the tile's own pixels; the per-plane kernel is gone, and
+    # K8 sums its rows with window_taps' loops.
+    assert "launch_camera_grad_rounds<CotangentSource<true>, false>(" in k2
+    assert "launch_camera_grad_rounds<CotangentSource<false>, true>(" in k2
+    for name in ("camera_grad_planes_kernel", "GradTile(",
+                 "launch_camera_grad("):
+        assert name not in grad + k2
+    assert "window_sweep(acc, k, row_products," in allpairs
+    assert "vertical_sum(vsum" not in k2 + allpairs
     # gr's passes exist once, in camera_grad.cuh, and K5 calls them there.
     assert "void grad_rows(" not in bwd and "grad_rows(xbuf, ybuf, x.grad()" \
         in bwd
@@ -252,6 +273,8 @@ def test_window_pass_cost_counts_the_binding_pipe():
     ("fused_backward_c_cost", (H, W, D, K), PIN_K4_KITTI),
     ("k6_cost", (24, 150, 10, 5), PIN_K6_SMALL),
     ("k6_cost", (H, W, D, K), PIN_K6_KITTI),
+    ("volume_backward_cost", (24, 150, 10, 5), PIN_K2_SMALL),
+    ("volume_backward_cost", (H, W, D, K), PIN_K2_KITTI),
     ("fused_forward_cost", (24, 150, 10, 5),
      {"madd": 422400, "smem": 736752, "exp": 39600, "rsqrt": 43200}),
     ("fused_forward_cost", (H, W, D, K),
@@ -263,9 +286,9 @@ def test_window_pass_cost_counts_the_binding_pipe():
      {"madd": 6255793512, "smem": 3515970318, "exp": 202857668,
       "rsqrt": 203908744})])
 def test_counts_of_the_redesigned_kernels(fn, shape, want):
-    """K1's, K3's, K4's, K5's, K6's and K7's counts at a small shape and at
-    KITTI, pinned: no ``boxadd`` (that is K1's first pass), no volume
-    written but K1's."""
+    """K1's, K2's, K3's, K4's, K5's, K6's and K7's counts at a small shape
+    and at KITTI, pinned: no ``boxadd`` (that is K1's first pass), no
+    volume written but K1's."""
     cost = (km.volume_backward_cost(*shape, with_cost=False)
             if fn == "k6_cost" else getattr(km, fn)(*shape))
     assert {m: cost[m] for m in want} == want and cost["boxadd"] == 0
@@ -278,21 +301,6 @@ def test_counts_of_the_redesigned_kernels(fn, shape, want):
 def test_k5_needs_a_block_that_fits():
     with pytest.raises(ValueError, match="k = 29"):
         km.fused_backward_cost(40, 120, 16, 29)
-
-
-@pytest.mark.parametrize("kernel, fn, kwargs, want, bytes_rw", [
-    ("K2", "volume_backward_cost", {},
-     (1061238278, 1475555558, 0, 292747418, 3082567050),
-     (736461000, 15480000))])
-def test_kernels_on_k1s_pass_keep_their_counts(kernel, fn, kwargs, want,
-                                               bytes_rw):
-    """K2 keeps K1's first window pass, and its KITTI counts (madd, smem,
-    exp, rsqrt, boxadd; bytes read and written) are those the bound model
-    gave before the register-blocked pass."""
-    cost = getattr(km, fn)(H, W, D, K, **kwargs)
-    got = tuple(int(cost[m]) for m in ("madd", "smem", "exp", "rsqrt",
-                                       "boxadd"))
-    assert got == want and (int(cost.bytes_r), int(cost.bytes_w)) == bytes_rw
 
 
 @pytest.mark.parametrize("k", list(range(3, 129, 2)))
@@ -324,3 +332,64 @@ def test_k1_and_k7_take_every_k_at_every_d(k):
     if k == 127:
         assert km.fused_round(k, 4000) == (1, 1)
         assert km.fused_block_floats(k, 4000) == 58056 == LIMIT - 56
+
+
+@pytest.mark.parametrize("k", list(range(3, 129, 2)))
+def test_k2_takes_every_k_at_every_d(k):
+    """K2, on the rounds kernel, takes every odd k <= 127 at every D, as
+    the per-plane kernel it replaced did: its rounds (ex2 its one staged
+    map, no recompute) fall as far as one plane, a power of two up to
+    kGradPlanes, at all D + 1 planes, and its block fits 227 KB (57,158
+    floats at k = 127); its combine kernel stages the three maps together
+    up to k = 93 and one at a time beyond, and fits either way."""
+    for d in (0, 192, 1739, 1740, 4000):
+        planes, chunk = km.grad_round(k, d, False, False)
+        assert 1 <= planes <= km.GRAD_PLANES and planes & (planes - 1) == 0
+        assert planes == 1 or planes <= d + 1
+        assert chunk == d + 1
+        assert km.grad_round_tile(k, 1, planes, head=False,
+                                  recompute=False)["floats"] <= LIMIT
+    together = _k7_combine_floats(k) <= LIMIT
+    assert together == (k <= 93)
+    assert _k7_combine_floats(k, 1) <= LIMIT
+    if k == 127:
+        assert km.grad_round(k, 4000, False, False) == (1, 4001)
+        assert km.grad_round_tile(k, 1, 1, head=False,
+                                  recompute=False)["floats"] == 57158
+    cost = km.volume_backward_cost(40, 200, 24, k)
+    assert cost["boxadd"] == 0 and cost["rsqrt"] > 0
+
+
+def test_k8_strip_fits_every_k_it_took():
+    """K8's block (``allpairs_smem_floats``): the strip's kApRows + k - 1
+    camera and projector rows of the halo'd 16 x 64 tile (3,240 floats at
+    k = 15, 48,384 at k = 129), or the block's 16,384 window sums where
+    they take more.  Every odd k <= 129 fits 227 KB, as it did on the
+    first version's one-row blocks, and so does every odd k <= 143; from
+    k = 145 the block does not fit and the count refuses."""
+    assert (km.AP_TILE_X, km.AP_TILE_Y) == (16, 64)
+    assert 30 * (16 + 64 + 28) == 3240
+    assert km.allpairs_block_floats(15) == 16 * 8 * 128 == 16384
+    assert km.allpairs_block_floats(129) == 144 * (80 + 256) == 48384
+    for k in range(3, 145, 2):
+        assert km.allpairs_block_floats(k) <= LIMIT
+    assert km.allpairs_block_floats(145) > LIMIT
+    with pytest.raises(ValueError, match="K8 takes no k = 145"):
+        km.allpairs_forward_cost(40, 200, 145)
+
+
+@pytest.mark.parametrize("shape, want, bytes_rw", [
+    ((24, 60, 5), {"madd": 944960, "smem": 720384, "exp": 0,
+                   "rsqrt": 259200}, (34560, 368640)),
+    ((330, 422, 15), {"madd": 1158063840, "smem": 902576592, "exp": 0,
+                      "rsqrt": 176303160}, (3342240, 237299040))])
+def test_counts_of_k8(shape, want, bytes_rw):
+    """K8's counts, pinned: the rows' products in ``smem`` (their loads
+    bind over their FMAs) and the sums' trip through shared memory, k adds
+    an output and the normalisation in ``madd`` and ``rsqrt``, no
+    ``boxadd``; the [H, W, W] volume written once."""
+    cost = km.allpairs_forward_cost(*shape)
+    assert {m: cost[m] for m in want} == want and cost["boxadd"] == 0
+    assert (int(cost.bytes_r), int(cost.bytes_w)) == bytes_rw
+    h, w, _ = shape
+    assert cost.bytes_w >= 4 * h * w * w
