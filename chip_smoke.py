@@ -48,7 +48,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     extent);
 11. K7 (projector VJP) against the plain closed form on the same cost and
     cotangent, at the JAX suite's shapes, a batch, the edge shapes of phase
-    4, k = 47 and 93 (the largest its combine kernel takes) and KITTI;
+    4, k = 47 and 93 (the largest k its combine kernel stages the three
+    maps together at) and KITTI;
 12. the all-pairs path, with every launch counter reset just before it:
     the default ``StereoMatcher`` (all-pairs) forward, plain head and
     backward of a mean soft-disparity loss at 330x422, k=15; K8 must run
@@ -64,15 +65,23 @@ imports nothing of JAX.  Phases, each printing its lines:
     edge shapes of phase 4, k = 31 and 47, a D whose projector tile is
     staged in chunks, and KITTI, and bit-equal to K2 (with the cost
     residual) at the last two;
-15. K9a and K9b (layout conversions) bit-equal to ``permute().contiguous()``;
+15. K9a and K9b (layout conversions) bit-equal to ``permute().contiguous()``,
+    at the small shapes, KITTI, two frames, an H W that is not a multiple
+    of 4 and D = 1800 (K9a's planes in chunks);
 16. K3m (volume-free training forward): its four maps bit-equal to K3's,
     its argmax, s and t bit-equal to K3w's, no volume;
 17. K5 (volume-free trainable backward) against its plain twin on the same
     residual maps, and against K4 on K3w's, both head branches, KITTI and
-    three (D, k) whose projector tile is staged in chunks (k up to
-    ``K5_MAX_KERNEL_SIZE``) and the edge shapes of phase 4 (printed
-    whether bit-equal to K4 at KITTI); a larger k is refused before any
-    launch;
+    three (D, k) whose projector tile is staged in chunks (k up to 27, the
+    largest its halo kernel takes) and the edge shapes of phase 4 (printed
+    whether bit-equal to K4 at KITTI);
+17b. K4, K5, K6 and K7 past the k their first versions took (K4 49, K5 29,
+    K6 83, K7 95) and at k = 127, at an edge shape and at KITTI, against
+    their plain versions: K4 reading its constants from their maps, K5 and
+    K6 on the chunked route (K1's costs a slab of 8 planes at a time), K6
+    bit-equal to K2 on K1's volume and K5 bit-equal to K4 on it
+    (required), K5 against K4 on K3w's residuals (printed); K5's peak
+    device memory at k = 127 beside k = 15's, less than one volume;
 18. the volume-free training path, counters reset: 5 Adam steps at KITTI
     of ``optimize_camera``'s loss through
     ``stereo_pipeline_trainable(save_volume=False)``; K3m and K5 once a
@@ -104,8 +113,9 @@ imports nothing of JAX.  Phases, each printing its lines:
     3.35 TB/s and the least operations its function needs (window sums
     taken separably) over 67 TFLOP/s (``utils/profiling.py``), and its
     model bound, its counted work priced at the rates of phase 22
-    (``utils/kernel_model.py``), which no kernel may beat; K1-K8 beside
-    their times before their redesigns (``MS_BEFORE``).
+    (``utils/kernel_model.py``), which no kernel may beat; K1-K9a beside
+    their times before their redesigns (``MS_BEFORE``); then K4, K5, K6
+    and K7 at KITTI with k = 127, each beside its bound and model.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -139,7 +149,7 @@ from custereomatching_tpu_torch.ops import (
     stereo_matching_hdw,
 )
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
-    K5_MAX_KERNEL_SIZE,
+    HeadResiduals,
     fused_pipeline_bwd_cuda,
     fused_pipeline_bwd_reference,
     fused_pipeline_train_cuda,
@@ -211,8 +221,8 @@ AP_WIDE = (1, 375, 1242, 15)
 # 277-281) and a batch; KITTI is added in the phase.
 K7_SHAPES = [(1, 16, 24, 5, 3), (1, 24, 150, 10, 5), (1, 40, 96, 12, 15),
              (2, 16, 48, 6, 5)]
-# K7 at k = 47 and 93, the largest k its combine kernel takes (its rounds
-# fall to 2 planes at k = 93).
+# K7 at k = 47 and 93, the largest k its combine kernel stages its three
+# maps together at (its rounds fall to 2 planes at k = 93).
 K7_LARGE_K = [(1, 40, 130, 24, 47), (1, 40, 130, 24, 93)]
 # Gradient checks: the JAX suite's elementwise tolerance
 # (tests/test_pallas_bwd.py:89) at the small shapes, and a bound on
@@ -225,10 +235,11 @@ K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
 K10A_TIMED_ITERS = 1024
 # Device ms of the kernels before their redesigns (at KITTI; K8 at
 # 330x422): K1-K7 on K1's first per-plane pass, K8 summing every output's
-# k^2 products (NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md gives the runs).
+# k^2 products, K9a on K9b's tiled transpose (NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md gives the runs).
 MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410,
              "K4": 2.3372, "K6": 4.0753, "K1": 1.4628, "K7": 2.3561,
-             "K2": 2.2018, "K8": 1.2642}
+             "K2": 2.2018, "K8": 1.2642, "K9a": 0.6646}
 
 
 def require(ok: bool, what: str) -> None:
@@ -371,7 +382,8 @@ LARGE_K = [((1, 40, 130, 24, 31), 50.0), ((1, 40, 130, 24, 47), 50.0)]
 def edge_label(B: int, H: int, W: int, D: int, k: int, beta: float) -> str:
     """The shape, with K3's, K5's, K4's and K6's (planes a round, planes
     a projector staging) on an H100."""
-    k5 = km.halo_round(k, D) if k <= K5_MAX_KERNEL_SIZE else "refused"
+    k5 = (km.halo_round(k, D) if km.halo_fits(k, D)
+          else f"chunked, slabs of {km.COST_CHUNK}")
     return (f"edge B={B} H={H} W={W} D={D} k={k} beta={beta} (K3 round/chunk "
             f"{km.fused_round(k, D)}, K5 round/chunk {k5}, K4 "
             f"{km.grad_round(k, D, True, False)}, K6 "
@@ -1029,11 +1041,18 @@ def phase_k6() -> float:
     return err
 
 
+# K9 besides the small shapes and KITTI: two frames at an H W that is not
+# a multiple of 4 (3,333 pixels), and D = 1800, whose planes K9a stages
+# in eight chunks of 226.
+K9_EXTRA = [(2, 33, 101, 30, 0), (1, 40, 130, 1800, 0)]
+
+
 def phase_k9() -> float:
-    for i, (B, H, W, D, _) in enumerate(SHAPES + [(1,) + KITTI]):
+    for i, (B, H, W, D, _) in enumerate(SHAPES + [(1,) + KITTI] + K9_EXTRA):
         vol = torch.randn((B, D + 1, H, W), device="cuda",
                           generator=torch.Generator("cuda").manual_seed(i))
-        label = f"B={B} H={H} W={W} D={D}"
+        label = (f"B={B} H={H} W={W} D={D} (K9a planes in "
+                 f"{km.parity_chunks(D + 1)[0]} chunks)")
         parity = plane_major_to_parity(vol)
         require(torch.equal(parity, vol.permute(0, 2, 3, 1).contiguous()),
                 f"K9a {label}: bit-equal to permute().contiguous()")
@@ -1110,21 +1129,122 @@ def phase_k5() -> float:
             print(f"K5 {label}: bit-equal to K4: "
                   f"{torch.equal(got, with_cost)}")
         del res, got, want, res_w, with_cost
-
-    # Past K5_MAX_KERNEL_SIZE not one plane's tiles fit: the volume-free
-    # pipeline refuses before it launches anything.
-    cam, proj = uniform_pair(860, 1, 40, 120)
-    k = K5_MAX_KERNEL_SIZE + 2
-    before = fused_pipeline_train_cuda.maps_launches
-    try:
-        stereo_pipeline_trainable(cam, proj, 16, k, EPS, save_volume=False)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    require(refused is not None and fused_pipeline_train_cuda.maps_launches
-            == before, f"K5 k={k}: refused before any launch")
-    print(f"K5 k={k}: refused before any launch ({refused})")
     return err
+
+
+# K4, K5, K6 and K7 one k past the limit of their first versions (K4 47,
+# K5 27, K6 81, K7 93) and at k = 127, each at this edge shape (H not a
+# multiple of 16, W not of 64, D + 1 not of a slab) and at KITTI.
+PAST_LIMITS = {"K4": (49, 127), "K5": (29, 127), "K6": (83, 127),
+               "K7": (95, 127)}
+PAST_LIMITS_EDGE = (1, 37, 200, 20)
+
+
+def k5_peak_bytes(cam, proj, res, gs, gc, D: int, k: int) -> int:
+    """Device memory K5's call allocates at its peak, beyond what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k, EPS, 50.0)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_past_limits() -> dict:
+    """K4, K5, K6 and K7 at the k of PAST_LIMITS, against their plain
+    versions; K6 bit-equal to K2 and K5 to K4 on K1's volume."""
+    errs = {name: 0.0 for name in PAST_LIMITS}
+    B0, H0, W0, D0 = PAST_LIMITS_EDGE
+    edge = uniform_pair(870, B0, H0, W0)
+    cams, projs, _ = speckle_frames(1, seed=7)
+    kitti = (torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda())
+    for name, ks in PAST_LIMITS.items():
+        for k in ks:
+            for (cam, proj), D in ((edge, D0), (kitti, KITTI[2])):
+                B, H, W = cam.shape
+                at_kitti = (H, W, D, k) == KITTI[:3] + (k,)
+                consts = ("staged" if km.k4_staged(k, D)
+                          else "from their maps")
+                label = (f"{name} B={B} H={H} W={W} D={D} k={k} (K4 "
+                         f"constants {consts}, K5 slab "
+                         f"{km.cost_slab_planes('K5', k, D)}, K6 slab "
+                         f"{km.cost_slab_planes('K6', k, D)} planes)")
+                gs, gc = cotangents(880 + k, B, H, W)
+                g = mean_loss_cotangent(880 + k, B, H, W, D)
+                cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+                if name == "K4":
+                    res = fused_pipeline_train_cuda(cam, proj, D, k, EPS,
+                                                    50.0, THRESHOLD)[1]
+                    got = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D,
+                                                  k, EPS, 50.0)
+                    want = fused_pipeline_bwd_reference(cam, proj, res, gs,
+                                                        gc, D, k, EPS, 50.0)
+                elif name == "K5":
+                    res = fused_pipeline_train_cuda(
+                        cam, proj, D, k, EPS, 50.0, THRESHOLD,
+                        save_volume=False)[1]
+                    got = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D,
+                                                  k, EPS, 50.0)
+                    want = fused_pipeline_bwd_reference(cam, proj, res, gs,
+                                                        gc, D, k, EPS, 50.0)
+                    # K4 on K1's volume: the same costs, read.
+                    on_k1 = fused_pipeline_bwd_cuda(
+                        cam, proj, HeadResiduals(*res[:5],
+                                                 cost.permute(0, 3, 1, 2)),
+                        gs, gc, D, k, EPS, 50.0)
+                    same = torch.equal(got, on_k1)
+                    print(f"{label}: bit-equal to K4 on K1's volume: {same}")
+                    require(same, f"{label}: bit-equal to K4 on K1's volume")
+                    res_w = fused_pipeline_train_cuda(cam, proj, D, k, EPS,
+                                                      50.0, THRESHOLD)[1]
+                    with_cost = fused_pipeline_bwd_cuda(cam, proj, res_w, gs,
+                                                        gc, D, k, EPS, 50.0)
+                    compare_grad(got, with_cost, f"{label}: against K4 on "
+                                 f"K3w's residuals", elementwise=False)
+                    print(f"{label}: bit-equal to K4 on K3w's residuals: "
+                          f"{torch.equal(got, with_cost)}")
+                    del on_k1, res_w, with_cost
+                elif name == "K6":
+                    got = camera_grad_banded_cuda(cam, proj, None, g, D, k,
+                                                  EPS)
+                    want = camera_grad_banded(cam, proj,
+                                              g.permute(0, 2, 3, 1), D, k,
+                                              EPS)
+                    with_cost = camera_grad_banded_cuda(
+                        cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
+                    same = torch.equal(got, with_cost)
+                    print(f"{label}: bit-equal to K2 on K1's volume: {same}")
+                    require(same, f"{label}: bit-equal to K2")
+                    del with_cost
+                else:
+                    got = projector_grad_banded_cuda(
+                        cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS)
+                    want = projector_grad_banded(cam, proj, cost,
+                                                 g.permute(0, 2, 3, 1), D, k,
+                                                 EPS)
+                errs[name] = max(errs[name], compare_grad(
+                    got, want, label, elementwise=not at_kitti))
+                del cost, got, want, g
+                torch.cuda.empty_cache()
+
+    # K5's peak device memory at KITTI, k = 15 (its halo kernel) and
+    # k = 127 (the chunked route): no [D + 1, H, W] volume either way.
+    H, W, D, _ = KITTI
+    cam, proj = kitti
+    gs, gc = cotangents(890, 1, H, W)
+    volume = 4 * (D + 1) * H * W
+    peaks = {}
+    for k in (15, 127):
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0, THRESHOLD,
+                                        save_volume=False)[1]
+        peaks[k] = k5_peak_bytes(cam, proj, res, gs, gc, D, k)
+        del res
+    print(f"K5 peak device memory of its call at {H}x{W} D={D}: k=15 "
+          f"{peaks[15] / 2**20:.1f} MiB, k=127 {peaks[127] / 2**20:.1f} MiB "
+          f"(one volume is {volume / 2**20:.1f} MiB)")
+    require(peaks[127] < volume, "K5 at k = 127 holds no whole volume")
+    return errs
 
 
 def adam_steps(camera0, loss_of, steps: int):
@@ -1464,7 +1584,7 @@ def model_costs() -> dict:
         "K6": km.volume_backward_cost(H, W, D, k, with_cost=False),
         "K3m": km.fused_forward_cost(H, W, D, k, residuals=True),
         "K5": km.fused_backward_cost(H, W, D, k),
-        "K9a": km.transpose_volume_cost(H, W, D),
+        "K9a": km.to_parity_cost(H, W, D),
         "K9b": km.transpose_volume_cost(H, W, D),
         "K10a": km.rate_probe_cost("madd", blocks, K10A_TIMED_ITERS),
         "K10b": km.hbm_read_probe_cost(*km.HBM_SHAPE),
@@ -1594,6 +1714,54 @@ def phase_times(card: str, rates: dict) -> dict:
     return times
 
 
+def phase_large_k_times(card: str, rates: dict) -> dict:
+    """K4, K5, K6 and K7 at KITTI with k = 127 (the routes of
+    PAST_LIMITS): {name: (ms, (bound ms, by), (model ms, by))}, each
+    printed; no kernel may beat its model."""
+    H, W, D, _ = KITTI
+    k = 127
+    cams, projs, _ = speckle_frames(1, seed=7)
+    cam, proj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
+    gs, gc = cotangents(1, 1, H, W)
+    g = mean_loss_cotangent(0, 1, H, W, D)
+    with torch.no_grad():
+        cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                        THRESHOLD)[1]
+        res_m = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                          THRESHOLD, save_volume=False)[1]
+    cases = {
+        "K4": (fused_pipeline_bwd_cuda,
+               (cam, proj, res, gs, gc, D, k, EPS, 50.0),
+               km.fused_backward_c_cost(H, W, D, k)),
+        "K5": (fused_pipeline_bwd_cuda,
+               (cam, proj, res_m, gs, gc, D, k, EPS, 50.0),
+               km.fused_backward_cost(H, W, D, k)),
+        "K6": (camera_grad_banded_cuda, (cam, proj, None, g, D, k, EPS),
+               km.volume_backward_cost(H, W, D, k, with_cost=False)),
+        "K7": (projector_grad_banded_cuda,
+               (cam, proj, cost.permute(0, 3, 1, 2), g, D, k, EPS),
+               km.projector_backward_cost(H, W, D, k)),
+    }
+    bounds = banded_bounds(1, H, W, D, k)
+    out = {}
+    with torch.no_grad():
+        for name, (fn, args, cost_count) in cases.items():
+            ms = timed(f"{name} KITTI k={k}", fn, *args)
+            m_ms, m_by, _ = model_bound(cost_count, rates)
+            b_ms, by = bounds[name]
+            print(f"large k: {name} at KITTI {H}x{W} D={D} k={k}: "
+                  f"{ms:.4f} ms, bound {b_ms:.4f} ms by {by}, model "
+                  f"{m_ms:.4f} ms by {m_by} ({ms / b_ms:.2f} times its "
+                  f"bound, {ms / m_ms:.3f} times its model; {card})")
+            require(m_ms <= ms, f"{name} k={k}: its model bound "
+                    f"({m_ms:.4f} ms) within its time ({ms:.4f} ms)")
+            out[name] = (ms, (b_ms, by), (m_ms, m_by))
+    del cases, cost, res, res_m, g
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = (
     # name, key, source, replaces, path whose counters give its launches
     ("zncc_banded_volume", "K1", "custereomatching_tpu_torch/csrc/"
@@ -1667,12 +1835,15 @@ def main() -> int:
     errs["K9a"] = errs["K9b"] = phase_k9()
     errs["K3m"] = phase_k3m()
     errs["K5"] = phase_k5()
+    for name, err in phase_past_limits().items():
+        errs[name] = max(errs[name], err)
     counts["volume_free"] = phase_volume_free_path()
     counts["plane_major"] = phase_plane_major_path()
     counts["no_residual"] = phase_no_residual_path()
     errs.update(phase_k10())
     counts["bound_model"], rates = phase_bound_model(card)
     times = phase_times(card, rates)
+    phase_large_k_times(card, rates)
 
     kernels = []
     for name, key, source, replaces, path in KERNELS:

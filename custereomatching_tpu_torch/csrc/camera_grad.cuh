@@ -29,7 +29,10 @@
 //      the instantiation's: read at every halo entry as the source's
 //      volume (K4, which forms g_d from it), recomputed on the tile's own
 //      pixels (K6), or read there from a second volume beside the
-//      cotangent (K2).  A round:
+//      cotangent (K2).  Where the entries' constants do not fit beside a
+//      plane's buffers (K4 past k = 47), the source reads them from their
+//      maps in global memory (through L2) at every entry once a round
+//      instead of staging them (Source::kStaged false).  A round:
 //        a. (K6) the cost's cross term on the tile's own pixels: K3's
 //           round_products and round_column_sums (common.cuh), the
 //           projector tile staged in chunks of planes, so any D runs;
@@ -52,10 +55,19 @@
 //   2. camera_grad_combine_kernel: the three [H, W] box filters and the
 //      final sum, the three maps staged together, or one after another
 //      where their tiles do not fit together (k > 93).
+// The chunked route (launch_cost_slabs), where a block that recomputes
+// the cost does not fit (K6 past k = 81, K5 past k = 27): for each slab of
+// kCostChunk planes, K1's rounds kernel (fused_pipeline.cuh, the head
+// off, beta = 1) writes the slab's costs into a [B, kCostChunk, H, W]
+// scratch, and the rounds kernel in slab mode (kSlab) walks those planes
+// with the cost read, K2's instantiation for K6 and K4's for K5, A1, B
+// and GRMU continued from their maps.  The costs are K1's bit for bit and
+// the sums stay in plane order, so the route gives K2's (K4's) gradient
+// on K1's volume, as the recompute does.
 // Every output of every pass adds its taps in K1's order, and A1, B and
 // GRMU accumulate in plane order, so the three instantiations give the
 // same values bit for bit: K6, recomputing the cost, gives K2's gradient
-// on one cotangent.
+// on one cotangent.  Every odd k <= 127 runs at every D.
 //
 // What bounds it on the H100: with the cost read from memory, the cost
 // (and for K2 the cotangent) volume is read once, 360 MB a KITTI frame
@@ -65,6 +77,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "fused_pipeline.cuh"
 
 namespace custereo {
 namespace {
@@ -139,7 +152,7 @@ __device__ inline void grad_column_sums(float* ybuf, const float* xbuf,
 
 // The most planes a round of the rounds kernel takes; where their buffers
 // do not fit, or D + 1 is smaller, it takes the largest power of two below
-// that does (launch_camera_grad_rounds instantiates each).
+// that does (launch_rounds_at instantiates each).
 constexpr int kGradPlanes = 8;
 
 // Shared-memory geometry of the rounds kernel, in floats: the entries'
@@ -222,6 +235,9 @@ __device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
 }
 
 // Source: the cotangent plane.
+//   kStaged      whether the entries' constants (ex2 and its maps) are
+//                staged over the halo once a block, or read from global
+//                memory at every entry once a round
 //   kMaps        halo'd tiles of per-pixel constants it stages
 //   kReadsCost   whether its volume is the cost, g_d formed from it (K4),
 //                or the cotangent itself (K2, K6)
@@ -230,18 +246,28 @@ __device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
 //   vol          the plane-major [B, D + 1, H, W] volume it reads at every
 //                halo entry and plane
 //   stage(maps, halo, i, pix, inside)  fill entry i of its tiles
-//   Entry, entry(maps, halo, i)        entry i's staged constants
+//   Entry, entry(maps, halo, i, pix)   entry i's constants: staged, or
+//                                      read at frame pixel pix
 //   cotangent(entry, v, df)            g_d from them and vol's value v
 //
 // Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads, one
-// block an SM; dynamic shared memory GradRoundTile(k, 1 + Source::kMaps,
-// kRecompute, chunk, P).floats() floats.  kRecompute: the cost is
-// recomputed from camera and projector on the tile's own pixels, the
+// block an SM; dynamic shared memory GradRoundTile(k, staged_consts<
+// Source>(), kRecompute, chunk, P).floats() floats.  kRecompute: the cost
+// is recomputed from camera and projector on the tile's own pixels, the
 // projector tile staged anew every `chunk` planes (K6, whose source reads
 // the cotangent); otherwise the source's volume is the cost (K4) or the
 // source reads it at the tile's own pixels (K2), and camera, cam_s and
-// `chunk` are unused.
-template <class Source, bool kRecompute, int P>
+// `chunk` are unused.  kSlab: the launch walks the planes [d_lo, d_hi]
+// alone, whose costs (the source's volume for K4's source, its `cost` for
+// K2's) sit in a slab of their own, [B, d_hi - d_lo + 1, H, W], and adds
+// to the A1, B and GRMU that the slabs before left in their maps;
+// otherwise it walks d = 0..D and d_lo, d_hi are unused.
+template <class Source>
+__host__ __device__ constexpr int staged_consts() {
+  return Source::kStaged ? 1 + Source::kMaps : 0;
+}
+
+template <class Source, bool kRecompute, bool kSlab, int P>
 __global__ void __launch_bounds__(kThreads, 1)
     camera_grad_rounds_kernel(Source src, const float* __restrict__ camera,
                               const float* __restrict__ projector,
@@ -252,18 +278,22 @@ __global__ void __launch_bounds__(kThreads, 1)
                               float* __restrict__ a1_out,
                               float* __restrict__ b_out,
                               float* __restrict__ grmu_out, int H, int W,
-                              int D, int k, int chunk, float eps) {
+                              int D, int k, int chunk, int d_lo, int d_hi,
+                              float eps) {
   static_assert(int(Source::kReadsCost) + int(kRecompute) +
                         int(Source::kCentreCost) ==
                     1,
                 "the cost is the source's volume (K4), recomputed (K6) or "
                 "read at the tile's own pixels (K2)");
+  static_assert(!kSlab || !kRecompute, "a slab's costs are read");
+  static_assert(Source::kStaged || (!kRecompute && Source::kMaps == 0),
+                "unstaged constants: none in shared memory");
   extern __shared__ float smem[];
-  const GradRoundTile x(k, 1 + Source::kMaps, kRecompute, chunk, P);
+  const GradRoundTile x(k, staged_consts<Source>(), kRecompute, chunk, P);
   const GradStrides gs = x.strides();
   const int halo = x.halo, hc = x.halo_cols, p = x.p;
   float* ex2_t = smem;
-  float* maps = ex2_t + halo;
+  float* maps = ex2_t + (Source::kStaged ? halo : 0);
   float* cam_x = maps + Source::kMaps * halo;
   float* proj_x = cam_x + (kRecompute ? halo : 0);
   float* ybuf = proj_x + x.proj_floats();
@@ -277,17 +307,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t frame = static_cast<size_t>(b) * plane;
   const size_t stats_w = static_cast<size_t>(W) + D;
-  const float* vol_b = src.vol + static_cast<size_t>(b) * (D + 1) * plane;
+  // The planes walked, and the slab's frame: the cost volume's planes.
+  const int first = kSlab ? d_lo : 0, end = kSlab ? d_hi : D;
+  const size_t slab = kSlab ? d_hi - d_lo + 1 : D + 1;
+  const int vol_first = kSlab && Source::kReadsCost ? first : 0;
+  const size_t vol_frame = kSlab && Source::kReadsCost ? slab : D + 1;
+  const float* vol_b = src.vol + static_cast<size_t>(b) * vol_frame * plane;
   const float inv_k2 = 1.f / static_cast<float>(k * k);
 
   // Per-entry constants of the halo'd tile, zero outside the image.
-  for (int i = threadIdx.x; i < halo; i += blockDim.x) {
-    const int rr = i / hc, cc = i - rr * hc;
-    const int y = h0 - p + rr, xx = w0 - p + cc;
-    const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
-    const size_t pix = frame + static_cast<size_t>(y) * W + xx;
-    ex2_t[i] = inside ? __ldg(cam_e2 + pix) : 0.f;
-    src.stage(maps, halo, i, pix, inside);
+  if constexpr (Source::kStaged) {
+    for (int i = threadIdx.x; i < halo; i += blockDim.x) {
+      const int rr = i / hc, cc = i - rr * hc;
+      const int y = h0 - p + rr, xx = w0 - p + cc;
+      const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
+      const size_t pix = frame + static_cast<size_t>(y) * W + xx;
+      ex2_t[i] = inside ? __ldg(cam_e2 + pix) : 0.f;
+      src.stage(maps, halo, i, pix, inside);
+    }
   }
   if constexpr (kRecompute)
     stage_tile(cam_x, camera + frame, H, W, h0 - p, w0 - p, x.halo_rows, hc,
@@ -305,11 +342,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float mux = kRecompute && valid ? __ldg(cam_s + o) * inv_k2 : 0.f;
   const int ring = halo - kThreads;
   float a1 = 0.f, bacc = 0.f, grmu = 0.f;
+  if (kSlab && first > 0 && valid) {
+    a1 = a1_out[o];
+    bacc = b_out[o];
+    grmu = grmu_out[o];
+  }
   // The last plane of the staged projector chunk: its tile starts at image
   // column w0 - p - last, so plane d reads it at shift last - d.
-  int last = kRecompute ? -1 : D;
+  int last = kRecompute ? -1 : end;
 
-  for (int d0 = 0; d0 <= D;) {
+  for (int d0 = first; d0 <= end;) {
     if constexpr (kRecompute) {
       // The round before's barriers have retired every read of the old
       // chunk.
@@ -333,18 +375,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     // b. gr_d of the tile's own pixel, with its B and GRMU terms.  Planes
     // past D (a short last round) load plane D and add nothing.
     if (valid) {
-      const auto e = src.entry(maps, halo, centre);
-      const float ex2 = ex2_t[centre];
+      const auto e = src.entry(maps, halo, centre, o);
+      const float ex2 = Source::kStaged ? ex2_t[centre] : __ldg(cam_e2 + o);
       float ey2[P], sy[P], v[P], cost[P];
 #pragma unroll
       for (int j = 0; j < P; ++j) {
-        const int d = min(d0 + j, D);
+        const int d = min(d0 + j, end);
         ey2[j] = __ldg(proj_e2 + stats_row - d);
         sy[j] = __ldg(proj_s + stats_row - d);
-        v[j] = __ldg(vol_b + d * plane + (o - frame));
+        v[j] = __ldg(vol_b + (d - vol_first) * plane + (o - frame));
         if constexpr (Source::kCentreCost)
           cost[j] = __ldg(src.cost +
-                          (static_cast<size_t>(b) * (D + 1) + d) * plane +
+                          (static_cast<size_t>(b) * slab + d - first) *
+                              plane +
                           (o - frame));
       }
 #pragma unroll
@@ -379,16 +422,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < P; ++j) ey[j * x.ysz] = 0.f;
         continue;
       }
-      const auto e = src.entry(maps, halo, i);
-      const float ex2 = ex2_t[i];
       const size_t px = static_cast<size_t>(y) * W + xx;
+      const auto e = src.entry(maps, halo, i, frame + px);
+      const float ex2 =
+          Source::kStaged ? ex2_t[i] : __ldg(cam_e2 + frame + px);
       const size_t srow = (static_cast<size_t>(b) * H + y) * stats_w + D + xx;
       float ey2[P], v[P];
 #pragma unroll
       for (int j = 0; j < P; ++j) {
-        const int d = min(d0 + j, D);
+        const int d = min(d0 + j, end);
         ey2[j] = __ldg(proj_e2 + srow - d);
-        v[j] = __ldg(vol_b + d * plane + px);
+        v[j] = __ldg(vol_b + (d - vol_first) * plane + px);
       }
 #pragma unroll
       for (int j = 0; j < P; ++j) {
@@ -544,74 +588,135 @@ inline cudaError_t launch_grad_combine(const float* camera,
   return cudaGetLastError();
 }
 
-template <class Source, bool kRecompute, int P>
-cudaError_t launch_rounds(const Source& src, const float* camera,
-                          const float* projector, const float* cam_s,
-                          const float* cam_e2, const float* proj_s,
-                          const float* proj_e2, float* a1, float* bm,
-                          float* grmu, int B, int H, int W, int D, int k,
-                          int chunk, float eps, cudaStream_t stream) {
-  auto kernel = camera_grad_rounds_kernel<Source, kRecompute, P>;
-  const size_t bytes =
-      GradRoundTile(k, 1 + Source::kMaps, kRecompute, chunk, P).floats() *
-      sizeof(float);
-  const cudaError_t e = allow_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(src, camera, projector, cam_s,
-                                            cam_e2, proj_s, proj_e2, a1, bm,
-                                            grmu, H, W, D, k, chunk, eps);
-  return cudaGetLastError();
-}
-
-// K2, K4 and K6: the statistics passes, the rounds kernel at the planes a
-// round grad_round gives, and the combine.  Scratch: cam_s/cam_e2
-// [B, H, W], proj_s/proj_e2 [B, H, W + D], a1/bm/grmu [B, H, W].
-template <class Source, bool kRecompute>
-cudaError_t launch_camera_grad_rounds(const Source& src, const float* camera,
-                                      const float* projector, float* cam_s,
-                                      float* cam_e2, float* proj_s,
-                                      float* proj_e2, float* a1, float* bm,
-                                      float* grmu, float* grad, int B, int H,
-                                      int W, int D, int k, float eps,
-                                      cudaStream_t stream) {
-  static_assert(kGradPlanes == 8, "the planes a round instantiated below");
+// K2, K4, K5 and K6: the statistics passes, then `rounds(budget)` (the
+// rounds kernel, or the route that fits in the `budget` floats a block
+// may hold), then the combine.
+template <class RoundsFn>
+cudaError_t launch_grad_kernels(const RoundsFn& rounds, const float* camera,
+                                const float* projector, float* cam_s,
+                                float* cam_e2, float* proj_s, float* proj_e2,
+                                float* a1, float* bm, float* grmu,
+                                float* grad, int B, int H, int W, int D,
+                                int k, cudaStream_t stream) {
   cudaError_t e = launch_grad_stats(camera, projector, cam_s, cam_e2, proj_s,
                                     proj_e2, B, H, W, D, k, stream);
   if (e != cudaSuccess) return e;
   size_t budget = 0;
   e = optin_floats(&budget);
   if (e != cudaSuccess) return e;
-  const Rounds round =
-      grad_round(k, D, 1 + Source::kMaps, kRecompute, budget);
+  e = rounds(budget);
+  if (e != cudaSuccess) return e;
+  return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
+                             budget, stream);
+}
+
+template <class Source, bool kRecompute, bool kSlab, int P>
+cudaError_t launch_rounds(const Source& src, const float* camera,
+                          const float* projector, const float* cam_s,
+                          const float* cam_e2, const float* proj_s,
+                          const float* proj_e2, float* a1, float* bm,
+                          float* grmu, int B, int H, int W, int D, int k,
+                          int chunk, int d_lo, int d_hi, float eps,
+                          cudaStream_t stream) {
+  auto kernel = camera_grad_rounds_kernel<Source, kRecompute, kSlab, P>;
+  const size_t bytes =
+      GradRoundTile(k, staged_consts<Source>(), kRecompute, chunk, P)
+          .floats() *
+      sizeof(float);
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(src, camera, projector, cam_s,
+                                            cam_e2, proj_s, proj_e2, a1, bm,
+                                            grmu, H, W, D, k, chunk, d_lo,
+                                            d_hi, eps);
+  return cudaGetLastError();
+}
+
+// The rounds kernel at `round`, grad_round's planes a round (one of the
+// powers of two it is instantiated at) and projector chunk.
+template <class Source, bool kRecompute, bool kSlab>
+cudaError_t launch_rounds_at(Rounds round, const Source& src,
+                             const float* camera, const float* projector,
+                             const float* cam_s, const float* cam_e2,
+                             const float* proj_s, const float* proj_e2,
+                             float* a1, float* bm, float* grmu, int B, int H,
+                             int W, int D, int k, int d_lo, int d_hi,
+                             float eps, cudaStream_t stream) {
+  static_assert(kGradPlanes == 8, "the planes a round instantiated below");
   switch (round.planes) {
     case 8:
-      e = launch_rounds<Source, kRecompute, 8>(
+      return launch_rounds<Source, kRecompute, kSlab, 8>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, eps, stream);
-      break;
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
     case 4:
-      e = launch_rounds<Source, kRecompute, 4>(
+      return launch_rounds<Source, kRecompute, kSlab, 4>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, eps, stream);
-      break;
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
     case 2:
-      e = launch_rounds<Source, kRecompute, 2>(
+      return launch_rounds<Source, kRecompute, kSlab, 2>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, eps, stream);
-      break;
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
     case 1:
-      e = launch_rounds<Source, kRecompute, 1>(
+      return launch_rounds<Source, kRecompute, kSlab, 1>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, eps, stream);
-      break;
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
     default:
       // Not one plane's buffers fit beside the block's tiles.
       return cudaErrorInvalidConfiguration;
   }
-  if (e != cudaSuccess) return e;
-  return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
-                             budget, stream);
+}
+
+// The rounds kernel over d = 0..D, at the planes a round and chunk that
+// grad_round gives within `budget` floats.
+template <class Source, bool kRecompute>
+cudaError_t launch_all_planes(const Source& src, const float* camera,
+                              const float* projector, const float* cam_s,
+                              const float* cam_e2, const float* proj_s,
+                              const float* proj_e2, float* a1, float* bm,
+                              float* grmu, int B, int H, int W, int D, int k,
+                              float eps, size_t budget, cudaStream_t stream) {
+  return launch_rounds_at<Source, kRecompute, false>(
+      grad_round(k, D, staged_consts<Source>(), kRecompute, budget), src,
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, B, H,
+      W, D, k, 0, D, eps, stream);
+}
+
+// The planes of a slab of the chunked route.
+constexpr int kCostChunk = 8;
+
+// The chunked route (K5 and K6 where their recomputing blocks do not
+// fit): for each slab [lo, hi] of kCostChunk planes, K1's rounds kernel
+// over those planes (the head off, beta = 1, on the statistics of
+// launch_grad_stats, which are K1's) writes their costs into `slab`,
+// [B, hi - lo + 1, H, W], then the rounds kernel in slab mode, its source
+// make_source(slab), adds them to A1, B and GRMU.  `slab` holds at least
+// B kCostChunk H W floats (min(kCostChunk, D + 1) planes a frame).
+template <class Source, class MakeSource>
+cudaError_t launch_cost_slabs(const MakeSource& make_source,
+                              const float* camera, const float* projector,
+                              const float* cam_s, const float* cam_e2,
+                              const float* proj_s, const float* proj_e2,
+                              float* slab, float* a1, float* bm, float* grmu,
+                              int B, int H, int W, int D, int k, float eps,
+                              size_t budget, cudaStream_t stream) {
+  // The caller allocates the slab where this route runs (its Python
+  // wrapper mirrors the choice: kernel_model.cost_slab_planes).
+  if (slab == nullptr) return cudaErrorInvalidValue;
+  for (int lo = 0; lo <= D; lo += kCostChunk) {
+    const int hi = lo + kCostChunk - 1 < D ? lo + kCostChunk - 1 : D;
+    cudaError_t e = launch_fused<false, false, false, true, true>(
+        camera, projector, cam_s, cam_e2, proj_s, proj_e2, nullptr, nullptr,
+        nullptr, nullptr, slab, nullptr, nullptr, nullptr, B, H, W, D, k, lo,
+        hi, eps, 1.f, 0.f, stream);
+    if (e != cudaSuccess) return e;
+    e = launch_rounds_at<Source, false, true>(
+        grad_round(k, hi - lo, staged_consts<Source>(), false, budget),
+        make_source(slab), camera, projector, cam_s, cam_e2, proj_s, proj_e2,
+        a1, bm, grmu, B, H, W, D, k, lo, hi, eps, stream);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -43,7 +43,9 @@
 // 192) a block holds the two image tiles (30 x 78 and 30 x 270, one
 // staging) and P = 13 planes of rows-pass sums (16 x 79) and window sums
 // (16 x 65): 40,392 floats = 161,568 bytes, and its threads take up to 64
-// registers, so one 1024-thread block an SM.
+// registers, so one 1024-thread block an SM.  K1 in slab mode (kSlab)
+// writes the planes [d_lo, d_hi] alone, into a volume of their own: the
+// chunked route of K5 and K6 (camera_grad.cuh) reads its costs so.
 #pragma once
 
 #include "common.cuh"
@@ -57,7 +59,10 @@ namespace {
 // planes).floats() floats.  The four head maps are written only when
 // kHead, am_out, s_out and t_out only when kResiduals, volume only when
 // kVolume; without the head (K1) the kernel writes the volume alone.
-template <bool kHead, bool kUnnormalized, bool kResiduals, bool kVolume>
+// kSlab (K1 only): the planes d_lo..d_hi alone, the volume [B, d_hi - d_lo
+// + 1, H, W]; otherwise d = 0..D, and d_lo and d_hi are unused.
+template <bool kHead, bool kUnnormalized, bool kResiduals, bool kVolume,
+          bool kSlab>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_pipeline_kernel(const float* __restrict__ camera,
                           const float* __restrict__ projector,
@@ -71,10 +76,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                           float* __restrict__ am_out,
                           float* __restrict__ s_out,
                           float* __restrict__ t_out, int H, int W, int D,
-                          int k, int planes, int chunk, float eps, float beta,
-                          float threshold) {
+                          int k, int planes, int chunk, int d_lo, int d_hi,
+                          float eps, float beta, float threshold) {
   static_assert(kHead || (kVolume && !kResiduals),
                 "without the head the kernel writes the volume alone (K1)");
+  static_assert(!kSlab || !kHead, "a slab of planes is K1's");
   extern __shared__ float smem[];
   // The projector tile holds `chunk` planes: for the chunk's last plane
   // `last` it starts at image column w0 - p - last, and plane d reads it
@@ -89,7 +95,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
   const size_t plane = static_cast<size_t>(H) * W;
   const float* proj_b = projector + b * plane;
-  int last = min(chunk - 1, D);
+  // The planes walked.
+  const int first = kSlab ? d_lo : 0, end = kSlab ? d_hi : D;
+  int last = min(first + chunk - 1, end);
   stage_tile(cam_t, camera + b * plane, H, W, h0 - g.p, w0 - g.p, g.rows,
              g.cam_w, 1.f);
   stage_tile(proj_t, proj_b, H, W, h0 - g.p, w0 - g.p - last, g.rows,
@@ -111,7 +119,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     sy_row = proj_s + row;
     ey2_row = proj_e2 + row;
     if (kVolume)
-      vol_px = volume + static_cast<size_t>(b) * (D + 1) * plane +
+      vol_px = volume + static_cast<size_t>(b) * (end - first + 1) * plane +
                static_cast<size_t>(h) * W + w;
   }
   const float beps = beta * eps;
@@ -125,11 +133,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // before's column sums) is behind a barrier; the column sums overwrite
   // box after the rows pass's barrier, which every read of the round
   // before's sums precedes.
-  for (int d0 = 0; d0 <= D; d0 += planes) {
+  for (int d0 = first; d0 <= end; d0 += planes) {
     if (d0 > last) {
       // The round before's rows pass, behind its barrier, read the old
       // chunk last.
-      last = min(d0 + chunk - 1, D);
+      last = min(d0 + chunk - 1, end);
       stage_tile(proj_t, proj_b, H, W, h0 - g.p, w0 - g.p - last, g.rows,
                  g.proj_w, beta);
       __syncthreads();
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float exy_b = sxy_b - mux * __ldg(sy_row - d);
       const float bc =
           (exy_b + beps) * rsqrtf(ex2 * __ldg(ey2_row - d) + eps);
-      if (kVolume) vol_px[d * plane] = bc * inv_b;
+      if (kVolume) vol_px[(d - first) * plane] = bc * inv_b;
       if constexpr (kHead) {
         const float df = static_cast<float>(d);
         if (kUnnormalized) {
@@ -188,25 +196,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <bool kHead, bool kUnnormalized, bool kResiduals, bool kVolume>
+// The rounds kernel over the planes d_lo..d_hi (all D + 1 unless kSlab),
+// at fused_round's planes a round and projector chunk for them.
+template <bool kHead, bool kUnnormalized, bool kResiduals, bool kVolume,
+          bool kSlab = false>
 cudaError_t launch_fused(const float* camera, const float* projector,
                          const float* cam_s, const float* cam_e2,
                          const float* proj_s, const float* proj_e2,
                          float* disparity, float* soft, float* mask,
                          float* conf, float* volume, float* am, float* s,
                          float* t, int B, int H, int W, int D, int k,
-                         float eps, float beta, float threshold,
-                         cudaStream_t stream) {
-  auto kernel =
-      fused_pipeline_kernel<kHead, kUnnormalized, kResiduals, kVolume>;
+                         int d_lo, int d_hi, float eps, float beta,
+                         float threshold, cudaStream_t stream) {
+  auto kernel = fused_pipeline_kernel<kHead, kUnnormalized, kResiduals,
+                                      kVolume, kSlab>;
   int device = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device);
   if (e != cudaSuccess) return e;
-  const Rounds round =
-      fused_round(k, D, static_cast<size_t>(optin) / sizeof(float));
+  const Rounds round = fused_round(k, d_hi - d_lo,
+                                   static_cast<size_t>(optin) / sizeof(float));
   // Not even one plane's buffers fit beside the image tiles.
   if (round.planes < 1) return cudaErrorInvalidConfiguration;
   const PlaneTile g(k, round.chunk - 1);
@@ -217,7 +228,7 @@ cudaError_t launch_fused(const float* camera, const float* projector,
   kernel<<<grid, kThreads, bytes, stream>>>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
       mask, conf, volume, am, s, t, H, W, D, k, round.planes, round.chunk,
-      eps, beta, threshold);
+      d_lo, d_hi, eps, beta, threshold);
   return cudaGetLastError();
 }
 
@@ -241,13 +252,13 @@ int run_pipeline(const float* camera, const float* projector, float* cam_s,
     if (unnormalized)
       return launch_fused<true, true, kResiduals, kVolume>(
           camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
-          mask, conf, volume, am, s, t, B, H, W, D, k, eps, beta, threshold,
-          stream);
+          mask, conf, volume, am, s, t, B, H, W, D, k, 0, D, eps, beta,
+          threshold, stream);
   }
   return launch_fused<kHead, false, kResiduals, kVolume>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
-      mask, conf, volume, am, s, t, B, H, W, D, k, eps, beta, threshold,
-      stream);
+      mask, conf, volume, am, s, t, B, H, W, D, k, 0, D, eps, beta,
+      threshold, stream);
 }
 
 }  // namespace

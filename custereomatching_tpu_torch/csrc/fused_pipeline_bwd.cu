@@ -26,7 +26,10 @@
 // k = 15, D = 192: P = 8, the constants (7 x 30 x 78) and 8 planes of the
 // two buffers (30 x 79 + 16 x 79): 45,452 floats = 181,808 bytes, one
 // 1024-thread block an SM.  A larger k takes P = 4, 2 or 1; at P = 1 the
-// block fits up to k = 47 (56,398 floats), as the first version's did.
+// block fits up to k = 47 (56,398 floats).  Past that the constants stay
+// in their maps (HeadSource<kUnnormalized, false>): every entry reads its
+// seven from global memory once a round, and one plane's buffers, 30,178
+// floats at k = 127, fit; the values are the staged route's.
 //
 // K5 recomputes the cost at every pixel of the halo'd 30 x 78 tile (k =
 // 15), since g_d needs it there, in a kernel of its own on the
@@ -59,7 +62,11 @@
 // staged twice a frame.  P is what gives each thread about one rows-pass
 // item (1024 / (92 x 2)); the chunk takes the rest.  At one plane a round
 // and a chunk the block needs 54,752 floats at k = 27 and 59,080 at k =
-// 29: k <= 27 runs (the wrapper checks it), larger k does not.
+// 29, and from k = 31 the halo has more entries than kHaloOwn a thread.
+// Where it does not fit K5 takes camera_grad.cuh's chunked route: K1's
+// costs of kCostChunk planes at a time in a slab, K4's rounds kernel on
+// each slab, so its gradient is K4's on K1's volume, which this kernel's
+// recompute gives too; the volume is never whole.
 //
 // What bounds it on the H100: K4 reads one volume, the cost (360 MB a
 // KITTI frame, about 0.11 ms at 3.35 TB/s); per plane and halo pixel it
@@ -90,11 +97,13 @@ __device__ __forceinline__ float head_cotangent(float gs, float tos,
 }
 
 // g_d formed from the head's maps [B, H, W] and the cost (camera_grad.cuh's
-// Source; K5 reads the maps itself).
-template <bool kUnnormalized>
+// Source; K5 reads the maps itself).  kStaged: the entries' constants
+// staged over the halo; otherwise read from the maps at every entry.
+template <bool kUnnormalized, bool kStaged_ = true>
 struct HeadSource {
+  static constexpr bool kStaged = kStaged_;
   // Staged tiles: gs_hat mask beta, t/s, 1/s, am, gc_hat, conf.
-  static constexpr int kMaps = 6;
+  static constexpr int kMaps = kStaged ? 6 : 0;
   static constexpr bool kReadsCost = true;
   static constexpr bool kCentreCost = false;
   const float *am, *mask, *conf, *s, *t, *gsoft, *gconf;
@@ -106,28 +115,35 @@ struct HeadSource {
     float gs, tos, inv_s, am, gc, conf;
   };
 
-  __device__ void stage(float* maps, int halo, int i, size_t pix,
-                        bool inside) const {
-    float gs = 0.f, tos = 0.f, inv_s = 0.f, a = 0.f, gc = 0.f, m = 0.f;
-    if (inside) {
-      inv_s = 1.f / __ldg(s + pix);
-      tos = __ldg(t + pix) * inv_s;
-      gs = __ldg(gsoft + pix) * __ldg(mask + pix) * beta;
-      a = __ldg(am + pix);
-      gc = __ldg(gconf + pix);
-      m = __ldg(conf + pix);
-    }
-    maps[i] = gs;
-    maps[halo + i] = tos;
-    maps[2 * halo + i] = inv_s;
-    maps[3 * halo + i] = a;
-    maps[4 * halo + i] = gc;
-    maps[5 * halo + i] = m;
+  // The constants of frame pixel pix, from the maps.
+  __device__ Entry load(size_t pix) const {
+    const float inv_s = 1.f / __ldg(s + pix);
+    return {__ldg(gsoft + pix) * __ldg(mask + pix) * beta,
+            __ldg(t + pix) * inv_s,
+            inv_s,
+            __ldg(am + pix),
+            __ldg(gconf + pix),
+            __ldg(conf + pix)};
   }
 
-  __device__ Entry entry(const float* maps, int halo, int i) const {
-    return {maps[i], maps[halo + i], maps[2 * halo + i], maps[3 * halo + i],
-            maps[4 * halo + i], maps[5 * halo + i]};
+  __device__ void stage(float* maps, int halo, int i, size_t pix,
+                        bool inside) const {
+    const Entry e = inside ? load(pix) : Entry{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    maps[i] = e.gs;
+    maps[halo + i] = e.tos;
+    maps[2 * halo + i] = e.inv_s;
+    maps[3 * halo + i] = e.am;
+    maps[4 * halo + i] = e.gc;
+    maps[5 * halo + i] = e.conf;
+  }
+
+  __device__ Entry entry(const float* maps, int halo, int i,
+                         size_t pix) const {
+    if constexpr (kStaged)
+      return {maps[i],          maps[halo + i],     maps[2 * halo + i],
+              maps[3 * halo + i], maps[4 * halo + i], maps[5 * halo + i]};
+    else
+      return load(pix);
   }
 
   __device__ float cotangent(const Entry& e, float c, float df) const {
@@ -399,57 +415,112 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// K5: the statistics passes, the halo kernel and the combine.
+// K4's rounds kernel over d = 0..D: the constants staged where a plane's
+// buffers fit beside them, else read from the maps.
 template <bool kUnnormalized>
-cudaError_t launch_fused_bwd_halo(const HeadSource<kUnnormalized>& src,
-                                  const float* camera, const float* projector,
-                                  float* cam_s, float* cam_e2, float* proj_s,
-                                  float* proj_e2, float* a1, float* bm,
-                                  float* grmu, float* grad, int B, int H,
-                                  int W, int D, int k, float eps,
-                                  cudaStream_t stream) {
-  cudaError_t e = launch_grad_stats(camera, projector, cam_s, cam_e2, proj_s,
-                                    proj_e2, B, H, W, D, k, stream);
-  if (e != cudaSuccess) return e;
-  size_t budget = 0;
-  e = optin_floats(&budget);
-  if (e != cudaSuccess) return e;
+cudaError_t launch_head_rounds(const HeadSource<kUnnormalized>& src,
+                               const float* camera, const float* projector,
+                               const float* cam_s, const float* cam_e2,
+                               const float* proj_s, const float* proj_e2,
+                               float* a1, float* bm, float* grmu, int B,
+                               int H, int W, int D, int k, float eps,
+                               size_t budget, cudaStream_t stream) {
+  using Staged = HeadSource<kUnnormalized, true>;
+  using Unstaged = HeadSource<kUnnormalized, false>;
+  if (grad_round(k, D, staged_consts<Staged>(), false, budget).planes >= 1)
+    return launch_all_planes<Staged, false>(
+        src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu,
+        B, H, W, D, k, eps, budget, stream);
+  return launch_all_planes<Unstaged, false>(
+      Unstaged{src.am, src.mask, src.conf, src.s, src.t, src.gsoft,
+               src.gconf, src.beta, src.vol},
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, B, H,
+      W, D, k, eps, budget, stream);
+}
+
+// K5's chunked route: K4's rounds kernel on slabs of K1's costs, its
+// constants staged where a plane's buffers fit beside them.
+template <bool kUnnormalized, bool kStaged>
+cudaError_t launch_head_slabs(const HeadSource<kUnnormalized>& src,
+                              const float* camera, const float* projector,
+                              const float* cam_s, const float* cam_e2,
+                              const float* proj_s, const float* proj_e2,
+                              float* slab, float* a1, float* bm, float* grmu,
+                              int B, int H, int W, int D, int k, float eps,
+                              size_t budget, cudaStream_t stream) {
+  using Source = HeadSource<kUnnormalized, kStaged>;
+  const auto make_source = [&src](const float* costs) {
+    return Source{src.am, src.mask, src.conf, src.s, src.t, src.gsoft,
+                  src.gconf, src.beta, costs};
+  };
+  return launch_cost_slabs<Source>(make_source, camera, projector, cam_s,
+                                   cam_e2, proj_s, proj_e2, slab, a1, bm,
+                                   grmu, B, H, W, D, k, eps, budget, stream);
+}
+
+// K5's A1, B and GRMU within `budget` floats: the halo kernel, or, where
+// its block does not fit, the chunked route on `slab`.
+template <bool kUnnormalized>
+cudaError_t launch_halo_rounds(const HeadSource<kUnnormalized>& src,
+                               const float* camera, const float* projector,
+                               const float* cam_s, const float* cam_e2,
+                               const float* proj_s, const float* proj_e2,
+                               float* a1, float* bm, float* grmu,
+                               float* slab, int B, int H, int W, int D, int k,
+                               float eps, size_t budget,
+                               cudaStream_t stream) {
   const Rounds round = halo_round(k, D, budget);
   const HaloTile x(k, round.chunk, round.planes);
   // Not one plane fits, or the halo has more entries than threads own.
-  if (round.planes < 1 || x.halo > kHaloOwn * kThreads)
-    return cudaErrorInvalidConfiguration;
+  if (round.planes < 1 || x.halo > kHaloOwn * kThreads) {
+    const bool staged = grad_round(k, kCostChunk - 1,
+                                   staged_consts<HeadSource<kUnnormalized>>(),
+                                   false, budget)
+                            .planes >= 1;
+    return staged ? launch_head_slabs<kUnnormalized, true>(
+                        src, camera, projector, cam_s, cam_e2, proj_s,
+                        proj_e2, slab, a1, bm, grmu, B, H, W, D, k, eps,
+                        budget, stream)
+                  : launch_head_slabs<kUnnormalized, false>(
+                        src, camera, projector, cam_s, cam_e2, proj_s,
+                        proj_e2, slab, a1, bm, grmu, B, H, W, D, k, eps,
+                        budget, stream);
+  }
   auto kernel = fused_bwd_halo_kernel<kUnnormalized>;
   const size_t bytes = x.floats() * sizeof(float);
-  e = allow_smem(kernel, bytes);
+  const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, H,
       W, D, k, round.chunk, round.planes, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad, B, H, W, k,
-                             budget, stream);
+  return cudaGetLastError();
 }
 
+// K4 (the cost read from `cost`) or K5 (recomputed), through
+// camera_grad.cuh's launch_grad_kernels.
 template <bool kUnnormalized, bool kRecompute>
 int run(const float* camera, const float* projector, float* cam_s,
         float* cam_e2, float* proj_s, float* proj_e2, const float* cost,
         const float* am, const float* mask, const float* conf, const float* s,
         const float* t, const float* gsoft, const float* gconf, float* a1,
-        float* bm, float* grmu, float* grad, int B, int H, int W, int D,
-        int k, float eps, float beta, cudaStream_t stream) {
+        float* bm, float* grmu, float* grad, float* slab, int B, int H,
+        int W, int D, int k, float eps, float beta, cudaStream_t stream) {
   const HeadSource<kUnnormalized> src{am, mask, conf, s, t, gsoft, gconf,
                                       beta, cost};
-  if constexpr (kRecompute)
-    return launch_fused_bwd_halo(src, camera, projector, cam_s, cam_e2,
-                                 proj_s, proj_e2, a1, bm, grmu, grad, B, H, W,
-                                 D, k, eps, stream);
-  else
-    return launch_camera_grad_rounds<HeadSource<kUnnormalized>, false>(
-        src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu,
-        grad, B, H, W, D, k, eps, stream);
+  return launch_grad_kernels(
+      [&](size_t budget) {
+        if constexpr (kRecompute)
+          return launch_halo_rounds(src, camera, projector, cam_s, cam_e2,
+                                    proj_s, proj_e2, a1, bm, grmu, slab, B,
+                                    H, W, D, k, eps, budget, stream);
+        else
+          return launch_head_rounds(src, camera, projector, cam_s, cam_e2,
+                                    proj_s, proj_e2, a1, bm, grmu, B, H, W,
+                                    D, k, eps, budget, stream);
+      },
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, grad,
+      B, H, W, D, k, stream);
 }
 
 // The head branch `unnormalized` selects.
@@ -459,18 +530,18 @@ int run_branch(const float* camera, const float* projector, float* cam_s,
                const float* cost, const float* am, const float* mask,
                const float* conf, const float* s, const float* t,
                const float* gsoft, const float* gconf, float* a1, float* bm,
-               float* grmu, float* grad, int B, int H, int W, int D, int k,
-               float eps, float beta, int unnormalized,
+               float* grmu, float* grad, float* slab, int B, int H, int W,
+               int D, int k, float eps, float beta, int unnormalized,
                cudaStream_t stream) {
   if (unnormalized)
     return run<true, kRecompute>(camera, projector, cam_s, cam_e2, proj_s,
                                  proj_e2, cost, am, mask, conf, s, t, gsoft,
-                                 gconf, a1, bm, grmu, grad, B, H, W, D, k,
-                                 eps, beta, stream);
+                                 gconf, a1, bm, grmu, grad, slab, B, H, W, D,
+                                 k, eps, beta, stream);
   return run<false, kRecompute>(camera, projector, cam_s, cam_e2, proj_s,
                                 proj_e2, cost, am, mask, conf, s, t, gsoft,
-                                gconf, a1, bm, grmu, grad, B, H, W, D, k, eps,
-                                beta, stream);
+                                gconf, a1, bm, grmu, grad, slab, B, H, W, D,
+                                k, eps, beta, stream);
 }
 
 }  // namespace
@@ -495,21 +566,26 @@ extern "C" int custereo_fused_pipeline_bwd(
     int unnormalized, void* stream_ptr) {
   return run_branch<false>(camera, projector, cam_s, cam_e2, proj_s, proj_e2,
                            cost, am, mask, conf, s, t, gsoft, gconf, a1, bm,
-                           grmu, grad, B, H, W, D, k, eps, beta, unnormalized,
-                           static_cast<cudaStream_t>(stream_ptr));
+                           grmu, grad, nullptr, B, H, W, D, k, eps, beta,
+                           unnormalized, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // K5: as custereo_fused_pipeline_bwd without the cost volume; the cost is
-// recomputed from camera and projector at every pixel of the halo'd tile.
+// recomputed from camera and projector at every pixel of the halo'd tile,
+// or, where that block does not fit, written a slab of kCostChunk planes
+// at a time into `slab` ([B, min(kCostChunk, D + 1), H, W]; null where
+// the halo kernel runs: kernel_model.cost_slab_planes says which).  The
+// slab comes after the stream, so a caller of the entry without it still
+// runs the halo kernel.
 extern "C" int custereo_fused_pipeline_bwd_recompute(
     const float* camera, const float* projector, float* cam_s, float* cam_e2,
     float* proj_s, float* proj_e2, const float* am, const float* mask,
     const float* conf, const float* s, const float* t, const float* gsoft,
     const float* gconf, float* a1, float* bm, float* grmu, float* grad, int B,
     int H, int W, int D, int k, float eps, float beta, int unnormalized,
-    void* stream_ptr) {
+    void* stream_ptr, float* slab) {
   return run_branch<true>(camera, projector, cam_s, cam_e2, proj_s, proj_e2,
                           nullptr, am, mask, conf, s, t, gsoft, gconf, a1, bm,
-                          grmu, grad, B, H, W, D, k, eps, beta, unnormalized,
-                          static_cast<cudaStream_t>(stream_ptr));
+                          grmu, grad, slab, B, H, W, D, k, eps, beta,
+                          unnormalized, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -19,8 +19,12 @@
 // 30 x (78 + 192), 41,852 floats = 167,408 bytes, and past the card's
 // limit stages the projector in chunks of planes, so any D runs.  K2
 // takes every odd k <= 127 at every D (P = 1 at k = 127: 57,158 floats;
-// its combine box-filters the three maps one at a time from k = 95), K6
-// k <= 81.
+// its combine box-filters the three maps one at a time from k = 95).  K6's
+// block fits up to k = 81 (59,682 floats at k = 83); beyond, it takes
+// camera_grad.cuh's chunked route: K1's costs of kCostChunk planes at a
+// time in a slab, K2's rounds kernel reading them beside the cotangent,
+// so its gradient is K2's on K1's volume, as the recompute's is.  Both
+// take every odd k <= 127 at every D.
 //
 // What bounds it on the H100: K2 reads two volumes, g and c (720 MB a
 // KITTI frame, about 0.21 ms at 3.35 TB/s); K6 one, g (0.11 ms), and
@@ -37,6 +41,7 @@ namespace {
 // volume (K2, kCost) or recomputed there (K6, `cost` null).
 template <bool kCost>
 struct CotangentSource {
+  static constexpr bool kStaged = true;
   static constexpr int kMaps = 0;
   static constexpr bool kReadsCost = false;
   static constexpr bool kCentreCost = kCost;
@@ -45,7 +50,9 @@ struct CotangentSource {
 
   struct Entry {};
   __device__ void stage(float*, int, int, size_t, bool) const {}
-  __device__ Entry entry(const float*, int, int) const { return {}; }
+  __device__ Entry entry(const float*, int, int, size_t) const {
+    return {};
+  }
   __device__ float cotangent(const Entry&, float v, float) const {
     return v;
   }
@@ -70,21 +77,46 @@ extern "C" int custereo_camera_grad(const float* camera,
                                     float* bm, float* grmu, float* grad,
                                     int B, int H, int W, int D, int k,
                                     float eps, void* stream_ptr) {
-  return launch_camera_grad_rounds<CotangentSource<true>, false>(
-      CotangentSource<true>{cotangent, cost}, camera, projector, cam_s,
-      cam_e2, proj_s, proj_e2, a1, bm, grmu, grad, B, H, W, D, k, eps,
-      static_cast<cudaStream_t>(stream_ptr));
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  return launch_grad_kernels(
+      [&](size_t budget) {
+        return launch_all_planes<CotangentSource<true>, false>(
+            CotangentSource<true>{cotangent, cost}, camera, projector, cam_s,
+            cam_e2, proj_s, proj_e2, a1, bm, grmu, B, H, W, D, k, eps,
+            budget, stream);
+      },
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, grad,
+      B, H, W, D, k, stream);
 }
 
 // K6: as custereo_camera_grad without the cost volume; each cost plane is
-// recomputed from camera and projector.
+// recomputed from camera and projector, or, where that block does not
+// fit, written a slab of kCostChunk planes at a time into `slab` ([B,
+// min(kCostChunk, D + 1), H, W]; null where the recompute runs:
+// kernel_model.cost_slab_planes says which).  The slab comes after the
+// stream, so a caller of the entry without it still runs the recompute.
 extern "C" int custereo_camera_grad_recompute(
     const float* camera, const float* projector, float* cam_s, float* cam_e2,
     float* proj_s, float* proj_e2, const float* cotangent, float* a1,
     float* bm, float* grmu, float* grad, int B, int H, int W, int D, int k,
-    float eps, void* stream_ptr) {
-  return launch_camera_grad_rounds<CotangentSource<false>, true>(
-      CotangentSource<false>{cotangent, nullptr}, camera, projector, cam_s,
-      cam_e2, proj_s, proj_e2, a1, bm, grmu, grad, B, H, W, D, k, eps,
-      static_cast<cudaStream_t>(stream_ptr));
+    float eps, void* stream_ptr, float* slab) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  return launch_grad_kernels(
+      [&](size_t budget) {
+        using Recompute = CotangentSource<false>;
+        if (grad_round(k, D, staged_consts<Recompute>(), true, budget)
+                .planes >= 1)
+          return launch_all_planes<Recompute, true>(
+              Recompute{cotangent, nullptr}, camera, projector, cam_s,
+              cam_e2, proj_s, proj_e2, a1, bm, grmu, B, H, W, D, k, eps,
+              budget, stream);
+        return launch_cost_slabs<CotangentSource<true>>(
+            [cotangent](const float* costs) {
+              return CotangentSource<true>{cotangent, costs};
+            },
+            camera, projector, cam_s, cam_e2, proj_s, proj_e2, slab, a1, bm,
+            grmu, B, H, W, D, k, eps, budget, stream);
+      },
+      camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, grad,
+      B, H, W, D, k, stream);
 }

@@ -47,12 +47,13 @@
 //      not depend on P.  It writes A1p [B, H, W] and z2, z3 [B, H, W + p]
 //      once.
 //   2. proj_grad_combine_kernel: the three box filters on the extended
-//      columns and the final sum.
+//      columns and the final sum, the three maps staged together, or one
+//      after another where their tiles do not fit together (k > 93), each
+//      in the same order.
 // At k = 15: P = 8, ey2 (30 x 78) and 8 planes of the two buffers (30 x
 // 79 + 16 x 79): 31,412 floats = 125,648 bytes, one 1024-thread block an
-// SM.  The rounds kernel takes every odd k <= 127 (P = 1 from k = 95); the
-// combine kernel, three halo'd tiles and their rows passes, caps K7 at
-// k <= 93, at any D.
+// SM.  The rounds kernel takes every odd k <= 127 (P = 1 from k = 95), and
+// so does the combine, at any D.
 //
 // What bounds it on the H100: it reads two volumes, g and c (720 MB a
 // KITTI frame, about 0.21 ms at 3.35 TB/s; at a halo entry the g and ex2
@@ -223,9 +224,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // grad = A1p - box(z2) - proj * box(z3) + box(muy z3), the boxes over the
 // extended columns e in [0, W + p) and rows [0, H), reading zeros outside;
 // output column x sits at e = x + p.  muy comes from the widened
-// projector statistics (index e).  Grid: (ceil(W / kTileW),
-// ceil(H / kTileH), B); dynamic shared memory 3 * (rows * cols +
-// kTileH * cols) floats.
+// projector statistics (index e).  The three maps are box-filtered
+// kAtOnce at a time (3, or 1 where three tiles do not fit), each in the
+// same order.  Grid: (ceil(W / kTileW), ceil(H / kTileH), B); dynamic
+// shared memory combine_floats(k, kAtOnce) floats.
+template <int kAtOnce>
 __global__ void __launch_bounds__(kThreads)
     proj_grad_combine_kernel(const float* __restrict__ projector,
                              const float* __restrict__ proj_s,
@@ -233,48 +236,57 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ z2,
                              const float* __restrict__ z3,
                              float* __restrict__ grad, int H, int W, int k) {
+  static_assert(3 % kAtOnce == 0, "the maps go in whole groups");
   extern __shared__ float smem[];
   const int p = k / 2, rows = kTileH + 2 * p, cols = kTileW + 2 * p;
   const int halo = rows * cols, vsz = kTileH * cols, we = W + p;
-  float* t_z2 = smem;
-  float* t_z3 = t_z2 + halo;
-  float* t_mz = t_z3 + halo;
-  float* v_z2 = t_mz + halo;
-  float* v_z3 = v_z2 + vsz;
-  float* v_mz = v_z3 + vsz;
+  float* tiles = smem;
+  float* vert = tiles + kAtOnce * halo;
   const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
   const size_t ext_frame = static_cast<size_t>(b) * H * we;
   const float inv_k2 = 1.f / static_cast<float>(k * k);
-
-  // Halo entry (rr, cc) is row h0 - p + rr, extended column w0 + cc.
-  for (int i = threadIdx.x; i < halo; i += blockDim.x) {
-    const int rr = i / cols, cc = i - rr * cols;
-    const int y = h0 - p + rr, e = w0 + cc;
-    float a = 0.f, s = 0.f, m = 0.f;
-    if (y >= 0 && y < H && e < we) {
-      const size_t o = ext_frame + static_cast<size_t>(y) * we + e;
-      a = __ldg(z2 + o);
-      s = __ldg(z3 + o);
-      m = __ldg(proj_s + o) * inv_k2 * s;
-    }
-    t_z2[i] = a;
-    t_z3[i] = s;
-    t_mz[i] = m;
-  }
-  __syncthreads();
-  vertical_sum(v_z2, t_z2, cols, k);
-  vertical_sum(v_z3, t_z3, cols, k);
-  vertical_sum(v_mz, t_mz, cols, k);
-  __syncthreads();
-
   const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
+  // box(z2), box(z3), box(muy z3) at the thread's pixel.
+  float s[3];
+
+#pragma unroll
+  for (int m0 = 0; m0 < 3; m0 += kAtOnce) {
+    // The group before has read its tiles.
+    if (m0 > 0) __syncthreads();
+    // Halo entry (rr, cc) is row h0 - p + rr, extended column w0 + cc.
+    for (int i = threadIdx.x; i < halo; i += blockDim.x) {
+      const int rr = i / cols, cc = i - rr * cols;
+      const int y = h0 - p + rr, e = w0 + cc;
+      const bool inside = y >= 0 && y < H && e < we;
+      const size_t o = ext_frame + static_cast<size_t>(y) * we + e;
+#pragma unroll
+      for (int m = m0; m < m0 + kAtOnce; ++m) {
+        float v = 0.f;
+        if (inside) {
+          if (m == 0)
+            v = __ldg(z2 + o);
+          else if (m == 1)
+            v = __ldg(z3 + o);
+          else
+            v = __ldg(proj_s + o) * inv_k2 * __ldg(z3 + o);
+        }
+        tiles[(m - m0) * halo + i] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kAtOnce; ++m)
+      vertical_sum(vert + m * vsz, tiles + m * halo, cols, k);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kAtOnce; ++m)
+      s[m0 + m] = horizontal_sum(vert + m * vsz, cols, r, c, k);
+  }
+
   const int h = h0 + r, w = w0 + c;
   if (h >= H || w >= W) return;
   const size_t o = static_cast<size_t>(b) * H * W + static_cast<size_t>(h) * W + w;
-  const float s_z2 = horizontal_sum(v_z2, cols, r, c, k);
-  const float s_z3 = horizontal_sum(v_z3, cols, r, c, k);
-  const float s_mz = horizontal_sum(v_mz, cols, r, c, k);
-  grad[o] = (a1p[o] - s_z2) - projector[o] * s_z3 + s_mz;
+  grad[o] = (a1p[o] - s[0]) - projector[o] * s[1] + s[2];
 }
 
 template <int P>
@@ -356,13 +368,17 @@ extern "C" int custereo_projector_grad(const float* camera,
   }
   if (e != cudaSuccess) return e;
 
-  const size_t cols = kTileW + 2 * p;
+  // The combine, its three maps together where their tiles fit, else one
+  // at a time.
+  const bool together = combine_floats(k, 3) <= budget;
   const size_t combine_bytes =
-      sizeof(float) * 3 * ((kTileH + 2 * p) * cols + kTileH * cols);
-  e = allow_smem(proj_grad_combine_kernel, combine_bytes);
+      combine_floats(k, together ? 3 : 1) * sizeof(float);
+  auto combine = together ? proj_grad_combine_kernel<3>
+                          : proj_grad_combine_kernel<1>;
+  e = allow_smem(combine, combine_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  proj_grad_combine_kernel<<<grid, kThreads, combine_bytes, stream>>>(
-      projector, proj_s, a1p, z2, z3, grad, H, W, k);
+  combine<<<grid, kThreads, combine_bytes, stream>>>(projector, proj_s, a1p,
+                                                     z2, z3, grad, H, W, k);
   return cudaGetLastError();
 }

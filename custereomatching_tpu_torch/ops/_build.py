@@ -53,16 +53,18 @@ SIGNATURES = {
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
     # a1, bm, grmu, grad, B, H, W, D, k, eps, stream
     "custereo_camera_grad": [_P] * 12 + [_I] * 5 + [_F, _P],
-    # ... as above, without the cost
-    "custereo_camera_grad_recompute": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # ... as above, without the cost, and after the stream the slab of
+    # K1's costs its chunked route fills (null where it does not run)
+    "custereo_camera_grad_recompute": [_P] * 11 + [_I] * 5 + [_F, _P, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, am, mask,
     # conf, s, t, gsoft, gconf, a1, bm, grmu, grad, B, H, W, D, k, eps,
     # beta, unnormalized, stream
     "custereo_fused_pipeline_bwd": [_P] * 18 + [_I] * 5 + [_F] * 2
     + [_I, _P],
-    # ... as above, without the cost
+    # ... as above, without the cost, and after the stream the slab of
+    # K1's costs its chunked route fills (null where it does not run)
     "custereo_fused_pipeline_bwd_recompute": [_P] * 17 + [_I] * 5
-    + [_F] * 2 + [_I, _P],
+    + [_F] * 2 + [_I, _P, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
     # a1p, z2, z3, grad, B, H, W, D, k, eps, stream
     "custereo_projector_grad": [_P] * 12 + [_I] * 5 + [_F, _P],

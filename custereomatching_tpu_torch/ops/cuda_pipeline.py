@@ -42,8 +42,10 @@ from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops._build import ptr, stream_of
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     check_volume,
+    cost_slab,
     grad_scratch,
     prepare,
+    ptr_or_null,
     stats_scratch,
 )
 from custereomatching_tpu_torch.ops.disparity import extract_disparity
@@ -307,23 +309,6 @@ def _check_maps(camera: torch.Tensor, what: str, **maps: torch.Tensor):
     return out
 
 
-# K5's block holds the halo'd tile's constants, the image tiles and a
-# round's buffers (fused_pipeline_bwd.cu): at one plane a round and a
-# projector staging it needs 54,752 floats at k = 27 and 59,080 at k = 29,
-# past the 58,112 floats (227 KB) a block may have on an H100
-# (``utils/kernel_model.halo_tile``).  Below that any D runs: the
-# projector tile is staged in as many disparity chunks as it takes.
-K5_MAX_KERNEL_SIZE = 27
-
-
-def _check_k5_kernel_size(k: int) -> None:
-    if k > K5_MAX_KERNEL_SIZE:
-        raise ValueError(
-            f"K5 (the volume-free backward) takes kernel_size <= "
-            f"{K5_MAX_KERNEL_SIZE} (its block's shared memory), got {k}; "
-            f"save_volume=True runs K4 instead")
-
-
 def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
                             residuals: HeadResiduals,
                             gsoft: torch.Tensor, gconf: torch.Tensor,
@@ -335,9 +320,9 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
 
     On a CUDA tensor this launches K4, which reads ``residuals.volume``,
     or, when that is None (K3m's residuals), K5, which recomputes each cost
-    plane from the images; K5 takes ``kernel_size`` up to
-    ``K5_MAX_KERNEL_SIZE``.  ``.launches`` counts K4's launches and
-    ``.recompute_launches`` K5's.
+    plane from the images (past its block, a slab of
+    ``kernel_model.COST_CHUNK`` planes at a time: never the whole volume).
+    ``.launches`` counts K4's launches and ``.recompute_launches`` K5's.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -351,8 +336,6 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if camera.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
-    if free:
-        _check_k5_kernel_size(k)
     head = _check_maps(camera, what, am=r.am, mask=r.mask, conf=r.confidence,
                        s=r.s, t=r.t, gsoft=gsoft, gconf=gconf)
     volume = () if free else (check_volume(r.volume, camera, D, "K4 cost"),)
@@ -362,13 +345,16 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
     B, H, W = camera.shape
     grad = camera.new_empty((B, H, W))
     scratch = grad_scratch(camera, D)
+    # K5's chunked route fills a slab of K1's costs (after the stream).
+    slab = cost_slab(camera, "K5", D, k) if free else None
     with torch.cuda.device(camera.device):
         code = entry(
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
             *(ptr(v) for v in volume), *(ptr(m) for m in head),
             *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
             float(epsilon), float(beta), int(unnormalized_head(beta, D)),
-            stream_of(camera.device))
+            stream_of(camera.device), *((ptr_or_null(slab),) if free
+                                        else ()))
     _build.check(code, f"{what} fused pipeline backward launch")
     if free:
         fused_pipeline_bwd_cuda.recompute_launches += 1
@@ -423,15 +409,12 @@ def stereo_pipeline_trainable(camera: torch.Tensor, projector: torch.Tensor,
     With ``save_volume`` (the default) the forward (K3w) writes the cost
     volume as the backward's residual; without it the forward (K3m) writes
     only the maps and the backward (K5) recomputes each cost plane from the
-    images, so no volume exists in device memory in either direction; on
-    the card that takes ``kernel_size`` up to ``K5_MAX_KERNEL_SIZE``.  The
+    images, so no volume exists in device memory in either direction.  The
     backward forms the head cotangent plane by plane, so the cost-volume
     cotangent never exists in device memory.  Camera gradients flow through
     ``soft_disparity`` and ``confidence``; the projector gets none.
     """
     _check_trainable(camera)
-    if not save_volume and camera.device.type == "cuda":
-        _check_k5_kernel_size(int(kernel_size))
     return PipelineMaps(*_TrainablePipeline.apply(
         camera, projector, int(num_disparities), int(kernel_size), epsilon,
         beta, threshold, bool(save_volume)))

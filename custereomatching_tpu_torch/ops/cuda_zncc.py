@@ -13,6 +13,7 @@ version; a CUDA tensor launches the kernel or the call raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -27,6 +28,7 @@ from custereomatching_tpu_torch.ops.zncc import (
     forward_banded,
     projector_grad_banded,
 )
+from custereomatching_tpu_torch.utils.kernel_model import cost_slab_planes
 
 # The kernel path rejects k < 3 (the JAX Pallas kernels do too): k = 1 is
 # the degenerate no-window case, which the plain op keeps.
@@ -114,6 +116,23 @@ def check_volume(volume: torch.Tensor, camera: torch.Tensor,
     return volume.contiguous()
 
 
+def cost_slab(camera: torch.Tensor, kernel: str, num_disparities: int,
+              kernel_size: int) -> Optional[torch.Tensor]:
+    """The slab of K1's costs that K5's or K6's chunked route fills
+    (``[B, planes, H, W]``, the planes ``kernel_model.cost_slab_planes``
+    gives), or None where the kernel recomputes the cost in its own
+    block."""
+    planes = cost_slab_planes(kernel, int(kernel_size), int(num_disparities))
+    if not planes:
+        return None
+    B, H, W = camera.shape
+    return camera.new_empty((B, planes, H, W))
+
+
+def ptr_or_null(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if t is None else ptr(t)
+
+
 def grad_scratch(camera: torch.Tensor, num_disparities: int):
     """Scratch of the camera-VJP kernels (K2, K4, K5, K6): the statistics of
     :func:`stats_scratch`, then the A1, B and GRMU fields ``[B, H, W]``."""
@@ -156,12 +175,15 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     B, H, W = camera.shape
     grad = camera.new_empty((B, H, W))
     scratch = grad_scratch(camera, D)
+    # K6's chunked route fills a slab of K1's costs (after the stream).
+    slab = cost_slab(camera, "K6", D, k) if cost is None else None
     with torch.cuda.device(camera.device):
         code = entry(
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
             *(ptr(v) for v in volume), ptr(cotangent),
             *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
-            float(epsilon), stream_of(camera.device))
+            float(epsilon), stream_of(camera.device),
+            *((ptr_or_null(slab),) if cost is None else ()))
     _build.check(code, f"{what} camera VJP launch")
     if cost is None:
         camera_grad_banded_cuda.recompute_launches += 1

@@ -261,7 +261,8 @@ def mode_k3() -> dict:
 
 def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
     """(name, wrapper, arguments) of each kernel ``kernels`` times: the
-    banded ones at KITTI, K8 at 330x422."""
+    banded ones and the layout conversions K9a and K9b at KITTI, K8 at
+    330x422."""
     from custereomatching_tpu_torch.ops.cuda_allpairs import (
         cost_volume_allpairs_cuda,
     )
@@ -274,6 +275,10 @@ def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
         cost_volume_banded_cuda,
         projector_grad_banded_cuda,
     )
+    from custereomatching_tpu_torch.ops.layout import (
+        parity_to_plane_major,
+        plane_major_to_parity,
+    )
 
     H, W, D, k = KITTI
     _, cam, proj, _ = scene()
@@ -284,6 +289,7 @@ def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
         res_m = fused_pipeline_train_cuda(*pipe, False)[1]
         cost = cost_volume_banded_cuda(cam, proj, D, k, 1e-8)
         g = torch.randn((1, D + 1, H, W), device="cuda", generator=gen)
+        g_parity = g.permute(0, 2, 3, 1).contiguous()
     gs = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
     gc = torch.randn((1, H, W), device="cuda", generator=gen) / (H * W)
     acam, aproj = torch.rand((2, 1, 330, 422), device="cuda", generator=gen)
@@ -300,7 +306,9 @@ def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
         ("K6", camera_grad_banded_cuda, (cam, proj, None, g, D, k, 1e-8)),
         ("K5", fused_pipeline_bwd_cuda,
          (cam, proj, res_m, gs, gc, D, k, 1e-8, 50.0)),
-        ("K8", cost_volume_allpairs_cuda, (acam, aproj, 15, 1e-8))]
+        ("K8", cost_volume_allpairs_cuda, (acam, aproj, 15, 1e-8)),
+        ("K9a", plane_major_to_parity, (g,)),
+        ("K9b", parity_to_plane_major, (g_parity,))]
 
 
 def mode_kernels() -> dict:

@@ -9,17 +9,20 @@ tree bit for bit and timed against it on one CUDA card.
 Each NAME of ``VARIANTS`` is a copy of the package under
 ``build/variants/NAME`` with one edit of ``csrc/camera_grad.cuh`` (the
 rounds kernel of K2, K4 and K6), for a ``k7_`` name of
-``csrc/zncc_banded_proj_bwd.cu`` (K7's) or for a ``k8_`` name of
-``csrc/zncc_allpairs.cu``: another round size, the ring's entries split
-in half rounds, K8's rows in run-time loops, or one phase cut (timing
+``csrc/zncc_banded_proj_bwd.cu`` (K7's), for a ``k8_`` name of
+``csrc/zncc_allpairs.cu`` or for a ``k9_`` name of ``csrc/layout.cu``
+(K9a's): another round size, the ring's entries split in half rounds,
+K8's rows in run-time loops, K9a's block shape, or one phase cut (timing
 only: the values are then wrong).  Each tree runs in its own process, with ``PYTHONPATH``
 at it:
 
-1. K1's and K8's volumes and K2's, K4's, K6's and K7's gradients on
-   fixed inputs (KITTI and three small shapes, k = 3, 31 and 47; K8 at
-   the same k on the images' first rows), compared bit for bit with this
-   tree's: every variant that keeps the values, and every ``--against``
-   tree (another checkout, e.g. the parent commit's ``git archive``);
+1. K1's and K8's volumes, K9a's parity copy of K1's, and K2's, K4's,
+   K5's, K6's and K7's gradients on fixed inputs (KITTI and small shapes at k = 3, 27, 31, 47, 81 and
+   93; K8 at the same k on the images' first rows), compared bit for bit
+   with this tree's: every variant that keeps the values, and every
+   ``--against`` tree (another checkout, e.g. the parent commit's ``git
+   archive``), on the outputs both trees give (a tree whose kernel refuses
+   a k gives none there);
 2. ``device_profile kernels`` (K1-K8 device ms) for this tree and every
    variant in turns, then in the reverse order.
 
@@ -51,16 +54,18 @@ PACKAGE = "custereomatching_tpu_torch"
 SOURCE = "csrc/camera_grad.cuh"
 K7_SOURCE = "csrc/zncc_banded_proj_bwd.cu"
 K8_SOURCE = "csrc/zncc_allpairs.cu"
+K9_SOURCE = "csrc/layout.cu"
 CASES = ((375, 1242, 192, 15), (40, 130, 24, 31), (40, 130, 24, 47),
-         (37, 200, 24, 3))
+         (37, 200, 24, 3), (40, 130, 24, 27), (40, 130, 24, 81),
+         (40, 130, 24, 93))
 
 _ROUND = "  for (int planes = kGradPlanes; planes >= 1; planes /= 2) {\n"
 _ASSERT = ('  static_assert(kGradPlanes == 8, "the planes a round instantiated '
            'below");\n')
 _CASE_1 = ("    case 1:\n"
-           "      e = launch_rounds<Source, kRecompute, 1>(")
+           "      return launch_rounds<Source, kRecompute, kSlab, 1>(")
 _CENTRE = ("    if (valid) {\n"
-           "      const auto e = src.entry(maps, halo, centre);")
+           "      const auto e = src.entry(maps, halo, centre, o);")
 _RING = "    for (int q = threadIdx.x; q < ring; q += kThreads) {"
 
 
@@ -69,11 +74,11 @@ def _start(planes: int, *extra: int) -> List[Tuple[str, str]]:
     besides the source's 8, 4, 2, 1."""
     cases = "".join(
         f"    case {p}:\n"
-        f"      e = launch_rounds<Source, kRecompute, {p}>(\n"
+        f"      return launch_rounds<Source, kRecompute, kSlab, {p}>(\n"
         f"          src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, "
         f"a1, bm,\n"
-        f"          grmu, B, H, W, D, k, round.chunk, eps, stream);\n"
-        f"      break;\n" for p in extra)
+        f"          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, "
+        f"stream);\n" for p in extra)
     edits = [(_ROUND, _ROUND.replace("kGradPlanes", str(planes)))]
     if extra:
         edits += [(_ASSERT, ""), (_CASE_1, cases + _CASE_1)]
@@ -91,16 +96,17 @@ _RING_LOOP = """    // gr_d at the ring's entries.
         for (int j = 0; j < P; ++j) ey[j * x.ysz] = 0.f;
         continue;
       }
-      const auto e = src.entry(maps, halo, i);
-      const float ex2 = ex2_t[i];
       const size_t px = static_cast<size_t>(y) * W + xx;
+      const auto e = src.entry(maps, halo, i, frame + px);
+      const float ex2 =
+          Source::kStaged ? ex2_t[i] : __ldg(cam_e2 + frame + px);
       const size_t srow = (static_cast<size_t>(b) * H + y) * stats_w + D + xx;
       float ey2[P], v[P];
 #pragma unroll
       for (int j = 0; j < P; ++j) {
-        const int d = min(d0 + j, D);
+        const int d = min(d0 + j, end);
         ey2[j] = __ldg(proj_e2 + srow - d);
-        v[j] = __ldg(vol_b + d * plane + px);
+        v[j] = __ldg(vol_b + (d - vol_first) * plane + px);
       }
 #pragma unroll
       for (int j = 0; j < P; ++j) {
@@ -125,16 +131,17 @@ _RING_HALVES = """    // gr_d at the ring's entries, half a round an item.
           if (j0 + jj < P) ey[(j0 + jj) * x.ysz] = 0.f;
         continue;
       }
-      const auto e = src.entry(maps, halo, i);
-      const float ex2 = ex2_t[i];
       const size_t px = static_cast<size_t>(y) * W + xx;
+      const auto e = src.entry(maps, halo, i, frame + px);
+      const float ex2 =
+          Source::kStaged ? ex2_t[i] : __ldg(cam_e2 + frame + px);
       const size_t srow = (static_cast<size_t>(b) * H + y) * stats_w + D + xx;
       float ey2[kHalf], v[kHalf];
 #pragma unroll
       for (int jj = 0; jj < kHalf; ++jj) {
-        const int d = min(d0 + j0 + jj, D);
+        const int d = min(d0 + j0 + jj, end);
         ey2[jj] = __ldg(proj_e2 + srow - d);
-        v[jj] = __ldg(vol_b + d * plane + px);
+        v[jj] = __ldg(vol_b + (d - vol_first) * plane + px);
       }
 #pragma unroll
       for (int jj = 0; jj < kHalf; ++jj) {
@@ -199,6 +206,7 @@ _K8_GRID_STRIPS_FIRST = [
                   (W + kApTileY - 1) / kApTileY);""")]
 _K8_NORM = "#pragma unroll 1\n  for (int n = 0; n < kApRows; ++n) {"
 _K8_SUM = "          const float exy = sum - sx * sy[c] / k2;"
+_K9_STORE = "    for (int r = lane; r < rn; r += 32) dst[r] = row[r];"
 _K7_CENTRE = ("    if (valid) {\n"
               "      const float ey2 = ey2_t[centre];")
 
@@ -215,12 +223,12 @@ VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
     "cut_entry_loads": (False, [
         ("""        ey2[j] = __ldg(proj_e2 + stats_row - d);
         sy[j] = __ldg(proj_s + stats_row - d);
-        v[j] = __ldg(vol_b + d * plane + (o - frame));""",
+        v[j] = __ldg(vol_b + (d - vol_first) * plane + (o - frame));""",
          """        ey2[j] = ex2 + 0.25f * d;
         sy[j] = ex2 * d;
         v[j] = 0.001f * d - ex2;"""),
         ("""        ey2[j] = __ldg(proj_e2 + srow - d);
-        v[j] = __ldg(vol_b + d * plane + px);""",
+        v[j] = __ldg(vol_b + (d - vol_first) * plane + px);""",
          """        ey2[j] = ex2 + 0.25f * d;
         v[j] = 0.001f * d - ex2;""")]),
     "cut_passes": (False, [
@@ -256,14 +264,26 @@ VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
          "          continue;")]),
     "k8_cut_store": (False, [
         (_K8_STORE, _K8_STORE.replace("if (y < W)", "if (y < W && k < 0)"))]),
+    "k9_pixels32": (True, [("constexpr int kParityPixels = 64;",
+                            "constexpr int kParityPixels = 32;")]),
+    "k9_threads256": (True, [("constexpr int kParityThreads = 512;",
+                              "constexpr int kParityThreads = 256;")]),
+    "k9_chunk128": (True, [("constexpr int kParityChunk = 256;",
+                            "constexpr int kParityChunk = 128;")]),
+    "k9_cut_load": (False, [
+        ("      stage[c * stride + r] = __ldg(src + static_cast<size_t>(r) "
+         "* C);", "      stage[c * stride + r] = r + 0.25f;")]),
+    "k9_cut_store": (False, [
+        (_K9_STORE, _K9_STORE.replace("r < rn;", "r < rn && R < 0;"))]),
 }
 # What a cut variant's edits leave in the source: its values are wrong.
-CUT_MARKS = ("d0 < 0", "+ 0.25f", "k < 0")
+CUT_MARKS = ("d0 < 0", "+ 0.25f", "k < 0", "R < 0")
 
 
 def source_of(name: str) -> str:
     """The source, under the package, that variant ``name`` edits."""
-    return {"k7_": K7_SOURCE, "k8_": K8_SOURCE}.get(name[:3], SOURCE)
+    return {"k7_": K7_SOURCE, "k8_": K8_SOURCE,
+            "k9_": K9_SOURCE}.get(name[:3], SOURCE)
 
 
 def edit_source(text: str, name: str) -> str:
@@ -290,10 +310,11 @@ def make_variant(name: str, dest: Path) -> Path:
 
 
 def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
-    """K1's volume and K2's, K4's, K6's and K7's gradients at ``cases``
-    (H, W, D, k) from fixed inputs, and K8's volume at (min(H, 40), W, k),
-    on the CPU tensors of ``device`` (a CPU device takes the wrappers'
-    plain versions)."""
+    """K1's volume and K2's, K4's, K5's, K6's and K7's gradients at
+    ``cases`` (H, W, D, k) from fixed inputs, and K8's volume at
+    (min(H, 40), W, k), on the CPU tensors of ``device`` (a CPU device
+    takes the wrappers' plain versions); a kernel whose wrapper refuses a
+    case gives no output there."""
     import torch
 
     from custereomatching_tpu_torch.data import make_stereo_pair
@@ -309,6 +330,7 @@ def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
         cost_volume_banded_cuda,
         projector_grad_banded_cuda,
     )
+    from custereomatching_tpu_torch.ops.layout import plane_major_to_parity
 
     outs = {}
     for H, W, D, k in cases:
@@ -325,22 +347,34 @@ def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
         cost = torch.rand((1, D + 1, H, W), device=device,
                           generator=gen) * 2 - 1
         tag = f"{H}x{W} D={D} k={k}"
+
+        def keep(name, fn, *args):
+            try:
+                outs[f"{name} {tag}"] = fn(*args).cpu()
+            except (RuntimeError, ValueError) as e:
+                print(f"kernel_outputs: {name} {tag} refused: {e}")
+
         res = fused_pipeline_train_cuda(cam, proj, D, k, 1e-8, 50.0, 0.6)[1]
-        outs[f"K4 {tag}"] = fused_pipeline_bwd_cuda(
-            cam, proj, res, gs, gc, D, k, 1e-8, 50.0).cpu()
-        outs[f"K6 {tag}"] = camera_grad_banded_cuda(
-            cam, proj, None, g, D, k, 1e-8).cpu()
+        keep("K4", fused_pipeline_bwd_cuda, cam, proj, res, gs, gc, D, k,
+             1e-8, 50.0)
+        res_m = fused_pipeline_train_cuda(cam, proj, D, k, 1e-8, 50.0, 0.6,
+                                          save_volume=False)[1]
+        keep("K5", fused_pipeline_bwd_cuda, cam, proj, res_m, gs, gc, D, k,
+             1e-8, 50.0)
+        keep("K6", camera_grad_banded_cuda, cam, proj, None, g, D, k, 1e-8)
         volume = cost_volume_banded_cuda(cam, proj, D, k, 1e-8)
         outs[f"K1 {tag}"] = volume.cpu()
-        outs[f"K2 {tag}"] = camera_grad_banded_cuda(
-            cam, proj, volume.permute(0, 3, 1, 2), g, D, k, 1e-8).cpu()
-        outs[f"K7 {tag}"] = projector_grad_banded_cuda(
-            cam, proj, cost, g, D, k, 1e-8).cpu()
+        outs[f"K9a {tag}"] = plane_major_to_parity(
+            volume.permute(0, 3, 1, 2)).cpu()
+        keep("K2", camera_grad_banded_cuda, cam, proj,
+             volume.permute(0, 3, 1, 2), g, D, k, 1e-8)
+        keep("K7", projector_grad_banded_cuda, cam, proj, cost, g, D, k,
+             1e-8)
         # K8 on a band of the rows: KITTI's whole [H, W, W] is 2.3 GB.
         rows = min(H, 40)
         outs[f"K8 {rows}x{W} k={k}"] = cost_volume_allpairs_cuda(
             cam[:, :rows], proj[:, :rows], k, 1e-8).cpu()
-        del res, volume
+        del res, res_m, volume
     return outs
 
 
@@ -449,8 +483,10 @@ def main(argv: List[str]) -> int:
         out = dest / f"{Path(name).name}.pt"
         _run(tree, str(me), "--save-grads", str(out))
         got = torch.load(out)
-        same = {key: torch.equal(got[key], want[key]) for key in want}
-        print(f"bit-equal to this tree: {name}: {same}")
+        same = {key: torch.equal(got[key], want[key]) for key in want
+                if key in got}
+        print(f"bit-equal to this tree: {name}: {same}; this tree's only: "
+              f"{sorted(set(want) - set(got))}")
     profile = ROOT / PACKAGE / "scripts" / "device_profile.py"
     order = [("this", ROOT)] + list(trees.items())
     for name, tree in order + order[::-1]:

@@ -12,6 +12,7 @@ from custereomatching_tpu_torch.utils.kernel_model import (
     kernel_bound,
     measure_vpu_rates,
     projector_backward_cost,
+    to_parity_cost,
     transpose_volume_cost,
     volume_backward_cost,
     volume_forward_cost,
@@ -40,5 +41,6 @@ __all__ = ["DEVICE_SPECS", "OpCount", "Timer", "TimerError",
            "disparity_metrics", "end_point_error", "fence",
            "fused_backward_c_cost", "fused_backward_cost",
            "fused_forward_cost", "kernel_bound", "measure_vpu_rates",
-           "projector_backward_cost", "trace", "transpose_volume_cost",
+           "projector_backward_cost", "to_parity_cost", "trace",
+           "transpose_volume_cost",
            "volume_backward_cost", "volume_forward_cost", "zncc_roofline"]

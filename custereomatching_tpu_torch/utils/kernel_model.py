@@ -92,6 +92,12 @@ SMEM_OPTIN_BYTES = 232448
 ROUND_ROWS, ROUND_COLS = 16, 16
 HALO_ROWS, HALO_COLS, HALO_OWN, HALO_CONSTS = 15, 13, 4, 8
 GRAD_ROWS, GRAD_COLS, GRAD_PLANES = 8, 8, 8
+# The planes of a slab of the chunked route of K5 and K6
+# (csrc/camera_grad.cuh kCostChunk).
+COST_CHUNK = 8
+# K9a (csrc/layout.cu kParityPixels, kParityThreads, kParityChunk): a
+# block's run of pixels, its threads, and the most planes it stages.
+PARITY_PIXELS, PARITY_THREADS, PARITY_CHUNK = 64, 512, 256
 # K8 (csrc/zncc_allpairs.cu kApWarps, kApXPerThread, kApYPerThread,
 # kApRows): a block's warps, a thread's camera and projector columns, and
 # the output rows of a block's strip.
@@ -643,32 +649,40 @@ def halo_round(k: int, D: int) -> Tuple[int, int]:
     return _whole_rounds(planes, chunk, D)
 
 
-def _fused_round_cost(H: int, W: int, D: int, k: int,
-                      what: str) -> OpCount:
-    """The part K1 and K3 share (fused_pipeline.cuh): the statistics
-    passes; a block a 16 x 64 tile staging the camera tile once and the
-    projector tile once a chunk (:func:`fused_round`, a load and a store an
-    entry); per plane the register-blocked rows pass (an item a tile
-    column) and column sums (an item ``ROUND_COLS`` pixels of a row); each
-    pixel's mux and ex2 read once, and per plane its window sum read back
-    and its two statistics loads."""
+def _fused_rounds(H: int, W: int, k: int, lo: int, hi: int,
+                  what: str) -> OpCount:
+    """One launch of K1's and K3's rounds kernel (fused_pipeline.cuh) over
+    the planes lo..hi: a block a 16 x 64 tile staging the camera tile once
+    and the projector tile once a chunk (:func:`fused_round` for the
+    planes, a load and a store an entry); per plane the register-blocked
+    rows pass (an item a tile column) and column sums (an item
+    ``ROUND_COLS`` pixels of a row); each pixel's mux and ex2 read once,
+    and per plane its window sum read back and its two statistics
+    loads."""
     p = k // 2
     nbh, nbw = _grid(H, W)
     blocks = nbh * nbw
     rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
-    px, planes = H * W, D + 1
-    P, chunk = fused_round(k, D)
+    px, planes = H * W, hi - lo + 1
+    P, chunk = fused_round(k, hi - lo)
     if P < 1:
         raise ValueError(f"{what} takes no k = {k} block on an H100")
     stagings = _cdiv(planes, chunk)
-    c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
-    c = c + window_pass_cost(blocks * cam_w * planes, ROUND_ROWS, k, True)
+    c = window_pass_cost(blocks * cam_w * planes, ROUND_ROWS, k, True)
     c = c + window_pass_cost(
         blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes, ROUND_COLS,
         k, False)
     return c + OpCount(
         smem=blocks * 2 * rows * (cam_w + stagings * (cam_w + chunk - 1))
         + 2 * px + planes * 3 * px)
+
+
+def _fused_round_cost(H: int, W: int, D: int, k: int,
+                      what: str) -> OpCount:
+    """The part K1 and K3 share: the statistics passes and the rounds over
+    d = 0..D (:func:`_fused_rounds`)."""
+    return (_stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+            + _fused_rounds(H, W, k, 0, D, what))
 
 
 def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
@@ -704,15 +718,17 @@ def fused_forward_cost(H: int, W: int, D: int, k: int,
 
 
 def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
-                    recompute: bool) -> Dict[str, int]:
+                    recompute: bool, staged: bool = True) -> Dict[str, int]:
     """Shared-memory geometry of the rounds kernel of K4 (``head``), K6
     (``recompute``) and K2 and K7 (neither), ``GradRoundTile`` of
-    camera_grad.cuh; ``floats`` its block's total."""
+    camera_grad.cuh; ``floats`` its block's total.  Without ``staged``
+    (K4 past k = 47) the entries' constants stay in their maps."""
     p = k // 2
     t = {"p": p, "halo_rows": K_TILE_H + 2 * p,
          "halo_cols": K_TILE_W + 2 * p}
     t["halo"] = t["halo_rows"] * t["halo_cols"]
-    t["consts"] = 7 if head else 1          # ex2 and the source's maps
+    # ex2 and the source's maps, where staged.
+    t["consts"] = (7 if head else 1) if staged else 0
     t["proj_w"] = t["halo_cols"] + chunk - 1
     t["ysz"] = t["halo_rows"] * (t["halo_cols"] + 1)
     t["xsz"] = K_TILE_H * (t["halo_cols"] + 1)
@@ -722,16 +738,17 @@ def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
     return t
 
 
-def grad_round(k: int, D: int, head: bool, recompute: bool
-               ) -> Tuple[int, int]:
+def grad_round(k: int, D: int, head: bool, recompute: bool,
+               staged: bool = True) -> Tuple[int, int]:
     """(planes a round, planes a projector staging) of K4 (``head``), K6
     (``recompute``) or K2 and K7 (neither: ex2, or K7's projector ey2, the
-    one staged map): ``grad_round`` of camera_grad.cuh on an H100; (0, 0)
-    when not one plane fits."""
+    one staged map), the constants ``staged`` or not: ``grad_round`` of
+    camera_grad.cuh on an H100; (0, 0) when not one plane fits."""
     budget = SMEM_OPTIN_BYTES // 4
     planes = GRAD_PLANES
     while planes >= 1:
-        t = grad_round_tile(k, 1, planes, head=head, recompute=recompute)
+        t = grad_round_tile(k, 1, planes, head=head, recompute=recompute,
+                            staged=staged)
         if (planes == 1 or planes <= D + 1) and t["floats"] <= budget:
             if not recompute:
                 return planes, D + 1
@@ -745,83 +762,169 @@ def grad_round(k: int, D: int, head: bool, recompute: bool
     return 0, 0
 
 
-def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
-                            recompute: bool) -> OpCount:
-    """The rounds kernel of ``csrc/camera_grad.cuh``: K4 (``head``: g_d
-    formed from six staged maps and the cost read), K6 (``recompute``: the
-    cotangent read, the cost recomputed on the tile's own pixels) or K2
-    (neither: the cotangent read, the cost read at the tile's own
-    pixels); the statistics passes, the rounds kernel at
-    :func:`grad_round`'s planes and chunk, and the combine.
+def k4_staged(k: int, D: int) -> bool:
+    """Whether K4's rounds kernel stages its entries' constants (a plane's
+    buffers fit beside them: k <= 47 on an H100) or reads them from their
+    maps (``launch_head_rounds`` of fused_pipeline_bwd.cu)."""
+    return grad_round(k, D, True, False)[0] >= 1
+
+
+def halo_fits(k: int, D: int) -> bool:
+    """Whether K5's halo kernel runs (k <= 27 on an H100): one plane a
+    round fits and the halo has no more entries than its threads own;
+    otherwise K5 takes the chunked route."""
+    planes, chunk = halo_round(k, D)
+    return planes >= 1 and halo_tile(k, chunk, planes)["halo"] <= (
+        HALO_OWN * K_THREADS)
+
+
+def cost_slab_planes(kernel: str, k: int, D: int) -> int:
+    """The planes a frame of the slab that K5's or K6's chunked route
+    writes K1's costs into (``launch_cost_slabs`` of camera_grad.cuh):
+    ``min(COST_CHUNK, D + 1)`` where the route runs (K5 past its halo
+    kernel, K6 past its recomputing block: k > 81 on an H100), else 0 and
+    no slab.  The wrappers allocate the slab by it."""
+    if kernel == "K5":
+        chunked = not halo_fits(k, D)
+    elif kernel == "K6":
+        chunked = grad_round(k, D, False, True)[0] < 1
+    else:
+        raise ValueError(f"no chunked route for {kernel}")
+    return min(COST_CHUNK, D + 1) if chunked else 0
+
+
+def cost_slabs(D: int) -> Tuple[Tuple[int, int], ...]:
+    """The slabs (lo, hi) of the chunked route: COST_CHUNK planes each,
+    the last the rest."""
+    return tuple((lo, min(lo + COST_CHUNK - 1, D))
+                 for lo in range(0, D + 1, COST_CHUNK))
+
+
+def _grad_rounds(H: int, W: int, k: int, spans, *, head: bool,
+                 recompute: bool, staged: bool, name: str) -> OpCount:
+    """The rounds kernel of ``csrc/camera_grad.cuh``, one launch a span
+    (lo, hi) of the planes: over d = 0..D, or each slab of the chunked
+    route, which also reads the A1, B and GRMU that the slab before left.
 
     A round of P planes: (K6) K3's cross-term rows pass and column sums
     over the tile; at every halo entry inside the image its constants
-    read once (seven, or ex2 alone) and, for each of the P planes (a short
-    last round computes all P and keeps np), ey2 and the cost or cotangent
-    loaded, an rsqrt, gr_d stored (K4 also the head cotangent: an expf
-    and seven FMA-pipe ops); the tile's own pixels also load sy (K2 also
-    the cost, K6 read their window sum and form the cost) and add B and
-    GRMU; entries outside store zeros; gr's rows pass and column sums; A1
-    (the box sum and the projector read, a select and an FMA) for the
-    round's np planes."""
+    (seven, or ex2 alone) read once, from shared memory where ``staged``
+    (staged once a launch: loaded and stored, 1/s a division), else from
+    their maps (eight loads, the division and three products a round);
+    for each of the P planes (a short last round computes all P and keeps
+    np), ey2 and the cost or cotangent loaded, an rsqrt, gr_d stored (K4
+    also the head cotangent: an expf and seven FMA-pipe ops); the tile's
+    own pixels also load sy (K2 also the cost, K6 read their window sum
+    and form the cost) and add B and GRMU; entries outside store zeros;
+    gr's rows pass and column sums; A1 (the box sum and the projector
+    read, a select and an FMA) for the round's np planes."""
     p = k // 2
     nbh, nbw = _grid(H, W)
     blocks = nbh * nbw
-    P, chunk = grad_round(k, D, head, recompute)
-    if P < 1:
-        name = "K4" if head else "K6" if recompute else "K2"
-        raise ValueError(f"{name} takes no k = {k}, D = {D} block on an "
-                         f"H100")
-    t = grad_round_tile(k, chunk, P, head=head, recompute=recompute)
-    hc, halo = t["halo_cols"], t["halo"]
-    px, planes = H * W, D + 1
-    rounds = sum(_cdiv(min(chunk, planes - d0), P)
-                 for d0 in range(0, planes, chunk))
-    slots = rounds * P                       # planes step b computes
+    px = H * W
     inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
                                                          0, W)
-    outside = blocks * halo - inside
     maps = 6 if head else 0
+    c = OpCount()
+    for lo, hi in spans:
+        planes = hi - lo + 1
+        P, chunk = grad_round(k, hi - lo, head, recompute, staged)
+        if P < 1:
+            raise ValueError(f"{name} takes no k = {k}, D = {hi - lo} "
+                             f"block on an H100")
+        t = grad_round_tile(k, chunk, P, head=head, recompute=recompute,
+                            staged=staged)
+        hc, halo = t["halo_cols"], t["halo"]
+        outside = blocks * halo - inside
+        rounds = sum(_cdiv(min(chunk, planes - d0), P)
+                     for d0 in range(0, planes, chunk))
+        slots = rounds * P                   # planes step b computes
+        if staged:
+            # Prologue: ex2 and the source's maps over the halo.
+            c = c + OpCount(smem=(2 + 2 * maps) * inside
+                            + (1 + maps) * outside
+                            + rounds * t["consts"] * inside,
+                            rsqrt=inside if head else 0,
+                            madd=(3 * inside if head else 0))
+        else:
+            c = c + OpCount(smem=rounds * 8 * inside, rsqrt=rounds * inside,
+                            madd=rounds * 3 * inside)
+        if lo > 0:
+            c = c + OpCount(smem=3 * px)     # the sums the slab before left
+        if recompute:
+            # The camera tile once, the projector tile once a chunk, mux;
+            # the cross term's rows pass (a tile column of a plane an item)
+            # and column sums (ROUND_COLS pixels of a row an item).
+            rows = t["halo_rows"]
+            stagings = _cdiv(planes, chunk)
+            c = c + OpCount(smem=blocks * 2 * rows * (
+                hc + stagings * (hc + chunk - 1)) + px)
+            c = c + window_pass_cost(blocks * hc * planes, ROUND_ROWS, k,
+                                     True)
+            c = c + window_pass_cost(
+                blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes,
+                ROUND_COLS, k, False)
+        # Step b: per entry and plane slot ey2 and the volume loaded, the
+        # store, an rsqrt, two FMA-pipe ops (and the head's); outside the
+        # image a zero stored.
+        c = c + OpCount(smem=slots * (3 * inside + outside),
+                        rsqrt=slots * inside,
+                        exp=slots * inside if head else 0,
+                        madd=slots * inside * (2 + (7 if head else 0)))
+        # The tile's own pixels: sy (K2 also the cost), B and GRMU (five
+        # FMA-pipe ops), and with the recompute the window sum read and
+        # the cost formed (three).
+        c = c + OpCount(smem=slots * px * (1 if head else 2),
+                        madd=slots * px * (8 if recompute else 5))
+        c = c + window_pass_cost(
+            blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k,
+            False)
+        c = c + window_pass_cost(
+            blocks * K_TILE_H * (K_TILE_W // GRAD_COLS) * planes, GRAD_COLS,
+            k, False)
+        c = c + OpCount(smem=2 * planes * px, madd=2 * planes * px)
+    return c
 
+
+def _cost_slabs_cost(H: int, W: int, D: int, k: int) -> OpCount:
+    """K1's rounds kernel over each slab of the chunked route
+    (:func:`_fused_rounds`), with K1's per pixel and plane rsqrt, five
+    FMA-pipe ops and the slab's store; the slabs written once in all."""
+    px = H * W
+    c = OpCount()
+    for lo, hi in cost_slabs(D):
+        c = c + _fused_rounds(H, W, k, lo, hi, "K1 (a slab)")
+    c = c + OpCount(rsqrt=(D + 1) * px, madd=(5 * (D + 1) + 1) * px)
+    return _with_bytes(c, 0, (D + 1) * px * 4)
+
+
+def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
+                            recompute: bool) -> OpCount:
+    """The rounds kernel of ``csrc/camera_grad.cuh``: K4 (``head``: g_d
+    formed from six maps and the cost read), K6 (``recompute``: the
+    cotangent read, the cost recomputed on the tile's own pixels) or K2
+    (neither: the cotangent read, the cost read at the tile's own
+    pixels); the statistics passes, the rounds kernel at
+    :func:`grad_round`'s planes and chunk (:func:`_grad_rounds`), and the
+    combine.  Past its block K4 reads its constants from their maps
+    (:func:`k4_staged`), and K6 takes the chunked route
+    (:func:`cost_slab_planes`): K1's rounds over each slab
+    (:func:`_cost_slabs_cost`), then K2's rounds kernel on it."""
+    name = "K4" if head else "K6" if recompute else "K2"
+    slabs = recompute and cost_slab_planes("K6", k, D) > 0
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
     c = c + _combine_cost(H, W, k, W)
-    # Prologue: ex2 and the source's maps over the halo (a head map's 1/s
-    # is a division).
-    c = c + OpCount(smem=(2 + 2 * maps) * inside + (1 + maps) * outside,
-                    rsqrt=inside if head else 0,
-                    madd=(3 * inside if head else 0))
-    if recompute:
-        # The camera tile once, the projector tile once a chunk, mux; the
-        # cross term's rows pass (a tile column of a plane an item) and
-        # column sums (ROUND_COLS pixels of a row an item).
-        rows = t["halo_rows"]
-        stagings = _cdiv(planes, chunk)
-        c = c + OpCount(smem=blocks * 2 * rows * (
-            hc + stagings * (hc + chunk - 1)) + px)
-        c = c + window_pass_cost(blocks * hc * planes, ROUND_ROWS, k, True)
-        c = c + window_pass_cost(
-            blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes,
-            ROUND_COLS, k, False)
-    # Step b: an entry's constants once a round; per entry and plane slot
-    # ey2 and the volume loaded, the store, an rsqrt, two FMA-pipe ops
-    # (and the head's); outside the image a zero stored.
-    c = c + OpCount(smem=rounds * t["consts"] * inside
-                    + slots * (3 * inside + outside),
-                    rsqrt=slots * inside, exp=slots * inside if head else 0,
-                    madd=slots * inside * (2 + (7 if head else 0)))
-    # The tile's own pixels: sy (K2 also the cost), B and GRMU (five
-    # FMA-pipe ops), and with the recompute the window sum read and the
-    # cost formed (three).
-    c = c + OpCount(smem=slots * px * (1 if head else 2),
-                    madd=slots * px * (8 if recompute else 5))
-    c = c + window_pass_cost(
-        blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k, False)
-    c = c + window_pass_cost(
-        blocks * K_TILE_H * (K_TILE_W // GRAD_COLS) * planes, GRAD_COLS, k,
-        False)
-    c = c + OpCount(smem=2 * planes * px, madd=2 * planes * px)
+    if slabs:
+        c = c + _cost_slabs_cost(H, W, D, k) + _grad_rounds(
+            H, W, k, cost_slabs(D), head=False, recompute=False, staged=True,
+            name=name)
+    else:
+        c = c + _grad_rounds(H, W, k, ((0, D),), head=head,
+                             recompute=recompute,
+                             staged=not head or k4_staged(k, D), name=name)
     return _with_bytes(c, *_grad_bytes(H, W, D, head=head,
-                                       cost_read=not recompute, c=c))
+                                       cost_read=slabs or not recompute,
+                                       c=c))
 
 
 def _grad_bytes(H: int, W: int, D: int, *, head: bool, cost_read: bool,
@@ -867,7 +970,19 @@ def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
     expf and twelve FMA-pipe ops; the tile's own pixels add two FMAs and
     two products for B and GRMU), gr's rows pass and column sums, and A1
     (the box sum and the projector read, a select and an FMA); an entry
-    reads its constants once a round."""
+    reads its constants once a round.  Where the halo kernel does not fit
+    (:func:`halo_fits`), the chunked route: K1's rounds over each slab
+    (:func:`_cost_slabs_cost`) and K4's rounds kernel on it."""
+    if not halo_fits(k, D):
+        # The chunked route: K1's rounds over each slab, K4's rounds kernel
+        # on it.
+        c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
+        c = c + _combine_cost(H, W, k, W) + _cost_slabs_cost(H, W, D, k)
+        c = c + _grad_rounds(H, W, k, cost_slabs(D), head=True,
+                             recompute=False,
+                             staged=k4_staged(k, COST_CHUNK - 1), name="K5")
+        return _with_bytes(c, *_grad_bytes(H, W, D, head=True,
+                                           cost_read=True, c=c))
     p = k // 2
     nbh, nbw = _grid(H, W)
     blocks = nbh * nbw
@@ -876,8 +991,6 @@ def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
     img_rows, img_w = t["img_rows"], t["img_w"]
     px, planes = H * W, D + 1
     P, chunk = halo_round(k, D)
-    if P < 1:
-        raise ValueError(f"K5 takes no k = {k} block on an H100")
     rounds = sum(_cdiv(min(chunk, planes - d0), P)
                  for d0 in range(0, planes, chunk))
     stagings = _cdiv(planes, chunk)
@@ -1024,14 +1137,43 @@ def allpairs_backward_cost(H: int, W: int, k: int) -> OpCount:
 
 
 def transpose_volume_cost(H: int, W: int, D: int) -> OpCount:
-    """K9a / K9b (``csrc/layout.cu``): every element read once, staged
-    through a 32 x 32 shared tile (a store and a load), written once.  A
-    warp moves 128 contiguous bytes a row of the tile on both sides, a
-    dense stream, not the plane-by-plane walk of a pixel that K10b and
-    K10c measure: the bytes are priced at the data sheet's bandwidth
-    (``bytes`` only; at ``hbm_w3d`` the bound would pass K9b's time).  The
-    plain ``permute().contiguous()`` moves the same bytes; its measured
-    rate is ``t3d``."""
+    """K9b (``transpose_kernel``, ``csrc/layout.cu``): every element read
+    once, staged through a 32 x 32 shared tile (a store and a load),
+    written once.  A warp moves 128 contiguous bytes a row of the tile on
+    both sides, a dense stream, not the plane-by-plane walk of a pixel
+    that K10b and K10c measure: the bytes are priced at the data sheet's
+    bandwidth (``bytes`` only; at ``hbm_w3d`` the bound would pass K9b's
+    time).  The plain ``permute().contiguous()`` moves the same bytes; its
+    measured rate is ``t3d``."""
+    n = (D + 1) * H * W
+    c = OpCount(smem=2 * n)
+    c.bytes = 2.0 * n * 4
+    return c
+
+
+def parity_chunks(R: int) -> Tuple[int, int, int]:
+    """K9a's planes (``parity_chunks`` of csrc/layout.cu): (chunks, planes
+    a chunk, a pixel's staged row stride): near-equal chunks of at most
+    PARITY_CHUNK planes, the stride odd."""
+    chunks = _cdiv(R, PARITY_CHUNK)
+    planes = _cdiv(R, chunks)
+    return chunks, planes, planes | 1
+
+
+def parity_block_floats(D: int) -> int:
+    """Shared memory of a K9a block in floats: PARITY_PIXELS staged rows
+    of the chunk's stride."""
+    return PARITY_PIXELS * parity_chunks(D + 1)[2]
+
+
+def to_parity_cost(H: int, W: int, D: int) -> OpCount:
+    """K9a (``to_parity_kernel``, ``csrc/layout.cu``): every element read
+    once (a warp's 32 pixels of one plane, coalesced), stored to shared
+    memory and loaded back (a store and a load), written once; with one
+    chunk of planes a block's output is one contiguous span, a dense
+    stream: the bytes are priced at the data sheet's bandwidth (``bytes``
+    only), as K9b's.  The plain ``permute().contiguous()`` moves the same
+    bytes."""
     n = (D + 1) * H * W
     c = OpCount(smem=2 * n)
     c.bytes = 2.0 * n * 4
@@ -1070,15 +1212,18 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
 
 __all__ = ["OpCount", "allpairs_backward_cost", "allpairs_block_floats",
            "allpairs_forward_cost",
-           "box_pass_loads", "camera_grad_rounds_cost",
+           "box_pass_loads", "camera_grad_rounds_cost", "cost_slab_planes",
+           "cost_slabs",
            "fused_backward_c_cost", "fused_backward_cost",
            "fused_block_floats", "fused_forward_cost", "fused_round",
            "grad_round",
-           "grad_round_tile", "halo_round",
+           "grad_round_tile", "halo_fits", "halo_round",
            "halo_tile", "hbm_read_probe", "hbm_read_probe_cost",
            "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
-           "hbm_write_reference", "kernel_bound", "measure_vpu_rates",
+           "hbm_write_reference", "k4_staged", "kernel_bound",
+           "measure_vpu_rates", "parity_block_floats", "parity_chunks",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
            "rate_probe_reference",
-           "transpose_volume_cost", "volume_backward_cost",
+           "to_parity_cost", "transpose_volume_cost",
+           "volume_backward_cost",
            "volume_forward_cost", "window_pass_cost"]

@@ -283,6 +283,25 @@ def test_cost_fns_populate_byte_pools():
         2 * vol / 3.35e12)
 
 
+def test_k9a_cost_counts_its_own_design():
+    """K9a's count (``to_parity_cost``, the pixel-run kernel of
+    csrc/layout.cu) moves the bytes K9a always moved, each element read
+    and written once, a dense stream at the data sheet's bandwidth, and
+    counts its shared store and load an element; K9b's count
+    (``transpose_volume_cost``, the tiled transpose it keeps) is
+    unchanged."""
+    n = (D + 1) * H * W
+    k9a, k9b = km.to_parity_cost(H, W, D), km.transpose_volume_cost(H, W, D)
+    assert k9a.bytes == k9b.bytes == 2.0 * n * 4
+    assert k9a.bytes_r == k9a.bytes_w == 0
+    assert k9a["smem"] == 2 * n and sum(k9a.values()) == 2 * n
+    assert dict(k9b) == dict(km.OpCount(smem=2 * n))
+    assert k9b.bytes_r == k9b.bytes_w == 0
+    t = k9a.time(RATES, 3.35e12)
+    assert t["bound_by"] == "memory"
+    assert round(1e3 * t["t_memory_s"], 4) == 0.2147
+
+
 def test_recompute_chunk_mirrors_camera_grad():
     """K6 at k=15 stages all D+1 planes at once up to D = 734 and in
     chunks beyond, a multiple of its 8 planes a round (camera_grad.cuh

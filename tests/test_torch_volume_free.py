@@ -1,8 +1,9 @@
 """PyTorch port, the volume-free slice: the camera VJP without the cost
 residual (K6, both entries), the volume-free trainable pipeline (K3m and
 K5) and the plane-major volume op, held against the JAX package on the CPU
-(its Pallas kernels in interpret mode).  CPU tensors take the kernels'
-plain versions."""
+(its Pallas kernels in interpret mode), and the backward kernels at a k
+past the limits they had before every odd k <= 127 ran.  CPU tensors take
+the kernels' plain versions."""
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +16,14 @@ from custereomatching_tpu.ops import (
     stereo_matching_pallas_hdw,
     stereo_pipeline_trainable as jax_pipeline_trainable,
 )
+from custereomatching_tpu.ops.pallas_pipeline import (
+    PipelineMaps as JaxPipelineMaps,
+)
+from custereomatching_tpu.ops.pallas_zncc import pallas_cost_volume_banded_hdw
 from custereomatching_tpu.ops.pallas_zncc_bwd import (
     pallas_camera_grad_banded,
     pallas_camera_grad_banded_hdw,
+    pallas_projector_grad_banded_hdw_with_cost,
 )
 from custereomatching_tpu_torch.ops import (
     camera_grad_banded_cuda,
@@ -26,8 +32,6 @@ from custereomatching_tpu_torch.ops import (
     stereo_matching_hdw,
 )
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
-    K5_MAX_KERNEL_SIZE,
-    _check_k5_kernel_size,
     fused_pipeline_bwd_cuda,
     fused_pipeline_bwd_reference,
     fused_pipeline_train_cuda,
@@ -37,8 +41,20 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     stereo_pipeline_trainable_reference,
     unnormalized_head,
 )
-from custereomatching_tpu_torch.ops.zncc import camera_grad_banded
-from custereomatching_tpu_torch.utils.kernel_model import halo_round, halo_tile
+from custereomatching_tpu_torch.ops.cuda_zncc import (
+    projector_grad_banded_cuda,
+)
+from custereomatching_tpu_torch.ops.zncc import (
+    camera_grad_banded,
+    forward_banded,
+)
+from custereomatching_tpu_torch.utils.kernel_model import (
+    COST_CHUNK,
+    cost_slab_planes,
+    halo_fits,
+    halo_round,
+    halo_tile,
+)
 
 # The JAX suite's gradient tolerance (tests/test_pallas_bwd.py:89) and its
 # forward tolerance (tests/test_pallas_zncc.py:47).
@@ -214,18 +230,90 @@ def _k5_block_floats(k, chunk, planes=1):
 
 
 def test_k5_kernel_size_limit_follows_shared_memory():
-    """The largest k whose K5 block fits an H100's 227 KB (58,112 floats)
-    at one plane a round and a projector staging, as the wrapper states;
-    k = 15 at D = 192 takes rounds of 5 planes and chunks of 125 (58,072
-    floats, the source note's count)."""
+    """K5's halo kernel keeps every k whose block fits an H100's 227 KB
+    (58,112 floats) at one plane a round and a projector staging, k <= 27
+    (k = 15 at D = 192: rounds of 5 planes and chunks of 125, 58,072
+    floats, the source note's count); from k = 29 (59,080 floats, and from
+    k = 31 more halo entries than its threads own) K5 takes the chunked
+    route, a slab of COST_CHUNK planes of K1's costs, at k = 29 and at
+    k = 127 alike, and never the whole volume."""
     limit = 227 * 1024 // 4
     assert halo_round(15, 192) == (5, 125)
     assert _k5_block_floats(15, 125, 5) == 58072
-    assert _k5_block_floats(K5_MAX_KERNEL_SIZE, 1) <= limit
-    assert _k5_block_floats(K5_MAX_KERNEL_SIZE + 2, 1) > limit
-    _check_k5_kernel_size(K5_MAX_KERNEL_SIZE)
-    with pytest.raises(ValueError, match=f"kernel_size <= {K5_MAX_KERNEL_SIZE}"):
-        _check_k5_kernel_size(K5_MAX_KERNEL_SIZE + 2)
+    assert _k5_block_floats(27, 1) <= limit
+    assert _k5_block_floats(29, 1) == 59080 > limit
+    assert halo_tile(31, 1, 1)["halo"] > 4 * 1024
+    for D in (0, 1, 192, 1800, 4000):
+        for k in range(3, 29, 2):
+            assert halo_fits(k, D) and cost_slab_planes("K5", k, D) == 0
+        for k in (29, 31, 127):
+            assert not halo_fits(k, D)
+            assert cost_slab_planes("K5", k, D) == min(COST_CHUNK, D + 1)
+            assert cost_slab_planes("K5", k, D) < D + 1 or D + 1 <= (
+                COST_CHUNK)
+
+
+def _jax_pipeline_grad(cam, proj, gs, gc, D, k, save_volume):
+    """The JAX trainable pipeline's camera gradient (interpret mode) for
+    soft-disparity and confidence cotangents gs, gc."""
+    H, W = cam.shape
+    _, vjp = jax.vjp(lambda c: jax_pipeline_trainable(
+        c, jnp.asarray(proj), D, k, 1e-8, 50.0, 0.6, True,
+        save_volume=save_volume), jnp.asarray(cam))
+    zeros = jnp.zeros((H, W), jnp.float32)
+    (want,) = vjp(JaxPipelineMaps(disparity=zeros,
+                                  soft_disparity=jnp.asarray(gs),
+                                  mask=zeros, confidence=jnp.asarray(gc)))
+    return np.asarray(want)
+
+
+# One k past each limit the backward kernels had before every odd k <= 127
+# ran on the card: K5 27, K4 47, K6 81, K7 93.
+@pytest.mark.parametrize("kernel, k", [("K5", 29), ("K4", 49), ("K6", 83),
+                                       ("K7", 95)])
+def test_gradients_past_the_old_k_limits_match_jax(kernel, k):
+    """The port's gradient (the wrappers' plain versions on CPU tensors)
+    against the JAX op in interpret mode, as the JAX suite runs it, at the
+    gradient tolerance: K5 and K4 through the trainable pipeline without
+    and with the saved volume, K6 through its parity entry, K7 on the same
+    cost and cotangent."""
+    H, W, D = 24, 100, 6
+    cam, proj = _pair(21, H, W)
+    cam_t, proj_t = torch.from_numpy(cam)[None], torch.from_numpy(proj)[None]
+    rng = np.random.default_rng(22)
+    if kernel in ("K5", "K4"):
+        save_volume = kernel == "K4"
+        gs, gc = (rng.standard_normal((H, W)).astype(np.float32) / (H * W)
+                  for _ in range(2))
+        want = _jax_pipeline_grad(cam, proj, gs, gc, D, k, save_volume)
+        c = cam_t.clone().requires_grad_(True)
+        maps = stereo_pipeline_trainable(c, proj_t, D, k, 1e-8, 50.0, 0.6,
+                                         save_volume=save_volume)
+        ((maps.soft_disparity[0] * torch.from_numpy(gs)).sum()
+         + (maps.confidence[0] * torch.from_numpy(gc)).sum()).backward()
+        got = c.grad[0].numpy()
+    elif kernel == "K6":
+        g = _cotangent(23, H, W, D)
+        want = np.asarray(pallas_camera_grad_banded(
+            jnp.asarray(cam), jnp.asarray(proj), jnp.asarray(g), D, k, 1e-8,
+            8, 8, True))
+        got = camera_grad_banded_parity_cuda(
+            cam_t, proj_t, torch.from_numpy(g)[None], D, k)[0].numpy()
+    else:
+        jcam, jproj = jnp.asarray(cam), jnp.asarray(proj)
+        vol = pallas_cost_volume_banded_hdw(jcam, jproj, D, k, 1e-8, 8, 8,
+                                            True, True)
+        g = _cotangent(24, H, W, D)
+        gp = np.zeros(vol.shape, np.float32)
+        gp[:D + 1, :H, :W] = np.transpose(g, (2, 0, 1))
+        want = np.asarray(pallas_projector_grad_banded_hdw_with_cost(
+            jcam, jproj, vol, jnp.asarray(gp), D, k, 1e-8, 8, 8, True))
+        cost = forward_banded(cam_t, proj_t, D, k).permute(0, 3, 1, 2)
+        got = projector_grad_banded_cuda(
+            cam_t, proj_t, cost,
+            torch.from_numpy(np.ascontiguousarray(gp[None, :D + 1, :H, :W])),
+            D, k)[0].numpy()
+    np.testing.assert_allclose(got, want, **GRAD_TOL)
 
 
 @pytest.mark.parametrize("grad_projector", [False, True])

@@ -1,7 +1,9 @@
 """PyTorch port: the register-blocked window pass of K1-K7
 (``csrc/common.cuh`` ``window_taps``, ``csrc/fused_pipeline.cuh``,
 ``csrc/fused_pipeline_bwd.cu``, ``csrc/camera_grad.cuh``,
-``csrc/zncc_banded_bwd.cu``, ``csrc/zncc_banded_proj_bwd.cu``) and K8's
+``csrc/zncc_banded_bwd.cu``, ``csrc/zncc_banded_proj_bwd.cu``), the routes
+that take every odd k <= 127 (K4's constants read from their maps, the
+chunked route of K5 and K6, K7's combine a map at a time) and K8's
 strips of row products (``csrc/zncc_allpairs.cu``).  The kernels need the
 card
 (``chip_smoke.py``); here their control flow is mirrored in Python and
@@ -15,7 +17,6 @@ from pathlib import Path
 
 import pytest
 
-from custereomatching_tpu_torch.ops.cuda_pipeline import K5_MAX_KERNEL_SIZE
 from custereomatching_tpu_torch.utils import kernel_model as km
 
 CSRC = Path(km.__file__).resolve().parents[1] / "csrc"
@@ -41,6 +42,24 @@ PIN_K7_KITTI = {"madd": 997857592, "smem": 1836900202, "exp": 0,
 PIN_K2_SMALL = {"madd": 619616, "smem": 1198432, "exp": 0, "rsqrt": 70784}
 PIN_K2_KITTI = {"madd": 1092254592, "smem": 1937586054, "exp": 0,
                 "rsqrt": 210215200}
+# K4's, K5's, K6's and K7's past their old limits (K4's constants from their
+# maps, K5's and K6's chunked route, K7's combine a map at a time), at a
+# small shape one k past the limit and at KITTI with k = 127.
+PIN_K4_K49 = {"madd": 39953024, "smem": 11120080, "exp": 639744,
+              "rsqrt": 799680}
+PIN_K4_K127 = {"madd": 74307889294, "smem": 25482721964, "exp": 2119940564,
+               "rsqrt": 4239881128}
+PIN_K5_K29 = {"madd": 38704004, "smem": 8721904, "exp": 391500,
+              "rsqrt": 584140}
+PIN_K5_K127 = {"madd": 122571901714, "smem": 31455587114,
+               "exp": 2119940564, "rsqrt": 4329770878}
+PIN_K6_K83 = {"madd": 132197264, "smem": 21779108, "exp": 0,
+              "rsqrt": 895000}
+PIN_K6_K127 = {"madd": 101372496074, "smem": 17304256616, "exp": 0,
+               "rsqrt": 2209830314}
+PIN_K7_K95 = {"madd": 83041400, "smem": 22363160, "exp": 0, "rsqrt": 869640}
+PIN_K7_K127 = {"madd": 55353599246, "smem": 8605683222, "exp": 0,
+               "rsqrt": 2064040132}
 
 
 def _k7_combine_floats(k: int, at_once: int = 3) -> int:
@@ -75,11 +94,21 @@ def test_blocking_constants_mirror_the_sources():
     assert tuple(_const(allpairs, n) for n in (
         "kApWarps", "kApXPerThread", "kApYPerThread", "kApRows")) == (
             km.AP_WARPS, km.AP_X_PER_THREAD, km.AP_Y_PER_THREAD, km.AP_ROWS)
+    assert (_const(grad, "kCostChunk"), *(_const(
+        (CSRC / "layout.cu").read_text(), n) for n in (
+            "kParityPixels", "kParityThreads", "kParityChunk"))) == (
+        km.COST_CHUNK, km.PARITY_PIXELS, km.PARITY_THREADS, km.PARITY_CHUNK)
     # K2 is the rounds kernel's third instantiation, K6's source reading
-    # the cost at the tile's own pixels; the per-plane kernel is gone, and
-    # K8 sums its rows with window_taps' loops.
-    assert "launch_camera_grad_rounds<CotangentSource<true>, false>(" in k2
-    assert "launch_camera_grad_rounds<CotangentSource<false>, true>(" in k2
+    # the cost at the tile's own pixels; past its recomputing block K6
+    # takes the chunked route on K2's instantiation, and past its staged
+    # constants K4 reads them from their maps; the per-plane kernel is
+    # gone, and K8 sums its rows with window_taps' loops.
+    assert "launch_all_planes<CotangentSource<true>, false>(" in k2
+    assert "launch_all_planes<Recompute, true>(" in k2
+    assert "launch_cost_slabs<CotangentSource<true>>(" in k2
+    assert "launch_cost_slabs<Source>(" in bwd
+    assert "launch_all_planes<Unstaged, false>(" in bwd
+    assert "launch_fused<false, false, false, true, true>(" in grad
     for name in ("camera_grad_planes_kernel", "GradTile(",
                  "launch_camera_grad("):
         assert name not in grad + k2
@@ -93,7 +122,7 @@ def test_blocking_constants_mirror_the_sources():
     planes = km.GRAD_PLANES
     while planes >= 1:
         assert f"case {planes}:" in grad and (
-            f"launch_rounds<Source, kRecompute, {planes}>" in grad)
+            f"launch_rounds<Source, kRecompute, kSlab, {planes}>" in grad)
         # K7's rounds kernel too.
         assert f"case {planes}:" in proj and (
             f"launch_proj_rounds<{planes}>" in proj)
@@ -109,7 +138,7 @@ def test_blocking_constants_mirror_the_sources():
     assert "horizontal_sum(" not in volume + fused
     assert "grad_rows(xbuf, ybuf, gs, k, np);" in proj
     assert "void grad_rows(" not in proj and "void ring_entry(" not in proj
-    assert "fused_round(k, D," in fused and "staging_chunk(" in common
+    assert "fused_round(k, d_hi - d_lo," in fused and "staging_chunk(" in common
     # K3's rows pass covers the tile height; gr's groups tile the tile.
     assert km.ROUND_ROWS == km.K_TILE_H and km.K_TILE_W % km.ROUND_COLS == 0
     assert km.K_TILE_H % km.GRAD_ROWS == 0
@@ -178,9 +207,10 @@ def test_groups_cover_every_line_without_reading_past_it(k):
 def test_shared_memory_of_the_blocks():
     """The source notes' counts: K1 and K3 at KITTI 40,392 floats (13 planes
     a round, the projector's 193 planes staged at once), K5 58,072 (5
-    planes a round, chunks of 125); K5's k limit still 27; past D = 782 at
-    k = 15 K1 and K3 stage the projector in chunks of 780 planes (60
-    rounds), so no D is refused (K3 stopped at 1704, K1 at 1739)."""
+    planes a round, chunks of 125); K5's halo kernel still takes k <= 27;
+    past D = 782 at k = 15 K1 and K3 stage the projector in chunks of 780
+    planes (60 rounds), so no D is refused (K3 stopped at 1704, K1 at
+    1739)."""
     assert km.fused_round(K, D) == (13, D + 1)
     assert km.fused_block_floats(K, D) == 40392 <= LIMIT
     assert km.fused_round(K, 782) == (13, 783)
@@ -189,17 +219,20 @@ def test_shared_memory_of_the_blocks():
         assert km.fused_round(K, d) == (13, 780)
         assert km.fused_block_floats(K, d) == 30 * (156 + 779) + 13 * 2304
     assert km.halo_tile(K, 125, 5)["floats"] == 58072 <= LIMIT
-    assert km.halo_tile(K5_MAX_KERNEL_SIZE, 1, 1)["floats"] == 54752
-    assert km.halo_tile(K5_MAX_KERNEL_SIZE + 2, 1, 1)["floats"] == 59080
-    assert km.halo_tile(K5_MAX_KERNEL_SIZE, 1, 1)["halo"] <= (
-        km.HALO_OWN * km.K_THREADS)
+    assert km.halo_tile(27, 1, 1)["floats"] == 54752
+    assert km.halo_tile(29, 1, 1)["floats"] == 59080
+    assert km.halo_tile(27, 1, 1)["halo"] <= km.HALO_OWN * km.K_THREADS
+    assert km.halo_fits(27, D) and not km.halo_fits(29, D)
 
 
 def test_shared_memory_of_the_rounds_kernel():
     """K4 at KITTI: P = 8, 45,452 floats; K6: P = 8, all 193 planes of the
     projector at once, 41,852 floats, in chunks of 728 at D = 1600; K4
     falls to P = 4 at k = 27 and P = 1 at k = 47 (56,398 floats), where
-    the planes kernel it replaced stopped too (k = 49 fits neither)."""
+    the planes kernel it replaced stopped too; from k = 49 its constants
+    stay in their maps, and one plane's buffers fit up to k = 127 (30,178
+    floats).  K6's recomputing block fits up to k = 81 (59,682 floats at
+    k = 83)."""
     assert km.grad_round(K, D, True, False) == (8, D + 1)
     assert km.grad_round_tile(K, D + 1, 8, head=True,
                               recompute=False)["floats"] == 45452
@@ -214,6 +247,15 @@ def test_shared_memory_of_the_rounds_kernel():
     assert km.grad_round(49, D, True, False) == (0, 0)
     p = 49 // 2
     assert 8 * (16 + 2 * p) * (64 + 2 * p) + 16 * (64 + 2 * p) > LIMIT
+    assert not km.k4_staged(49, D) and km.k4_staged(47, D)
+    assert km.grad_round(49, D, True, False, staged=False) == (4, D + 1)
+    assert km.grad_round(127, D, True, False, staged=False) == (1, D + 1)
+    assert km.grad_round_tile(127, 1, 1, head=True, recompute=False,
+                              staged=False)["floats"] == 30178
+    assert km.grad_round(81, D, False, True)[0] == 1
+    assert km.grad_round(83, D, False, True) == (0, 0)
+    assert km.grad_round_tile(83, 1, 1, head=False,
+                              recompute=True)["floats"] == 59682
 
 
 @pytest.mark.parametrize("k", list(range(3, 49, 2)))
@@ -299,8 +341,15 @@ def test_counts_of_the_redesigned_kernels(fn, shape, want):
 
 
 def test_k5_needs_a_block_that_fits():
-    with pytest.raises(ValueError, match="k = 29"):
-        km.fused_backward_cost(40, 120, 16, 29)
+    """K5's halo kernel needs a block that fits (k <= 27); at k = 29 its
+    count is the chunked route's: the statistics passes, the combine, K1's
+    rounds over each slab and K4's rounds kernel on it, which is more work
+    than K4's on a saved volume by K1's rounds and the slabs' store."""
+    assert not km.halo_fits(29, 16)
+    free = km.fused_backward_cost(40, 120, 16, 29)
+    saved = km.fused_backward_c_cost(40, 120, 16, 29)
+    assert free["madd"] > saved["madd"] and free["smem"] > saved["smem"]
+    assert free.bytes_w > saved.bytes_w
 
 
 @pytest.mark.parametrize("k", list(range(3, 129, 2)))
@@ -309,18 +358,17 @@ def test_k1_and_k7_take_every_k_at_every_d(k):
     D >= 1740 at k = 15): its mirrored round and projector chunk give at
     least one plane, no more than D + 1, a chunk that is D + 1 or a
     multiple of the round, and a block that fits 227 KB.  K7 takes every
-    odd k <= 93 at any D: its rounds fall as far as one plane (a power of
-    two up to kGradPlanes) and its block and its combine kernel's fit; from
-    k = 95 the combine kernel does not, as before its rounds."""
+    odd k <= 127 at any D: its rounds fall as far as one plane (a power of
+    two up to kGradPlanes) and its block fits; its combine kernel stages
+    the three maps together up to k = 93 (the first version's limit) and
+    one at a time beyond, and fits either way."""
     for d in (0, 192, 1739, 1740, 4000):
         planes, chunk = km.fused_round(k, d)
         assert 1 <= planes <= d + 1 and 1 <= chunk <= d + 1
         assert chunk == d + 1 or chunk % planes == 0
         assert km.fused_block_floats(k, d) <= LIMIT
-        if k > 93:
-            assert _k7_combine_floats(k) > LIMIT
-            continue
-        assert _k7_combine_floats(k) <= LIMIT
+        assert (_k7_combine_floats(k) <= LIMIT) == (k <= 93)
+        assert _k7_combine_floats(k, 1) <= LIMIT
         p7, c7 = km.grad_round(k, d, False, False)
         assert 1 <= p7 <= km.GRAD_PLANES and p7 & (p7 - 1) == 0
         assert p7 == 1 or p7 <= d + 1
@@ -393,3 +441,95 @@ def test_counts_of_k8(shape, want, bytes_rw):
     assert (int(cost.bytes_r), int(cost.bytes_w)) == bytes_rw
     h, w, _ = shape
     assert cost.bytes_w >= 4 * h * w * w
+
+
+def _stats_floats(k: int) -> int:
+    """The statistics kernel's block (``box_stats_kernel`` of common.cuh):
+    the halo'd tile and its two rows passes."""
+    p = k // 2
+    return (16 + 2 * p) * (64 + 2 * p) + 2 * 16 * (64 + 2 * p)
+
+
+@pytest.mark.parametrize("k", list(range(3, 129, 2)))
+def test_k4_k5_k6_and_k7_take_every_k_at_every_d(k):
+    """K4, K5, K6 and K7 take every odd k <= 127 at every D, as K1, K2 and
+    K3 do and as their JAX kernels do: each launch of the route the
+    mirrored geometry picks has at least one plane a round (a power of two
+    up to kGradPlanes) and a block that fits 227 KB.  K4 stages its
+    constants up to k = 47 and reads them from their maps beyond; K5 runs
+    its halo kernel up to k = 27 and K6 its recomputing block up to
+    k = 81, and beyond each takes the chunked route: for every slab of
+    COST_CHUNK planes K1's rounds kernel and the rounds kernel reading the
+    slab (K4's instantiation for K5, K2's for K6), the slab never the whole
+    volume once D + 1 > COST_CHUNK; K7's combine takes its maps one at a
+    time past k = 93."""
+    def fits_rounds(d, head, recompute, staged=True):
+        planes, chunk = km.grad_round(k, d, head, recompute, staged)
+        assert 1 <= planes <= km.GRAD_PLANES and planes & (planes - 1) == 0
+        assert planes == 1 or planes <= d + 1
+        assert 1 <= chunk <= d + 1
+        assert km.grad_round_tile(k, chunk, planes, head=head,
+                                  recompute=recompute,
+                                  staged=staged)["floats"] <= LIMIT
+
+    def fits_slabs(d, head):
+        for lo, hi in km.cost_slabs(d):
+            assert 1 <= hi - lo + 1 <= km.COST_CHUNK
+            assert km.fused_round(k, hi - lo)[0] >= 1
+            assert km.fused_block_floats(k, hi - lo) <= LIMIT
+            fits_rounds(hi - lo, head, False,
+                        not head or km.k4_staged(k, km.COST_CHUNK - 1))
+        assert [lo for lo, _ in km.cost_slabs(d)] == list(
+            range(0, d + 1, km.COST_CHUNK))
+
+    assert _stats_floats(k) <= LIMIT
+    assert min(_k7_combine_floats(k, 3), _k7_combine_floats(k, 1)) <= LIMIT
+    for d in (0, 1, 192, 1800, 4000):
+        # K4.
+        fits_rounds(d, True, False, km.k4_staged(k, d))
+        assert km.k4_staged(k, d) == (k <= 47)
+        # K5.
+        if km.halo_fits(k, d):
+            planes, chunk = km.halo_round(k, d)
+            assert km.halo_tile(k, chunk, planes)["floats"] <= LIMIT
+            assert km.cost_slab_planes("K5", k, d) == 0
+        else:
+            fits_slabs(d, True)
+            assert km.cost_slab_planes("K5", k, d) == min(km.COST_CHUNK,
+                                                          d + 1)
+        assert km.halo_fits(k, d) == (k <= 27)
+        # K6.
+        if km.grad_round(k, d, False, True)[0] >= 1:
+            fits_rounds(d, False, True)
+            assert km.cost_slab_planes("K6", k, d) == 0
+        else:
+            fits_slabs(d, False)
+            assert km.cost_slab_planes("K6", k, d) == min(km.COST_CHUNK,
+                                                          d + 1)
+        assert (km.cost_slab_planes("K6", k, d) > 0) == (k > 81)
+        # K7.
+        fits_rounds(d, False, False)
+
+
+@pytest.mark.parametrize("fn, shape, want", [
+    ("fused_backward_c_cost", (40, 130, 24, 49), PIN_K4_K49),
+    ("fused_backward_c_cost", (H, W, D, 127), PIN_K4_K127),
+    ("fused_backward_cost", (40, 130, 24, 29), PIN_K5_K29),
+    ("fused_backward_cost", (H, W, D, 127), PIN_K5_K127),
+    ("k6_cost", (40, 130, 24, 83), PIN_K6_K83),
+    ("k6_cost", (H, W, D, 127), PIN_K6_K127),
+    ("projector_backward_cost", (40, 130, 24, 95), PIN_K7_K95),
+    ("projector_backward_cost", (H, W, D, 127), PIN_K7_K127)])
+def test_counts_past_the_old_limits(fn, shape, want):
+    """The counts of K4's, K5's, K6's and K7's routes past their old
+    limits, pinned, so each such launch has a model: no ``boxadd``; K5's
+    and K6's chunked route write the slabs once (one volume in all) and
+    read them back as K4 and K2 read a volume."""
+    cost = (km.volume_backward_cost(*shape, with_cost=False)
+            if fn == "k6_cost" else getattr(km, fn)(*shape))
+    assert {m: cost[m] for m in want} == want and cost["boxadd"] == 0
+    h, w, d, k = shape
+    volume = 4 * (d + 1) * h * w
+    chunked = fn in ("fused_backward_cost", "k6_cost")
+    assert (cost.bytes_w > volume) == chunked
+    assert cost.bytes_r > (volume if fn != "fused_backward_cost" else 0)
