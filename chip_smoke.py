@@ -2,7 +2,9 @@
 """On-card smoke test of the PyTorch / CUDA port: the serving path, the
 training path, the all-pairs path, the projector-gradient path, the
 volume-free training path, the plane-major path, the camera VJP
-without the cost residual and the bound model's rate probes.
+without the cost residual, the bound model's rate probes, the large-k
+route, the left-right serving path, the pyramid and the failsafe
+layer.
 
     python3 chip_smoke.py
 
@@ -117,6 +119,41 @@ imports nothing of JAX.  Phases, each printing its lines:
     their times before their redesigns (``MS_BEFORE``); then K4, K5, K6
     and K7 at KITTI with k = 127, each beside its bound and model.
 
+24. K8 at k = 1 (JAX's gate is odd k >= 1) against its plain version at
+    the JAX suite's all-pairs shapes and 330x422; then, counters reset, the
+    all-pairs matcher at k = 1 forward and backward: K8 once, the plain
+    volume never, the camera gradient against the plain node's;
+25. the large-k route (``csrc/large_k.cu``, ``ops/cuda_large_k.py``) at
+    an edge shape, a batch and the large-k path's 40x130 (D = 24): K1, K3
+    (both head branches), K3w, K3m, K2,
+    K6, K5 at k = 129 and 131, K7 at 129 and its ValueError at 131, K8 at
+    145 and 147, K4 on its own rounds at 129 and 131 and on the route at
+    187 (and the route called at 129), against their plain versions; K3w's
+    volume bit-equal to K1's, K3w's and K3m's maps to K3's, K6 to K2 and K5
+    to K4's route on K1's volume;
+26. the large-k path, counters reset, through the entry points at k = 129
+    (and K4's route at 187, all-pairs at 145): every route and every one
+    of its kernels runs, no plain twin;
+26b. the route choice pinned against the launchers: for every kernel and
+    D = 0, 24, 192, its own blocks run at the last k before the route and
+    its launcher refuses the first k on it (the choice switched off);
+27. each route timed at KITTI with k = 129 (K8 at 330x422, k = 145)
+    beside its plain version, bound and model (K4 also on its own rounds),
+    and its output there held against its plain version's;
+28. the left-right serving path: ``StereoEngine(lr_check=True,
+    retries=2)`` healthy, then, counters reset, warm-up and 8 KITTI frames:
+    K3 twice a frame, no plain twin, every frame's maps bit-equal to two
+    direct K3 calls composed with the plain mask, some confident pixels
+    masked, coverage, EPE and the per-frame median;
+29. the pyramid, counters reset: ``PyramidStereoMatcher`` at KITTI (k =
+    15, D = 192) on the JAX bench's scene, K3 twice a call, each level's
+    K3 maps against the plain pipeline on that level's inputs, EPE <=
+    0.30 px and coverage >= 0.97 printed beside the JAX package's values,
+    and the time a call;
+30. the failsafe layer: an injected allocation failure retried and
+    served, an injected sticky error (700) raised at once, and
+    ``device_healthcheck()`` true.
+
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -126,7 +163,10 @@ card.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -136,6 +176,7 @@ import torch
 
 from custereomatching_tpu_torch import StereoConfig, StereoEngine, StereoMatcher
 from custereomatching_tpu_torch.data import make_stereo_pair
+from custereomatching_tpu_torch.models import PyramidStereoMatcher
 from custereomatching_tpu_torch.models import (
     adam,
     entry,
@@ -148,6 +189,8 @@ from custereomatching_tpu_torch.ops import (
     extract_disparity_hdw,
     stereo_matching_hdw,
 )
+from custereomatching_tpu_torch.ops import cuda_large_k as lk
+from custereomatching_tpu_torch.ops.consistency import lr_consistency_mask
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     HeadResiduals,
     fused_pipeline_bwd_cuda,
@@ -159,11 +202,13 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     stereo_pipeline_reference,
     stereo_pipeline_trainable,
     stereo_pipeline_trainable_reference,
+    unnormalized_head,
 )
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
     cost_volume_allpairs_cuda,
 )
 from custereomatching_tpu_torch.ops.cuda_zncc import (
+    K7_MAX_KERNEL_SIZE,
     camera_grad_banded_cuda,
     camera_grad_banded_parity_cuda,
     cost_volume_banded_cuda,
@@ -184,7 +229,13 @@ from custereomatching_tpu_torch.ops.zncc import (
     projector_grad_banded,
 )
 from custereomatching_tpu_torch.scripts import device_probe
-from custereomatching_tpu_torch.utils import benchmark, fence
+from custereomatching_tpu_torch.utils import (
+    benchmark,
+    device_healthcheck,
+    disparity_metrics,
+    fence,
+    with_retries,
+)
 from custereomatching_tpu_torch.utils import kernel_model as km
 from custereomatching_tpu_torch.utils.profiling import (
     PEAK_BYTES,
@@ -1762,6 +1813,758 @@ def phase_large_k_times(card: str, rates: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K8 at k = 1, the large-k route, the left-right serving path, the pyramid
+# and the failsafe layer
+# ---------------------------------------------------------------------------
+
+# K8 at k = 1: the JAX suite's all-pairs shapes and the verify shape.
+AP_K1 = [(B, H, W, 1) for B, H, W, _ in AP_SHAPES] + [(1, 330, 422, 1)]
+
+
+def phase_k8_k1() -> float:
+    err = 0.0
+    for i, (B, H, W, k) in enumerate(AP_K1):
+        cam, proj = uniform_pair(1500 + i, B, H, W)
+        got = cost_volume_allpairs_cuda(cam, proj, k, EPS)
+        want = forward_allpairs(cam, proj, k, EPS)
+        err = max(err, compare_volume(got, want, f"B={B} H={H} W={W} k={k}",
+                                      kernel="K8"))
+        del got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_allpairs_k1_path() -> dict:
+    """The default all-pairs matcher at k = 1, counters reset: forward,
+    plain head and backward of a mean soft-disparity loss at 330x422; K8
+    once, the plain volume never; the camera gradient against the plain
+    node's."""
+    H, W, _ = VERIFY
+    model = StereoMatcher(StereoConfig(kernel_size=1, backend="cuda"))
+    cam0, proj = uniform_pair(1510, 1, H, W)
+    cam = cam0.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_counters()
+    out = model(cam, proj)
+    out.soft_disparity.mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"all-pairs k=1 path: counters {counts}")
+    require(counts["k8"] == 1, "K8 launched once at k = 1")
+    require(counts["plain_allpairs"] == 0, "the plain volume unused at k = 1")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the all-pairs k = 1 path")
+    want = forward_allpairs(cam0, proj, 1, EPS)
+    compare_volume(out.cost_volume.detach(), want,
+                   f"all-pairs k=1 path: volume at {H}x{W}", kernel="K8")
+    cam_p = cam0.clone().requires_grad_(True)
+    StereoMatcher(StereoConfig(kernel_size=1, backend="torch"))(
+        cam_p, proj).soft_disparity.mean().backward()
+    # At k = 1 the centred values vanish (E2 = 0, and A1 - box(GRMU) = 0),
+    # so the closed-form gradient is zero up to rounding on both sides.
+    diff = float((cam.grad - cam_p.grad).abs().max())
+    print(f"all-pairs k=1 path: camera gradient max |got| "
+          f"{float(cam.grad.abs().max()):.3e}, max |plain| "
+          f"{float(cam_p.grad.abs().max()):.3e}, max |got - plain| "
+          f"{diff:.3e}")
+    require(bool(torch.isfinite(cam.grad).all())
+            and diff <= GRAD_ATOL + GRAD_RTOL * float(
+                cam_p.grad.abs().max()),
+            f"all-pairs k=1 path: camera gradient within rtol {GRAD_RTOL} "
+            f"/ atol {GRAD_ATOL} of the plain node's")
+    del out, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+# The routes of the large-k path: key, the base kernel it stands in for,
+# the route function and its counter.
+LARGE_ROUTES = {
+    "K1L": ("K1", lk.banded_volume_large, "launches"),
+    "K3L": ("K3", lk.fused_pipeline_large, "launches"),
+    "K3wL": ("K3w", lk.fused_pipeline_large, "train_launches"),
+    "K3mL": ("K3m", lk.fused_pipeline_large, "maps_launches"),
+    "K2L": ("K2", lk.camera_grad_large, "launches"),
+    "K6L": ("K6", lk.camera_grad_large, "recompute_launches"),
+    "K4L": ("K4", lk.camera_grad_large, "head_launches"),
+    "K5L": ("K5", lk.camera_grad_large, "head_recompute_launches"),
+    "K7L": ("K7", lk.projector_grad_large, "launches"),
+    "K8L": ("K8", lk.allpairs_volume_large, "launches"),
+}
+KERNEL_COUNTERS.update({key.lower(): (fn, attr)
+                        for key, (_, fn, attr) in LARGE_ROUTES.items()})
+KERNEL_COUNTERS.update({f"lk_{fn.__name__}": (fn, "launches")
+                        for fn in lk.STEPS})
+# (B, H, W, D) of the large-k checks: an edge shape, a batch, and the
+# shape of the large-k path (phase 26).
+LK_SHAPES = [(1, 37, 200, 20), (2, 24, 150, 10), (1, 40, 130, 24)]
+LK_K = (129, 131)
+# K8 past its strip (B, H, W, k).
+LK_AP = [(1, 40, 130, 145), (2, 24, 100, 147)]
+# K4's own route takes k <= 185; the large-k route from 187.
+K4_LARGE_K = 187
+
+
+def _head(res, gs, gc, beta, D):
+    return (res.am, res.mask, res.confidence, res.s, res.t, gs, gc, beta,
+            unnormalized_head(beta, D))
+
+
+def phase_large_k() -> dict:
+    """Every kernel past its blocks (k = 129 and 131; K7 at 129, its
+    ValueError at 131; K8 at 145 and 147; K4's route at 187) against its
+    plain version on the card: volumes rtol 1e-4 / atol 1e-5, K3's maps
+    as phase 4, gradients rtol 1e-3 / atol 1e-6 and norm-relative 1e-4.
+    K3w's volume is K1's bit for bit, K3w's and K3m's maps K3's, K3m's
+    am/s/t K3w's; K6 is K2 on K1's volume and K5 the large-k route of K4
+    on it, bit for bit.  Returns each route's max abs error."""
+    errs = dict.fromkeys(LARGE_ROUTES, 0.0)
+    errs["K4"] = 0.0
+    for i, (B, H, W, D) in enumerate(LK_SHAPES):
+        for k in LK_K:
+            label = f"B={B} H={H} W={W} D={D} k={k}"
+            require(all(km.large_k_route(n, k, D) for n in
+                        ("K1", "K3", "K2", "K5", "K6", "K7")),
+                    f"{label}: the large-k route is taken")
+            cam, proj = uniform_pair(1600 + i + k, B, H, W)
+            vol = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+            want = forward_banded(cam, proj, D, k, EPS)
+            errs["K1L"] = max(errs["K1L"], compare_volume(
+                vol, want, f"{label} large-k route", kernel="K1"))
+            for beta in (50.0, 80.0):
+                got = stereo_pipeline_cuda(cam, proj, D, k, EPS, beta,
+                                           THRESHOLD)
+                ref = stereo_pipeline_reference(cam, proj, D, k, EPS, beta,
+                                                THRESHOLD)
+                errs["K3L"] = max(errs["K3L"], compare_maps(
+                    got, ref, want, THRESHOLD, False,
+                    f"{label} beta={beta} large-k route"))
+                maps, res = fused_pipeline_train_cuda(cam, proj, D, k, EPS,
+                                                      beta, THRESHOLD)
+                maps_m, res_m = fused_pipeline_train_cuda(
+                    cam, proj, D, k, EPS, beta, THRESHOLD, save_volume=False)
+                require(torch.equal(res.volume.permute(0, 2, 3, 1), vol),
+                        f"K3w {label}: volume bit-equal to K1's")
+                for name in got._fields:
+                    require(torch.equal(getattr(maps, name),
+                                        getattr(got, name))
+                            and torch.equal(getattr(maps_m, name),
+                                            getattr(got, name)),
+                            f"K3w/K3m {label}: {name} bit-equal to K3's")
+                for name in ("am", "s", "t"):
+                    require(torch.equal(getattr(res, name),
+                                        getattr(res_m, name)),
+                            f"K3m {label}: {name} bit-equal to K3w's")
+                am, _, s, t = head_residuals(want, D, beta)
+                tie = top2_ties(want)
+                require(not bool(((res.am != am) & ~tie).any()),
+                        f"K3w {label}: argmax differs only at top-two ties")
+                s_err = float(((res.s - s).abs() / s).max())
+                t_err = float(((res.t - t).abs() / (t + s)).max())
+                require(s_err <= 1e-3 and t_err <= 1e-3,
+                        f"K3w {label}: s within rtol 1e-3, t within 1e-3 "
+                        f"(t + s)")
+                print(f"K3w/K3m {label} beta={beta} large-k route: maps "
+                      f"bit-equal to K3's, volume to K1's; |ds|/s "
+                      f"{s_err:.3e}, |dt|/(t+s) {t_err:.3e}")
+                errs["K3wL"] = max(errs["K3wL"], errs["K3L"])
+                errs["K3mL"] = max(errs["K3mL"], errs["K3L"])
+            g = mean_loss_cotangent(1620 + k, B, H, W, D)
+            pm = vol.permute(0, 3, 1, 2)
+            k2 = camera_grad_banded_cuda(cam, proj, pm, g, D, k, EPS)
+            k6 = camera_grad_banded_cuda(cam, proj, None, g, D, k, EPS)
+            plain = camera_grad_banded(cam, proj, g.permute(0, 2, 3, 1), D,
+                                       k, EPS)
+            errs["K2L"] = max(errs["K2L"], compare_grad(
+                k2, plain, f"K2 {label} large-k route", elementwise=True))
+            errs["K6L"] = max(errs["K6L"], compare_grad(
+                k6, plain, f"K6 {label} large-k route", elementwise=True))
+            require(torch.equal(k6, k2), f"K6 {label}: bit-equal to K2 on "
+                    f"K1's volume")
+            gs, gc = cotangents(1630 + k, B, H, W)
+            res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                            THRESHOLD)[1]
+            res_m = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                              THRESHOLD, save_volume=False)[1]
+            want4 = fused_pipeline_bwd_reference(cam, proj, res, gs, gc, D,
+                                                 k, EPS, 50.0)
+            k4 = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k, EPS,
+                                         50.0)
+            errs["K4"] = max(errs["K4"], compare_grad(
+                k4, want4, f"K4 {label} (its rounds, constants from their "
+                f"maps)", elementwise=True))
+            k4l = lk.camera_grad_large(cam, proj, res.volume, None, D, k, EPS,
+                                       head=_head(res, gs, gc, 50.0, D))
+            errs["K4L"] = max(errs["K4L"], compare_grad(
+                k4l, want4, f"K4 {label} large-k route (called)",
+                elementwise=True))
+            k5 = fused_pipeline_bwd_cuda(cam, proj, res_m, gs, gc, D, k, EPS,
+                                         50.0)
+            want5 = fused_pipeline_bwd_reference(cam, proj, res_m, gs, gc, D,
+                                                 k, EPS, 50.0)
+            errs["K5L"] = max(errs["K5L"], compare_grad(
+                k5, want5, f"K5 {label} large-k route", elementwise=True))
+            on_k1 = lk.camera_grad_large(cam, proj, pm, None, D, k, EPS,
+                                         head=_head(res_m, gs, gc, 50.0, D))
+            require(torch.equal(k5, on_k1), f"K5 {label}: bit-equal to the "
+                    f"large-k route of K4 on K1's volume")
+            if k <= K7_MAX_KERNEL_SIZE:
+                k7 = projector_grad_banded_cuda(cam, proj, pm, g, D, k, EPS)
+                want7 = projector_grad_banded(cam, proj, want,
+                                              g.permute(0, 2, 3, 1), D, k,
+                                              EPS)
+                errs["K7L"] = max(errs["K7L"], compare_grad(
+                    k7, want7, f"K7 {label} large-k route",
+                    elementwise=True))
+            else:
+                torch.cuda.synchronize()
+                before = (lk.proj_fields.launches, lk.box_axis.launches)
+                try:
+                    projector_grad_banded_cuda(cam, proj, pm, g, D, k, EPS)
+                    raised = False
+                except ValueError as exc:
+                    raised = "lane-aligned" in str(exc)
+                require(raised and before == (lk.proj_fields.launches,
+                                              lk.box_axis.launches),
+                        f"K7 {label}: ValueError before any launch")
+                print(f"K7 {label}: ValueError before any launch, as JAX's "
+                      f"_proj_bwd_kernel")
+            del vol, want, g, pm, k2, k6, plain, res, res_m, k4, k4l, k5
+            torch.cuda.empty_cache()
+    # K4's own large-k route, through the wrapper, where its rounds stop.
+    B, H, W, D = LK_SHAPES[0]
+    k = K4_LARGE_K
+    cam, proj = uniform_pair(1690, B, H, W)
+    gs, gc = cotangents(1691, B, H, W)
+    require(km.large_k_route("K4", k, D), f"K4 takes the route at k={k}")
+    res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0, THRESHOLD)[1]
+    got = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k, EPS, 50.0)
+    want = fused_pipeline_bwd_reference(cam, proj, res, gs, gc, D, k, EPS,
+                                        50.0)
+    errs["K4L"] = max(errs["K4L"], compare_grad(
+        got, want, f"K4 B={B} H={H} W={W} D={D} k={k} large-k route",
+        elementwise=True))
+    for i, (B, H, W, k) in enumerate(LK_AP):
+        cam, proj = uniform_pair(1700 + i, B, H, W)
+        got = cost_volume_allpairs_cuda(cam, proj, k, EPS)
+        want = forward_allpairs(cam, proj, k, EPS)
+        errs["K8L"] = max(errs["K8L"], compare_volume(
+            got, want, f"B={B} H={H} W={W} k={k} large-k route",
+            kernel="K8"))
+        del got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_large_k_path() -> dict:
+    """The large-k path, counters reset, through the entry points at
+    k = 129 (40x130, D = 24): the matcher's forward and backward (K1 and
+    K2 on the route), ``disparity_maps`` (K3), ``trainable_disparity_maps``
+    (K3w on the route, K4 on its own rounds), the volume-free trainable
+    pipeline (K3m, K5), ``grad_projector`` (K1, K2, K7), the parity VJP
+    without the cost (K9b, K6); K4's route at k = 187; the all-pairs
+    matcher at k = 145 (K8).  Every route runs, no plain twin does."""
+    B, H, W, D = 1, 40, 130, 24
+    k = LK_K[0]
+    cam0, proj = uniform_pair(1750, B, H, W)
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    g_par = mean_loss_cotangent(1751, B, H, W, D).permute(0, 2, 3, 1)
+    g_par = g_par.contiguous()
+    torch.cuda.synchronize()
+    reset_counters()
+    cam = cam0.clone().requires_grad_(True)
+    StereoMatcher(cfg)(cam, proj).soft_disparity.mean().backward()
+    with torch.no_grad():
+        served = StereoMatcher(cfg).disparity_maps(cam0, proj)
+    cam = cam0.clone().requires_grad_(True)
+    t = StereoMatcher(cfg).trainable_disparity_maps(cam, proj)
+    (t.soft_disparity.mean() + t.confidence.mean()).backward()
+    cam = cam0.clone().requires_grad_(True)
+    t = stereo_pipeline_trainable(cam, proj, D, k, EPS, 50.0, THRESHOLD,
+                                  save_volume=False)
+    (t.soft_disparity.mean() + t.confidence.mean()).backward()
+    cam = cam0.clone().requires_grad_(True)
+    pr = proj.clone().requires_grad_(True)
+    StereoMatcher(dataclasses.replace(cfg, grad_projector=True))(
+        cam, pr).soft_disparity.mean().backward()
+    k6 = camera_grad_banded_parity_cuda(cam0, proj, g_par, D, k, EPS)
+    cam = cam0.clone().requires_grad_(True)
+    t = stereo_pipeline_trainable(cam, proj, D, K4_LARGE_K, EPS, 50.0,
+                                  THRESHOLD)
+    (t.soft_disparity.mean() + t.confidence.mean()).backward()
+    cam = cam0.clone().requires_grad_(True)
+    ap = StereoMatcher(StereoConfig(kernel_size=LK_AP[0][3]))(cam, proj)
+    ap.soft_disparity.mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"large-k path: counters {counts}")
+    for key in LARGE_ROUTES:
+        require(counts[key.lower()] >= 1, f"{key} ran on the large-k path")
+    for fn in lk.STEPS:
+        require(counts[f"lk_{fn.__name__}"] >= 1,
+                f"the route's {fn.__name__} kernel launched")
+    require(counts["k4"] == 1 and counts["k9b"] == 1,
+            "K4's own rounds at k=129 and K9b ran once")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the large-k path")
+    require(bool(torch.isfinite(served.soft_disparity).all())
+            and bool(torch.isfinite(k6).all())
+            and bool(torch.isfinite(cam.grad).all())
+            and bool(torch.isfinite(pr.grad).all()),
+            "large-k path outputs finite")
+    torch.cuda.empty_cache()
+    return counts
+
+
+# The route choice pinned against the launchers: (B, H, W) and the D it
+# is asked at.
+PIN_SHAPE = (1, 20, 150)
+PIN_D = (0, 24, 192)
+CONFIG_REFUSALS = (1, 9)  # cudaErrorInvalidValue, ...InvalidConfiguration
+
+
+def _pin_call(kernel: str, cam, proj, D: int, k: int):
+    """``kernel``'s wrapper at (D, k), its inputs made first (outside the
+    call): returns a function of no arguments that makes the call."""
+    B, H, W = cam.shape
+    gen = torch.Generator("cuda").manual_seed(k + D)
+    vol = torch.rand((B, D + 1, H, W), device="cuda", generator=gen)
+    g = torch.rand((B, D + 1, H, W), device="cuda", generator=gen)
+    pipe = (cam, proj, D, k, EPS, 50.0, THRESHOLD)
+    if kernel in ("K4", "K5"):
+        res = fused_pipeline_train_cuda(*pipe, save_volume=kernel == "K4")[1]
+        gs, gc = cotangents(1950 + k, B, H, W)
+        return lambda: fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k,
+                                               EPS, 50.0)
+    return {
+        "K1": lambda: cost_volume_banded_cuda(cam, proj, D, k, EPS),
+        "K3": lambda: stereo_pipeline_cuda(*pipe),
+        "K3w": lambda: fused_pipeline_train_cuda(*pipe),
+        "K3m": lambda: fused_pipeline_train_cuda(*pipe, save_volume=False),
+        "K2": lambda: camera_grad_banded_cuda(cam, proj, vol, g, D, k, EPS),
+        "K6": lambda: camera_grad_banded_cuda(cam, proj, None, g, D, k, EPS),
+        "K7": lambda: projector_grad_banded_cuda(cam, proj, vol, g, D, k,
+                                                 EPS),
+        "K8": lambda: cost_volume_allpairs_cuda(cam, proj, k, EPS),
+    }[kernel]
+
+
+def _count(name: str) -> int:
+    fn, attr = KERNEL_COUNTERS[name]
+    return getattr(fn, attr)
+
+
+def phase_route_pin(card: str) -> None:
+    """The wrappers' route choice (``kernel_model.large_k_route`` at the
+    card's opt-in budget, ``cuda_zncc.smem_floats``) against the C
+    launchers, which size their blocks themselves: for every kernel and
+    D in ``PIN_D``, at the last k before the route the wrapper launches
+    the kernel's own blocks and they run; at the first k on the route the
+    launcher, called with the route choice switched off, refuses its
+    blocks (CUDA error 1 or 9) and launches nothing."""
+    from unittest import mock
+
+    from custereomatching_tpu_torch.ops import cuda_allpairs, cuda_pipeline
+    from custereomatching_tpu_torch.ops import cuda_zncc
+
+    cam, proj = uniform_pair(1940, *PIN_SHAPE)
+    budget = cuda_zncc.smem_floats(cam.device)
+    print(f"route pin: opt-in shared memory {4 * budget} bytes a block "
+          f"({budget} floats; the model's H100 default "
+          f"{km.SMEM_OPTIN_BYTES}; {card})")
+    for kernel in km.LARGE_K_KERNELS:
+        own, route = kernel.lower(), f"{kernel.lower()}l"
+        for D in (PIN_D if kernel != "K8" else (0,)):
+            first = next(k for k in range(3, 257, 2)
+                         if km.large_k_route(kernel, k, D, budget))
+            for k in (first - 2, first):
+                call = _pin_call(kernel, cam, proj, D, k)
+                torch.cuda.synchronize()
+                before = (_count(own), _count(route))
+                label = f"{kernel} D={D} k={k}"
+                if k < first:
+                    out = call()
+                    torch.cuda.synchronize()
+                    require((_count(own), _count(route))
+                            == (before[0] + 1, before[1]),
+                            f"route pin {label}: its own blocks launched")
+                    del out
+                    continue
+                with contextlib.ExitStack() as stack:
+                    for mod in (cuda_zncc, cuda_pipeline, cuda_allpairs):
+                        stack.enter_context(mock.patch.object(
+                            mod, "large_k_route", lambda *a, **kw: False))
+                    try:
+                        call()
+                        code = 0
+                    except RuntimeError as exc:
+                        found = re.search(r"CUDA error (\d+)", str(exc))
+                        code = int(found.group(1)) if found else -1
+                torch.cuda.synchronize()
+                require(code in CONFIG_REFUSALS
+                        and (_count(own), _count(route)) == before,
+                        f"route pin {label}: the launcher refuses its own "
+                        f"blocks (CUDA error {code})")
+            print(f"route pin {kernel} D={D}: own blocks run at k={first - 2}"
+                  f", the launcher refuses k={first} (the route's first)")
+    torch.cuda.empty_cache()
+
+
+def lk_interleaved(name: str, kernel, plain, kargs, pargs, where: str,
+                   card: str):
+    """(route ms, plain ms, route output, plain output): one warm call
+    each, then three timed calls of the route, one of the plain version,
+    CUDA events, route first and last; then one more call of each, whose
+    outputs the caller compares."""
+    with torch.no_grad():
+        a = 1e3 * benchmark(kernel, *kargs, warmup=1, iters=3,
+                            chain=1)["median_s"]
+        p = 1e3 * benchmark(plain, *pargs, warmup=1, iters=1,
+                            chain=1)["median_s"]
+        b = 1e3 * benchmark(kernel, *kargs, warmup=0, iters=3,
+                            chain=1)["median_s"]
+        got, want = kernel(*kargs), plain(*pargs)
+    ms = (a + b) / 2
+    print(f"time: {name} at {where}: large-k route {ms:.4f} ms ({a:.4f}, "
+          f"{b:.4f}), plain {p:.4f} ms ({card})")
+    return ms, p, got, want
+
+
+def compare_route(key: str, got, want, cost, label: str) -> float:
+    """A route's output against its plain version's on the same inputs, at
+    the tolerances the phases above hold their kernels to at KITTI:
+    volumes rtol 1e-4 / atol 1e-5; K3's maps as phase 4 (mask flips
+    within 1e-5 of the threshold, disparities apart only there or at
+    top-two ties of ``cost``, the plain volume); K3w's and K3m's argmax
+    apart only at those ties, s and t within 1e-3, K3w's volume as K1's;
+    gradients norm-relative 1e-4.  Returns the max abs error."""
+    base = LARGE_ROUTES[key][0]
+    label = f"{label} large-k route"
+    if base in ("K1", "K8"):
+        return compare_volume(got, want, label, kernel=key)
+    if base == "K3":
+        return compare_maps(got, want, cost, THRESHOLD, False, label)
+    if base in ("K3w", "K3m"):
+        (maps, res), (maps_p, res_p) = got, want
+        err = compare_maps(maps, maps_p, cost, THRESHOLD, False, label)
+        require(not bool(((res.am != res_p.am) & ~top2_ties(cost)).any()),
+                f"{key} {label}: argmax differs only at top-two ties")
+        s_err = float(((res.s - res_p.s).abs() / res_p.s).max())
+        t_err = float(((res.t - res_p.t).abs() / (res_p.t + res_p.s)).max())
+        require(s_err <= 1e-3 and t_err <= 1e-3,
+                f"{key} {label}: s within rtol 1e-3, t within 1e-3 (t + s)")
+        print(f"{key} {label}: |ds|/s {s_err:.3e}, |dt|/(t+s) {t_err:.3e}")
+        if base == "K3w":
+            err = max(err, compare_volume(res.volume.permute(0, 2, 3, 1),
+                                          cost, label, kernel=key))
+        return err
+    return compare_grad(got, want, f"{key} {label}", elementwise=False)
+
+
+def phase_large_k_route_times(card: str, rates: dict):
+    """Each route timed at KITTI (375x1242, D = 192, k = 129; K8 at
+    330x422, k = 145) beside its plain version, its bound (least work of
+    the function at the data sheet's peaks) and its model
+    (``kernel_model.large_k_cost`` at this run's rates), which it may not
+    beat, and its output held against the plain version's
+    (:func:`compare_route`); K4's own rounds at k = 129 too.  ({key: (ms,
+    plain ms, None, (bound ms, by), (model ms, by))}, {key: max abs
+    error})."""
+    out, errs = {}, {}
+    Hv, Wv, _ = VERIFY
+    kv = LK_AP[0][3]
+    acam, aproj = uniform_pair(1800, 1, Hv, Wv)
+    ms, p, got, want = lk_interleaved(
+        "K8L", cost_volume_allpairs_cuda, forward_allpairs,
+        (acam, aproj, kv, EPS), (acam, aproj, kv, EPS), f"{Hv}x{Wv} k={kv}",
+        card)
+    errs["K8L"] = compare_route("K8L", got, want, None,
+                                f"B=1 H={Hv} W={Wv} k={kv}")
+    out["K8L"] = (ms, p, None, allpairs_bound(1, Hv, Wv, kv),
+                  model_bound(km.large_k_cost("K8", Hv, Wv, 0, kv),
+                              rates)[:2])
+    del acam, aproj, got, want
+    torch.cuda.empty_cache()
+
+    H, W, D, _ = KITTI
+    k = LK_K[0]
+    cams, projs, _ = speckle_frames(1, seed=7)
+    cam, proj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
+    g = mean_loss_cotangent(1801, 1, H, W, D)
+    gs, gc = cotangents(1802, 1, H, W)
+    with torch.no_grad():
+        vol = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+        plain_vol = forward_banded(cam, proj, D, k, EPS)
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                        THRESHOLD)[1]
+        res_m = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                          THRESHOLD, save_volume=False)[1]
+    pm = vol.permute(0, 3, 1, 2)
+    g_hwd = g.permute(0, 2, 3, 1)
+    pipe = (cam, proj, D, k, EPS, 50.0, THRESHOLD)
+    head = _head(res, gs, gc, 50.0, D)
+    cases = {
+        "K1L": (cost_volume_banded_cuda, forward_banded,
+                (cam, proj, D, k, EPS), (cam, proj, D, k, EPS)),
+        "K3L": (stereo_pipeline_cuda, stereo_pipeline_reference, pipe, pipe),
+        "K3wL": (fused_pipeline_train_cuda, fused_pipeline_train_reference,
+                 pipe, pipe),
+        "K3mL": (fused_pipeline_train_cuda, fused_pipeline_train_reference,
+                 pipe + (False,), pipe + (False,)),
+        "K2L": (camera_grad_banded_cuda, camera_grad_banded,
+                (cam, proj, pm, g, D, k, EPS), (cam, proj, g_hwd, D, k, EPS)),
+        "K6L": (camera_grad_banded_cuda, camera_grad_banded,
+                (cam, proj, None, g, D, k, EPS),
+                (cam, proj, g_hwd, D, k, EPS)),
+        "K4L": (lambda *a: lk.camera_grad_large(*a, head=head),
+                fused_pipeline_bwd_reference,
+                (cam, proj, res.volume, None, D, k, EPS),
+                (cam, proj, res, gs, gc, D, k, EPS, 50.0)),
+        "K5L": (fused_pipeline_bwd_cuda, fused_pipeline_bwd_reference,
+                (cam, proj, res_m, gs, gc, D, k, EPS, 50.0),
+                (cam, proj, res_m, gs, gc, D, k, EPS, 50.0)),
+        "K7L": (projector_grad_banded_cuda, projector_grad_banded,
+                (cam, proj, pm, g, D, k, EPS),
+                (cam, proj, vol, g_hwd, D, k, EPS)),
+    }
+    bounds = banded_bounds(1, H, W, D, k)
+    where = f"KITTI {H}x{W} D={D} k={k}"
+    for key, (kernel, plain, kargs, pargs) in cases.items():
+        base = LARGE_ROUTES[key][0]
+        ms, p, got, want = lk_interleaved(key, kernel, plain, kargs, pargs,
+                                          where, card)
+        errs[key] = compare_route(key, got, want, plain_vol, where)
+        out[key] = (ms, p, None, bounds[base],
+                    model_bound(km.large_k_cost(base, H, W, D, k), rates)[:2])
+        del got, want
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        k4_ms = timed(f"K4 (its rounds, constants from their maps) KITTI "
+                      f"k={k}", fused_pipeline_bwd_cuda, cam, proj, res, gs,
+                      gc, D, k, EPS, 50.0)
+    m4, by4, _ = model_bound(km.fused_backward_c_cost(H, W, D, k), rates)
+    b4, bb4 = bounds["K4"]
+    print(f"large k: K4 at KITTI {H}x{W} D={D} k={k} on its own rounds: "
+          f"{k4_ms:.4f} ms, bound {b4:.4f} ms by {bb4}, model {m4:.4f} ms by "
+          f"{by4} ({card})")
+    require(m4 <= k4_ms, f"K4 k={k}: its model within its time")
+    for key, (ms, p, _, (b_ms, by), (m_ms, m_by)) in out.items():
+        print(f"large k: {key} route {ms:.4f} ms, plain {p:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {by}, model {m_ms:.4f} ms by {m_by} "
+              f"({ms / b_ms:.1f} times its bound, {ms / m_ms:.2f} times its "
+              f"model; {card})")
+        require(m_ms <= ms, f"{key}: its model bound ({m_ms:.4f} ms) within "
+                f"its time ({ms:.4f} ms)")
+    del cases, vol, plain_vol, res, res_m, pm, g, g_hwd, head
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+# The left-right serving path: KITTI speckle frames in a 384x1280 bucket.
+LR_RETRIES = 2
+
+
+def phase_lr_engine(card: str) -> dict:
+    """``StereoEngine(lr_check=True, retries=2)`` on the card: healthy(),
+    then, counters reset, warm-up and 8 KITTI frames; K3 twice a frame (and
+    twice for the warm-up), no plain twin; every frame's maps equal, bit
+    for bit, two direct K3 calls (the pair, the flipped pair flipped
+    back) composed with the plain ``lr_consistency_mask``; the check
+    removes some confident pixels; coverage and EPE printed, and the
+    per-frame median."""
+    H, W, D, k = KITTI
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    engine = StereoEngine(cfg, buckets=[BUCKET], lr_check=True,
+                          retries=LR_RETRIES, device="cuda")
+    require(engine.healthy(), "engine.healthy() on the card")
+    frames = speckle_frames(N_FRAMES, seed=40)
+    reset_counters()
+    engine.warmup()
+    served, latency = [], []
+    for cam, proj in zip(frames[0], frames[1]):
+        t0 = time.perf_counter()
+        served.append(engine.infer(cam, proj))
+        latency.append(time.perf_counter() - t0)
+    counts = read_counters()
+    print(f"lr engine: counters {counts}")
+    require(counts["k3"] == 2 * (1 + N_FRAMES),
+            f"K3 launched twice per warm-up and served frame "
+            f"({2 * (1 + N_FRAMES)})")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the left-right path")
+
+    args = (D, k, cfg.epsilon, cfg.softargmax_beta, cfg.cost_threshold)
+    removed = []
+    for i, maps in enumerate(served):
+        cam = torch.from_numpy(frames[0][i:i + 1]).cuda()
+        proj = torch.from_numpy(frames[1][i:i + 1]).cuda()
+        left = stereo_pipeline_cuda(cam, proj, *args)
+        right = stereo_pipeline_cuda(proj.flip(-1), cam.flip(-1), *args)
+        lr = lr_consistency_mask(left.soft_disparity,
+                                 right.soft_disparity.flip(-1), D)
+        composed = (left.disparity * lr, left.soft_disparity * lr,
+                    left.mask * lr, left.confidence)
+        for name, want in zip(maps._fields, composed):
+            require(np.array_equal(getattr(maps, name),
+                                   want[0].cpu().numpy()),
+                    f"lr engine frame {i}: {name} equals two direct K3 calls "
+                    f"composed with the mask")
+        removed.append(float(((left.mask > 0) & (lr == 0)).float().mean()))
+    require(min(removed) > 0,
+            "the left-right check masks some confident pixels of every frame")
+    mask = np.stack([m.mask for m in served]).astype(bool)
+    soft = np.stack([m.soft_disparity for m in served])
+    coverage = float(mask.mean())
+    epe = float(np.abs(soft - frames[2])[mask].mean())
+    median = 1e3 * float(np.median(latency))
+    print(f"lr engine: {N_FRAMES} frames {H}x{W} in bucket {BUCKET}, "
+          f"retries={LR_RETRIES}: every frame's maps bit-equal to two direct "
+          f"K3 calls and the plain mask; the check removed "
+          f"{min(removed):.4f}-{max(removed):.4f} of a frame's pixels from "
+          f"its confident set; coverage {coverage:.4f}, EPE "
+          f"{epe:.4f} px on consistent pixels; host latency median "
+          f"{median:.3f} ms a frame ({card})")
+    require(coverage > 0.5 and epe < 1.0, "lr engine accuracy")
+    counts["median_ms"] = median
+    return counts
+
+
+# The pyramid's scene (the JAX bench.py:204-210 scene) and the JAX
+# package's values on it (BENCH_r04.json: values, not speeds).
+PYRAMID_JAX = {"epe": 0.2379, "bad3": 0.0016, "coverage": 0.9834}
+PYRAMID_CALLS = 5
+
+
+def phase_pyramid(card: str) -> dict:
+    """``PyramidStereoMatcher(StereoConfig(kernel_size=15,
+    num_disparities=192))`` on the bench scene (375x1242, d 4..40, noise
+    0.01, seed 0), counters reset: K3 twice a call (coarse, fine), no
+    plain twin; each level's K3 maps against the plain pipeline on the
+    same inputs (as phase 4 at KITTI), the call bit-equal to the levels
+    composed; EPE, bad3 and coverage beside the JAX package's; EPE <=
+    0.30 px and coverage >= 0.97; the host-clock time a call."""
+    H, W, D, k = KITTI
+    pyr = PyramidStereoMatcher(StereoConfig(kernel_size=k,
+                                            num_disparities=D))
+    cam_np, proj_np, truth = make_stereo_pair(H, W, d_min=4.0, d_max=40.0,
+                                              noise=0.01, seed=0)
+    cam = torch.from_numpy(cam_np[None]).cuda()
+    proj = torch.from_numpy(proj_np[None]).cuda()
+    torch.cuda.synchronize()
+    reset_counters()
+    with torch.no_grad():
+        maps = fence(pyr(cam, proj))
+    counts = read_counters()
+    print(f"pyramid: counters {counts}")
+    require(counts["k3"] == 2, "K3 launched twice a pyramid call")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "plain twins unused on the pyramid path")
+    # Each level's K3 call against the plain pipeline on the same inputs
+    # (the pooled pair; the camera and the projector warped by the
+    # coarse K3 maps), and the call bit-equal to the levels composed.
+    def level(cfg, camera, projector, name):
+        args = (cfg.num_disparities, k, cfg.epsilon, cfg.softargmax_beta,
+                cfg.cost_threshold)
+        got = stereo_pipeline_cuda(camera, projector, *args)
+        compare_maps(got, stereo_pipeline_reference(camera, projector, *args),
+                     forward_banded(camera, projector, *args[:3]),
+                     cfg.cost_threshold, False,
+                     f"pyramid {name} level {tuple(camera.shape)} "
+                     f"D={cfg.num_disparities}")
+        return got
+
+    with torch.no_grad():
+        coarse = level(pyr._coarse.config, *pyr.coarse_pair(cam, proj),
+                       "coarse")
+        shift, proj_w = pyr.warp(proj, coarse.soft_disparity)
+        fine = level(pyr._fine.config, cam, proj_w, "fine")
+        composed = pyr.compose(fine, shift)
+    for name in maps._fields:
+        require(torch.equal(getattr(maps, name), getattr(composed, name)),
+                f"pyramid {name} equals its two K3 levels composed")
+    m = disparity_metrics(maps.soft_disparity[0],
+                          torch.from_numpy(truth).cuda(), maps.mask[0])
+    times = []
+    with torch.no_grad():
+        for _ in range(PYRAMID_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fence(pyr(cam, proj))
+            times.append(time.perf_counter() - t0)
+    median = 1e3 * float(np.median(times))
+    print(f"pyramid: {H}x{W} D={D} k={k} (downsample {pyr.downsample}, "
+          f"residual {pyr.residual}): EPE {m['epe']:.4f} px (JAX "
+          f"{PYRAMID_JAX['epe']}), bad3 {m['bad3']:.4f} (JAX "
+          f"{PYRAMID_JAX['bad3']}), coverage {m['coverage']:.4f} (JAX "
+          f"{PYRAMID_JAX['coverage']}); host clock median "
+          f"{median:.3f} ms a call over {PYRAMID_CALLS} ({card})")
+    require(m["epe"] <= 0.30 and m["coverage"] >= 0.97,
+            "pyramid accuracy: EPE <= 0.30 px and coverage >= 0.97")
+    counts.update(m)
+    counts["median_ms"] = median
+    return counts
+
+
+def phase_failsafe() -> None:
+    """An injected allocation failure (CUDA error 2) is retried and the
+    frame served through K3; an injected sticky error (700) is raised on
+    the first try; ``device_healthcheck()`` is true on the card."""
+    B, H, W, D, k = SHAPES[0]
+    cam, proj = uniform_pair(1900, B, H, W)
+    state = {"fail": 1, "calls": 0, "code": 2}
+
+    def flaky():
+        state["calls"] += 1
+        if state["fail"]:
+            state["fail"] -= 1
+            raise RuntimeError(f"K3 fused pipeline launch: CUDA error "
+                               f"{state['code']} (injected)")
+        return stereo_pipeline_cuda(cam, proj, D, k, EPS, 50.0, THRESHOLD)
+
+    launches = stereo_pipeline_cuda.launches
+    maps = with_retries(flaky, retries=2, backoff_s=0.01)()
+    require(state["calls"] == 2 and stereo_pipeline_cuda.launches
+            == launches + 1 and bool(torch.isfinite(maps.confidence).all()),
+            "an allocation failure is retried and served")
+    state.update(fail=1, calls=0, code=700)
+    try:
+        with_retries(flaky, retries=2, backoff_s=0.01)()
+        raised = False
+    except RuntimeError as exc:
+        raised = "CUDA error 700" in str(exc)
+    require(raised and state["calls"] == 1,
+            "a sticky error (700) is raised at once, not retried")
+    require(device_healthcheck() is True, "device_healthcheck() on the card")
+    print("failsafe: allocation failure (2) retried and served; sticky "
+          "error (700) raised at once; device_healthcheck() true")
+
+
+LARGE_KERNELS = (
+    # name, key, replaces
+    ("large_k_banded_volume", "K1L",
+     "custereomatching_tpu/ops/pallas_zncc.py:156"),
+    ("large_k_fused_pipeline", "K3L",
+     "custereomatching_tpu/ops/pallas_pipeline.py:120"),
+    ("large_k_fused_pipeline_train", "K3wL",
+     "custereomatching_tpu/ops/pallas_pipeline.py:120"),
+    ("large_k_fused_pipeline_train_maps", "K3mL",
+     "custereomatching_tpu/ops/pallas_pipeline.py:120"),
+    ("large_k_camera_vjp", "K2L",
+     "custereomatching_tpu/ops/pallas_zncc_bwd.py:54"),
+    ("large_k_camera_vjp_recompute", "K6L",
+     "custereomatching_tpu/ops/pallas_zncc_bwd.py:54"),
+    ("large_k_fused_pipeline_bwd", "K4L",
+     "custereomatching_tpu/ops/pallas_pipeline.py:803"),
+    ("large_k_fused_pipeline_bwd_recompute", "K5L",
+     "custereomatching_tpu/ops/pallas_pipeline.py:510"),
+    ("large_k_projector_vjp", "K7L",
+     "custereomatching_tpu/ops/pallas_zncc_bwd.py:607"),
+    ("large_k_allpairs_volume", "K8L",
+     "custereomatching_tpu/ops/pallas_allpairs.py:60"),
+)
+
+
 KERNELS = (
     # name, key, source, replaces, path whose counters give its launches
     ("zncc_banded_volume", "K1", "custereomatching_tpu_torch/csrc/"
@@ -1844,6 +2647,19 @@ def main() -> int:
     counts["bound_model"], rates = phase_bound_model(card)
     times = phase_times(card, rates)
     phase_large_k_times(card, rates)
+    errs["K8"] = max(errs["K8"], phase_k8_k1())
+    counts["allpairs_k1"] = phase_allpairs_k1_path()
+    for key, err in phase_large_k().items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    counts["large_k"] = phase_large_k_path()
+    phase_route_pin(card)
+    lk_times, lk_errs = phase_large_k_route_times(card, rates)
+    times.update(lk_times)
+    for key, err in lk_errs.items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    counts["lr"] = phase_lr_engine(card)
+    counts["pyramid"] = phase_pyramid(card)
+    phase_failsafe()
 
     kernels = []
     for name, key, source, replaces, path in KERNELS:
@@ -1853,6 +2669,19 @@ def main() -> int:
         require(launches >= 1, f"{key} launched on its path ({path})")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "model_ms": model_ms,
+            "model_by": model_by})
+    for name, key, replaces in LARGE_KERNELS:
+        ms, plain_ms, library_ms, (bound_ms, bound_by), (model_ms, model_by) \
+            = times[key]
+        launches = counts["large_k"][key.lower()]
+        require(launches >= 1, f"{key} launched on the large-k path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "custereomatching_tpu_torch/csrc/large_k.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,

@@ -342,13 +342,19 @@ __global__ void __launch_bounds__(kThreads)
   e2_out[o] = (a2 - a * a * inv_k2) * inv_scale2;
 }
 
-// Opts a kernel into more than 48 KB of dynamic shared memory.
+// Opts a kernel into more than 48 KB of dynamic shared memory.  A block
+// past the card's opt-in budget is refused with the error returned and
+// none left pending: the runtime records the failed call, and the next
+// cudaGetLastError on this thread (the port's launchers' or PyTorch's)
+// would report it against a launch that was fine.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
 }
 
 inline cudaError_t launch_box_stats(const float* img, float* s, float* e2,

@@ -15,7 +15,8 @@ Usage:
       --height 16 --width 48 -D 6 -k 5 --steps 3
 
 ``--mesh`` and ``--autotune`` are accepted and raise: the parallel layer
-and the tile autotuner are not ported yet (ROADMAP items 13 and 12).
+(``parallel/``) and the tile autotuner (``ops/tuning.py``) are not ported
+yet (ROADMAP, modules to port).
 """
 
 from __future__ import annotations
@@ -81,20 +82,23 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", type=str, default=None,
-                    help="not ported yet (ROADMAP item 13)")
+                    help="not ported yet (ROADMAP, modules to port: "
+                    "parallel/)")
     ap.add_argument("--backend", default="auto")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (ROADMAP item 12)")
+                    help="not ported yet (ROADMAP, modules to port: "
+                    "ops/tuning.py)")
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the parallel layer is not ported yet (ROADMAP item 13)")
+            "--mesh: the parallel layer is not ported yet (ROADMAP, modules "
+            "to port: parallel/)")
     if args.autotune:
         raise NotImplementedError(
-            "--autotune: the tile autotuner is not ported yet (ROADMAP "
-            "item 12)")
+            "--autotune: the tile autotuner is not ported yet (ROADMAP, "
+            "modules to port: ops/tuning.py)")
 
     device = entry_device(args.device)
     cams, projs, _ = make_video_batch(args.frames, args.height, args.width,

@@ -1,5 +1,5 @@
-"""Model layer: the stereo matcher, the serving engine and camera
-optimisation."""
+"""Model layer: the stereo matcher, the pyramid matcher, the serving
+engine and camera optimisation."""
 
 from custereomatching_tpu_torch.models.engine import (
     DEFAULT_BUCKETS,
@@ -15,6 +15,7 @@ from custereomatching_tpu_torch.models.optimize import (
     optimize_camera,
     train_state_from_jax,
 )
+from custereomatching_tpu_torch.models.pyramid import PyramidStereoMatcher
 from custereomatching_tpu_torch.models.stereo import (
     StereoMatcher,
     StereoOutput,
@@ -23,6 +24,7 @@ from custereomatching_tpu_torch.models.stereo import (
 
 __all__ = [
     "DEFAULT_BUCKETS",
+    "PyramidStereoMatcher",
     "StereoEngine",
     "StereoMatcher",
     "StepMetrics",

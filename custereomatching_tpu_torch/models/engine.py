@@ -18,6 +18,10 @@ import torch
 from custereomatching_tpu_torch.config import StereoConfig, entry_device
 from custereomatching_tpu_torch.models.stereo import StereoMatcher
 from custereomatching_tpu_torch.ops.cuda_pipeline import PipelineMaps
+from custereomatching_tpu_torch.utils.failsafe import (
+    device_healthcheck,
+    with_retries,
+)
 from custereomatching_tpu_torch.utils.timer import fence
 
 # Default buckets: a small tile, VGA-scale and KITTI-scale.
@@ -37,9 +41,13 @@ class StereoEngine:
         maps = engine.infer(camera, projector)   # numpy in, numpy out
 
     ``device`` defaults to the CUDA card; without a card the engine
-    raises ``RuntimeError`` unless built with ``device="cpu"``.  ``lr_check``,
-    ``retries`` and ``autotune`` are not ported yet (ROADMAP items 11 and
-    12) and raise ``NotImplementedError`` when set.
+    raises ``RuntimeError`` unless built with ``device="cpu"``.
+    ``lr_check`` serves :meth:`StereoMatcher.disparity_maps_lr` (two K3
+    launches a frame on the card); ``retries`` re-runs a frame after a
+    transient device fault (``utils.failsafe.with_retries``: the op is
+    stateless, so the same inputs give the same maps); :meth:`healthy` is
+    a readiness probe.  ``autotune`` is not ported yet (ROADMAP, modules to
+    port: ``ops/tuning.py``) and raises ``NotImplementedError`` when set.
     """
 
     def __init__(self, config: StereoConfig,
@@ -49,21 +57,32 @@ class StereoEngine:
                  device: Optional[torch.device] = None):
         if config.num_disparities is None:
             raise ValueError("serving engine requires banded mode")
-        if lr_check:
-            raise NotImplementedError(
-                "lr_check: the left-right check is ROADMAP item 11")
-        if retries:
-            raise NotImplementedError(
-                "retries: the failsafe layer is ROADMAP item 12")
         if autotune:
             raise NotImplementedError(
-                "autotune: tile autotuning is ROADMAP item 12")
+                "autotune: tile autotuning is not ported yet (ROADMAP, "
+                "modules to port: ops/tuning.py)")
         self.device = entry_device(device)
         config.resolved_backend(self.device)  # raises on cuda + CPU
         self.config = config
         self.model = StereoMatcher(config)
         self.buckets = sorted(tuple(b) for b in buckets)
+        self.lr_check = lr_check
+        self.retries = retries
+        self._fn = self._wrap(self.model.disparity_maps_lr if lr_check
+                              else self.model.disparity_maps)
         self.warm = set()
+
+    def _wrap(self, fn):
+        if self.retries:
+            # The op is stateless, so re-running it after a transient
+            # device fault is safe (same inputs, same outputs).
+            return with_retries(fn, retries=self.retries)
+        return fn
+
+    def healthy(self) -> bool:
+        """Readiness probe: a tiny computation on the engine's device, read
+        back and checked (``utils.failsafe.device_healthcheck``)."""
+        return device_healthcheck(self.device)
 
     def _bucket_for(self, H: int, W: int) -> Tuple[int, int]:
         for bh, bw in self.buckets:
@@ -79,7 +98,7 @@ class StereoEngine:
         for bh, bw in self.buckets:
             z = torch.zeros((1, bh, bw), dtype=torch.float32,
                             device=self.device)
-            fence(self.model.disparity_maps(z, z))
+            fence(self._fn(z, z))
             self.warm.add((bh, bw))
 
     @torch.no_grad()
@@ -100,7 +119,7 @@ class StereoEngine:
         B, H, W = cam.shape
         bh, bw = self._bucket_for(H, W)
         pad = ((0, 0), (0, bh - H), (0, bw - W))
-        maps = self.model.disparity_maps(
+        maps = self._fn(
             torch.from_numpy(np.pad(cam, pad)).to(self.device),
             torch.from_numpy(np.pad(proj, pad)).to(self.device))
 

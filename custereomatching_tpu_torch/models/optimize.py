@@ -25,7 +25,8 @@ import torch
 
 from custereomatching_tpu_torch.models.stereo import StereoMatcher
 
-MESH_TODO = ("mesh: the parallel layer is not ported yet (ROADMAP item 13)")
+MESH_TODO = ("mesh: the parallel layer is not ported yet (ROADMAP, modules "
+             "to port: parallel/)")
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 

@@ -17,6 +17,11 @@ from torch import nn
 
 from custereomatching_tpu_torch.config import StereoConfig, entry_device
 from custereomatching_tpu_torch.ops import stereo_matching
+from custereomatching_tpu_torch.ops.consistency import (
+    flip_back,
+    lr_consistency_mask,
+    matched_pair_right,
+)
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     PipelineMaps,
     stereo_pipeline_cuda,
@@ -58,7 +63,8 @@ class StereoMatcher(nn.Module):
     The ``cuda`` backend runs the kernels on CUDA tensors: K1 for a banded
     :meth:`cost_volume`, K2 for its camera gradient and, with
     ``grad_projector``, K7 for its projector gradient; K8 for an all-pairs
-    :meth:`cost_volume`; K3 for :meth:`disparity_maps`, K3w and K4 for
+    :meth:`cost_volume`; K3 for :meth:`disparity_maps` (twice for
+    :meth:`disparity_maps_lr`), K3w and K4 for
     :meth:`trainable_disparity_maps`.  The ``torch`` backend runs their
     plain versions.  The model has no parameters: its state is the config.
     """
@@ -158,18 +164,39 @@ class StereoMatcher(nn.Module):
         return run(camera, projector, c.num_disparities, c.kernel_size,
                    c.epsilon, c.softargmax_beta, c.cost_threshold)
 
-    # -- not ported yet -------------------------------------------------------
-    def disparity_maps_lr(self, camera, projector, tolerance: float = 1.0):
-        raise NotImplementedError(
-            "disparity_maps_lr: the left-right check is ROADMAP item 11")
+    def disparity_maps_lr(self, camera: torch.Tensor,
+                          projector: torch.Tensor,
+                          tolerance: float = 1.0) -> PipelineMaps:
+        """Disparity maps with the left-right consistency check.
 
+        Runs :meth:`disparity_maps` in both directions (on the ``cuda``
+        backend two K3 launches: the pair, then the horizontally flipped
+        pair, whose left match is the right match; its soft disparity is
+        flipped back) and zeroes the pixels whose two estimates disagree by
+        more than ``tolerance`` px (``ops.consistency.lr_consistency_mask``).
+        All-pairs checks shifts up to W - 1; it takes the volume path on
+        ``torch`` and raises on ``cuda``, as :meth:`disparity_maps` does."""
+        left = self.disparity_maps(camera, projector)
+        right_f = self.disparity_maps(*matched_pair_right(camera, projector))
+        d_right = flip_back(right_f.soft_disparity)
+        nd = self.config.num_disparities
+        if nd is None:
+            nd = camera.shape[-1] - 1
+        lr = lr_consistency_mask(left.soft_disparity, d_right, nd, tolerance)
+        return PipelineMaps(disparity=left.disparity * lr,
+                            soft_disparity=left.soft_disparity * lr,
+                            mask=left.mask * lr, confidence=left.confidence)
+
+    # -- not ported yet -------------------------------------------------------
     def sharded_cost_volume(self, camera, projector, mesh=None):
         raise NotImplementedError(
-            "sharded_cost_volume: the parallel layer is ROADMAP item 13")
+            "sharded_cost_volume: the parallel layer is not ported yet "
+            "(ROADMAP, modules to port: parallel/)")
 
     def sharded_apply(self, camera, projector, mesh=None):
         raise NotImplementedError(
-            "sharded_apply: the parallel layer is ROADMAP item 13")
+            "sharded_apply: the parallel layer is not ported yet "
+            "(ROADMAP, modules to port: parallel/)")
 
 
 def entry(device: Optional[torch.device] = None):

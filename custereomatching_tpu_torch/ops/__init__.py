@@ -1,8 +1,9 @@
 """Compute ops of the port: the ZNCC cost volumes and their VJPs (plain
 PyTorch and kernels K1, K2, K6, K7, K8), in the parity and the plane-major
 layout, the layout conversions (K9a, K9b), the fused pipeline (plain and
-kernel K3), its trainable forms (kernels K3w and K4, K3m and K5) and the
-disparity heads."""
+kernel K3), its trainable forms (kernels K3w and K4, K3m and K5), the
+disparity heads, the left-right consistency check and, where a kernel's
+blocks do not fit, the large-k route (``cuda_large_k``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from custereomatching_tpu_torch.ops.consistency import lr_consistency_mask
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
     CudaAllPairsMatching,
     cost_volume_allpairs_cuda,
@@ -181,6 +183,7 @@ __all__ = [
     "extract_disparity",
     "extract_disparity_hdw",
     "forward_allpairs",
+    "lr_consistency_mask",
     "parity_to_plane_major",
     "plane_major_to_parity",
     "projector_grad_banded",

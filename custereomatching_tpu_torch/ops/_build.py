@@ -34,6 +34,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry point -> argument types; every entry returns cudaGetLastError().
 SIGNATURES = {
@@ -80,6 +81,47 @@ SIGNATURES = {
     "custereo_hbm_read_probe": [_P] * 2 + [_I] * 3 + [_P],
     # vol, P, H, W, stream
     "custereo_hbm_write_probe": [_P] + [_I] * 3 + [_P],
+    # The large-k route (large_k.cu), one launch an entry.
+    # x, out, N, H, W, k, axis, stream
+    "custereo_lk_box_axis": [_P, _P, _L] + [_I] * 4 + [_P],
+    # img, out, N, H, W, left, stream
+    "custereo_lk_pad_square": [_P, _P, _L] + [_I] * 3 + [_P],
+    # s, s2, n, k2, stream
+    "custereo_lk_moments_finish": [_P, _P, _L, _F, _P],
+    # cam, proj, out, B, H, W, d_lo, P, stream
+    "custereo_lk_band_products": [_P] * 3 + [_I] * 5 + [_P],
+    # sxy, cam_s, cam_e2, proj_s, proj_e2, out, out_planes, out_lo, B, H,
+    # W, D, d_lo, P, k2, eps, stream
+    "custereo_lk_band_cost": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
+    # cost, cost_planes, cost_lo, state, disparity, soft, mask, conf, am,
+    # s, t, B, H, W, d_lo, P, beta, threshold, unnormalized, first, last,
+    # stream
+    "custereo_lk_online_head": [_P, _I, _I] + [_P] * 8 + [_I] * 5
+    + [_F] * 2 + [_I] * 3 + [_P],
+    # cost, cost_planes, cost_lo, g_vol, am, mask, conf, s, t, gsoft,
+    # gconf, cam_e2, proj_s, proj_e2, gr, bm, grmu, B, H, W, D, d_lo, P,
+    # k2, eps, beta, unnormalized, first, stream
+    "custereo_lk_grad_fields": [_P, _I, _I] + [_P] * 14 + [_I] * 6
+    + [_F] * 3 + [_I] * 2 + [_P],
+    # box, proj, a1, B, H, W, d_lo, P, first, stream
+    "custereo_lk_grad_a1": [_P] * 3 + [_I] * 6 + [_P],
+    # bm, grmu, cam_s, stack, n, k2, stream
+    "custereo_lk_grad_stack": [_P] * 4 + [_L, _F, _P],
+    # a1, boxes, cam, grad, n, stream
+    "custereo_lk_grad_combine": [_P] * 4 + [_L, _P],
+    # cost, g, cam_s, cam_e2, proj_e2e, gr, z2, z3, B, H, W, D, p, d_lo,
+    # P, k2, eps, first, stream
+    "custereo_lk_proj_fields": [_P] * 8 + [_I] * 7 + [_F] * 2 + [_I, _P],
+    # box, cam, a1p, B, H, W, p, d_lo, P, first, stream
+    "custereo_lk_proj_a1": [_P] * 3 + [_I] * 7 + [_P],
+    # z2, z3, proj_se, stack, n, k2, stream
+    "custereo_lk_proj_stack": [_P] * 4 + [_L, _F, _P],
+    # a1p, boxes, proj, grad, B, H, W, p, stream
+    "custereo_lk_proj_combine": [_P] * 4 + [_I] * 4 + [_P],
+    # cam, proj, out, B, H, W, k, stream
+    "custereo_lk_row_products": [_P] * 3 + [_I] * 4 + [_P],
+    # a, cam_s, cam_e2, proj_s, proj_e2, out, B, H, W, k2, eps, stream
+    "custereo_lk_allpairs_cost": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 
@@ -162,10 +204,15 @@ def build() -> Path:
 
 
 def load(path: Path) -> ctypes.CDLL:
-    """A built kernel library, its entry points typed."""
+    """A built kernel library, its entry points typed.  An entry point the
+    library lacks (one built from another checkout's sources, as
+    ``scripts/kernel_variants.py --ab`` loads) stays missing: calling it
+    raises ``AttributeError``."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.custereo_error_string.argtypes = [ctypes.c_int]

@@ -19,12 +19,14 @@ import torch
 
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops._build import ptr, stream_of
-from custereomatching_tpu_torch.ops.cuda_zncc import prepare
+from custereomatching_tpu_torch.ops.cuda_large_k import allpairs_volume_large
+from custereomatching_tpu_torch.ops.cuda_zncc import prepare, smem_floats
 from custereomatching_tpu_torch.ops.zncc import (
     EPSILON,
     camera_grad_allpairs,
     forward_allpairs,
 )
+from custereomatching_tpu_torch.utils.kernel_model import large_k_route
 
 PRECISIONS = ("highest", "default")
 
@@ -37,17 +39,24 @@ def cost_volume_allpairs_cuda(camera: torch.Tensor, projector: torch.Tensor,
     last axis the absolute projector column.
 
     On a CUDA tensor this launches K8 (exact fp32 for either
-    ``precision``).  ``.launches`` counts the kernel's launches.
+    ``precision``) at every odd k >= 1, as JAX's ``_allpairs_kernel``
+    takes them (k = 1 included: one staged row, a one-tap sweep, E2 = 0,
+    so every cost is eps / sqrt(eps)); where its strip does not fit
+    (k >= 145 on an H100) the large-k route writes the volume
+    (``cuda_large_k.allpairs_volume_large``).  ``.launches`` counts K8's
+    launches.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     k = int(kernel_size)
-    camera, projector = prepare(camera, projector, 0, k)
+    camera, projector = prepare(camera, projector, 0, k, min_kernel_size=1)
     if camera.device.type == "cpu":
         return forward_allpairs(camera, projector, k, epsilon)
     if camera.device.type != "cuda":
         raise ValueError(f"K8 runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
+    if large_k_route("K8", k, budget=smem_floats(camera.device)):
+        return allpairs_volume_large(camera, projector, k, epsilon)
     B, H, W = camera.shape
     lib = _build.kernels()
     out = camera.new_empty((B, H, W, W))

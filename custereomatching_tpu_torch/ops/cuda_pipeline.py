@@ -40,12 +40,17 @@ import torch
 
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops._build import ptr, stream_of
+from custereomatching_tpu_torch.ops.cuda_large_k import (
+    camera_grad_large,
+    fused_pipeline_large,
+)
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     check_volume,
     cost_slab,
     grad_scratch,
     prepare,
     ptr_or_null,
+    smem_floats,
     stats_scratch,
 )
 from custereomatching_tpu_torch.ops.disparity import extract_disparity
@@ -55,6 +60,8 @@ from custereomatching_tpu_torch.ops.zncc import (
     camera_grad_banded,
     forward_banded,
 )
+from custereomatching_tpu_torch.utils.kernel_model import large_k_route
+
 
 class PipelineMaps(NamedTuple):
     """Outputs of the fused pipeline (each ``[B, H, W]``).  In the
@@ -102,7 +109,10 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
                          epsilon: float = EPSILON, beta: float = 50.0,
                          threshold: float = 0.6) -> PipelineMaps:
     """``[B, H, W]`` pairs to four ``[B, H, W]`` disparity maps, with no
-    cost volume in device memory.  ``.launches`` counts K3's launches."""
+    cost volume in device memory.  Where K3's block does not fit (k >= 129
+    on an H100) the large-k route runs it a slab of planes at a time
+    (``cuda_large_k.fused_pipeline_large``).  ``.launches`` counts K3's
+    launches."""
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
@@ -113,6 +123,10 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
                          f"{camera.device}")
     if beta <= 0:
         raise ValueError(f"beta must be > 0, got {beta}")
+    if large_k_route("K3", k, D, smem_floats(camera.device)):
+        maps, _ = fused_pipeline_large(camera, projector, D, k, epsilon, beta,
+                                       threshold, unnormalized_head(beta, D))
+        return PipelineMaps(*maps[:4].unbind(0))
     lib = _build.kernels()
     B, H, W = camera.shape
     maps = camera.new_empty((4, B, H, W))
@@ -226,6 +240,13 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
                          f"{camera.device}")
     if beta <= 0:
         raise ValueError(f"beta must be > 0, got {beta}")
+    if large_k_route(what, k, D, smem_floats(camera.device)):
+        maps, vol = fused_pipeline_large(
+            camera, projector, D, k, epsilon, beta, threshold,
+            unnormalized_head(beta, D), residuals=True, volume=save_volume)
+        disparity, soft, mask, conf, am, s, t = maps.unbind(0)
+        return (PipelineMaps(disparity, soft, mask, conf),
+                HeadResiduals(am, mask, conf, s, t, vol))
     lib = _build.kernels()
     entry = (lib.custereo_fused_pipeline_train if save_volume
              else lib.custereo_fused_pipeline_train_maps)
@@ -322,6 +343,8 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
     or, when that is None (K3m's residuals), K5, which recomputes each cost
     plane from the images (past its block, a slab of
     ``kernel_model.COST_CHUNK`` planes at a time: never the whole volume).
+    Where neither kernel's blocks fit (K5 from k = 129, K4 from k = 187 on
+    an H100) the large-k route runs (``cuda_large_k.camera_grad_large``).
     ``.launches`` counts K4's launches and ``.recompute_launches`` K5's.
     """
     D, k = int(num_disparities), int(kernel_size)
@@ -339,6 +362,10 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
     head = _check_maps(camera, what, am=r.am, mask=r.mask, conf=r.confidence,
                        s=r.s, t=r.t, gsoft=gsoft, gconf=gconf)
     volume = () if free else (check_volume(r.volume, camera, D, "K4 cost"),)
+    if large_k_route(what, k, D, smem_floats(camera.device)):
+        return camera_grad_large(
+            camera, projector, volume[0] if volume else None, None, D, k,
+            epsilon, head=(*head, beta, unnormalized_head(beta, D)))
     lib = _build.kernels()
     entry = (lib.custereo_fused_pipeline_bwd_recompute if free
              else lib.custereo_fused_pipeline_bwd)

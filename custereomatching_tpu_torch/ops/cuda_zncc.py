@@ -14,6 +14,7 @@ version; a CUDA tensor launches the kernel or the call raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,19 +29,32 @@ from custereomatching_tpu_torch.ops.zncc import (
     forward_banded,
     projector_grad_banded,
 )
-from custereomatching_tpu_torch.utils.kernel_model import cost_slab_planes
+from custereomatching_tpu_torch.ops.cuda_large_k import (
+    banded_volume_large,
+    camera_grad_large,
+    projector_grad_large,
+)
+from custereomatching_tpu_torch.utils.kernel_model import (
+    cost_slab_planes,
+    large_k_route,
+)
 
-# The kernel path rejects k < 3 (the JAX Pallas kernels do too): k = 1 is
-# the degenerate no-window case, which the plain op keeps.
+# The banded kernels reject k < 3 (the JAX Pallas banded kernels do too):
+# k = 1 is the degenerate no-window case, which the plain op keeps.  K8
+# takes k = 1, as JAX's _allpairs_kernel does (cuda_allpairs.py).
 MIN_KERNEL_SIZE = 3
+# The most k K7 takes, as JAX's _proj_bwd_kernel (k // 2 * 2 <= 128,
+# pallas_zncc_bwd.py:839-841).
+K7_MAX_KERNEL_SIZE = 129
 
 
 def prepare(camera: torch.Tensor, projector: torch.Tensor,
-            num_disparities: int, kernel_size: int
+            num_disparities: int, kernel_size: int,
+            min_kernel_size: int = MIN_KERNEL_SIZE
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Validate a ``[B, H, W]`` fp32 pair for the kernels; returns it
-    contiguous."""
-    check_pair(camera, projector, kernel_size, MIN_KERNEL_SIZE)
+    """Validate a ``[B, H, W]`` fp32 pair for the kernels (odd k >=
+    ``min_kernel_size``); returns it contiguous."""
+    check_pair(camera, projector, kernel_size, min_kernel_size)
     if camera.ndim != 3:
         raise ValueError(f"expected [B, H, W] images, got "
                          f"{tuple(camera.shape)}")
@@ -56,6 +70,28 @@ def prepare(camera: torch.Tensor, projector: torch.Tensor,
         raise ValueError(f"num_disparities must be >= 0, got "
                          f"{num_disparities}")
     return camera.contiguous(), projector.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _optin_floats(index: int) -> int:
+    return torch.cuda.get_device_properties(
+        index).shared_memory_per_block_optin // 4
+
+
+def smem_floats(device: torch.device) -> int:
+    """The shared memory a block may opt into on ``device``, in floats: the
+    attribute the launchers read (``cudaDevAttrMaxSharedMemoryPerBlockOptin``),
+    the budget at which the wrappers ask ``kernel_model`` whether a
+    kernel's own blocks fit (``large_k_route``, ``cost_slab_planes``)."""
+    return _optin_floats(torch.device(device).index or 0)
+
+
+def check_projector_kernel_size(k: int) -> None:
+    """K7's gate: k <= ``K7_MAX_KERNEL_SIZE``, with the ``ValueError`` of
+    JAX's ``_proj_bwd_kernel`` beyond."""
+    if k > K7_MAX_KERNEL_SIZE:
+        raise ValueError(f"kernel_size {k} exceeds the lane-aligned ext "
+                         f"margin (k//2*2 must be <= 128)")
 
 
 def stats_scratch(camera: torch.Tensor, num_disparities: int):
@@ -75,7 +111,9 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
 
     On a CUDA tensor this launches K1, which writes the volume
     plane-major ``[B, D+1, H, W]``; the result is a permuted view of it.
-    ``.launches`` counts the kernel's launches.
+    Where K1's block does not fit (k >= 129 on an H100) the large-k route
+    writes it (``cuda_large_k.banded_volume_large``).  ``.launches``
+    counts K1's launches.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -84,6 +122,9 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if camera.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
+    if large_k_route("K1", k, D, smem_floats(camera.device)):
+        return banded_volume_large(camera, projector, D, k,
+                                   epsilon).permute(0, 2, 3, 1)
     lib = _build.kernels()
     B, H, W = camera.shape
     out = camera.new_empty((B, D + 1, H, W))
@@ -122,7 +163,8 @@ def cost_slab(camera: torch.Tensor, kernel: str, num_disparities: int,
     (``[B, planes, H, W]``, the planes ``kernel_model.cost_slab_planes``
     gives), or None where the kernel recomputes the cost in its own
     block."""
-    planes = cost_slab_planes(kernel, int(kernel_size), int(num_disparities))
+    planes = cost_slab_planes(kernel, int(kernel_size), int(num_disparities),
+                              smem_floats(camera.device))
     if not planes:
         return None
     B, H, W = camera.shape
@@ -153,8 +195,10 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     On a CUDA tensor this launches K2, which reads the cost as a residual
     (``n r = c``: no cross-term recompute), or, with ``cost=None``, K6,
     which recomputes each cost plane from the images.  A CPU tensor takes
-    the plain closed form, which recomputes the cost.  ``.launches`` counts
-    K2's launches and ``.recompute_launches`` K6's.
+    the plain closed form, which recomputes the cost.  Where the kernel's
+    blocks do not fit (k >= 129 on an H100) the large-k route runs
+    (``cuda_large_k.camera_grad_large``).  ``.launches`` counts K2's
+    launches and ``.recompute_launches`` K6's.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -169,6 +213,9 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if camera.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
+    if large_k_route(what, k, D, smem_floats(camera.device)):
+        return camera_grad_large(camera, projector, volume[0] if volume
+                                 else None, cotangent, D, k, epsilon)
     lib = _build.kernels()
     entry = (lib.custereo_camera_grad_recompute if cost is None
              else lib.custereo_camera_grad)
@@ -230,8 +277,11 @@ def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     ``[B, H, W]`` gradient.
 
     On a CUDA tensor this launches K7, which reads the cost as a residual
-    (``n r = c``).  A CPU tensor takes the plain closed form.
-    ``.launches`` counts K7's launches.
+    (``n r = c``), or, where its blocks do not fit (k = 129 on an H100),
+    the large-k route (``cuda_large_k.projector_grad_large``); k >= 131
+    raises ``ValueError`` before any launch, as JAX's ``_proj_bwd_kernel``
+    does.  A CPU tensor takes the plain closed form.  ``.launches`` counts
+    K7's launches.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -245,6 +295,10 @@ def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if camera.device.type != "cuda":
         raise ValueError(f"K7 runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
+    check_projector_kernel_size(k)
+    if large_k_route("K7", k, D, smem_floats(camera.device)):
+        return projector_grad_large(camera, projector, cost, cotangent, D, k,
+                                    epsilon)
     lib = _build.kernels()
     B, H, W = camera.shape
     p = k // 2

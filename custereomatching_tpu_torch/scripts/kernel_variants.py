@@ -57,7 +57,7 @@ K8_SOURCE = "csrc/zncc_allpairs.cu"
 K9_SOURCE = "csrc/layout.cu"
 CASES = ((375, 1242, 192, 15), (40, 130, 24, 31), (40, 130, 24, 47),
          (37, 200, 24, 3), (40, 130, 24, 27), (40, 130, 24, 81),
-         (40, 130, 24, 93))
+         (40, 130, 24, 93), (40, 130, 24, 127))
 
 _ROUND = "  for (int planes = kGradPlanes; planes >= 1; planes /= 2) {\n"
 _ASSERT = ('  static_assert(kGradPlanes == 8, "the planes a round instantiated '

@@ -1,7 +1,13 @@
 """Utilities: host timer, the CUDA-event benchmark harness, the disparity
-metrics, the card's peaks and least-work bounds (``profiling``) and the
+metrics, failure classification, retries and the health probe
+(``failsafe``), the card's peaks and least-work bounds (``profiling``) and the
 calibrated bound model with its rate probes (``kernel_model``)."""
 
+from custereomatching_tpu_torch.utils.failsafe import (
+    device_healthcheck,
+    is_transient_device_error,
+    with_retries,
+)
 from custereomatching_tpu_torch.utils.kernel_model import (
     OpCount,
     allpairs_backward_cost,
@@ -37,10 +43,13 @@ from custereomatching_tpu_torch.utils.timer import (
 
 __all__ = ["DEVICE_SPECS", "OpCount", "Timer", "TimerError",
            "allpairs_backward_cost", "allpairs_forward_cost",
-           "bad_pixel_rate", "benchmark", "device_specs",
+           "bad_pixel_rate", "benchmark", "device_healthcheck",
+           "device_specs",
            "disparity_metrics", "end_point_error", "fence",
            "fused_backward_c_cost", "fused_backward_cost",
-           "fused_forward_cost", "kernel_bound", "measure_vpu_rates",
+           "fused_forward_cost", "is_transient_device_error",
+           "kernel_bound", "measure_vpu_rates",
            "projector_backward_cost", "to_parity_cost", "trace",
            "transpose_volume_cost",
-           "volume_backward_cost", "volume_forward_cost", "zncc_roofline"]
+           "volume_backward_cost", "volume_forward_cost", "with_retries",
+           "zncc_roofline"]

@@ -80,7 +80,9 @@ K_TILE_H, K_TILE_W = 16, 64
 K_THREADS = K_TILE_H * K_TILE_W
 RATE_THREADS, RATE_CHAINS, RATE_UNROLL = 256, 8, 8
 BOX_PROBE_K, BOX_PROBE_D = 15, 192
-# The shared memory a block may opt into on an H100 (227 KB).
+# The shared memory a block may opt into on an H100 (227 KB): the default
+# budget of the geometry below.  The wrappers pass their card's own
+# (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, which the launchers read).
 SMEM_OPTIN_BYTES = 232448
 # The register-blocked window pass: outputs a work item of K3's rows pass
 # and column sums (csrc/common.cuh kRoundRows, kRoundCols); of K5's
@@ -585,15 +587,22 @@ def _whole_rounds(planes: int, chunk: int, D: int) -> Tuple[int, int]:
     return planes, chunk
 
 
-def fused_round(k: int, D: int) -> Tuple[int, int]:
+def _budget(budget: Optional[int]) -> int:
+    """A block's shared-memory budget in floats: ``budget``, or an
+    H100's."""
+    return SMEM_OPTIN_BYTES // 4 if budget is None else int(budget)
+
+
+def fused_round(k: int, D: int,
+                budget: Optional[int] = None) -> Tuple[int, int]:
     """(planes a round, planes a projector staging) of K1 and K3
     (``fused_round`` of common.cuh on an H100): as many planes as give
     every thread one rows-pass column, fewer where they do not fit beside
     a one-plane projector tile, at most D + 1; the staging takes what is
     left, D + 1 or a multiple of the round.  (0, 0) when not one plane
-    fits."""
+    fits.  ``budget``: floats a block may hold (an H100's by default)."""
     fixed, per = _round_floats(k, 1)
-    budget = SMEM_OPTIN_BYTES // 4
+    budget = _budget(budget)
     if fixed + per > budget:
         return 0, 0
     p = k // 2
@@ -603,10 +612,10 @@ def fused_round(k: int, D: int) -> Tuple[int, int]:
     return _whole_rounds(planes, chunk, D)
 
 
-def fused_block_floats(k: int, D: int) -> int:
+def fused_block_floats(k: int, D: int, budget: Optional[int] = None) -> int:
     """Shared memory of a K1 or K3 block in floats (``RoundTile::floats``
     at :func:`fused_round`'s planes and chunk)."""
-    planes, chunk = fused_round(k, D)
+    planes, chunk = fused_round(k, D, budget)
     fixed, per = _round_floats(k, chunk)
     return fixed + planes * per
 
@@ -631,12 +640,13 @@ def halo_tile(k: int, chunk: int, planes: int) -> Dict[str, int]:
     return t
 
 
-def halo_round(k: int, D: int) -> Tuple[int, int]:
+def halo_round(k: int, D: int,
+               budget: Optional[int] = None) -> Tuple[int, int]:
     """(planes a round, planes a projector staging) of K5
-    (``halo_round`` of fused_pipeline_bwd.cu on an H100); (0, 0) when not
-    one plane fits."""
+    (``halo_round`` of fused_pipeline_bwd.cu, within ``budget`` floats, an
+    H100's by default); (0, 0) when not one plane fits."""
     t = halo_tile(k, 1, 1)
-    budget = SMEM_OPTIN_BYTES // 4
+    budget = _budget(budget)
     proj1 = t["img_rows"] * t["img_w"]
     per = t["xsz"] + t["ysz"]
     if t["fixed"] + proj1 + per > budget:
@@ -739,12 +749,14 @@ def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
 
 
 def grad_round(k: int, D: int, head: bool, recompute: bool,
-               staged: bool = True) -> Tuple[int, int]:
+               staged: bool = True,
+               budget: Optional[int] = None) -> Tuple[int, int]:
     """(planes a round, planes a projector staging) of K4 (``head``), K6
     (``recompute``) or K2 and K7 (neither: ex2, or K7's projector ey2, the
     one staged map), the constants ``staged`` or not: ``grad_round`` of
-    camera_grad.cuh on an H100; (0, 0) when not one plane fits."""
-    budget = SMEM_OPTIN_BYTES // 4
+    camera_grad.cuh within ``budget`` floats (an H100's by default); (0, 0)
+    when not one plane fits."""
+    budget = _budget(budget)
     planes = GRAD_PLANES
     while planes >= 1:
         t = grad_round_tile(k, 1, planes, head=head, recompute=recompute,
@@ -762,32 +774,34 @@ def grad_round(k: int, D: int, head: bool, recompute: bool,
     return 0, 0
 
 
-def k4_staged(k: int, D: int) -> bool:
+def k4_staged(k: int, D: int, budget: Optional[int] = None) -> bool:
     """Whether K4's rounds kernel stages its entries' constants (a plane's
     buffers fit beside them: k <= 47 on an H100) or reads them from their
     maps (``launch_head_rounds`` of fused_pipeline_bwd.cu)."""
-    return grad_round(k, D, True, False)[0] >= 1
+    return grad_round(k, D, True, False, budget=budget)[0] >= 1
 
 
-def halo_fits(k: int, D: int) -> bool:
+def halo_fits(k: int, D: int, budget: Optional[int] = None) -> bool:
     """Whether K5's halo kernel runs (k <= 27 on an H100): one plane a
     round fits and the halo has no more entries than its threads own;
     otherwise K5 takes the chunked route."""
-    planes, chunk = halo_round(k, D)
+    planes, chunk = halo_round(k, D, budget)
     return planes >= 1 and halo_tile(k, chunk, planes)["halo"] <= (
         HALO_OWN * K_THREADS)
 
 
-def cost_slab_planes(kernel: str, k: int, D: int) -> int:
+def cost_slab_planes(kernel: str, k: int, D: int,
+                     budget: Optional[int] = None) -> int:
     """The planes a frame of the slab that K5's or K6's chunked route
     writes K1's costs into (``launch_cost_slabs`` of camera_grad.cuh):
     ``min(COST_CHUNK, D + 1)`` where the route runs (K5 past its halo
     kernel, K6 past its recomputing block: k > 81 on an H100), else 0 and
-    no slab.  The wrappers allocate the slab by it."""
+    no slab.  The wrappers allocate the slab by it, at their card's
+    ``budget``."""
     if kernel == "K5":
-        chunked = not halo_fits(k, D)
+        chunked = not halo_fits(k, D, budget)
     elif kernel == "K6":
-        chunked = grad_round(k, D, False, True)[0] < 1
+        chunked = grad_round(k, D, False, True, budget=budget)[0] < 1
     else:
         raise ValueError(f"no chunked route for {kernel}")
     return min(COST_CHUNK, D + 1) if chunked else 0
@@ -1180,6 +1194,199 @@ def to_parity_cost(H: int, W: int, D: int) -> OpCount:
     return c
 
 
+# ---------------------------------------------------------------------------
+# The large-k route (csrc/large_k.cu, ops/cuda_large_k.py)
+# ---------------------------------------------------------------------------
+
+# The product kernels the route stands in for.
+LARGE_K_KERNELS = ("K1", "K3", "K3w", "K3m", "K2", "K6", "K4", "K5", "K7",
+                   "K8")
+
+
+def stats_block_floats(k: int) -> int:
+    """Shared memory of ``box_stats_kernel`` (common.cuh) in floats: the
+    halo'd 16 x 64 tile and its two rows passes."""
+    p = k // 2
+    return (K_TILE_H + 2 * p) * (K_TILE_W + 2 * p) + 2 * K_TILE_H * (
+        K_TILE_W + 2 * p)
+
+
+def combine_block_floats(k: int) -> int:
+    """Shared memory of the VJPs' combine kernels in floats
+    (``camera_grad_combine_kernel``, ``proj_grad_combine_kernel``) with one
+    map staged at a time: a halo'd tile and its rows pass."""
+    p = k // 2
+    return (2 * K_TILE_H + 2 * p) * (K_TILE_W + 2 * p)
+
+
+def _slabs_fit(k: int, D: int, head: bool, budget: int) -> bool:
+    """Whether every slab of the chunked route (K5, K6) fits: K1's rounds
+    kernel on its planes and the rounds kernel reading them."""
+    staged = not head or k4_staged(k, COST_CHUNK - 1, budget)
+    return all(fused_round(k, hi - lo, budget)[0] >= 1
+               and grad_round(k, hi - lo, head, False, staged, budget)[0] >= 1
+               for lo, hi in cost_slabs(D))
+
+
+def _rounds_fit(kernel: str, k: int, D: int, budget: int) -> bool:
+    """Whether ``kernel``'s own blocks take (k, D) on an H100: the
+    statistics tile and, for K8, its strip (``allpairs_block_floats``);
+    for K1 and the K3 family a plane of ``fused_round``; for K2 and K7 a
+    plane of ``grad_round`` (and a combine a map at a time); for K4 its
+    rounds with the constants staged or read from their maps; for K5 its
+    halo kernel or every slab of the chunked route; for K6 its recomputing
+    rounds or every slab.  The launchers' geometry, mirrored, within
+    ``budget`` floats."""
+    if kernel not in LARGE_K_KERNELS:
+        raise ValueError(f"no large-k route for {kernel}")
+    if stats_block_floats(k) > budget:
+        return False
+    if kernel == "K8":
+        return allpairs_block_floats(k) <= budget
+    if kernel in ("K1", "K3", "K3w", "K3m"):
+        return fused_round(k, D, budget)[0] >= 1
+    if combine_block_floats(k) > budget:
+        return False
+    if kernel in ("K2", "K7"):
+        return grad_round(k, D, False, False, budget=budget)[0] >= 1
+    if kernel == "K4":
+        return grad_round(k, D, True, False, k4_staged(k, D, budget),
+                          budget)[0] >= 1
+    if kernel == "K5":
+        return halo_fits(k, D, budget) or _slabs_fit(k, D, True, budget)
+    return (grad_round(k, D, False, True, budget=budget)[0] >= 1
+            or _slabs_fit(k, D, False, budget))
+
+
+def large_k_route(kernel: str, k: int, D: int = 0,
+                  budget: Optional[int] = None) -> bool:
+    """Whether ``kernel`` takes the large-k route at (k, D): where its own
+    blocks do not fit within ``budget`` floats (:func:`_rounds_fit`; an
+    H100's by default).  The wrappers launch the route by it at their
+    card's budget; on an H100 that is every odd k >= 129 for K1-K3 and
+    K5-K7, k >= 187 for K4 and k >= 145 for K8.  ``chip_smoke.py`` pins it against the
+    launchers on the card: each takes the last k below the route and
+    refuses the first k on it."""
+    return not _rounds_fit(kernel, k, D, _budget(budget))
+
+
+def large_k_scratch(kernel: str, H: int, W: int, D: int, k: int
+                    ) -> Dict[str, int]:
+    """The large-k route's slab scratch of one frame (``_Slabs`` of
+    ops/cuda_large_k.py, which sizes its buffers by it): ``planes`` a slab
+    (``min(COST_CHUNK, D + 1)``), ``width`` of a plane (K7's fields live
+    on the columns widened by p), ``buffers`` (products or gr, their row
+    sums, and a slab of costs where the route recomputes them: K3, K3m,
+    K5, K6), and their ``floats``.  Beside it the route holds only
+    [H, W]-sized maps and what the call returns, so K3, K3m, K5 and K6
+    never hold a whole volume.  K8's route needs none: its row sums are
+    one [H, W, W] buffer beside the output."""
+    if kernel not in LARGE_K_KERNELS:
+        raise ValueError(f"no large-k route for {kernel}")
+    if kernel == "K8":
+        return {"planes": 0, "width": W, "buffers": 0, "floats": 0}
+    planes = min(COST_CHUNK, D + 1)
+    width = W + k // 2 if kernel == "K7" else W
+    buffers = 3 if kernel in ("K3", "K3m", "K5", "K6") else 2
+    return {"planes": planes, "width": width, "buffers": buffers,
+            "floats": buffers * planes * H * width}
+
+
+def _lk(n: float, loads: float, madd: float = 0, rsqrt: float = 0,
+        exp: float = 0, nbytes: float = 0) -> OpCount:
+    """One launch of a route kernel over ``n`` outputs: ``loads`` global
+    loads and stores an output (L1/L2 served: ``smem``), FMA-pipe ops and
+    multi-function ops an output, and ``nbytes`` of device memory, each
+    input read once and each output written once, a dense stream priced
+    at the data sheet's bandwidth (``bytes`` only)."""
+    c = OpCount(smem=n * loads, madd=n * madd, rsqrt=n * rsqrt, exp=n * exp)
+    c.bytes = float(nbytes)
+    return c
+
+
+def _lk_box2d(n: float, k: int) -> OpCount:
+    """box2d of ``n`` entries: two ``box_axis`` launches, k loads, k - 1
+    adds and a store an output each (the loads bind)."""
+    return _lk(n, k + 1, nbytes=8 * n).scaled(2)
+
+
+def _lk_moments(n: float, n_in: float, k: int) -> OpCount:
+    """S and E2 of an image stack of ``n_in`` pixels widened to ``n``:
+    ``pad_square``, box2d of the pair, ``moments_finish``."""
+    return (_lk(n, 3, madd=1, nbytes=4 * n_in + 8 * n)
+            + _lk_box2d(2 * n, k)
+            + _lk(n, 3, madd=3, rsqrt=1, nbytes=12 * n))
+
+
+def _lk_cost_planes(H: int, W: int, D: int, k: int) -> OpCount:
+    """K1's cost planes a slab at a time: ``band_products``, box2d,
+    ``band_cost`` (five loads and a store, six FMA-pipe ops, a square root
+    and two divisions an entry)."""
+    n = (D + 1) * H * W
+    return (_lk(n, 3, madd=1, nbytes=4 * n + 8 * H * W)
+            + _lk_box2d(n, k)
+            + _lk(n, 6, madd=6, rsqrt=3, nbytes=8 * n))
+
+
+def _lk_stats(H: int, W: int, D: int, k: int) -> OpCount:
+    return (_lk_moments(H * W, H * W, k)
+            + _lk_moments(H * (W + D), H * W, k))
+
+
+def _lk_head(H: int, W: int, D: int) -> OpCount:
+    """``online_head`` over every plane: a load, an expf and about five
+    FMA-pipe ops a plane; the state (four maps) read and written a slab."""
+    n, px = (D + 1) * H * W, H * W
+    slabs = len(cost_slabs(D))
+    return (_lk(n, 1, madd=5, exp=1, nbytes=4 * n)
+            + _lk(px * slabs, 8, nbytes=32 * px * slabs))
+
+
+def _lk_grad(H: int, W: int, D: int, k: int, head: bool,
+             we: int = 0) -> OpCount:
+    """The camera VJP's fields a slab at a time (``grad_fields``: four
+    loads and a store, an rsqrt as a square root and a division, eight
+    FMA-pipe ops a plane; the head's cotangent an expf and seven more),
+    box2d of gr, ``grad_a1`` (two loads and two FMA-pipe ops a plane);
+    then the stack, box2d of three maps and the combine.  ``we``: K7's
+    extended width W + p (its fields on it), else W."""
+    we = we or W
+    n, px = (D + 1) * H * we, H * we
+    c = _lk(n, 5, madd=8 + (7 if head else 0), rsqrt=2,
+            exp=1 if head else 0, nbytes=4 * n * (2 if not head else 1))
+    c = c + _lk_box2d(n, k) + _lk(n, 2, madd=2, nbytes=4 * n)
+    return (c + _lk(px, 6, madd=2, rsqrt=1, nbytes=24 * px)
+            + _lk_box2d(3 * px, k) + _lk(H * W, 5, madd=4,
+                                         nbytes=20 * H * W))
+
+
+def large_k_cost(kernel: str, H: int, W: int, D: int, k: int) -> OpCount:
+    """The counted work of ``kernel``'s large-k route (csrc/large_k.cu,
+    one frame): the statistics (:func:`_lk_moments`), K1's cost planes
+    (:func:`_lk_cost_planes`), K3's head, the VJPs' fields and combine
+    (:func:`_lk_grad`), or K8's row products, row sums and normalisation
+    (``W`` the width, ``D`` unused)."""
+    if kernel == "K8":
+        n = H * W * W
+        return (_lk_moments(H * W, H * W, k).scaled(2)
+                + _lk(n, 2 * k + 1, nbytes=8 * H * W + 4 * n)
+                + _lk(n, k + 1, nbytes=8 * n)
+                + _lk(n, 6, madd=6, rsqrt=3, nbytes=8 * n))
+    if kernel == "K7":
+        p = k // 2
+        return (_lk_moments(H * W, H * W, k)
+                + _lk_moments(H * (W + p), H * W, k)
+                + _lk_grad(H, W, D, k, False, W + p))
+    c = _lk_stats(H, W, D, k)
+    if kernel in ("K1", "K3", "K3w", "K3m", "K6", "K5"):
+        c = c + _lk_cost_planes(H, W, D, k)
+    if kernel.startswith("K3"):
+        c = c + _lk_head(H, W, D)
+    if kernel in ("K2", "K6", "K4", "K5"):
+        c = c + _lk_grad(H, W, D, k, kernel in ("K4", "K5"))
+    return c
+
+
 def rate_probe_cost(mode: str, blocks: int, iters: int) -> OpCount:
     """K10a's own work: its elements in its own class, its output map."""
     c = OpCount(**{mode: rate_probe_elems(mode, blocks, iters)})
@@ -1210,9 +1417,12 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
     return out
 
 
-__all__ = ["OpCount", "allpairs_backward_cost", "allpairs_block_floats",
+__all__ = ["LARGE_K_KERNELS", "OpCount",
+           "allpairs_backward_cost", "allpairs_block_floats",
            "allpairs_forward_cost",
-           "box_pass_loads", "camera_grad_rounds_cost", "cost_slab_planes",
+           "box_pass_loads", "camera_grad_rounds_cost",
+           "combine_block_floats",
+           "cost_slab_planes",
            "cost_slabs",
            "fused_backward_c_cost", "fused_backward_cost",
            "fused_block_floats", "fused_forward_cost", "fused_round",
@@ -1221,9 +1431,10 @@ __all__ = ["OpCount", "allpairs_backward_cost", "allpairs_block_floats",
            "halo_tile", "hbm_read_probe", "hbm_read_probe_cost",
            "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
            "hbm_write_reference", "k4_staged", "kernel_bound",
+           "large_k_cost", "large_k_route", "large_k_scratch",
            "measure_vpu_rates", "parity_block_floats", "parity_chunks",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
-           "rate_probe_reference",
+           "rate_probe_reference", "stats_block_floats",
            "to_parity_cost", "transpose_volume_cost",
            "volume_backward_cost",
            "volume_forward_cost", "window_pass_cost"]

@@ -161,7 +161,6 @@ def test_k8_wrapper_cpu_takes_plain_version():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(kernel_size=1),                      # the kernel path needs k >= 3
     dict(kernel_size=4),
     dict(dtype=torch.float64),
     dict(shape=(5, 7)),                       # the wrapper takes [B, H, W]

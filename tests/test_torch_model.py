@@ -107,10 +107,10 @@ def test_engine_crop_is_exact():
         engine.infer(np.zeros((40, 10)), np.zeros((40, 10)))
 
 
-@pytest.mark.parametrize("option", [dict(lr_check=True), dict(retries=2),
-                                    dict(autotune=True)])
+@pytest.mark.parametrize("option", [dict(autotune=True)])
 def test_engine_options_not_ported(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[12]"):
+    with pytest.raises(NotImplementedError,
+                       match="modules to port: ops/tuning.py"):
         StereoEngine(StereoConfig(num_disparities=4), device="cpu", **option)
 
 
@@ -126,13 +126,13 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("call,item", [
-    ("disparity_maps_lr", "11"), ("sharded_cost_volume", "13"),
-    ("sharded_apply", "13"),
+    ("sharded_cost_volume", "parallel/"), ("sharded_apply", "parallel/"),
 ])
 def test_unported_model_paths_raise(call, item):
     x = torch.zeros((1, 6, 8))
     fn = getattr(StereoMatcher(StereoConfig(num_disparities=2)), call)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(NotImplementedError,
+                       match=f"modules to port: {item}"):
         fn(x, x)
 
 

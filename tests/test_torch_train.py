@@ -322,9 +322,9 @@ def test_mesh_not_ported():
     model = StereoMatcher(config_from_jax({"num_disparities": 2,
                                            "kernel_size": 3}))
     x = torch.zeros((1, 6, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="modules to port: parallel/"):
         optimize.make_train_step(model, mesh="2x4")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="modules to port: parallel/"):
         optimize.disparity_loss(model, x, x, x, mesh="2x4")
 
 
@@ -362,7 +362,7 @@ def test_trainer_example_checkpoint_and_resume(tmp_path, capsys):
     train_example.main(argv + ["--steps", "3"])
     out = capsys.readouterr().out
     assert "resumed from step 2" in out and "step     3" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="modules to port: parallel/"):
         train_example.main(argv + ["--mesh", "2x4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="modules to port: ops/tuning.py"):
         train_example.main(argv + ["--autotune"])
