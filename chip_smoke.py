@@ -3,8 +3,8 @@
 training path, the all-pairs path, the projector-gradient path, the
 volume-free training path, the plane-major path, the camera VJP
 without the cost residual, the bound model's rate probes, the large-k
-route, the left-right serving path, the pyramid and the failsafe
-layer.
+route, the left-right serving path, the pyramid, the failsafe layer and
+the parallel layer.
 
     python3 chip_smoke.py
 
@@ -152,7 +152,38 @@ imports nothing of JAX.  Phases, each printing its lines:
     and the time a call;
 30. the failsafe layer: an injected allocation failure retried and
     served, an injected sticky error (700) raised at once, and
-    ``device_healthcheck()`` true.
+    ``device_healthcheck()`` true;
+31. the unsharded calls the parallel phases are held to, at the engine's
+    KITTI bucket (384x1280, B = 2, k = 15, D = 192), against their plain
+    versions on the same pairs: K1's volume, K3's maps, K2's camera
+    gradient of the mean soft disparity (the plain VJP fed the same head
+    cotangent), K3w + K4's maps and camera gradient (as in phase 8), and
+    K3's maps at D = 191 over the stage pipeline's 4 frames;
+32. the parallel layer at one rank on the same pairs:
+    ``initialize_multihost()`` gives an NCCL world of one; counters reset,
+    ``sharded_cost_volume`` and ``sharded_apply`` on a 1 x 1 mesh (K1; K2
+    behind a mean soft-disparity loss), ``sharded_disparity_maps`` (K3)
+    and with ``trainable=True`` (K3w + K4), ``optimize_camera`` with the
+    mesh for 5 Adam steps (K1 + K2 a step) and ``pipelined_video_maps`` on
+    a one-stage mesh (4 frames, D = 191: K3m a frame); every counter
+    rises by its calls, no plain version runs, every forward output is
+    bit-equal to the unsharded call, the gradients within rtol 1e-3 /
+    atol 1e-6, the losses finite and falling; the host-clock time of
+    ``sharded_disparity_maps`` against ``StereoMatcher.disparity_maps``;
+    the process group destroyed;
+33. the sharded compute on one card, on the same pairs: at ``space`` = 2
+    and 4 the per-shard functions of ``parallel/sharded.py`` on the
+    halo-extended blocks the exchange delivers (zeros past the true
+    borders), stitched:
+    K1's volume and K3's maps bit-equal to the unsharded calls, the camera
+    gradient through K1 + K2 and through K3w + K4 (halo slabs added back
+    in the exchange's backward order) within rtol 1e-3 / atol 1e-6; at
+    S = 2 and 4 stages the K3m chunk states (``parallel/pipeline.py``)
+    merged in stage order at beta = 50, 75 (the full range normalized, the
+    stages not) and 80: disparity and mask equal to the full-range K3's,
+    soft disparity and confidence within rtol 1e-4 / atol 1e-5, and the
+    merged maps against the plain pipeline as in phase 4; the stage
+    op timed (CUDA events) beside ``stage_op_cost``'s model.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -173,8 +204,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from custereomatching_tpu_torch import StereoConfig, StereoEngine, StereoMatcher
+from custereomatching_tpu_torch.config import MeshConfig
 from custereomatching_tpu_torch.data import make_stereo_pair
 from custereomatching_tpu_torch.models import PyramidStereoMatcher
 from custereomatching_tpu_torch.models import (
@@ -220,6 +254,7 @@ from custereomatching_tpu_torch.ops.layout import (
     plane_major_to_parity,
     plane_major_to_parity_reference,
 )
+from custereomatching_tpu_torch.ops.disparity import extract_disparity
 from custereomatching_tpu_torch.ops.zncc import (
     box2d,
     camera_grad_allpairs,
@@ -227,6 +262,24 @@ from custereomatching_tpu_torch.ops.zncc import (
     forward_allpairs,
     forward_banded,
     projector_grad_banded,
+)
+from custereomatching_tpu_torch.parallel import (
+    initialize_multihost,
+    make_mesh,
+    pipelined_video_maps,
+    shard_batch,
+    sharded_cost_volume,
+    sharded_disparity_maps,
+    stage_mesh,
+)
+from custereomatching_tpu_torch.parallel.pipeline import (
+    chunk_state,
+    finalize_state,
+    merge_states,
+)
+from custereomatching_tpu_torch.parallel.sharded import (
+    local_cost_volume,
+    local_disparity_maps,
 )
 from custereomatching_tpu_torch.scripts import device_probe
 from custereomatching_tpu_torch.utils import (
@@ -766,41 +819,49 @@ def phase_k4() -> float:
                                     elementwise=not kitti))
         del res, got, want
 
-        # The whole trainable pipeline against its plain twin: the two
-        # forwards may disagree on the argmax only at top-two ties and on
-        # the mask only within 1e-5 of the threshold; the gradient is
-        # compared outside the k x k neighbourhoods of such pixels.
-        grads, outs = [], []
-        for fn in (stereo_pipeline_trainable,
-                   stereo_pipeline_trainable_reference):
-            c = cam.clone().requires_grad_(True)
-            out = fn(c, proj, D, k, EPS, beta, THRESHOLD)
-            loss = ((out.soft_disparity * gs).sum()
-                    + (out.confidence * gc).sum())
-            grads.append(torch.autograd.grad(loss, c)[0])
-            outs.append(tuple(m.detach() for m in out))
-        (_, _, mask_k, _), (_, _, mask_p, conf_p) = outs
-        cost = forward_banded(cam, proj, D, k, EPS)
-        tie = top2_ties(cost)
-        am_k = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
-                                         THRESHOLD)[1].am
-        am_p = head_residuals(cost, D, beta)[0]
-        flips = mask_k != mask_p
-        differ = am_k != am_p
-        require(bool(((conf_p - THRESHOLD).abs() <= 1e-5)[flips].all()),
-                f"K3w+K4 {label}: every mask flip within 1e-5 of the "
-                f"threshold")
-        require(not bool((differ & ~tie).any()),
-                f"K3w+K4 {label}: argmax differs only at top-two ties")
-        odd = (flips | differ).to(cam.dtype)
-        keep = box2d(odd, k, dim=1) == 0
-        print(f"K3w+K4 {label}: argmax mismatches {int(differ.sum())}, mask "
-              f"flips {int(flips.sum())}; gradient compared on "
-              f"{int(keep.sum())} of {keep.numel()} pixels")
-        compare_grad(grads[0], grads[1], f"K3w+K4 {label}",
-                     elementwise=not kitti, keep=keep)
-        del grads, outs, cost
+        hold_trainable(cam, proj, D, k, beta,
+                       lambda out: ((out.soft_disparity * gs).sum()
+                                    + (out.confidence * gc).sum()),
+                       label, elementwise=not kitti)
     return err
+
+
+def hold_trainable(cam, proj, D: int, k: int, beta: float, loss_of,
+                   label: str, elementwise: bool):
+    """The whole trainable pipeline (K3w + K4) against its plain twin on
+    the loss ``loss_of(maps)``: the two forwards may disagree on the
+    argmax only at top-two ties and on the mask only within 1e-5 of the
+    threshold; the gradient is compared outside the k x k neighbourhoods
+    of such pixels.  Returns the kernels' camera gradient and maps."""
+    grads, outs = [], []
+    for fn in (stereo_pipeline_trainable,
+               stereo_pipeline_trainable_reference):
+        c = cam.clone().requires_grad_(True)
+        out = fn(c, proj, D, k, EPS, beta, THRESHOLD)
+        grads.append(torch.autograd.grad(loss_of(out), c)[0])
+        outs.append(type(out)(*(m.detach() for m in out)))
+    (_, _, mask_k, _), (_, _, mask_p, conf_p) = outs
+    cost = forward_banded(cam, proj, D, k, EPS)
+    tie = top2_ties(cost)
+    am_k = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                     THRESHOLD)[1].am
+    am_p = head_residuals(cost, D, beta)[0]
+    del cost
+    flips = mask_k != mask_p
+    differ = am_k != am_p
+    require(bool(((conf_p - THRESHOLD).abs() <= 1e-5)[flips].all()),
+            f"K3w+K4 {label}: every mask flip within 1e-5 of the "
+            f"threshold")
+    require(not bool((differ & ~tie).any()),
+            f"K3w+K4 {label}: argmax differs only at top-two ties")
+    odd = (flips | differ).to(cam.dtype)
+    keep = box2d(odd, k, dim=1) == 0
+    print(f"K3w+K4 {label}: argmax mismatches {int(differ.sum())}, mask "
+          f"flips {int(flips.sum())}; gradient compared on "
+          f"{int(keep.sum())} of {keep.numel()} pixels")
+    compare_grad(grads[0], grads[1], f"K3w+K4 {label}",
+                 elementwise=elementwise, keep=keep)
+    return grads[0], outs[0]
 
 
 def phase_train_path() -> dict:
@@ -2540,6 +2601,395 @@ def phase_failsafe() -> None:
           "error (700) raised at once; device_healthcheck() true")
 
 
+# The parallel layer's phases: the engine's KITTI bucket (H divides by 2
+# and 4, so row shards are equal), two frames, k = 15; the sharded paths
+# at D = 192, the stage pipeline at D = 191 (192 planes split into 2 or 4
+# stages) over 4 frames.
+PAR_B, PAR_K, PAR_D, PIPE_D, PIPE_T = 2, 15, 192, 191, 4
+PAR_SPACES, PIPE_STAGES = (2, 4), (2, 4)
+# Stage-merge betas: at 50 every head is unnormalized; at 75 the full
+# range's (192 planes) is normalized and the stages' (96 or 48) are not;
+# at 80 all are normalized.
+PIPE_BETAS = (50.0, 75.0, 80.0)
+PIPE_RTOL, PIPE_ATOL = 1e-4, 1e-5
+
+
+def bucket_pairs(n: int, seed: int):
+    """``n`` speckle pairs at the KITTI bucket (384 x 1280) on the card."""
+    H, W = BUCKET
+    pairs = [make_stereo_pair(H, W, d_min=D_MIN, d_max=D_MAX, seed=seed + i)
+             for i in range(n)]
+    cams, projs, truth = (np.stack(x) for x in zip(*pairs))
+    return (torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda(),
+            truth)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock ms of ``fn()``, the card synchronised, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def phase_parallel_unsharded() -> dict:
+    """The unsharded calls the parallel phases hold the sharded paths to,
+    on the bucket pairs, each held against its plain version on the same
+    inputs: K1's volume (rtol 1e-4 / atol 1e-5), K3's maps (as phase 4's
+    KITTI case, ties and threshold flips explained), K2's camera gradient
+    of the mean soft disparity against the plain VJP fed the same head
+    cotangent, K3w + K4's maps and camera gradient against the plain
+    trainable pipeline (as phase 8's KITTI case), and K3's maps at the
+    stage pipeline's D over its frames.  Returns the pairs and the
+    unsharded results."""
+    H, W = BUCKET
+    B, k, D = PAR_B, PAR_K, PAR_D
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    model = StereoMatcher(cfg)
+    eps, beta, thr = cfg.epsilon, cfg.softargmax_beta, cfg.cost_threshold
+    cam, proj, _ = bucket_pairs(B, seed=80)
+    vcams, vprojs, _ = bucket_pairs(PIPE_T, seed=90)
+    label = f"bucket B={B} H={H} W={W} D={D} k={k}"
+    with torch.no_grad():
+        cv = model.cost_volume(cam, proj)
+        out = model(cam, proj)
+        maps = model.disparity_maps(cam, proj)
+        pipe = stereo_pipeline_cuda(vcams, vprojs, PIPE_D, k, eps, beta, thr)
+        cost = forward_banded(cam, proj, D, k, eps)
+    err = compare_volume(cv, cost, label)
+    compare_maps(maps, stereo_pipeline_reference(cam, proj, D, k, eps, beta,
+                                                 thr),
+                 cost, thr, False, label)
+    del cost
+
+    cam_u = cam.clone().requires_grad_(True)
+    model(cam_u, proj).soft_disparity.mean().backward()
+    c = cv.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(model.disparity(c).soft_disparity.mean(), c)
+    compare_grad(cam_u.grad, camera_grad_banded(cam, proj, g, D, k, eps),
+                 f"K2 {label}: camera gradient of the mean soft disparity "
+                 f"against the plain VJP on its head cotangent",
+                 elementwise=False)
+    del c, g
+    grad_t, tmaps = hold_trainable(
+        cam, proj, D, k, beta, lambda m: m.soft_disparity.mean(),
+        f"{label} (mean soft disparity)", elementwise=False)
+
+    plabel = f"bucket B={PIPE_T} H={H} W={W} D={PIPE_D} k={k}"
+    with torch.no_grad():
+        pcost = forward_banded(vcams, vprojs, PIPE_D, k, eps)
+        compare_maps(pipe, stereo_pipeline_reference(
+            vcams, vprojs, PIPE_D, k, eps, beta, thr), pcost, thr, False,
+            plabel)
+    del pcost
+    torch.cuda.synchronize()
+    return {"cam": cam, "proj": proj, "vcams": vcams, "vprojs": vprojs,
+            "cv": cv, "out": out, "maps": maps, "pipe": pipe,
+            "grad_u": cam_u.grad, "grad_t": grad_t, "tmaps": tmaps,
+            "err": err}
+
+
+def phase_parallel_one_rank(card: str, ref: dict) -> dict:
+    """The parallel layer end to end at one rank: an NCCL world of one, a
+    1 x 1 mesh and a one-stage pipeline, counters reset around the paths,
+    every result held against ``ref`` (:func:`phase_parallel_unsharded`).
+    Returns the counters."""
+    H, W = BUCKET
+    B, k, D = PAR_B, PAR_K, PAR_D
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    model = StereoMatcher(cfg)
+    cam, proj, vcams, vprojs = (ref[n] for n in ("cam", "proj", "vcams",
+                                                   "vprojs"))
+    cfg_p = StereoConfig(kernel_size=k, num_disparities=PIPE_D)
+    noise = np.random.default_rng(81).standard_normal(tuple(cam.shape))
+    camera0 = cam + torch.from_numpy(
+        (TRAIN_NOISE * noise).astype(np.float32)).cuda()
+    want_cv, want_out, want_maps, want_pipe, want_tmaps = (
+        ref[n] for n in ("cv", "out", "maps", "pipe", "tmaps"))
+    target = want_maps.soft_disparity
+
+    initialize_multihost()
+    require(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+            "initialize_multihost() in a lone process: an NCCL world of one")
+    mesh = make_mesh(MeshConfig(1, 1))
+    stages = stage_mesh(1)
+    print(f"parallel one rank: world {dist.get_world_size()} "
+          f"({dist.get_backend()}), mesh {mesh}, stages {stages}")
+
+    reset_counters()
+    with torch.no_grad():
+        cv = sharded_cost_volume(cam, proj, cfg, mesh)            # K1
+    cam_s, proj_s = shard_batch((cam, proj), mesh)
+    cam_s.requires_grad_(True)
+    out = model.sharded_apply(cam_s, proj_s, mesh)                # K1
+    out.soft_disparity.mean().backward()                          # K2
+    with torch.no_grad():
+        maps = sharded_disparity_maps(cam, proj, cfg, mesh)       # K3
+    cam_s2 = shard_batch(cam, mesh).requires_grad_(True)
+    tmaps = sharded_disparity_maps(cam_s2, proj_s, cfg, mesh,
+                                   trainable=True)               # K3w
+    tmaps.soft_disparity.mean().backward()                        # K4
+    camera, losses = optimize_camera(
+        model, camera0, proj, target, learning_rate=TRAIN_LR,
+        num_steps=TRAIN_STEPS, mesh=mesh)                         # K1, K2
+    with torch.no_grad():
+        piped = pipelined_video_maps(vcams, vprojs, cfg_p, stages)  # K3m
+    torch.cuda.synchronize()
+    counts = read_counters()
+    print(f"parallel one rank: counters {counts}")
+    want = {"k1": 2 + TRAIN_STEPS, "k2": 1 + TRAIN_STEPS, "k3": 1,
+            "k3w": 1, "k4": 1, "k3m": PIPE_T}
+    for name, n in want.items():
+        require(counts[name] == n, f"parallel one rank: {name} launched {n} "
+                f"times (got {counts[name]})")
+    require(not any(counts[name] for name in KERNEL_COUNTERS
+                    if name not in want),
+            "parallel one rank: no other kernel launched")
+    require(not any(counts[name] for name in PLAIN_COUNTERS),
+            "parallel one rank: plain versions unused")
+
+    def same(a, b, what):
+        require(torch.equal(a.full_tensor() if hasattr(a, "full_tensor")
+                            else a, b), f"parallel one rank: {what} "
+                "bit-equal to the unsharded call")
+
+    same(cv, want_cv, "sharded_cost_volume")
+    for name in ("cost_volume", "disparity", "soft_disparity", "mask",
+                 "confidence"):
+        same(getattr(out, name), getattr(want_out, name),
+             f"sharded_apply {name}")
+    for name in maps._fields:
+        same(getattr(maps, name), getattr(want_maps, name),
+             f"sharded_disparity_maps {name}")
+        same(getattr(tmaps, name), getattr(want_tmaps, name),
+             f"sharded_disparity_maps(trainable) {name}")
+    grad_u, grad_t = ref["grad_u"], ref["grad_t"]
+    err = compare_grad(cam_s.grad.full_tensor(), grad_u,
+                       "parallel one rank: sharded_apply camera gradient "
+                       "(K2) against the unsharded", elementwise=True)
+    err = max(err, compare_grad(
+        cam_s2.grad.full_tensor(), grad_t, "parallel one rank: trainable "
+        "sharded camera gradient (K3w + K4) against the unsharded",
+        elementwise=True))
+    print(f"parallel one rank: gradients bit-equal: K2 "
+          f"{torch.equal(cam_s.grad.full_tensor(), grad_u)}, K4 "
+          f"{torch.equal(cam_s2.grad.full_tensor(), grad_t)}")
+    for name in ("disparity", "mask"):
+        require(torch.equal(getattr(piped, name), getattr(want_pipe, name)),
+                f"one-stage pipeline {name} equals the full-range K3's")
+    for name in ("soft_disparity", "confidence"):
+        require(torch.allclose(getattr(piped, name), getattr(want_pipe, name),
+                               rtol=PIPE_RTOL, atol=PIPE_ATOL),
+                f"one-stage pipeline {name} within rtol {PIPE_RTOL} / atol "
+                f"{PIPE_ATOL} of the full-range K3's")
+    losses = losses.cpu().tolist()
+    print(f"parallel one rank: optimize_camera(mesh 1x1) {TRAIN_STEPS} "
+          f"steps at {B}x{H}x{W} D={D} k={k}: losses {losses}")
+    require(all(np.isfinite(losses)), "mesh losses finite")
+    require(losses[-1] < losses[0], "mesh: the last loss below the first")
+    require(bool(torch.isfinite(camera).all()), "mesh camera finite")
+
+    # Host clock, synchronised: the sharded fused pipeline at 1 x 1 against
+    # the matcher's, on the same pair, in turns.
+    with torch.no_grad():
+        ms = {"sharded": [], "unsharded": []}
+        for what in ("unsharded", "sharded", "sharded", "unsharded"):
+            fn = ((lambda: sharded_disparity_maps(cam_s, proj_s, cfg, mesh))
+                  if what == "sharded"
+                  else (lambda: model.disparity_maps(cam, proj)))
+            ms[what].append(host_ms(fn))
+    sh, un = (float(np.mean(ms[w])) for w in ("sharded", "unsharded"))
+    print(f"time: sharded_disparity_maps at mesh 1x1 {sh:.4f} ms against "
+          f"StereoMatcher.disparity_maps {un:.4f} ms (host clock, "
+          f"synchronised, median of 10 in turns; {B}x{H}x{W} D={D} k={k}; "
+          f"{card})")
+    counts["sharded_ms"], counts["unsharded_ms"] = sh, un
+    dist.destroy_process_group()
+    require(not dist.is_initialized(), "process group destroyed")
+    counts["grad_err"] = err
+    return counts
+
+
+def halo_blocks(x: torch.Tensor, space: int, halo: int):
+    """Each row shard's block as ``halo_exchange`` delivers it: the
+    shard's rows and ``halo`` rows of each neighbour, zeros past the true
+    borders."""
+    h = x.shape[1] // space
+    xp = F.pad(x, (0, 0, halo, halo))
+    return [xp[:, s * h:s * h + h + 2 * halo] for s in range(space)]
+
+
+def stitch_grads(grads, halo: int) -> torch.Tensor:
+    """The camera gradient of the extended blocks' gradients: each shard's
+    own rows, then the slab its upper neighbour's bottom halo received
+    added onto its top rows and the slab its lower neighbour's top halo
+    received onto its bottom rows, in ``halo_exchange``'s backward order."""
+    n = len(grads)
+    h = grads[0].shape[1] - 2 * halo
+    out = []
+    for s, g in enumerate(grads):
+        own = g[:, halo:halo + h].clone()
+        if s > 0:
+            own[:, :halo] += grads[s - 1][:, halo + h:]
+        if s + 1 < n:
+            own[:, h - halo:] += grads[s + 1][:, :halo]
+        out.append(own)
+    return torch.cat(out, dim=1)
+
+
+def stage_op_times(cam, proj, S: int, chunk: int, cfg, rates: dict,
+                   card: str):
+    """The last stage's op (``chunk_state``, CUDA events) and K3m alone on
+    the same padded, shifted pair, beside their models: (op ms, K3m ms,
+    op model ms)."""
+    H, W = cam.shape
+    Wp = W + PIPE_D + 1 - chunk
+    off = (S - 1) * chunk
+    ms = 1e3 * benchmark(chunk_state, cam, proj, off, chunk, cfg, warmup=2,
+                         iters=10, chain=3)["median_s"]
+    cam_p = F.pad(cam, (0, Wp - W))[None]
+    proj_sh = F.pad(F.pad(proj, (0, Wp - W))[..., :Wp - off], (off, 0))[None]
+    k3m = 1e3 * benchmark(
+        fused_pipeline_train_cuda, cam_p, proj_sh, chunk - 1,
+        cfg.kernel_size, cfg.epsilon, cfg.softargmax_beta,
+        cfg.cost_threshold, False, warmup=2, iters=10, chain=3)["median_s"]
+    model_ms, model_by, _ = model_bound(
+        km.stage_op_cost(H, W, PIPE_D, S, cfg.kernel_size,
+                         cfg.softargmax_beta), rates)
+    k3m_model, _, _ = model_bound(km.fused_forward_cost(
+        H, Wp, chunk - 1, cfg.kernel_size, residuals=True), rates)
+    print(f"time: K3m stage op (chunk_state) at S={S}: {chunk} planes over "
+          f"{H}x{Wp}: {ms:.4f} ms, of it K3m alone {k3m:.4f} ms (CUDA "
+          f"events); stage_op_cost model {model_ms:.4f} ms ({model_by}), "
+          f"K3m's {k3m_model:.4f} ms ({card})")
+    return ms, k3m, model_ms
+
+
+def phase_parallel_compute(card: str, rates: dict, ref: dict) -> dict:
+    """Each shard's compute at space = 2 and 4 and each stage's at S = 2
+    and 4, on one card: the per-shard functions of ``parallel/sharded.py``
+    on the blocks the halo exchange delivers, held against ``ref``'s
+    unsharded results (:func:`phase_parallel_unsharded`, which holds them
+    against the plain versions), and the stage op of
+    ``parallel/pipeline.py`` merged in stage order, held against the
+    full-range K3 and the plain pipeline.  Returns the K3m stage op's
+    times."""
+    H, W = BUCKET
+    B, k, D = PAR_B, PAR_K, PAR_D
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    halo = cfg.pad
+    cam, proj = ref["cam"], ref["proj"]
+    n_px = B * H * W
+    want_cv, want_maps = ref["cv"], ref["maps"]
+    err = 0.0
+    for space in PAR_SPACES:
+        cams = halo_blocks(cam, space, halo)
+        projs = halo_blocks(proj, space, halo)
+        with torch.no_grad():
+            cv = torch.cat([local_cost_volume(c, p, cfg, halo)
+                            for c, p in zip(cams, projs)], dim=1)
+            require(torch.equal(cv, want_cv),
+                    f"space={space}: stitched K1 volume bit-equal to the "
+                    f"unsharded call")
+            del cv
+            maps = [local_disparity_maps(c, p, cfg, halo)
+                    for c, p in zip(cams, projs)]
+            for i, name in enumerate(want_maps._fields):
+                got = torch.cat([m[i] for m in maps], dim=1)
+                require(torch.equal(got, getattr(want_maps, name)),
+                        f"space={space}: stitched K3 {name} bit-equal to "
+                        f"the unsharded call")
+        # K1 + K2 and K3w + K4 on each extended block, the loss the global
+        # mean soft disparity.
+        for trainable in (False, True):
+            grads = []
+            for c, p in zip(cams, projs):
+                c = c.clone().requires_grad_(True)
+                if trainable:
+                    soft = local_disparity_maps(c, p, cfg, halo,
+                                                trainable=True).soft_disparity
+                else:
+                    soft = extract_disparity(
+                        local_cost_volume(c, p, cfg, halo), D,
+                        cfg.cost_threshold,
+                        cfg.softargmax_beta).soft_disparity
+                (soft.sum() / n_px).backward()
+                grads.append(c.grad)
+            want = ref["grad_t"] if trainable else ref["grad_u"]
+            err = max(err, compare_grad(
+                stitch_grads(grads, halo), want,
+                f"space={space}: stitched camera gradient through "
+                f"{'K3w + K4' if trainable else 'K1 + K2'} against the "
+                f"unsharded", elementwise=True))
+        print(f"parallel compute: space={space}: K1 volume and K3 maps "
+              f"stitched from {space} halo-extended blocks of "
+              f"{H // space}+{2 * halo} rows bit-equal to the unsharded "
+              f"calls ({B}x{H}x{W} D={D} k={k})")
+
+    # The stage pipeline: S chunk states from K3m merged in stage order,
+    # held against the full-range K3 and the plain pipeline.
+    times = {}
+    with torch.no_grad():
+        pcost = forward_banded(cam, proj, PIPE_D, k, cfg.epsilon)
+    for beta in PIPE_BETAS:
+        cfg_p = StereoConfig(kernel_size=k, num_disparities=PIPE_D,
+                             softargmax_beta=beta)
+        with torch.no_grad():
+            full = stereo_pipeline_cuda(cam, proj, PIPE_D, k, cfg.epsilon,
+                                        beta, cfg.cost_threshold)
+            plain = stereo_pipeline_reference(cam, proj, PIPE_D, k,
+                                              cfg.epsilon, beta,
+                                              cfg.cost_threshold)
+            for S in PIPE_STAGES:
+                chunk = (PIPE_D + 1) // S
+                frames = []
+                for b in range(B):
+                    state = None
+                    for s in range(S):
+                        part = chunk_state(cam[b], proj[b], s * chunk, chunk,
+                                           cfg_p)
+                        state = (part if state is None
+                                 else merge_states(state, part))
+                    frames.append(finalize_state(state, cfg_p))
+                got = [torch.stack(m) for m in zip(*frames)]
+                compare_maps(type(full)(*got), plain, pcost,
+                             cfg.cost_threshold, False,
+                             f"S={S} beta={beta} merged K3m stages against "
+                             f"the plain pipeline, B={B} H={H} W={W} "
+                             f"D={PIPE_D} k={k}")
+                for name in ("disparity", "mask"):
+                    i = full._fields.index(name)
+                    require(torch.equal(got[i], getattr(full, name)),
+                            f"S={S} beta={beta}: merged {name} equals the "
+                            f"full-range K3's")
+                errs = []
+                for name in ("soft_disparity", "confidence"):
+                    i = full._fields.index(name)
+                    w = getattr(full, name)
+                    require(torch.allclose(got[i], w, rtol=PIPE_RTOL,
+                                           atol=PIPE_ATOL),
+                            f"S={S} beta={beta}: merged {name} within rtol "
+                            f"{PIPE_RTOL} / atol {PIPE_ATOL}")
+                    errs.append(float((got[i] - w).abs().max()))
+                print(f"parallel compute: S={S} beta={beta} (full range "
+                      f"{'un' if unnormalized_head(beta, PIPE_D) else ''}"
+                      f"normalized, stages "
+                      f"{'un' if unnormalized_head(beta, chunk - 1) else ''}"
+                      f"normalized): disparity and mask equal, soft max_abs "
+                      f"{errs[0]:.3e}, confidence max_abs {errs[1]:.3e}")
+                if beta == cfg.softargmax_beta:
+                    times[S] = stage_op_times(cam[0], proj[0], S, chunk,
+                                              cfg_p, rates, card)
+    del pcost
+    return {"grad_err": err, "stage_ms": times}
+
+
 LARGE_KERNELS = (
     # name, key, replaces
     ("large_k_banded_volume", "K1L",
@@ -2660,6 +3110,10 @@ def main() -> int:
     counts["lr"] = phase_lr_engine(card)
     counts["pyramid"] = phase_pyramid(card)
     phase_failsafe()
+    ref = phase_parallel_unsharded()
+    counts["parallel"] = phase_parallel_one_rank(card, ref)
+    phase_parallel_compute(card, rates, ref)
+    del ref
 
     kernels = []
     for name, key, source, replaces, path in KERNELS:

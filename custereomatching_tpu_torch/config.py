@@ -118,6 +118,25 @@ class StereoConfig:
         return (H, W, self.num_disparities + 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for the sharded pipeline: frames shard over
+    ``data``; image rows shard over ``space`` with a halo exchange of
+    ``kernel_size//2`` rows (``parallel/``).  One rank a device."""
+
+    data: int = 1
+    space: int = 1
+    axis_names: Tuple[str, str] = ("data", "space")
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.space)
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.space
+
+
 def entry_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when the caller names
     one, else the CUDA card.  Raises ``RuntimeError`` when that is CUDA and
@@ -130,13 +149,21 @@ def entry_device(device=None) -> torch.device:
     return device
 
 
-def config_from_jax(jax_cfg_fields: dict) -> StereoConfig:
-    """A port config from ``dataclasses.asdict`` of a JAX ``StereoConfig``.
+def config_from_jax(jax_cfg_fields: dict):
+    """A port config from ``dataclasses.asdict`` of a JAX ``StereoConfig``
+    or ``MeshConfig``.
 
-    The backend maps ``xla`` and ``pallas_interpret`` to ``torch`` and
+    The fields of a ``MeshConfig`` (``data``, ``space``, ``axis_names``)
+    give a :class:`MeshConfig` as they are.  For a ``StereoConfig`` the
+    backend maps ``xla`` and ``pallas_interpret`` to ``torch`` and
     ``pallas`` to ``cuda``; every other field carries over as it is.
     """
     fields = dict(jax_cfg_fields)
+    mesh_fields = {f.name for f in dataclasses.fields(MeshConfig)}
+    if fields and set(fields) <= mesh_fields:
+        fields["axis_names"] = tuple(fields.get("axis_names",
+                                                ("data", "space")))
+        return MeshConfig(**fields)
     backend = fields.get("backend", "auto")
     if backend not in _JAX_BACKENDS:
         raise ValueError(f"unknown JAX backend {backend!r}")

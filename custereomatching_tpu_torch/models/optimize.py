@@ -5,6 +5,11 @@ the camera frames so that the differentiable (soft-argmax) disparity
 matches a target map.  On CUDA tensors with the default backend the loss
 runs the trainable fused pipeline (kernels K3w forward, K4 backward); on
 CPU tensors, or with ``backend="torch"``, the plain volume op and head.
+With a ``(data, space)`` mesh the loss runs the sharded volume
+(``parallel/sharded.py``: K1 forward, K2 backward on each rank's
+halo-extended block) and the plain head, as in the JAX package; the
+camera is a ``DTensor``, the loss its global mean, and Adam updates each
+rank's own block.
 
 ``torch.optim.Adam`` takes the place of ``optax.adam``, with the same
 defaults (beta1 0.9, beta2 0.999, eps 1e-8 added outside the square root)
@@ -22,11 +27,13 @@ from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from custereomatching_tpu_torch.models.stereo import StereoMatcher
-
-MESH_TODO = ("mesh: the parallel layer is not ported yet (ROADMAP, modules "
-             "to port: parallel/)")
+from custereomatching_tpu_torch.parallel.sharded import (
+    shard_batch,
+    sharded_disparity,
+)
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -79,14 +86,27 @@ def train_state_from_jax(camera: np.ndarray, count, mu: np.ndarray,
     return state._replace(step=int(np.asarray(count)))
 
 
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A plain tensor of a (replicated or sharded) ``DTensor``'s value."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def disparity_loss(model: StereoMatcher, camera: torch.Tensor,
                    projector: torch.Tensor, target_disparity: torch.Tensor,
                    mesh=None) -> torch.Tensor:
-    """Mean-squared error of the soft disparity against a target map."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+    """Mean-squared error of the soft disparity against a target map.
+
+    With ``mesh`` the volume is sharded
+    (:meth:`StereoMatcher.sharded_cost_volume`) and the plain head runs on
+    each block; the result is a replicated ``DTensor``, the global mean.  Plain tensors are distributed with the
+    pipeline's placements (:func:`..parallel.sharded.shard_batch`)."""
     c = model.config
-    if (c.num_disparities is not None and not c.grad_projector
+    if mesh is not None:
+        camera, projector, target_disparity = shard_batch(
+            (camera, projector, target_disparity), mesh)
+        cv = model.sharded_cost_volume(camera, projector, mesh)
+        d = sharded_disparity(cv, c)
+    elif (c.num_disparities is not None and not c.grad_projector
             and c.resolved_backend(camera.device) == "cuda"):
         # Trainable fused pipeline: no cost-volume cotangent in memory.
         d = model.trainable_disparity_maps(camera, projector)
@@ -101,23 +121,25 @@ def make_train_step(model: StereoMatcher, mesh=None):
 
     The optimizer comes with the state (:func:`init_state`).  The step
     updates ``state.camera`` in place and returns the state with its
-    count advanced; ``mesh`` raises ``NotImplementedError``.
+    count advanced.  With ``mesh`` the loss runs the sharded volume path;
+    ``state.camera`` is then a ``DTensor`` (``init_state`` of
+    :func:`..parallel.sharded.shard_batch`'s camera), each rank's Adam
+    updates its own block, and the metrics are global plain tensors.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
 
     def step(state: TrainState, projector: torch.Tensor,
              target_disparity: torch.Tensor
              ) -> Tuple[TrainState, StepMetrics]:
         state.optimizer.zero_grad(set_to_none=True)
         loss = disparity_loss(model, state.camera, projector,
-                              target_disparity)
+                              target_disparity, mesh)
         loss.backward()
         grad = state.camera.grad
         grad_norm = torch.sqrt(torch.sum(grad * grad))
         state.optimizer.step()
         return (state._replace(step=state.step + 1),
-                StepMetrics(loss=loss.detach(), grad_norm=grad_norm))
+                StepMetrics(loss=_full(loss.detach()),
+                            grad_norm=_full(grad_norm)))
 
     return step
 
@@ -128,13 +150,15 @@ def optimize_camera(model: StereoMatcher, camera0: torch.Tensor,
                     learning_rate: float = 1e-2, num_steps: int = 100,
                     mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Convenience loop: ``num_steps`` of Adam; returns the optimised
-    camera (detached) and the ``[num_steps]`` losses."""
+    camera (detached; with ``mesh`` gathered into a plain tensor on every
+    rank) and the ``[num_steps]`` losses."""
     if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+        camera0, projector, target_disparity = shard_batch(
+            (camera0, projector, target_disparity), mesh)
     state = init_state(camera0, adam(learning_rate))
-    step_fn = make_train_step(model)
+    step_fn = make_train_step(model, mesh)
     losses = []
     for _ in range(num_steps):
         state, metrics = step_fn(state, projector, target_disparity)
         losses.append(metrics.loss)
-    return state.camera.detach(), torch.stack(losses)
+    return _full(state.camera.detach()), torch.stack(losses)

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from custereomatching_tpu_torch.config import StereoConfig, entry_device
-from custereomatching_tpu_torch.ops import stereo_matching
+from custereomatching_tpu_torch.ops import cost_volume
 from custereomatching_tpu_torch.ops.consistency import (
     flip_back,
     lr_consistency_mask,
@@ -33,9 +33,9 @@ from custereomatching_tpu_torch.ops.disparity import (
     DisparityResult,
     extract_disparity,
 )
-from custereomatching_tpu_torch.ops.zncc import (
-    stereo_matching_torch,
-    stereo_matching_with_proj_grad,
+from custereomatching_tpu_torch.parallel.sharded import (
+    sharded_cost_volume,
+    sharded_disparity,
 )
 
 
@@ -85,24 +85,10 @@ class StereoMatcher(nn.Module):
     def cost_volume(self, camera: torch.Tensor,
                     projector: torch.Tensor) -> torch.Tensor:
         """ZNCC cost volume ``[B, H, W, L]`` of a ``[B, H, W]`` batch: L is
-        D+1 (banded) or W (all-pairs, ``num_disparities=None``).
-
-        Routed as the JAX ``cost_volume_single``: with ``grad_projector``
-        the volume is differentiable in both images (``cuda``, banded: K1
-        with K2 and K7 backward; otherwise autograd of the plain moments
-        form); without it, in the camera only (K1 + K2, K8 + the plain
-        all-pairs VJP, or the plain ops)."""
-        c = self.config
-        if self._backend(camera) == "cuda":
-            return stereo_matching(camera, projector, c.num_disparities,
-                                   c.kernel_size, c.epsilon,
-                                   c.grad_projector, c.precision)
-        if c.grad_projector:
-            return stereo_matching_with_proj_grad(
-                camera, projector, c.num_disparities, c.kernel_size,
-                c.epsilon)
-        return stereo_matching_torch(camera, projector, c.num_disparities,
-                                     c.kernel_size, c.epsilon)
+        D+1 (banded) or W (all-pairs, ``num_disparities=None``), routed by
+        :func:`..ops.cost_volume` (K1 + K2, with ``grad_projector`` K7;
+        K8; or the plain ops)."""
+        return cost_volume(camera, projector, self.config)
 
     def disparity(self, cost_volume: torch.Tensor) -> DisparityResult:
         """Batched disparity head over a ``[B, H, W, L]`` volume."""
@@ -187,16 +173,25 @@ class StereoMatcher(nn.Module):
                             soft_disparity=left.soft_disparity * lr,
                             mask=left.mask * lr, confidence=left.confidence)
 
-    # -- not ported yet -------------------------------------------------------
-    def sharded_cost_volume(self, camera, projector, mesh=None):
-        raise NotImplementedError(
-            "sharded_cost_volume: the parallel layer is not ported yet "
-            "(ROADMAP, modules to port: parallel/)")
+    # -- mesh-sharded ---------------------------------------------------------
+    def sharded_cost_volume(self, camera, projector, mesh):
+        """Cost volume sharded over a ``(data, space)`` mesh
+        (:func:`..parallel.sharded.sharded_cost_volume`): a ``DTensor``."""
+        return sharded_cost_volume(camera, projector, self.config, mesh)
 
-    def sharded_apply(self, camera, projector, mesh=None):
-        raise NotImplementedError(
-            "sharded_apply: the parallel layer is not ported yet "
-            "(ROADMAP, modules to port: parallel/)")
+    def sharded_apply(self, camera, projector, mesh) -> StereoOutput:
+        """Full pipeline with the volume sharded over ``mesh``.
+
+        The disparity head is elementwise over the sharded axes (its
+        reductions run along the unsharded disparity axis), so each rank
+        runs it on its own block with no collective; every output is a
+        ``DTensor`` with the images' placements.
+        """
+        cv = self.sharded_cost_volume(camera, projector, mesh)
+        d = sharded_disparity(cv, self.config)
+        return StereoOutput(cost_volume=cv, disparity=d.disparity,
+                            soft_disparity=d.soft_disparity, mask=d.mask,
+                            confidence=d.confidence)
 
 
 def entry(device: Optional[torch.device] = None):

@@ -142,6 +142,29 @@ def stereo_matching(camera: torch.Tensor, projector: torch.Tensor,
     return cost[0] if single else cost
 
 
+def cost_volume(camera: torch.Tensor, projector: torch.Tensor,
+                config) -> torch.Tensor:
+    """ZNCC cost volume ``[B, H, W, L]`` of a ``[B, H, W]`` batch as a
+    :class:`~custereomatching_tpu_torch.config.StereoConfig` routes it:
+    L is D+1 (banded) or W (all-pairs, ``num_disparities=None``).
+
+    Routed as the JAX ``cost_volume_single``: with ``grad_projector``
+    the volume is differentiable in both images (``cuda``, banded: K1
+    with K2 and K7 backward; otherwise autograd of the plain moments
+    form); without it, in the camera only (K1 + K2, K8 + the plain
+    all-pairs VJP, or the plain ops)."""
+    c = config
+    if c.resolved_backend(camera.device) == "cuda":
+        return stereo_matching(camera, projector, c.num_disparities,
+                               c.kernel_size, c.epsilon, c.grad_projector,
+                               c.precision)
+    if c.grad_projector:
+        return stereo_matching_with_proj_grad(
+            camera, projector, c.num_disparities, c.kernel_size, c.epsilon)
+    return stereo_matching_torch(camera, projector, c.num_disparities,
+                                 c.kernel_size, c.epsilon)
+
+
 def stereo_matching_hdw(camera: torch.Tensor, projector: torch.Tensor,
                         num_disparities: int, kernel_size: int = 15,
                         epsilon: float = EPSILON,
@@ -177,6 +200,7 @@ __all__ = [
     "camera_grad_banded",
     "camera_grad_banded_cuda",
     "camera_grad_banded_parity_cuda",
+    "cost_volume",
     "cost_volume_allpairs_cuda",
     "cost_volume_banded_cuda",
     "disparity_to_depth",

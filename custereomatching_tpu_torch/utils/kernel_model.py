@@ -727,6 +727,36 @@ def fused_forward_cost(H: int, W: int, D: int, k: int,
         c.bytes_w + maps * px * 4 + (planes * px * 4 if write_volume else 0))
 
 
+def stage_op_cost(H: int, W: int, D: int, S: int, k: int,
+                  beta: float = 50.0) -> OpCount:
+    """One pipeline stage's op (``parallel/pipeline.py::chunk_state`` on
+    the card): K3m (:func:`fused_forward_cost` with the residuals) at
+    ``chunk − 1`` disparities over the stage-padded width
+    ``W + (D+1) − chunk``, plus the glue, one pass a torch op: the two
+    images padded, the projector shifted, ``m = β·conf``, under the
+    unnormalized head ``e^{−m}`` and the rescale of
+    s and t, and the lift ``am + off``, ``t + off·s``."""
+    # Imported here: ops.cuda_pipeline imports this module.
+    from custereomatching_tpu_torch.ops.cuda_pipeline import (
+        unnormalized_head,
+    )
+
+    chunk = -(-(D + 1) // S)
+    W_pad = W + (D + 1) - chunk
+    px, px_pad = H * W, H * W_pad
+    c = fused_forward_cost(H, W_pad, chunk - 1, k, residuals=True)
+    # pad x2 (read the image, write it padded), shift (read, write).
+    r, w = 2 * px + px_pad, 3 * px_pad
+    # m = beta conf; am + off; off s; t + off s.
+    madd, r, w = 4 * px, r + 5 * px, w + 4 * px
+    glue = OpCount(madd=madd)
+    if unnormalized_head(beta, chunk - 1):
+        # -m, exp, s * scale, t * scale.
+        glue = glue + OpCount(madd=3 * px, exp=px)
+        r, w = r + 6 * px, w + 4 * px
+    return _with_bytes(c + glue, c.bytes_r + 4 * r, c.bytes_w + 4 * w)
+
+
 def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
                     recompute: bool, staged: bool = True) -> Dict[str, int]:
     """Shared-memory geometry of the rounds kernel of K4 (``head``), K6
@@ -1434,7 +1464,7 @@ __all__ = ["LARGE_K_KERNELS", "OpCount",
            "large_k_cost", "large_k_route", "large_k_scratch",
            "measure_vpu_rates", "parity_block_floats", "parity_chunks",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
-           "rate_probe_reference", "stats_block_floats",
+           "rate_probe_reference", "stage_op_cost", "stats_block_floats",
            "to_parity_cost", "transpose_volume_cost",
            "volume_backward_cost",
            "volume_forward_cost", "window_pass_cost"]

@@ -8,8 +8,13 @@ import sys
 import pytest
 import torch
 
+from custereomatching_tpu.config import MeshConfig as JaxMeshConfig
 from custereomatching_tpu.config import StereoConfig as JaxStereoConfig
-from custereomatching_tpu_torch.config import StereoConfig, config_from_jax
+from custereomatching_tpu_torch.config import (
+    MeshConfig,
+    StereoConfig,
+    config_from_jax,
+)
 
 
 @pytest.mark.parametrize("bad", [
@@ -55,6 +60,21 @@ def test_config_from_jax(jax_backend, port_backend):
     assert cfg.pad == jcfg.pad
 
 
+@pytest.mark.parametrize("data,space", [(1, 1), (2, 1), (1, 4), (2, 2)])
+def test_mesh_config_from_jax(data, space):
+    """A JAX MeshConfig's fields give the port's MeshConfig, field for
+    field, with the same shape and device count."""
+    jcfg = JaxMeshConfig(data=data, space=space)
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    assert isinstance(cfg, MeshConfig)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert (cfg.shape, cfg.num_devices, cfg.axis_names) == (
+        jcfg.shape, jcfg.num_devices, jcfg.axis_names)
+    assert ({f.name: f.default for f in dataclasses.fields(MeshConfig)}
+            == {f.name: f.default for f in dataclasses.fields(
+                JaxMeshConfig)})
+
+
 def test_backend_resolution():
     cpu = torch.device("cpu")
     assert StereoConfig().resolved_backend(cpu) == "torch"
@@ -73,6 +93,9 @@ def test_port_imports_no_jax():
             "custereomatching_tpu_torch.models.optimize, "
             "custereomatching_tpu_torch.utils.metrics, "
             "custereomatching_tpu_torch.examples.train, "
+            "custereomatching_tpu_torch.examples.scaling, "
+            "custereomatching_tpu_torch.examples.pipeline_stages, "
+            "custereomatching_tpu_torch.parallel.pipeline, "
             "custereomatching_tpu_torch.scripts.device_profile; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'custereomatching_tpu.'))"

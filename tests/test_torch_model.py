@@ -129,11 +129,28 @@ def test_cuda_backend_on_cpu_tensors_raises():
     ("sharded_cost_volume", "parallel/"), ("sharded_apply", "parallel/"),
 ])
 def test_unported_model_paths_raise(call, item):
-    x = torch.zeros((1, 6, 8))
-    fn = getattr(StereoMatcher(StereoConfig(num_disparities=2)), call)
-    with pytest.raises(NotImplementedError,
-                       match=f"modules to port: {item}"):
-        fn(x, x)
+    """Named for when these paths raised (``parallel/`` was not ported):
+    now they run, on a 1 x 1 mesh of a gloo world of one, and give the
+    unsharded call's values bit for bit, as ``DTensor``s."""
+    from torch.distributed.tensor import DTensor
+
+    from custereomatching_tpu_torch.config import MeshConfig
+    from custereomatching_tpu_torch.parallel import make_mesh
+    from tests.torch_parallel_ranks import world_of_one
+
+    assert item == "parallel/"
+    cam, proj = (torch.from_numpy(a) for a in _batch(9, 2, 16, 24))
+    model = StereoMatcher(StereoConfig(kernel_size=5, num_disparities=6))
+    with world_of_one():
+        got = getattr(model, call)(cam, proj,
+                                   make_mesh(MeshConfig(1, 1), "cpu"))
+        got = got if call == "sharded_apply" else (got,)
+        assert all(isinstance(x, DTensor) for x in got)
+        got = [x.full_tensor() for x in got]
+    want = model(cam, proj)
+    want = want if call == "sharded_apply" else (want.cost_volume,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _train_argv(tmp_path):

@@ -319,13 +319,31 @@ def test_train_state_from_jax_continues_optax():
 
 
 def test_mesh_not_ported():
+    """Named for when ``mesh`` raised: now ``make_train_step(model, mesh)``
+    runs a step on a 1 x 1 mesh of a gloo world of one, and the sharded
+    loss is the unsharded one."""
+    from custereomatching_tpu_torch.config import MeshConfig
+    from custereomatching_tpu_torch.parallel import make_mesh, shard_batch
+    from tests.torch_parallel_ranks import world_of_one
+
     model = StereoMatcher(config_from_jax({"num_disparities": 2,
                                            "kernel_size": 3}))
-    x = torch.zeros((1, 6, 8))
-    with pytest.raises(NotImplementedError, match="modules to port: parallel/"):
-        optimize.make_train_step(model, mesh="2x4")
-    with pytest.raises(NotImplementedError, match="modules to port: parallel/"):
-        optimize.disparity_loss(model, x, x, x, mesh="2x4")
+    rng = np.random.default_rng(21)
+    cam, proj = (torch.from_numpy(rng.random((1, 6, 8), dtype=np.float32))
+                 for _ in range(2))
+    target = torch.zeros((1, 6, 8))
+    want = optimize.disparity_loss(model, cam, proj, target)
+    with world_of_one():
+        mesh = make_mesh(MeshConfig(1, 1), "cpu")
+        loss = optimize.disparity_loss(model, cam, proj, target, mesh=mesh)
+        assert torch.equal(loss.full_tensor(), want)
+        cam_s, proj_s, tgt_s = shard_batch((cam, proj, target), mesh)
+        state = optimize.init_state(cam_s, optimize.adam(1e-2))
+        state, m = optimize.make_train_step(model, mesh=mesh)(
+            state, proj_s, tgt_s)
+        assert state.step == 1
+        assert torch.equal(m.loss, want)
+        assert bool(torch.isfinite(m.grad_norm))
 
 
 def test_video_batch_and_metrics_match_jax():
@@ -362,7 +380,13 @@ def test_trainer_example_checkpoint_and_resume(tmp_path, capsys):
     train_example.main(argv + ["--steps", "3"])
     out = capsys.readouterr().out
     assert "resumed from step 2" in out and "step     3" in out
-    with pytest.raises(NotImplementedError, match="modules to port: parallel/"):
-        train_example.main(argv + ["--mesh", "2x4"])
+    # Sharded over a 1 x 2 mesh of 2 spawned gloo ranks: resumes from the
+    # single-device checkpoint and checkpoints the full state.
+    train_example.main(argv + ["--steps", "4", "--mesh", "1x2", "--ranks",
+                               "2"])
+    out = capsys.readouterr().out
+    assert "mesh: DeviceMesh" in out and "resumed from step 3" in out
+    assert "checkpointed step 4" in out
+    assert "step_00000004.pt" in [p.name for p in tmp_path.iterdir()]
     with pytest.raises(NotImplementedError, match="modules to port: ops/tuning.py"):
         train_example.main(argv + ["--autotune"])
