@@ -2,8 +2,9 @@
 PyTorch and kernels K1, K2, K6, K7, K8), in the parity and the plane-major
 layout, the layout conversions (K9a, K9b), the fused pipeline (plain and
 kernel K3), its trainable forms (kernels K3w and K4, K3m and K5), the
-disparity heads, the left-right consistency check and, where a kernel's
-blocks do not fit, the large-k route (``cuda_large_k``)."""
+disparity heads, the left-right consistency check, the golden oracle
+(``golden``, a direct patch sum) and, where a kernel's blocks do not fit,
+the large-k route (``cuda_large_k``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from custereomatching_tpu_torch.ops import golden
 from custereomatching_tpu_torch.ops.consistency import lr_consistency_mask
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
     CudaAllPairsMatching,
@@ -192,6 +194,7 @@ def stereo_matching_hdw(camera: torch.Tensor, projector: torch.Tensor,
 
 
 __all__ = [
+    "golden",
     "DisparityResult",
     "EPSILON",
     "PipelineMaps",

@@ -96,7 +96,16 @@ def test_port_imports_no_jax():
             "custereomatching_tpu_torch.examples.scaling, "
             "custereomatching_tpu_torch.examples.pipeline_stages, "
             "custereomatching_tpu_torch.parallel.pipeline, "
-            "custereomatching_tpu_torch.scripts.device_profile; "
+            "custereomatching_tpu_torch.scripts.device_profile, "
+            "custereomatching_tpu_torch.native, "
+            "custereomatching_tpu_torch.data.io, "
+            "custereomatching_tpu_torch.data.kitti, "
+            "custereomatching_tpu_torch.ops.golden, "
+            "custereomatching_tpu_torch.examples.real_capture, "
+            "custereomatching_tpu_torch.examples.kitti_eval, "
+            "custereomatching_tpu_torch.examples.serve, "
+            "custereomatching_tpu_torch.examples.video_depth, "
+            "custereomatching_tpu_torch.examples.demo; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'custereomatching_tpu.'))"
             " or m == 'custereomatching_tpu'); "
@@ -104,3 +113,33 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# Names of the JAX package's top level the port leaves out, each with its
+# reason.  None: the port exports every one.
+JAX_ONLY = {}
+
+
+def test_top_level_covers_jax():
+    """Every name of the JAX package's top-level ``__all__`` is in the
+    port's (a submodule name: the port has that submodule), apart from
+    ``JAX_ONLY``; and ``ops.golden`` is exported as in JAX."""
+    import importlib
+    import types
+
+    import custereomatching_tpu as jax_pkg
+    import custereomatching_tpu_torch as pkg
+
+    missing = []
+    for name in jax_pkg.__all__:
+        if name in JAX_ONLY:
+            continue
+        if isinstance(getattr(jax_pkg, name), types.ModuleType):
+            importlib.import_module(f"custereomatching_tpu_torch.{name}")
+        elif name not in pkg.__all__ or not hasattr(pkg, name):
+            missing.append(name)
+    assert not missing, f"JAX top-level names the port lacks: {missing}"
+    from custereomatching_tpu_torch import ops
+
+    assert "golden" in ops.__all__ and ops.golden.__name__ == (
+        "custereomatching_tpu_torch.ops.golden")
