@@ -4,8 +4,8 @@ training path, the all-pairs path, the projector-gradient path, the
 volume-free training path, the plane-major path, the camera VJP
 without the cost residual, the bound model's rate probes, the large-k
 route, the left-right serving path, the pyramid, the failsafe layer, the
-parallel layer, the data layer, the golden oracle and the data-driven
-examples.
+parallel layer, the data layer, the golden oracle, the data-driven
+examples, the tile tuner and the rounds kernels at every tile.
 
     python3 chip_smoke.py
 
@@ -137,7 +137,12 @@ imports nothing of JAX.  Phases, each printing its lines:
     of its kernels runs, no plain twin;
 26b. the route choice pinned against the launchers: for every kernel and
     D = 0, 24, 192, its own blocks run at the last k before the route and
-    its launcher refuses the first k on it (the choice switched off);
+    its launcher refuses the first k on it (the choice switched off); at
+    every tile of the rounds kernels (8, 16 and 32 rows), the launchers'
+    planes a round and chunk (queried, nothing launched) equal the model's
+    at every odd k to 255, and K1, the K3 family and K4 at 8 and 32 rows
+    run their own blocks at the last k before that tile's route and are
+    refused at its first;
 27. each route timed at KITTI with k = 129 (K8 at 330x422, k = 145)
     beside its plain version, bound and model (K4 also on its own rounds),
     and its output there held against its plain version's;
@@ -210,7 +215,26 @@ imports nothing of JAX.  Phases, each printing its lines:
     against the plain pipeline on the same inputs (hard disparity and
     mask equal except at top-two ties, counted, or a mask within 1e-5 of
     the threshold; soft disparity rtol 1e-4 / atol 1e-5 where the masks
-    agree); each example's own numbers printed beside the card.
+    agree); each example's own numbers printed beside the card;
+37. the tile tuner (``ops/tuning.py``) from an empty cache file: K3, K1
+    and K4 at KITTI and K3 at serve's bucket (384x512, D = 48, k = 15);
+    every candidate it measured bit-equal to the default tile's output
+    (K1's volume, K3's maps, at K3's tiles also K3w's and K3m's maps and
+    residuals, K4's gradient) and held against the plain version, its
+    model and measured ms printed;
+    each winner beside the default's ms, then from the disk cache (nothing
+    measured) against the plain version; ``StereoEngine(autotune=True)``
+    (maps bit-equal to the untuned engine's and held against the plain
+    pipeline) and ``serve --autotune`` on the card;
+38. the tiled path, counters reset before each tile: at 8 and 32 rows a
+    ``StereoMatcher`` configured with that tile serves a KITTI pair (K3)
+    and takes a training step (K3w + K4), the volume-free trainable
+    pipeline runs forward (K3m) and K1 writes the volume, each bit-equal
+    to the default tile's and held against its plain version on the same
+    inputs (K1's volume as phase 3, the K3 family's maps as phase 4, K4's
+    gradient as phase 8: the errors of the ``kernels`` line's tiled
+    entries); every tiled kernel launched, no plain version; then each
+    timed at KITTI beside its default tile.
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -222,6 +246,7 @@ card.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -258,14 +283,17 @@ from custereomatching_tpu_torch.models import (
 )
 from custereomatching_tpu_torch.ops import (
     _build,
+    cuda_zncc,
     extract_disparity_hdw,
     golden,
     stereo_matching_hdw,
+    tuning,
 )
 from custereomatching_tpu_torch.ops import cuda_large_k as lk
 from custereomatching_tpu_torch.ops.consistency import lr_consistency_mask
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     HeadResiduals,
+    PipelineMaps,
     fused_pipeline_bwd_cuda,
     fused_pipeline_bwd_reference,
     fused_pipeline_train_cuda,
@@ -426,6 +454,9 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"build: {line.strip()}")
+        for unit, name, regs, st, ld in rounds_registers(log.read_text()):
+            print(f"build: rounds kernel {unit}: {name}: {regs} registers, "
+                  f"spill stores {st} B, spill loads {ld} B")
 
 
 def compare_volume(got, want, label: str, kernel: str = "K1") -> float:
@@ -576,6 +607,8 @@ KERNEL_COUNTERS = {
     "k10a": (km.rate_probe, "launches"),
     "k10b": (km.hbm_read_probe, "launches"),
     "k10c": (km.hbm_write_probe, "launches")}
+OTHER_TILES = tuple(th for th in km.TILE_ROWS if th != km.K_TILE_H)
+TILE_KERNEL_KEYS = ("K1", "K3", "K3w", "K3m", "K4")
 # Plain twins of kernels: no main path may call them.
 PLAIN_COUNTERS = {
     "plain_rate_probe": km.rate_probe_reference,
@@ -865,42 +898,63 @@ def phase_k4() -> float:
     return err
 
 
-def hold_trainable(cam, proj, D: int, k: int, beta: float, loss_of,
-                   label: str, elementwise: bool):
-    """The whole trainable pipeline (K3w + K4) against its plain twin on
-    the loss ``loss_of(maps)``: the two forwards may disagree on the
-    argmax only at top-two ties and on the mask only within 1e-5 of the
-    threshold; the gradient is compared outside the k x k neighbourhoods
-    of such pixels.  Returns the kernels' camera gradient and maps."""
-    grads, outs = [], []
-    for fn in (stereo_pipeline_trainable,
-               stereo_pipeline_trainable_reference):
-        c = cam.clone().requires_grad_(True)
-        out = fn(c, proj, D, k, EPS, beta, THRESHOLD)
-        grads.append(torch.autograd.grad(loss_of(out), c)[0])
-        outs.append(type(out)(*(m.detach() for m in out)))
-    (_, _, mask_k, _), (_, _, mask_p, conf_p) = outs
+def plain_trainable(cam, proj, D: int, k: int, beta: float,
+                    loss_of) -> dict:
+    """The plain trainable pipeline on the loss ``loss_of(maps)``: its
+    camera gradient and maps, the plain volume's top-two ties and the
+    plain head's argmax, which :func:`hold_against_plain` holds a kernel
+    run against."""
+    c = cam.clone().requires_grad_(True)
+    out = stereo_pipeline_trainable_reference(c, proj, D, k, EPS, beta,
+                                              THRESHOLD)
+    grad = torch.autograd.grad(loss_of(out), c)[0]
     cost = forward_banded(cam, proj, D, k, EPS)
-    tie = top2_ties(cost)
-    am_k = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
-                                     THRESHOLD)[1].am
-    am_p = head_residuals(cost, D, beta)[0]
+    plain = {"grad": grad, "maps": type(out)(*(m.detach() for m in out)),
+             "tie": top2_ties(cost), "am": head_residuals(cost, D, beta)[0]}
     del cost
-    flips = mask_k != mask_p
-    differ = am_k != am_p
+    return plain
+
+
+def hold_against_plain(grad, maps, am, plain: dict, k: int, label: str,
+                       elementwise: bool) -> float:
+    """A trainable pipeline's (K3w + K4) camera gradient, maps and argmax
+    against :func:`plain_trainable`'s: the two forwards may disagree on
+    the argmax only at top-two ties and on the mask only within 1e-5 of
+    the threshold; the gradient is compared outside the k x k
+    neighbourhoods of such pixels.  Returns the gradient's max abs
+    error."""
+    flips = maps.mask != plain["maps"].mask
+    differ = am != plain["am"]
+    conf_p = plain["maps"].confidence
     require(bool(((conf_p - THRESHOLD).abs() <= 1e-5)[flips].all()),
             f"K3w+K4 {label}: every mask flip within 1e-5 of the "
             f"threshold")
-    require(not bool((differ & ~tie).any()),
+    require(not bool((differ & ~plain["tie"]).any()),
             f"K3w+K4 {label}: argmax differs only at top-two ties")
-    odd = (flips | differ).to(cam.dtype)
+    odd = (flips | differ).to(grad.dtype)
     keep = box2d(odd, k, dim=1) == 0
     print(f"K3w+K4 {label}: argmax mismatches {int(differ.sum())}, mask "
           f"flips {int(flips.sum())}; gradient compared on "
           f"{int(keep.sum())} of {keep.numel()} pixels")
-    compare_grad(grads[0], grads[1], f"K3w+K4 {label}",
-                 elementwise=elementwise, keep=keep)
-    return grads[0], outs[0]
+    return compare_grad(grad, plain["grad"], f"K3w+K4 {label}",
+                        elementwise=elementwise, keep=keep)
+
+
+def hold_trainable(cam, proj, D: int, k: int, beta: float, loss_of,
+                   label: str, elementwise: bool):
+    """The whole trainable pipeline (K3w + K4) against its plain twin on
+    the loss ``loss_of(maps)`` (:func:`hold_against_plain`).  Returns the
+    kernels' camera gradient and maps."""
+    c = cam.clone().requires_grad_(True)
+    out = stereo_pipeline_trainable(c, proj, D, k, EPS, beta, THRESHOLD)
+    grad = torch.autograd.grad(loss_of(out), c)[0]
+    out = type(out)(*(m.detach() for m in out))
+    plain = plain_trainable(cam, proj, D, k, beta, loss_of)
+    am = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                   THRESHOLD)[1].am
+    hold_against_plain(grad, out, am, plain, k, label, elementwise)
+    del plain
+    return grad, out
 
 
 def phase_train_path() -> dict:
@@ -2224,9 +2278,11 @@ PIN_D = (0, 24, 192)
 CONFIG_REFUSALS = (1, 9)  # cudaErrorInvalidValue, ...InvalidConfiguration
 
 
-def _pin_call(kernel: str, cam, proj, D: int, k: int):
+def _pin_call(kernel: str, cam, proj, D: int, k: int,
+              tile_rows: int = km.K_TILE_H):
     """``kernel``'s wrapper at (D, k), its inputs made first (outside the
-    call): returns a function of no arguments that makes the call."""
+    call): returns a function of no arguments that makes the call (K1, the
+    K3 family and K4 at a tile of ``tile_rows`` rows, their own planes)."""
     B, H, W = cam.shape
     gen = torch.Generator("cuda").manual_seed(k + D)
     vol = torch.rand((B, D + 1, H, W), device="cuda", generator=gen)
@@ -2236,12 +2292,13 @@ def _pin_call(kernel: str, cam, proj, D: int, k: int):
         res = fused_pipeline_train_cuda(*pipe, save_volume=kernel == "K4")[1]
         gs, gc = cotangents(1950 + k, B, H, W)
         return lambda: fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k,
-                                               EPS, 50.0)
+                                               EPS, 50.0, tile_rows)
     return {
-        "K1": lambda: cost_volume_banded_cuda(cam, proj, D, k, EPS),
-        "K3": lambda: stereo_pipeline_cuda(*pipe),
-        "K3w": lambda: fused_pipeline_train_cuda(*pipe),
-        "K3m": lambda: fused_pipeline_train_cuda(*pipe, save_volume=False),
+        "K1": lambda: cost_volume_banded_cuda(cam, proj, D, k, EPS,
+                                              tile_rows),
+        "K3": lambda: stereo_pipeline_cuda(*pipe, tile_rows),
+        "K3w": lambda: fused_pipeline_train_cuda(*pipe, True, tile_rows),
+        "K3m": lambda: fused_pipeline_train_cuda(*pipe, False, tile_rows),
         "K2": lambda: camera_grad_banded_cuda(cam, proj, vol, g, D, k, EPS),
         "K6": lambda: camera_grad_banded_cuda(cam, proj, None, g, D, k, EPS),
         "K7": lambda: projector_grad_banded_cuda(cam, proj, vol, g, D, k,
@@ -2262,7 +2319,14 @@ def phase_route_pin(card: str) -> None:
     D in ``PIN_D``, at the last k before the route the wrapper launches
     the kernel's own blocks and they run; at the first k on the route the
     launcher, called with the route choice switched off, refuses its
-    blocks (CUDA error 1 or 9) and launches nothing."""
+    blocks (CUDA error 1 or 9) and launches nothing.  At every tile: the
+    launchers' planes a round and chunk (``custereo_fused_rounds``,
+    ``custereo_head_rounds``, which launch nothing) equal the model's
+    (``fused_round``, ``grad_round``, ``k4_staged``) at every odd k to
+    255, D in ``PIN_D`` and 1800 and several planes a round; and K1, the
+    K3 family and K4 at the tiles other than the default take their own
+    blocks at the last k before that tile's route and are refused at its
+    first, as above."""
     from unittest import mock
 
     from custereomatching_tpu_torch.ops import cuda_allpairs, cuda_pipeline
@@ -2308,7 +2372,76 @@ def phase_route_pin(card: str) -> None:
                         f"blocks (CUDA error {code})")
             print(f"route pin {kernel} D={D}: own blocks run at k={first - 2}"
                   f", the launcher refuses k={first} (the route's first)")
+    pin_tiles(card, cam, proj, budget)
     torch.cuda.empty_cache()
+
+
+def pin_tiles(card: str, cam, proj, budget: int) -> None:
+    """phase_route_pin at every tile: the launchers' rounds against the
+    model's, and the tiled kernels' route choice."""
+    from unittest import mock
+
+    from custereomatching_tpu_torch.ops import cuda_pipeline
+
+    lib = _build.kernels()
+    out = (ctypes.c_int * 3)()
+    n = 0
+    for th in km.TILE_ROWS:
+        for k in range(3, 257, 2):
+            for D in PIN_D + (1800,):
+                for planes in (0, 1, 7, 13, 40):
+                    code = lib.custereo_fused_rounds(k, D, th, planes, out)
+                    got = (out[0], out[1]) if code == 0 else (0, 0)
+                    require(got == km.fused_round(k, D, budget, th, planes),
+                            f"route pin: K1/K3 rounds at tile {th}, k={k}, "
+                            f"D={D}, planes {planes}: launcher {got}, model "
+                            f"{km.fused_round(k, D, budget, th, planes)}")
+                code = lib.custereo_head_rounds(k, D, th, out)
+                got = tuple(out) if code == 0 else (0, 0, 0)
+                staged = km.k4_staged(k, D, budget, th)
+                g = km.grad_round(k, D, True, False, staged, budget, th)
+                want = (*g, int(staged)) if g[0] else (0, 0, 0)
+                require(got == want, f"route pin: K4 rounds at tile {th}, "
+                        f"k={k}, D={D}: launcher {got}, model {want}")
+                n += 1
+    print(f"route pin: the launchers' rounds equal the model's at {n} (tile, "
+          f"k, D) cases, K1/K3 at 5 planes a round each ({card})")
+    for kernel in TILE_KERNEL_KEYS:
+        fn, attr = KERNEL_COUNTERS[kernel.lower()]
+        for th in OTHER_TILES:
+            for D in PIN_D:
+                first = next(k for k in range(3, 257, 2)
+                             if km.large_k_route(kernel, k, D, budget, th))
+                for k in (first - 2, first):
+                    call = _pin_call(kernel, cam, proj, D, k, th)
+                    torch.cuda.synchronize()
+                    before = getattr(fn, attr)
+                    label = f"{kernel} tile {th} D={D} k={k}"
+                    if k < first:
+                        result = call()
+                        torch.cuda.synchronize()
+                        require(getattr(fn, attr) == before + 1,
+                                f"route pin {label}: its own blocks launched")
+                        del result
+                        continue
+                    with contextlib.ExitStack() as stack:
+                        for mod in (cuda_zncc, cuda_pipeline):
+                            stack.enter_context(mock.patch.object(
+                                mod, "large_k_route",
+                                lambda *a, **kw: False))
+                        try:
+                            call()
+                            code = 0
+                        except RuntimeError as exc:
+                            found = re.search(r"CUDA error (\d+)", str(exc))
+                            code = int(found.group(1)) if found else -1
+                    torch.cuda.synchronize()
+                    require(code in CONFIG_REFUSALS
+                            and getattr(fn, attr) == before,
+                            f"route pin {label}: the launcher refuses its "
+                            f"own blocks (CUDA error {code})")
+                print(f"route pin {kernel} tile {th} D={D}: own blocks run "
+                      f"at k={first - 2}, the launcher refuses k={first}")
 
 
 def lk_interleaved(name: str, kernel, plain, kargs, pargs, where: str,
@@ -3305,6 +3438,418 @@ def phase_examples(card: str, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The tile tuner (ops/tuning.py) and the tiled rounds kernels
+# ---------------------------------------------------------------------------
+
+# The tuned shapes: (kind, H, W, D, k); KITTI for K3, K1 and K4, and
+# serve's bucket (the 330 x 422 capture rounded up to 64 x 128) for K3.
+TUNE_CASES = (("pipeline",) + KITTI, ("volume",) + KITTI,
+              ("trainable_bwd",) + KITTI, ("pipeline", 384, 512, 48, 15))
+def rounds_registers(lib_log: str) -> list:
+    """Registers and spill bytes of every instantiation of the rounds
+    kernels of K1, the K3 family and K4 in the build's ptxas report:
+    [(translation unit, demangled kernel, registers, spill stores, spill
+    loads)], names demangled by ``c++filt`` where the machine has it."""
+    rows, entry = [], None
+    for line in lib_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or not re.search(
+                r"_(fused_pipeline|fused_pipeline_tile\d+|zncc_banded|"
+                r"fused_pipeline_bwd|fused_pipeline_bwd_tile\d+)_cu_",
+                entry) or not re.search(
+                    r"fused_pipeline_kernel|camera_grad_rounds_kernel",
+                    entry):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            unit = re.search(r"_([a-z_]+\d*)_cu_", entry).group(1)
+            rows.append([unit, entry, None, int(m.group(1)),
+                         int(m.group(2))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1][1] == entry and rows[-1][2] is None:
+            rows[-1][2] = int(m.group(1))
+            entry = None
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[1] for r in rows),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [r[1] for r in rows]
+    for r, name in zip(rows, names):
+        name = name.replace("custereo::(anonymous namespace)::", "")
+        r[1] = name[:name.rfind(">(") + 1] if ">(" in name else name
+    return [tuple(r) for r in rows]
+
+
+def tune_outputs(kind: str, cam, proj, D: int, k: int, blocks, res=None,
+                 cot=None):
+    """``kind``'s kernel at ``blocks`` on one pair: K1's volume, K3's four
+    maps, or K4's gradient on ``res`` and the cotangents ``cot``."""
+    rows, planes = blocks
+    if kind == "volume":
+        return cost_volume_banded_cuda(cam, proj, D, k, EPS, rows, planes)
+    if kind == "pipeline":
+        return torch.stack(stereo_pipeline_cuda(cam, proj, D, k, EPS, 50.0,
+                                                THRESHOLD, rows, planes))
+    return fused_pipeline_bwd_cuda(cam, proj, res, *cot, D, k, EPS, 50.0,
+                                   rows)
+
+
+def train_outputs(cam, proj, D: int, k: int, blocks) -> list:
+    """K3w's and K3m's outputs at ``blocks``: K3w's four maps, its am, s,
+    t and volume, and K3m's four maps and am, s, t."""
+    out = []
+    for save_volume in (True, False):
+        maps, res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                              THRESHOLD, save_volume,
+                                              *blocks)
+        out += [*maps, res.am, res.s, res.t]
+        if save_volume:
+            out.append(res.volume)
+    return out
+
+
+def hold_plain(kind: str, got, cam, proj, D: int, k: int, res, cot,
+               label: str) -> float:
+    """A tile's output against the plain version at the tolerances of
+    phases 3, 4 and 8 (PERF.md section 2)."""
+    if kind == "volume":
+        return compare_volume(got, forward_banded(cam, proj, D, k, EPS),
+                              label)
+    if kind == "pipeline":
+        want = stereo_pipeline_reference(cam, proj, D, k, EPS, 50.0,
+                                         THRESHOLD)
+        return compare_maps(PipelineMaps(*got.unbind(0)), want,
+                            forward_banded(cam, proj, D, k, EPS), THRESHOLD,
+                            False, label)
+    want = fused_pipeline_bwd_reference(cam, proj, res, *cot, D, k, EPS,
+                                        50.0)
+    return compare_grad(got, want, label, elementwise=False)
+
+
+def tune_case(card: str, rates: dict, budget: int, log: dict, kind: str,
+              H: int, W: int, D: int, k: int) -> dict:
+    """One of ``TUNE_CASES`` through the tuner (its timings in ``log``,
+    :func:`recording_tuner`), as :func:`phase_tuning` says."""
+    case = (kind, H, W, D, k)
+    cands = tuning.candidate_blocks(kind, H, W, D, k, budget)
+    ranked = tuning._rank_candidates(kind, cands, H, W, D, k)
+    default = cands[0]
+    require(default in tuning._measured(ranked, default, 6),
+            f"tuning {case}: the default tile is measured")
+    require(default[0] == km.K_TILE_H,
+            f"tuning {case}: the default tile leads the candidates")
+    tune = {"pipeline": tuning.autotune_pipeline_blocks,
+            "volume": tuning.autotune_volume_blocks,
+            "trainable_bwd": tuning.autotune_trainable_bwd_blocks}[kind]
+    t0 = time.perf_counter()
+    winner = tune(H, W, D, k)
+    seconds = time.perf_counter() - t0
+    key = next(key for key in log if key[:5] == case)
+    measured = {b: 1e3 * s for b, s in log[key]}
+    if kind == "trainable_bwd":
+        winner = next(b for b in measured if b[0] == winner)
+    model = {b: tuning.model_ms(kind, b, H, W, D, k, rates)
+             for b in cands}
+    print(f"tuning {case}: {len(cands)} candidates {cands}, model order "
+          f"{ranked}; measured the top {len(measured)} in {seconds:.2f} s "
+          f"({card})")
+    cam, proj = uniform_pair(1700 + H, 1, H, W)
+    res = cot = None
+    if kind == "trainable_bwd":
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                        THRESHOLD)[1]
+        cot = cotangents(1701, 1, H, W)
+    ref = tune_outputs(kind, cam, proj, D, k, default, res, cot)
+    train_ref = (train_outputs(cam, proj, D, k, default)
+                 if kind == "pipeline" else [])
+    for b in measured:
+        got = tune_outputs(kind, cam, proj, D, k, b, res, cot)
+        require(torch.equal(got, ref),
+                f"tuning {case}: tile {b} bit-equal to the default "
+                f"tile {default}")
+        if train_ref:
+            # K3w's and K3m's residuals at the same tile.
+            require(all(torch.equal(g, w) for g, w in zip(
+                train_outputs(cam, proj, D, k, b), train_ref)),
+                f"tuning {case}: K3w and K3m at tile {b} bit-equal to "
+                f"the default tile")
+        hold_plain(kind, got, cam, proj, D, k, res, cot,
+                   f"tuned {kind} tile {b} {H}x{W} D={D} k={k}")
+        print(f"tuning {case}: tile {b} model {model[b]:.4f} ms, "
+              f"measured {measured[b]:.4f} ms, bit-equal to the default "
+              f"tile ({card})")
+        del got
+    if default not in measured:
+        measured_default = 1e3 * tuning._slope_time(
+            lambda: tune_outputs(kind, cam, proj, D, k, default, res,
+                                 cot))
+    else:
+        measured_default = measured[default]
+    print(f"tuning {case}: winner {winner} {measured[winner]:.4f} ms "
+          f"(model {model[winner]:.4f}), default {default} "
+          f"{measured_default:.4f} ms (model {model[default]:.4f}): "
+          f"{measured_default / measured[winner]:.3f} times the winner's "
+          f"time ({card})")
+    # Re-run from the disk cache: a new process's view, nothing
+    # measured.
+    tuning._CACHE.clear()
+    n = sum(map(len, log.values()))
+    again = tune(H, W, D, k)
+    require(sum(map(len, log.values())) == n and again == (
+        winner[0] if kind == "trainable_bwd" else winner),
+        f"tuning {case}: the winner comes back from the disk cache")
+    got = tune_outputs(kind, cam, proj, D, k, winner, res, cot)
+    require(torch.equal(got, ref), f"tuning {case}: cached winner "
+            f"{winner} bit-equal to the default tile")
+    hold_plain(kind, got, cam, proj, D, k, res, cot,
+               f"cached winner {kind} {winner} {H}x{W} D={D} k={k}")
+    del cam, proj, res, cot, ref, got, train_ref
+    torch.cuda.empty_cache()
+    return {"measured": measured, "winner": winner,
+            "default": (default, measured_default), "model": model}
+
+
+@contextlib.contextmanager
+def recording_tuner():
+    """Records what ``ops.tuning`` times while the context is open:
+    yields {key: [(blocks, seconds a call)]} of every ``_tune`` call, its
+    ``build`` wrapped so each timed call carries its blocks to the
+    wrapped ``_slope_time`` (a disk or in-process cache hit adds
+    nothing)."""
+    from unittest import mock
+
+    log = {}
+    tune, slope = tuning._tune, tuning._slope_time
+
+    def recording_tune(key, candidates, build, measure_top, probe=True):
+        timed = log.setdefault(key, [])
+
+        def tagged(rows, planes):
+            fn = build(rows, planes)
+
+            def call():
+                return fn()
+
+            call.record = lambda t: timed.append(((rows, planes), t))
+            return call
+
+        return tune(key, candidates, tagged, measure_top, probe)
+
+    def recording_slope(fn, *args, **kwargs):
+        t = slope(fn, *args, **kwargs)
+        getattr(fn, "record", lambda t: None)(t)
+        return t
+
+    with mock.patch.object(tuning, "_tune", recording_tune), \
+            mock.patch.object(tuning, "_slope_time", recording_slope):
+        yield log
+
+
+def phase_tuning(card: str, rates: dict) -> dict:
+    """The tuner from an empty cache (``CUSTEREO_TUNE_CACHE`` at a temp
+    file) at ``TUNE_CASES``: every candidate it measured
+    bit-equal to the default tile's output and held against the plain
+    version, its model and measured ms printed; the winner beside the
+    default's ms (measured here if the tuner did not), re-run from the disk
+    cache with nothing measured, against the plain version; then
+    ``StereoEngine(autotune=True)`` and ``serve --autotune`` on the card,
+    their maps bit-equal to the untuned engine's.  Returns {(kind, H, W,
+    D, k): {"measured": {blocks: ms}, "winner": blocks, "default": (blocks,
+    ms), "model": {blocks: ms}}}."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    os.unlink(path)
+    os.environ["CUSTEREO_TUNE_CACHE"] = path
+    tuning._CACHE.clear()
+    budget = cuda_zncc.smem_floats(torch.device("cuda"))
+    out = {}
+    t_all = time.perf_counter()
+    with recording_tuner() as log:
+        for case in TUNE_CASES:
+            out[case] = tune_case(card, rates, budget, log, *case)
+    disk = json.loads(open(path).read())
+    print(f"tuning: {len(disk)} winners on disk in "
+          f"{time.perf_counter() - t_all:.1f} s: {disk}")
+    require(len(disk) == len(TUNE_CASES), "tuning: a disk entry a case")
+
+    # The engine and serve with autotune, on the card.
+    H, W = 330, 422
+    D, k = 48, 15
+    cfg = StereoConfig(kernel_size=k, num_disparities=D)
+    tuned = StereoEngine(cfg, buckets=[(384, 512)], autotune=True,
+                         device="cuda")
+    plain = StereoEngine(cfg, buckets=[(384, 512)], device="cuda")
+    tuned.warmup()
+    require(tuned.autotune and (384, 512) in tuned.tuned_tiles,
+            "StereoEngine(autotune=True) tuned its bucket")
+    frames = speckle_frames(2, seed=41)
+    for cam, proj in zip(frames[0], frames[1]):
+        cam, proj = cam[:H, :W], proj[:H, :W]
+        got, want = tuned.infer(cam, proj), plain.infer(cam, proj)
+        for name in got._fields:
+            require(np.array_equal(getattr(got, name), getattr(want, name)),
+                    f"tuned engine: {name} bit-equal to the untuned engine")
+        hold_example("tuned engine", got, cam, proj, D, k)
+    print(f"tuning: StereoEngine(autotune=True) bucket (384, 512): tile "
+          f"{tuned.tuned_tiles[(384, 512)]}, maps bit-equal to the untuned "
+          f"engine's ({card})")
+    rec = {}
+    rc = serve.main(["--autotune", "--loops", "2"], rec)
+    require(rc == 0, "serve --autotune exits 0")
+    hold_example("serve --autotune", rec["maps"][0], rec["camera"],
+                 rec["projector"], D, k)
+    os.environ.pop("CUSTEREO_TUNE_CACHE")
+    os.unlink(path)
+    return out
+
+
+def phase_tiled_path(card: str) -> tuple:
+    """The tiles other than the default through the entry points: for
+    each, counters reset, a ``StereoMatcher`` whose config sets
+    ``pipeline_blocks`` (that tile at its own planes) and
+    ``trainable_bwd_block_rows`` serves a KITTI pair (K3) and takes a
+    training step's forward and backward (K3w + K4), the volume-free
+    trainable pipeline at that tile runs forward (K3m), and K1 writes the
+    volume at that tile; every tiled kernel launched, no plain version
+    run, every output bit-equal to the default tile's and held against
+    its plain version on the same inputs (K1's and K3w's volumes as phase
+    3, the K3 family's maps as phase 4, K4's gradient as phase 8).
+    Returns
+    ({"k1t8": launches, ...}, {"K1t8": max abs error, ...})."""
+    H, W, D, k = KITTI
+    cam, proj = uniform_pair(1800, 1, H, W)
+    target = torch.rand((1, H, W), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1801))
+    base = StereoConfig(kernel_size=k, num_disparities=D)
+
+    def loss_of(out):
+        return ((out.soft_disparity - target) ** 2).mean()
+
+    def run(cfg, tile):
+        model = StereoMatcher(cfg)
+        maps = model.disparity_maps(cam, proj)
+        c = cam.clone().requires_grad_(True)
+        out = model.trainable_disparity_maps(c, proj)
+        loss_of(out).backward()
+        free = stereo_pipeline_trainable(cam, proj, D, k, EPS, 50.0,
+                                         THRESHOLD, False, *tile)
+        vol = cost_volume_banded_cuda(cam, proj, D, k, EPS, *tile)
+        return (torch.stack(maps), torch.stack(out).detach(), c.grad,
+                torch.stack(free), vol)
+
+    want = run(base, (km.K_TILE_H, 0))
+    plain = plain_trainable(cam, proj, D, k, 50.0, loss_of)
+    plain_vol = forward_banded(cam, proj, D, k, EPS)
+    plain_maps = stereo_pipeline_reference(cam, proj, D, k, EPS, 50.0,
+                                           THRESHOLD)
+    counts, errs = {}, {}
+    for th in OTHER_TILES:
+        tile = (th, km.round_planes(k, D, None, th))
+        cfg = dataclasses.replace(base, pipeline_blocks=tile,
+                                  trainable_bwd_block_rows=th)
+        reset_counters()
+        got = run(cfg, tile)
+        seen = read_counters()
+        print(f"tiled path: tile {tile}: counters {seen}")
+        require(not any(seen[n] for n in PLAIN_COUNTERS),
+                f"tiled path {tile}: no plain version ran")
+        for key in TILE_KERNEL_KEYS:
+            counts[f"{key.lower()}t{th}"] = seen[key.lower()]
+            require(seen[key.lower()] >= 1,
+                    f"tiled path: {key} launched at {th} rows")
+        for name, g, w in zip(("K3 maps", "K3w maps", "K4 gradient",
+                               "K3m maps", "K1 volume"), got, want):
+            require(torch.equal(g, w), f"tiled path {tile}: {name} "
+                    f"bit-equal to the default tile's")
+        k3, k3w, grad, k3m, vol = got
+        label = f"tile {tile} H={H} W={W} D={D} k={k}"
+        errs[f"K1t{th}"] = compare_volume(vol, plain_vol, label)
+        errs[f"K3t{th}"] = compare_maps(PipelineMaps(*k3), plain_maps,
+                                        plain_vol, THRESHOLD, False,
+                                        f"{label} (K3)")
+        # K3w's volume at the tile (its residual), and its maps.
+        res = fused_pipeline_train_cuda(cam, proj, D, k, EPS, 50.0,
+                                        THRESHOLD, True, *tile)[1]
+        errs[f"K3wt{th}"] = max(
+            compare_volume(res.volume.permute(0, 2, 3, 1), plain_vol,
+                           f"volume {label}", kernel="K3w"),
+            compare_maps(PipelineMaps(*k3w), plain_maps, plain_vol,
+                         THRESHOLD, False, f"{label} (K3w)"))
+        errs[f"K3mt{th}"] = compare_maps(PipelineMaps(*k3m), plain_maps,
+                                         plain_vol, THRESHOLD, False,
+                                         f"{label} (K3m)")
+        errs[f"K4t{th}"] = hold_against_plain(
+            grad, PipelineMaps(*k3w), res.am, plain, k, label, False)
+        print(f"tiled path: tile {tile} (K4 {th} rows) at KITTI: K3, K3w, "
+              f"K4, K3m and K1 bit-equal to the default tile and held "
+              f"against their plain versions ({card})")
+        del got, res
+    del want, plain, plain_vol, plain_maps
+    torch.cuda.empty_cache()
+    return counts, errs
+
+
+def tile_times(card: str, tuned: dict, times: dict, rates: dict) -> dict:
+    """Each tiled kernel at KITTI at its tile's best measured planes (the
+    tuner's, else the tile's own): {key: (ms, plain ms, library ms,
+    (bound ms, by), (model ms, by))}, the plain version's and the bound
+    those of the default tile's kernel (the same function) in this
+    run."""
+    H, W, D, k = KITTI
+    cam, proj = uniform_pair(0, 1, H, W)
+    cams, projs, _ = speckle_frames(1, seed=7)
+    scam, sproj = torch.from_numpy(cams).cuda(), torch.from_numpy(projs).cuda()
+    pipe = (scam, sproj, D, k, EPS, 50.0, THRESHOLD)
+    res = fused_pipeline_train_cuda(*pipe)[1]
+    gs, gc = cotangents(1, 1, H, W)
+    out = {}
+
+    def planes_at(kind, th):
+        measured = tuned[(kind,) + KITTI]["measured"]
+        at = {b: ms for b, ms in measured.items() if b[0] == th}
+        if at:
+            return min(at, key=at.get)[1]
+        return km.round_planes(k, D, None, th)
+
+    for th in OTHER_TILES:
+        p3, p1 = planes_at("pipeline", th), planes_at("volume", th)
+        cases = (
+            ("K1", lambda: cost_volume_banded_cuda(cam, proj, D, k, EPS, th,
+                                                   p1),
+             km.volume_forward_cost(H, W, D, k, th, p1)),
+            ("K3", lambda: stereo_pipeline_cuda(*pipe, th, p3),
+             km.fused_forward_cost(H, W, D, k, tile_rows=th, planes=p3)),
+            ("K3w", lambda: fused_pipeline_train_cuda(*pipe, True, th, p3),
+             km.fused_forward_cost(H, W, D, k, True, tile_rows=th,
+                                   planes=p3)),
+            ("K3m", lambda: fused_pipeline_train_cuda(*pipe, False, th, p3),
+             km.fused_forward_cost(H, W, D, k, residuals=True, tile_rows=th,
+                                   planes=p3)),
+            ("K4", lambda: fused_pipeline_bwd_cuda(*pipe[:2], res, gs, gc, D,
+                                                   k, EPS, 50.0, th),
+             km.fused_backward_c_cost(H, W, D, k, th)))
+        for key, fn, cost in cases:
+            ms = timed(f"{key} at {th} rows", fn)
+            m_ms, m_by, _ = model_bound(cost, rates)
+            _, plain_ms, library_ms, bound_, _ = times[key]
+            print(f"time: {key} at tile {th} rows at KITTI: {ms:.4f} ms, "
+                  f"the default tile {times[key][0]:.4f} ms, bound "
+                  f"{bound_[0]:.4f} ms, model {m_ms:.4f} ms ({card})")
+            require(m_ms <= ms, f"{key} at {th} rows: its model bound "
+                    f"({m_ms:.4f} ms) within its time ({ms:.4f} ms)")
+            out[f"{key}t{th}"] = (ms, plain_ms, library_ms, bound_,
+                                  (m_ms, m_by))
+    del cam, proj, scam, sproj, res
+    torch.cuda.empty_cache()
+    return out
+
+
 LARGE_KERNELS = (
     # name, key, replaces
     ("large_k_banded_volume", "K1L",
@@ -3379,6 +3924,25 @@ KERNELS = (
 )
 
 
+# The rounds kernels' instantiations at the tiles other than the default
+# (name, key, source, replaces): their launches are the tiled path's.
+TILE_KERNELS = tuple(
+    (f"{name}_tile{th}", f"{key}t{th}",
+     f"custereomatching_tpu_torch/csrc/{unit}{th}.cu", replaces)
+    for th in OTHER_TILES
+    for name, key, unit, replaces in (
+        ("zncc_banded_volume", "K1", "fused_pipeline_tile",
+         "custereomatching_tpu/ops/pallas_zncc.py:156"),
+        ("fused_pipeline", "K3", "fused_pipeline_tile",
+         "custereomatching_tpu/ops/pallas_pipeline.py:120"),
+        ("fused_pipeline_train", "K3w", "fused_pipeline_tile",
+         "custereomatching_tpu/ops/pallas_pipeline.py:120"),
+        ("fused_pipeline_train_maps", "K3m", "fused_pipeline_tile",
+         "custereomatching_tpu/ops/pallas_pipeline.py:120"),
+        ("fused_pipeline_bwd", "K4", "fused_pipeline_bwd_tile",
+         "custereomatching_tpu/ops/pallas_pipeline.py:803")))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3434,6 +3998,10 @@ def main() -> int:
         for key, err in phase_golden().items():
             errs[key] = max(errs[key], err)
         phase_examples(card, tmp)
+    tuned = phase_tuning(card, rates)
+    counts["tiled"], tile_errs = phase_tiled_path(card)
+    errs.update(tile_errs)
+    times.update(tile_times(card, tuned, times, rates))
 
     kernels = []
     for name, key, source, replaces, path in KERNELS:
@@ -3461,6 +4029,18 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "model_ms": model_ms,
             "model_by": model_by})
+    for name, key, source, replaces in TILE_KERNELS:
+        ms, plain_ms, library_ms, (bound_ms, bound_by), (model_ms, model_by) \
+            = times[key]
+        launches = counts["tiled"][key.lower()]
+        require(launches >= 1, f"{key} launched on the tiled path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "model_ms": model_ms, "model_by": model_by})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

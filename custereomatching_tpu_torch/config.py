@@ -14,6 +14,9 @@ from typing import Optional, Tuple
 import torch
 
 BACKENDS = ("auto", "torch", "cuda")
+# The kernels' default tile: 16 rows (of 64 columns) and planes a round 0,
+# the kernel's own choice (csrc/common.cuh kTileH, fused_round).
+DEFAULT_TILE = (16, 0)
 
 # JAX backend name -> port backend name.
 _JAX_BACKENDS = {
@@ -51,9 +54,23 @@ class StereoConfig:
       backend: "cuda" runs the hand-written Hopper kernels and needs CUDA
         tensors; "torch" runs the plain PyTorch versions; "auto" picks
         "cuda" for CUDA tensors and "torch" otherwise.
-      pipeline_blocks, trainable_bwd_block_rows: TPU tile sizes of the
-        JAX package.  They are validated as there, so a JAX config carries
-        over unchanged, and the CUDA kernels ignore them.
+      pipeline_blocks: ``(block_rows, block_disparities)``, on the
+        ``cuda`` backend the tile of K3, K3w and K3m: tile rows (8, 16 or
+        32, of 1024 / rows columns) and planes a round
+        (:meth:`pipeline_tile`; ``None``: 16 rows and the kernel's own
+        planes).  ``ops.tuning.autotune_pipeline_blocks`` finds the best
+        for a shape.
+      trainable_bwd_block_rows: on the ``cuda`` backend K4's tile rows
+        (:meth:`bwd_tile_rows`; ``None``: 16); ``ops.tuning.
+        autotune_trainable_bwd_blocks`` finds the best.  K5 has no tile.
+        Both fields are validated as in the JAX package, so a JAX config
+        carries over unchanged; a tile the card cannot run at the call's
+        shape raises ``ValueError`` there, naming the tiles that run
+        (``ops.tuning.candidate_blocks``), and is never changed for
+        another.  The ``torch`` backend ignores them: its values are the
+        same for every tile, as the kernels' are.  K1's tile is an
+        argument of ``ops.cuda_zncc.cost_volume_banded_cuda``, as JAX's
+        ``pallas_cost_volume_banded_hdw`` takes its blocks.
     """
 
     kernel_size: int = 15
@@ -92,6 +109,18 @@ class StereoConfig:
             raise ValueError(
                 f"trainable_bwd_block_rows must be None or a positive "
                 f"int, got {bb!r}")
+
+    def pipeline_tile(self) -> Tuple[int, int]:
+        """K3's (K3w's, K3m's) tile on the card, ``(tile_rows, planes)``:
+        ``pipeline_blocks``, or the default 16 rows and planes 0 (the
+        kernel's own choice)."""
+        return (tuple(self.pipeline_blocks) if self.pipeline_blocks
+                else DEFAULT_TILE)
+
+    def bwd_tile_rows(self) -> int:
+        """K4's tile rows on the card: ``trainable_bwd_block_rows``, or the
+        default 16."""
+        return self.trainable_bwd_block_rows or DEFAULT_TILE[0]
 
     def resolved_backend(self, device: torch.device) -> str:
         """The concrete backend for tensors on ``device``.

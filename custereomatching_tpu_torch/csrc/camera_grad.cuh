@@ -67,7 +67,10 @@
 // Every output of every pass adds its taps in K1's order, and A1, B and
 // GRMU accumulate in plane order, so the three instantiations give the
 // same values bit for bit: K6, recomputing the cost, gives K2's gradient
-// on one cotangent.  Every odd k <= 127 runs at every D.
+// on one cotangent.  Every odd k <= 127 runs at every D.  The rounds
+// kernel's tile is a template parameter (Tile<TH>): K4 runs it at 8, 16
+// or 32 rows (head_rounds.cuh), the others at the default 16 x 64; the
+// statistics and combine kernels stay at 16 x 64.
 //
 // What bounds it on the H100: with the cost read from memory, the cost
 // (and for K2 the cotangent) volume is read once, 360 MB a KITTI frame
@@ -102,25 +105,30 @@ constexpr int kGradRows = 8;
 constexpr int kGradCols = 8;
 static_assert(kTileH % kGradRows == 0 && kTileW % kGradCols == 0,
               "gr's groups tile the tile");
+static_assert(Tile<8>::kH % kGradRows == 0 && Tile<8>::kW % kGradCols == 0 &&
+                  Tile<32>::kH % kGradRows == 0 &&
+                  Tile<32>::kW % kGradCols == 0,
+              "gr's groups tile every tile K4 runs at");
 
 // Where gr's passes find their planes, in floats: buffer Y holds gr_d over
 // the halo'd rows (row stride ys, plane stride ysz, halo_cols entries a
 // row) and then gr's box sums (row stride bs); buffer X holds gr's rows
-// pass (row stride vs, plane stride xsz).
+// pass (row stride vs, plane stride xsz); the tile is th x tw pixels.
 struct GradStrides {
   int halo_cols, ys, ysz, vs, xsz, bs;
+  int th = kTileH, tw = kTileW;
 };
 
-// gr's rows pass: X[j][r][c] = sum_{t<k} Y[j][r + t][c] for r < kTileH,
+// gr's rows pass: X[j][r][c] = sum_{t<k} Y[j][r + t][c] for r < th,
 // c < halo_cols (vertical_sum).  An item is kGradRows rows of one column
 // and plane.
 __device__ inline void grad_rows(float* xbuf, const float* ybuf,
                                  const GradStrides& x, int k, int np) {
-  constexpr int kGroups = kTileH / kGradRows;
-  for (int i = threadIdx.x; i < np * kGroups * x.halo_cols;
+  const int groups = x.th / kGradRows;
+  for (int i = threadIdx.x; i < np * groups * x.halo_cols;
        i += blockDim.x) {
     const int line = i / x.halo_cols, c = i - line * x.halo_cols;
-    const int j = line / kGroups, s = (line - j * kGroups) * kGradRows;
+    const int j = line / groups, s = (line - j * groups) * kGradRows;
     float acc[kGradRows];
     window_taps<kGradRows, false>(acc, ybuf + j * x.ysz + s * x.ys + c, x.ys,
                                   nullptr, 0, k);
@@ -136,11 +144,11 @@ __device__ inline void grad_rows(float* xbuf, const float* ybuf,
 __device__ inline void grad_column_sums(float* ybuf, const float* xbuf,
                                         const GradStrides& x, int k,
                                         int np) {
-  constexpr int kGroups = kTileW / kGradCols;
-  const int lines = np * kTileH;
-  for (int i = threadIdx.x; i < lines * kGroups; i += blockDim.x) {
+  const int groups = x.tw / kGradCols;
+  const int lines = np * x.th;
+  for (int i = threadIdx.x; i < lines * groups; i += blockDim.x) {
     const int q = i / lines, line = i - q * lines;
-    const int j = line / kTileH, r = line - j * kTileH;
+    const int j = line / x.th, r = line - j * x.th;
     float acc[kGradCols];
     window_taps<kGradCols, false>(
         acc, xbuf + j * x.xsz + r * x.vs + q * kGradCols, 1, nullptr, 0, k);
@@ -155,33 +163,35 @@ __device__ inline void grad_column_sums(float* ybuf, const float* xbuf,
 // that does (launch_rounds_at instantiates each).
 constexpr int kGradPlanes = 8;
 
-// Shared-memory geometry of the rounds kernel, in floats: the entries'
-// constants (consts x halo: ex2, then the source's maps); with the
-// recompute, the camera tile (halo_rows x halo_cols) and the projector
-// tile widened left by chunk - 1 columns (halo_rows x proj_w); then
-// `planes` planes of buffer Y (gr_d over the halo'd tile, halo_rows x ys;
-// then gr's box sums, kTileH x bs) and of buffer X (gr's rows pass, kTileH
-// x vs).  Before gr's passes the recompute runs K3's round in the same
-// space: its rows pass (RoundTile's vsum, planes x kTileH x vs) in Y, its
-// window sums (planes x kTileH x bs) in X.  Row strides are odd, so a
-// warp's 32 rows hit 32 banks.
+// Shared-memory geometry of the rounds kernel at a th x tw pixel tile
+// (16 x 64 by default), in floats: the entries' constants (consts x halo:
+// ex2, then the source's maps); with the recompute, the camera tile
+// (halo_rows x halo_cols) and the projector tile widened left by chunk - 1
+// columns (halo_rows x proj_w); then `planes` planes of buffer Y (gr_d
+// over the halo'd tile, halo_rows x ys; then gr's box sums, th x bs) and
+// of buffer X (gr's rows pass, th x vs).  Before gr's passes the recompute
+// runs K3's round in the same space: its rows pass (RoundTile's vsum,
+// planes x th x vs) in Y, its window sums (planes x th x bs) in X.  Row
+// strides are odd, so a warp's 32 rows hit 32 banks.
 struct GradRoundTile {
-  int p, halo_rows, halo_cols, halo, consts, proj_w, ys, ysz, vs, xsz, bs,
-      planes;
+  int p, th, tw, halo_rows, halo_cols, halo, consts, proj_w, ys, ysz, vs,
+      xsz, bs, planes;
   bool recompute;
   __host__ __device__ GradRoundTile(int k, int consts, bool recompute,
-                                    int chunk, int planes)
+                                    int chunk, int planes, int th = kTileH)
       : p(k / 2),
-        halo_rows(kTileH + 2 * (k / 2)),
-        halo_cols(kTileW + 2 * (k / 2)),
+        th(th),
+        tw(kThreads / th),
+        halo_rows(th + 2 * (k / 2)),
+        halo_cols(kThreads / th + 2 * (k / 2)),
         halo(halo_rows * halo_cols),
         consts(consts),
         proj_w(halo_cols + chunk - 1),
         ys(halo_cols + 1),
         ysz(halo_rows * (halo_cols + 1)),
         vs(halo_cols + 1),
-        xsz(kTileH * (halo_cols + 1)),
-        bs(kTileW + 1),
+        xsz(th * (halo_cols + 1)),
+        bs(kThreads / th + 1),
         planes(planes),
         recompute(recompute) {}
   __host__ __device__ size_t fixed_floats() const {
@@ -197,21 +207,22 @@ struct GradRoundTile {
     return fixed_floats() + proj_floats() + planes * plane_floats();
   }
   __host__ __device__ GradStrides strides() const {
-    return {halo_cols, ys, ysz, vs, xsz, bs};
+    return {halo_cols, ys, ysz, vs, xsz, bs, th, tw};
   }
 };
 
-// Planes a round and a projector staging of the rounds kernel within
-// `budget` floats: the most planes (kGradPlanes, halving) whose buffers
-// fit beside the constants (and with the recompute one plane's projector
-// tile) and that D + 1 fills; with the recompute the staging takes what
-// is left, a multiple of the round, and the round halves where fewer
-// planes than that fit.  {0, 0} when not one plane fits.
+// Planes a round and a projector staging of the rounds kernel at a tile
+// of th rows within `budget` floats: the most planes (kGradPlanes,
+// halving) whose buffers fit beside the constants (and with the recompute
+// one plane's projector tile) and that D + 1 fills; with the recompute the
+// staging takes what is left, a multiple of the round, and the round
+// halves where fewer planes than that fit.  {0, 0} when not one plane
+// fits.
 inline Rounds grad_round(int k, int D, int consts, bool recompute,
-                            size_t budget) {
+                            size_t budget, int th = kTileH) {
   for (int planes = kGradPlanes; planes >= 1; planes /= 2) {
     if (planes > 1 && planes > D + 1) continue;
-    const GradRoundTile t(k, consts, recompute, 1, planes);
+    const GradRoundTile t(k, consts, recompute, 1, planes, th);
     if (t.floats() > budget) continue;
     if (!recompute) return {planes, D + 1};
     const int chunk =
@@ -223,15 +234,16 @@ inline Rounds grad_round(int k, int D, int consts, bool recompute,
   return {0, 0};
 }
 
-// Halo index of ring entry q, the halo'd tile less the tile's own pixels:
-// the top p rows, the bottom p rows, then the left and right p columns of
-// the kTileH rows between.
+// Halo index of ring entry q, the halo'd tile less the tile's own pixels
+// (a tile of TH rows): the top p rows, the bottom p rows, then the left
+// and right p columns of the TH rows between.
+template <int TH = kTileH>
 __device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
   const int band = p * halo_cols;
   if (q < band) return q;
-  if (q < 2 * band) return (kTileH + p) * halo_cols + (q - band);
+  if (q < 2 * band) return (TH + p) * halo_cols + (q - band);
   const int s = q - 2 * band, row = s / (2 * p), col = s - row * 2 * p;
-  return (p + row) * halo_cols + (col < p ? col : col + kTileW);
+  return (p + row) * halo_cols + (col < p ? col : col + Tile<TH>::kW);
 }
 
 // Source: the cotangent plane.
@@ -250,9 +262,11 @@ __device__ __forceinline__ int ring_entry(int q, int p, int halo_cols) {
 //                                      read at frame pixel pix
 //   cotangent(entry, v, df)            g_d from them and vol's value v
 //
-// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads, one
-// block an SM; dynamic shared memory GradRoundTile(k, staged_consts<
-// Source>(), kRecompute, chunk, P).floats() floats.  kRecompute: the cost
+// Grid: (ceil(W / TW), ceil(H / TH), B) for a TH x TW pixel tile
+// (Tile<TH>; K4 at 8, 16 or 32 rows, the others at the default 16);
+// kThreads threads, one block an SM; dynamic shared memory
+// GradRoundTile(k, staged_consts<Source>(), kRecompute, chunk, P,
+// TH).floats() floats.  kRecompute: the cost
 // is recomputed from camera and projector on the tile's own pixels, the
 // projector tile staged anew every `chunk` planes (K6, whose source reads
 // the cotangent); otherwise the source's volume is the cost (K4) or the
@@ -267,7 +281,7 @@ __host__ __device__ constexpr int staged_consts() {
   return Source::kStaged ? 1 + Source::kMaps : 0;
 }
 
-template <class Source, bool kRecompute, bool kSlab, int P>
+template <class Source, bool kRecompute, bool kSlab, int P, int TH = kTileH>
 __global__ void __launch_bounds__(kThreads, 1)
     camera_grad_rounds_kernel(Source src, const float* __restrict__ camera,
                               const float* __restrict__ projector,
@@ -288,8 +302,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(!kSlab || !kRecompute, "a slab's costs are read");
   static_assert(Source::kStaged || (!kRecompute && Source::kMaps == 0),
                 "unstaged constants: none in shared memory");
+  constexpr int TW = Tile<TH>::kW;
   extern __shared__ float smem[];
-  const GradRoundTile x(k, staged_consts<Source>(), kRecompute, chunk, P);
+  const GradRoundTile x(k, staged_consts<Source>(), kRecompute, chunk, P, TH);
   const GradStrides gs = x.strides();
   const int halo = x.halo, hc = x.halo_cols, p = x.p;
   float* ex2_t = smem;
@@ -300,10 +315,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* xbuf = ybuf + P * x.ysz;
   // The recompute's round (K3's geometry, the projector tile `chunk`
   // planes wide).
-  const PlaneTile pt(k, chunk - 1);
+  const PlaneTile pt(k, chunk - 1, TH);
   const RoundTile rt(pt, P);
 
-  const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
+  const int b = blockIdx.z, h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t frame = static_cast<size_t>(b) * plane;
   const size_t stats_w = static_cast<size_t>(W) + D;
@@ -330,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     stage_tile(cam_x, camera + frame, H, W, h0 - p, w0 - p, x.halo_rows, hc,
                1.f);
 
-  const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
+  const int r = threadIdx.x / TW, c = threadIdx.x % TW;
   const int h = h0 + r, w = w0 + c;
   const bool valid = h < H && w < W;
   const int centre = (r + p) * hc + c + p;
@@ -365,7 +380,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (kRecompute) {
       // a. The cross term's window sums at the tile's pixels, in X.
       __syncthreads();
-      round_products(ybuf, cam_x, proj_x, pt, rt, k, last - d0, np);
+      round_products<TH>(ybuf, cam_x, proj_x, pt, rt, k, last - d0, np);
       __syncthreads();
       round_column_sums(xbuf, ybuf, rt, k, np);
     }
@@ -413,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // gr_d at the ring's entries.
     for (int q = threadIdx.x; q < ring; q += kThreads) {
-      const int i = ring_entry(q, p, hc);
+      const int i = ring_entry<TH>(q, p, hc);
       const int rr = i / hc, cc = i - rr * hc;
       const int y = h0 - p + rr, xx = w0 - p + cc;
       float* ey = ybuf + rr * x.ys + cc;
@@ -610,22 +625,23 @@ cudaError_t launch_grad_kernels(const RoundsFn& rounds, const float* camera,
                              budget, stream);
 }
 
-template <class Source, bool kRecompute, bool kSlab, int P>
+template <class Source, bool kRecompute, bool kSlab, int P, int TH = kTileH>
 cudaError_t launch_rounds(const Source& src, const float* camera,
                           const float* projector, const float* cam_s,
                           const float* cam_e2, const float* proj_s,
                           const float* proj_e2, float* a1, float* bm,
                           float* grmu, int B, int H, int W, int D, int k,
                           int chunk, int d_lo, int d_hi, float eps,
-                          cudaStream_t stream) {
-  auto kernel = camera_grad_rounds_kernel<Source, kRecompute, kSlab, P>;
+                          cudaStream_t stream, Tile<TH> = {}) {
+  constexpr int TW = Tile<TH>::kW;
+  auto kernel = camera_grad_rounds_kernel<Source, kRecompute, kSlab, P, TH>;
   const size_t bytes =
-      GradRoundTile(k, staged_consts<Source>(), kRecompute, chunk, P)
+      GradRoundTile(k, staged_consts<Source>(), kRecompute, chunk, P, TH)
           .floats() *
       sizeof(float);
   const cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   kernel<<<grid, kThreads, bytes, stream>>>(src, camera, projector, cam_s,
                                             cam_e2, proj_s, proj_e2, a1, bm,
                                             grmu, H, W, D, k, chunk, d_lo,
@@ -634,52 +650,55 @@ cudaError_t launch_rounds(const Source& src, const float* camera,
 }
 
 // The rounds kernel at `round`, grad_round's planes a round (one of the
-// powers of two it is instantiated at) and projector chunk.
-template <class Source, bool kRecompute, bool kSlab>
+// powers of two it is instantiated at) and projector chunk, at a tile of
+// TH rows.
+template <class Source, bool kRecompute, bool kSlab, int TH = kTileH>
 cudaError_t launch_rounds_at(Rounds round, const Source& src,
                              const float* camera, const float* projector,
                              const float* cam_s, const float* cam_e2,
                              const float* proj_s, const float* proj_e2,
                              float* a1, float* bm, float* grmu, int B, int H,
                              int W, int D, int k, int d_lo, int d_hi,
-                             float eps, cudaStream_t stream) {
+                             float eps, cudaStream_t stream,
+                             Tile<TH> tile = {}) {
   static_assert(kGradPlanes == 8, "the planes a round instantiated below");
   switch (round.planes) {
     case 8:
       return launch_rounds<Source, kRecompute, kSlab, 8>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream, tile);
     case 4:
       return launch_rounds<Source, kRecompute, kSlab, 4>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream, tile);
     case 2:
       return launch_rounds<Source, kRecompute, kSlab, 2>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream, tile);
     case 1:
       return launch_rounds<Source, kRecompute, kSlab, 1>(
           src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm,
-          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream);
+          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, stream, tile);
     default:
       // Not one plane's buffers fit beside the block's tiles.
       return cudaErrorInvalidConfiguration;
   }
 }
 
-// The rounds kernel over d = 0..D, at the planes a round and chunk that
-// grad_round gives within `budget` floats.
-template <class Source, bool kRecompute>
+// The rounds kernel over d = 0..D at a tile of TH rows, at the planes a
+// round and chunk that grad_round gives within `budget` floats.
+template <class Source, bool kRecompute, int TH = kTileH>
 cudaError_t launch_all_planes(const Source& src, const float* camera,
                               const float* projector, const float* cam_s,
                               const float* cam_e2, const float* proj_s,
                               const float* proj_e2, float* a1, float* bm,
                               float* grmu, int B, int H, int W, int D, int k,
-                              float eps, size_t budget, cudaStream_t stream) {
+                              float eps, size_t budget, cudaStream_t stream,
+                              Tile<TH> tile = {}) {
   return launch_rounds_at<Source, kRecompute, false>(
-      grad_round(k, D, staged_consts<Source>(), kRecompute, budget), src,
+      grad_round(k, D, staged_consts<Source>(), kRecompute, budget, TH), src,
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, B, H,
-      W, D, k, 0, D, eps, stream);
+      W, D, k, 0, D, eps, stream, tile);
 }
 
 // The planes of a slab of the chunked route.

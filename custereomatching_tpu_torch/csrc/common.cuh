@@ -21,21 +21,36 @@ constexpr int kTileW = 64;
 constexpr int kThreads = kTileH * kTileW;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-// Shared-memory geometry of a plane kernel, in floats:
-//   camera tile     rows x cam_w   image rows [h0-p, h0+kTileH+p), cols [w0-p, w0+kTileW+p)
-//   projector tile  rows x proj_w  the same rows, cols [w0-p-D, w0+kTileW+p)
-//   vertical sums   kTileH x cam_w one disparity plane at a time
+// The rounds kernels of K1, K3 (K3w, K3m) and K4 also run at a tile of TH
+// rows and kThreads / TH columns (TH = 8, 16, 32: 8 x 128 and 32 x 32
+// besides the default), still one 1024-thread block an SM; every other
+// kernel runs the default.  The tag passes TH to the launchers, whose
+// template arguments it completes.
+template <int TH>
+struct Tile {
+  static_assert(kThreads % TH == 0, "a tile of kThreads pixels");
+  static constexpr int kH = TH;
+  static constexpr int kW = kThreads / TH;
+};
+
+// Shared-memory geometry of a plane kernel with a th x tw pixel tile, in
+// floats:
+//   camera tile     rows x cam_w   image rows [h0-p, h0+th+p), cols [w0-p, w0+tw+p)
+//   projector tile  rows x proj_w  the same rows, cols [w0-p-D, w0+tw+p)
+//   vertical sums   th x cam_w     one disparity plane at a time
 struct PlaneTile {
-  int p, rows, cam_w, proj_w;
-  __host__ __device__ PlaneTile(int k, int D)
+  int p, th, tw, rows, cam_w, proj_w;
+  __host__ __device__ PlaneTile(int k, int D, int th = kTileH)
       : p(k / 2),
-        rows(kTileH + 2 * (k / 2)),
-        cam_w(kTileW + 2 * (k / 2)),
-        proj_w(kTileW + 2 * (k / 2) + D) {}
+        th(th),
+        tw(kThreads / th),
+        rows(th + 2 * (k / 2)),
+        cam_w(kThreads / th + 2 * (k / 2)),
+        proj_w(kThreads / th + 2 * (k / 2) + D) {}
   __host__ __device__ size_t floats() const {
     return static_cast<size_t>(rows) * cam_w +
            static_cast<size_t>(rows) * proj_w +
-           static_cast<size_t>(kTileH) * cam_w;
+           static_cast<size_t>(th) * cam_w;
   }
 };
 
@@ -174,25 +189,28 @@ __device__ __forceinline__ int group_start(int q, int len) {
 }
 
 // K3's round, which K1 and K6 run too: P planes of the rows pass
-// (kRoundRows output rows a column, the whole tile height), one barrier, P
-// planes of column sums (kRoundCols outputs a row), one barrier; then each
-// pixel's thread reads its P sums in plane order.  Rows of the round's
-// buffers are padded to an odd stride, so the column sums' 32 rows of a
-// warp hit 32 banks.
+// (kRoundRows output rows a column, the whole tile height: TH at a tile of
+// TH rows), one barrier, P planes of column sums (kRoundCols outputs a
+// row), one barrier; then each pixel's thread reads its P sums in plane
+// order.  Rows of the round's buffers are padded to an odd stride, so the
+// column sums' 32 rows of a warp hit 32 banks.
 constexpr int kRoundRows = 16;
 constexpr int kRoundCols = 16;
 static_assert(kRoundRows == kTileH, "the rows pass covers the tile height");
-static_assert(kTileW % kRoundCols == 0, "column groups tile the width");
+static_assert(Tile<8>::kW % kRoundCols == 0 &&
+                  Tile<16>::kW % kRoundCols == 0 &&
+                  Tile<32>::kW % kRoundCols == 0,
+              "column groups tile the width of every tile");
 
 // Shared-memory geometry of K3's round, in floats, after PlaneTile's two
-// image tiles: `planes` planes of the rows pass (kTileH x vs, vs = cam_w + 1)
-// and of the window sums (kTileH x bs, bs = kTileW + 1).
+// image tiles: `planes` planes of the rows pass (th x vs, vs = cam_w + 1)
+// and of the window sums (th x bs, bs = tw + 1).
 struct RoundTile {
-  int vs, bs, planes;
+  int th, tw, vs, bs, planes;
   __host__ __device__ RoundTile(const PlaneTile& g, int planes)
-      : vs(g.cam_w + 1), bs(kTileW + 1), planes(planes) {}
-  __host__ __device__ int vsum_floats() const { return kTileH * vs; }
-  __host__ __device__ int box_floats() const { return kTileH * bs; }
+      : th(g.th), tw(g.tw), vs(g.cam_w + 1), bs(g.tw + 1), planes(planes) {}
+  __host__ __device__ int vsum_floats() const { return th * vs; }
+  __host__ __device__ int box_floats() const { return th * bs; }
   __host__ __device__ static size_t image_floats(const PlaneTile& g) {
     return static_cast<size_t>(g.rows) * (g.cam_w + g.proj_w);
   }
@@ -234,22 +252,28 @@ inline Rounds whole_rounds(int planes, int chunk, int D) {
   return {planes, chunk};
 }
 
-// Planes a round and a projector staging of K1 and K3 within `budget`
-// floats of shared memory: as many planes a round as give every thread one
-// rows-pass column (kThreads / cam_w), fewer where they do not fit beside
-// the camera tile and a one-plane projector tile, and no more than D + 1;
-// the projector staging takes what is left: all D + 1 planes where they
-// fit, else a multiple of the round.  {0, 0} when not one plane fits.
-inline Rounds fused_round(int k, int D, size_t budget) {
-  const PlaneTile g(k, 0);
+// Planes a round and a projector staging of K1 and K3 at a tile of th
+// rows within `budget` floats of shared memory: as many planes a round as
+// give every thread one rows-pass column (kThreads / cam_w), fewer where
+// they do not fit beside the camera tile and a one-plane projector tile,
+// and no more than D + 1; the projector staging takes what is left: all
+// D + 1 planes where they fit, else a multiple of the round.  `want` > 0
+// asks for that many planes a round instead (no more than D + 1), refused
+// where they do not fit.  {0, 0} when not one plane (or not `want`) fits.
+inline Rounds fused_round(int k, int D, size_t budget, int th = kTileH,
+                          int want = 0) {
+  const PlaneTile g(k, 0, th);
   const RoundTile one(g, 1);
   const size_t fixed = RoundTile::image_floats(g);
   const size_t per = static_cast<size_t>(one.vsum_floats()) + one.box_floats();
   if (fixed + per > budget) return {0, 0};
-  size_t planes = kThreads / g.cam_w;
+  size_t planes = want > 0 ? want : kThreads / g.cam_w;
   if (planes < 1) planes = 1;
-  if (planes > (budget - fixed) / per) planes = (budget - fixed) / per;
   if (planes > static_cast<size_t>(D) + 1) planes = static_cast<size_t>(D) + 1;
+  if (planes > (budget - fixed) / per) {
+    if (want > 0) return {0, 0};
+    planes = (budget - fixed) / per;
+  }
   const size_t cam = static_cast<size_t>(g.rows) * g.cam_w;
   return whole_rounds(
       static_cast<int>(planes),
@@ -257,32 +281,33 @@ inline Rounds fused_round(int k, int D, size_t budget) {
 }
 
 // Rows pass of `np` planes: vsum[j][r][c] = sum_{t<k} cam_t[r + t][c] *
-// proj_t[r + t][c + shift0 - j] for r < kTileH, c < cam_w (plane d0 + j
-// reads the projector at shift D - d0 - j).  An item is a column of one
-// plane.
+// proj_t[r + t][c + shift0 - j] for r < TH, c < cam_w (plane d0 + j reads
+// the projector at shift D - d0 - j).  An item is a column of one plane:
+// TH outputs (kRoundRows at the default tile).
+template <int TH = kTileH>
 __device__ inline void round_products(float* vsum, const float* cam_t,
                                       const float* proj_t, const PlaneTile& g,
                                       const RoundTile& x, int k, int shift0,
                                       int np) {
   for (int i = threadIdx.x; i < np * g.cam_w; i += blockDim.x) {
     const int j = i / g.cam_w, c = i - j * g.cam_w;
-    float acc[kRoundRows];
-    window_taps<kRoundRows, true>(acc, cam_t + c, g.cam_w,
-                                  proj_t + c + shift0 - j, g.proj_w, k);
+    float acc[TH];
+    window_taps<TH, true>(acc, cam_t + c, g.cam_w, proj_t + c + shift0 - j,
+                          g.proj_w, k);
     float* out = vsum + j * x.vsum_floats() + c;
 #pragma unroll
-    for (int n = 0; n < kRoundRows; ++n) out[n * x.vs] = acc[n];
+    for (int n = 0; n < TH; ++n) out[n * x.vs] = acc[n];
   }
 }
 
 // Column sums of `np` planes: box[j][r][c] = sum_{t<k} vsum[j][r][c + t]
-// for r < kTileH, c < kTileW.  An item is kRoundCols outputs of one row;
-// a warp's items are consecutive rows (planes continue the rows).
+// for r < th, c < tw.  An item is kRoundCols outputs of one row; a warp's
+// items are consecutive rows (planes continue the rows).
 __device__ inline void round_column_sums(float* box, const float* vsum,
                                          const RoundTile& x, int k, int np) {
-  constexpr int kGroups = kTileW / kRoundCols;
-  const int lines = np * kTileH;
-  for (int i = threadIdx.x; i < lines * kGroups; i += blockDim.x) {
+  const int groups = x.tw / kRoundCols;
+  const int lines = np * x.th;
+  for (int i = threadIdx.x; i < lines * groups; i += blockDim.x) {
     const int q = i / lines, line = i - q * lines;
     float acc[kRoundCols];
     window_taps<kRoundCols, false>(acc, vsum + line * x.vs + q * kRoundCols,

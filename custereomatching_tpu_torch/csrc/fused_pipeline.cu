@@ -32,16 +32,22 @@ using namespace custereo;
 // scratch cam_s/cam_e2: [B, H, W], proj_s/proj_e2: [B, H, W + D]; the four
 // output maps: [B, H, W]; all fp32, contiguous, on the current device.
 // Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 when every launch was accepted).
+// cudaGetLastError() (0 when every launch was accepted).  `tile_rows`: the
+// rounds kernel's tile, 8, 16 (the default) or 32 rows of 1024 / tile_rows
+// columns; `planes`: planes a round, 0 for fused_round's; a tile or a
+// round that does not fit is refused (cudaErrorInvalidConfiguration)
+// before anything launches.
 extern "C" int custereo_fused_pipeline(
     const float* camera, const float* projector, float* cam_s, float* cam_e2,
     float* proj_s, float* proj_e2, float* disparity, float* soft, float* mask,
     float* conf, int B, int H, int W, int D, int k, float eps, float beta,
-    float threshold, int unnormalized, void* stream_ptr) {
+    float threshold, int unnormalized, void* stream_ptr, int tile_rows,
+    int planes) {
   return run_pipeline<true, false, false>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
       mask, conf, nullptr, nullptr, nullptr, nullptr, B, H, W, D, k, eps,
-      beta, threshold, unnormalized, static_cast<cudaStream_t>(stream_ptr));
+      beta, threshold, unnormalized, static_cast<cudaStream_t>(stream_ptr),
+      tile_rows, planes);
 }
 
 // The training forward (K3w): as custereo_fused_pipeline, plus the cost
@@ -51,11 +57,12 @@ extern "C" int custereo_fused_pipeline_train(
     float* proj_s, float* proj_e2, float* disparity, float* soft, float* mask,
     float* conf, float* volume, float* am, float* s, float* t, int B, int H,
     int W, int D, int k, float eps, float beta, float threshold,
-    int unnormalized, void* stream_ptr) {
+    int unnormalized, void* stream_ptr, int tile_rows, int planes) {
   return run_pipeline<true, true, true>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
       mask, conf, volume, am, s, t, B, H, W, D, k, eps, beta, threshold,
-      unnormalized, static_cast<cudaStream_t>(stream_ptr));
+      unnormalized, static_cast<cudaStream_t>(stream_ptr), tile_rows,
+      planes);
 }
 
 // The volume-free training forward (K3m): as custereo_fused_pipeline, plus
@@ -65,9 +72,24 @@ extern "C" int custereo_fused_pipeline_train_maps(
     float* proj_s, float* proj_e2, float* disparity, float* soft, float* mask,
     float* conf, float* am, float* s, float* t, int B, int H, int W, int D,
     int k, float eps, float beta, float threshold, int unnormalized,
-    void* stream_ptr) {
+    void* stream_ptr, int tile_rows, int planes) {
   return run_pipeline<true, true, false>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
       mask, conf, nullptr, am, s, t, B, H, W, D, k, eps, beta, threshold,
-      unnormalized, static_cast<cudaStream_t>(stream_ptr));
+      unnormalized, static_cast<cudaStream_t>(stream_ptr), tile_rows,
+      planes);
+}
+
+// The planes a round and projector chunk K1's and K3's launcher takes at
+// (k, D) on the current device at a tile of `tile_rows` rows and `planes`
+// a round (0: fused_round's): round[0], round[1]; {0, 0} and
+// cudaErrorInvalidConfiguration where they do not fit.  What the bound
+// model mirrors (kernel_model.fused_round); launches nothing.
+extern "C" int custereo_fused_rounds(int k, int D, int tile_rows, int planes,
+                                     int* round) {
+  Rounds r{0, 0};
+  const cudaError_t e = fused_rounds_at(k, D, tile_rows, planes, &r);
+  round[0] = r.planes;
+  round[1] = r.chunk;
+  return e;
 }

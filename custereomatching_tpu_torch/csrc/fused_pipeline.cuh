@@ -46,23 +46,54 @@
 // registers, so one 1024-thread block an SM.  K1 in slab mode (kSlab)
 // writes the planes [d_lo, d_hi] alone, into a volume of their own: the
 // chunked route of K5 and K6 (camera_grad.cuh) reads its costs so.
+//
+// The tile is a template parameter (Tile<TH>, common.cuh): 16 x 64 by
+// default, 8 x 128 and 32 x 32 in translation units of their own
+// (fused_pipeline_tile8.cu, fused_pipeline_tile32.cu), which the C entries
+// reach through run_pipeline; the planes a round are an argument (0:
+// fused_round's choice).  Neither changes a value: a pixel's taps and
+// planes keep their order, so every tile gives the default's outputs bit
+// for bit.  The autotuner (ops/tuning.py) picks them.
 #pragma once
 
 #include "common.cuh"
 
 namespace custereo {
+
+// One call of K1, K3, K3w or K3m: the C entries' arguments.  `head`: the
+// head runs (K3, K3w, K3m; K1 writes the volume alone); `residuals`: am, s
+// and t are written (K3w, K3m); a volume is written where `volume` is not
+// null.
+struct PipelineCall {
+  const float *camera, *projector;
+  float *cam_s, *cam_e2, *proj_s, *proj_e2;
+  float *disparity, *soft, *mask, *conf, *volume, *am, *s, *t;
+  int B, H, W, D, k;
+  float eps, beta, threshold;
+  int unnormalized, planes;
+  bool head, residuals;
+  cudaStream_t stream;
+};
+
+// The rounds kernel at the tiles of 8 and 32 rows, each built in a
+// translation unit of its own (fused_pipeline_tile8.cu,
+// fused_pipeline_tile32.cu), so that nvcc compiles them beside the others.
+int run_pipeline_tile8(const PipelineCall& c);
+int run_pipeline_tile32(const PipelineCall& c);
+
 namespace {
 
-// Grid: (ceil(W / kTileW), ceil(H / kTileH), B); kThreads threads, one
-// block an SM (the register-blocked pass takes up to 64 registers a
-// thread); dynamic shared memory RoundTile(PlaneTile(k, chunk - 1),
-// planes).floats() floats.  The four head maps are written only when
-// kHead, am_out, s_out and t_out only when kResiduals, volume only when
-// kVolume; without the head (K1) the kernel writes the volume alone.
+// Grid: (ceil(W / TW), ceil(H / TH), B) for a TH x TW pixel tile
+// (Tile<TH>; 16 x 64 by default); kThreads threads, one block an SM (the
+// register-blocked pass takes up to 64 registers a thread); dynamic shared
+// memory RoundTile(PlaneTile(k, chunk - 1, TH), planes).floats() floats.
+// The four head maps are written only when kHead, am_out, s_out and t_out
+// only when kResiduals, volume only when kVolume; without the head (K1)
+// the kernel writes the volume alone.
 // kSlab (K1 only): the planes d_lo..d_hi alone, the volume [B, d_hi - d_lo
 // + 1, H, W]; otherwise d = 0..D, and d_lo and d_hi are unused.
 template <bool kHead, bool kUnnormalized, bool kResiduals, bool kVolume,
-          bool kSlab>
+          bool kSlab, int TH = kTileH>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_pipeline_kernel(const float* __restrict__ camera,
                           const float* __restrict__ projector,
@@ -81,18 +112,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(kHead || (kVolume && !kResiduals),
                 "without the head the kernel writes the volume alone (K1)");
   static_assert(!kSlab || !kHead, "a slab of planes is K1's");
+  constexpr int TW = Tile<TH>::kW;
   extern __shared__ float smem[];
   // The projector tile holds `chunk` planes: for the chunk's last plane
   // `last` it starts at image column w0 - p - last, and plane d reads it
   // at shift last - d.
-  const PlaneTile g(k, chunk - 1);
+  const PlaneTile g(k, chunk - 1, TH);
   const RoundTile x(g, planes);
   float* cam_t = smem;
   float* proj_t = cam_t + g.rows * g.cam_w;
   float* vsum = proj_t + g.rows * g.proj_w;
   float* box = vsum + planes * x.vsum_floats();
 
-  const int b = blockIdx.z, h0 = blockIdx.y * kTileH, w0 = blockIdx.x * kTileW;
+  const int b = blockIdx.z, h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
   const size_t plane = static_cast<size_t>(H) * W;
   const float* proj_b = projector + b * plane;
   // The planes walked.
@@ -103,7 +135,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage_tile(proj_t, proj_b, H, W, h0 - g.p, w0 - g.p - last, g.rows,
              g.proj_w, beta);
 
-  const int r = threadIdx.x / kTileW, c = threadIdx.x % kTileW;
+  const int r = threadIdx.x / TW, c = threadIdx.x % TW;
   const int h = h0 + r, w = w0 + c;
   const bool valid = h < H && w < W;
   const size_t o = b * plane + static_cast<size_t>(h) * W + w;
@@ -143,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
     }
     const int np = min(planes, last + 1 - d0);
-    round_products(vsum, cam_t, proj_t, g, x, k, last - d0, np);
+    round_products<TH>(vsum, cam_t, proj_t, g, x, k, last - d0, np);
     __syncthreads();
     round_column_sums(box, vsum, x, k, np);
     __syncthreads();
@@ -196,10 +228,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The rounds of a K1 or K3 launch over D + 1 planes at a tile of th rows
+// on the current device: fused_round within its opt-in shared memory,
+// `planes` a round where > 0.  cudaErrorInvalidConfiguration where they
+// do not fit.
+inline cudaError_t fused_rounds_at(int k, int D, int th, int planes,
+                                   Rounds* round) {
+  int device = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  if (e != cudaSuccess) return e;
+  *round = fused_round(k, D, static_cast<size_t>(optin) / sizeof(float), th,
+                       planes);
+  return round->planes < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
 // The rounds kernel over the planes d_lo..d_hi (all D + 1 unless kSlab),
-// at fused_round's planes a round and projector chunk for them.
+// at a tile of TH rows, at fused_round's planes a round (or `planes`, where
+// > 0) and projector chunk for them.
 template <bool kHead, bool kUnnormalized, bool kResiduals, bool kVolume,
-          bool kSlab = false>
+          bool kSlab = false, int TH = kTileH>
 cudaError_t launch_fused(const float* camera, const float* projector,
                          const float* cam_s, const float* cam_e2,
                          const float* proj_s, const float* proj_e2,
@@ -207,24 +257,21 @@ cudaError_t launch_fused(const float* camera, const float* projector,
                          float* conf, float* volume, float* am, float* s,
                          float* t, int B, int H, int W, int D, int k,
                          int d_lo, int d_hi, float eps, float beta,
-                         float threshold, cudaStream_t stream) {
+                         float threshold, cudaStream_t stream,
+                         Tile<TH> = {}, int planes = 0) {
+  constexpr int TW = Tile<TH>::kW;
   auto kernel = fused_pipeline_kernel<kHead, kUnnormalized, kResiduals,
-                                      kVolume, kSlab>;
-  int device = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&device);
+                                      kVolume, kSlab, TH>;
+  Rounds round;
+  // Not even one plane's buffers (or not the planes asked for) fit beside
+  // the image tiles.
+  cudaError_t e = fused_rounds_at(k, d_hi - d_lo, TH, planes, &round);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device);
-  if (e != cudaSuccess) return e;
-  const Rounds round = fused_round(k, d_hi - d_lo,
-                                   static_cast<size_t>(optin) / sizeof(float));
-  // Not even one plane's buffers fit beside the image tiles.
-  if (round.planes < 1) return cudaErrorInvalidConfiguration;
-  const PlaneTile g(k, round.chunk - 1);
+  const PlaneTile g(k, round.chunk - 1, TH);
   const size_t bytes = RoundTile(g, round.planes).floats(g) * sizeof(float);
   e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
       mask, conf, volume, am, s, t, H, W, D, k, round.planes, round.chunk,
@@ -233,32 +280,70 @@ cudaError_t launch_fused(const float* camera, const float* projector,
 }
 
 // The statistics passes (the projector's scaled by beta), then the rounds
-// kernel: with the head in the branch that `unnormalized` selects, or
-// without it (K1, at beta = 1).
+// kernel at a tile of TH rows: with the head in the branch that
+// `unnormalized` selects, or without it (K1, at beta = 1).  A tile or
+// `planes` that does not fit is refused before anything launches.
+template <bool kHead, bool kResiduals, bool kVolume, int TH>
+int run_tile(const PipelineCall& c) {
+  Rounds round;
+  cudaError_t e = fused_rounds_at(c.k, c.D, TH, c.planes, &round);
+  if (e != cudaSuccess) return e;
+  e = launch_box_stats(c.camera, c.cam_s, c.cam_e2, c.B, c.H, c.W, c.k, 0,
+                       c.W, 1.f, c.stream);
+  if (e != cudaSuccess) return e;
+  e = launch_box_stats(c.projector, c.proj_s, c.proj_e2, c.B, c.H, c.W, c.k,
+                       c.D, c.W + c.D, c.beta, c.stream);
+  if (e != cudaSuccess) return e;
+  if constexpr (kHead) {
+    if (c.unnormalized)
+      return launch_fused<true, true, kResiduals, kVolume>(
+          c.camera, c.projector, c.cam_s, c.cam_e2, c.proj_s, c.proj_e2,
+          c.disparity, c.soft, c.mask, c.conf, c.volume, c.am, c.s, c.t, c.B,
+          c.H, c.W, c.D, c.k, 0, c.D, c.eps, c.beta, c.threshold, c.stream,
+          Tile<TH>(), c.planes);
+  }
+  return launch_fused<kHead, false, kResiduals, kVolume>(
+      c.camera, c.projector, c.cam_s, c.cam_e2, c.proj_s, c.proj_e2,
+      c.disparity, c.soft, c.mask, c.conf, c.volume, c.am, c.s, c.t, c.B, c.H,
+      c.W, c.D, c.k, 0, c.D, c.eps, c.beta, c.threshold, c.stream, Tile<TH>(),
+      c.planes);
+}
+
+// The outputs `c` asks for (K1, K3, K3w or K3m) at a tile of TH rows: what
+// the translation unit of a tile other than the default instantiates.
+template <int TH>
+int run_outputs(const PipelineCall& c) {
+  if (!c.head) return run_tile<false, false, true, TH>(c);
+  if (!c.residuals) return run_tile<true, false, false, TH>(c);
+  return c.volume != nullptr ? run_tile<true, true, true, TH>(c)
+                             : run_tile<true, true, false, TH>(c);
+}
+
+// K1, K3, K3w or K3m at a tile of `tile_rows` rows (kTileH, or another of
+// the tiles Tile instantiates the rounds kernel at) and `planes` planes a
+// round (0: fused_round's).  A tile with no instantiation is refused.
 template <bool kHead, bool kResiduals, bool kVolume>
 int run_pipeline(const float* camera, const float* projector, float* cam_s,
                  float* cam_e2, float* proj_s, float* proj_e2,
                  float* disparity, float* soft, float* mask, float* conf,
                  float* volume, float* am, float* s, float* t, int B, int H,
                  int W, int D, int k, float eps, float beta, float threshold,
-                 int unnormalized, cudaStream_t stream) {
-  cudaError_t e =
-      launch_box_stats(camera, cam_s, cam_e2, B, H, W, k, 0, W, 1.f, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_box_stats(projector, proj_s, proj_e2, B, H, W, k, D, W + D, beta,
-                       stream);
-  if (e != cudaSuccess) return e;
-  if constexpr (kHead) {
-    if (unnormalized)
-      return launch_fused<true, true, kResiduals, kVolume>(
-          camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
-          mask, conf, volume, am, s, t, B, H, W, D, k, 0, D, eps, beta,
-          threshold, stream);
+                 int unnormalized, cudaStream_t stream, int tile_rows,
+                 int planes) {
+  const PipelineCall c{camera, projector, cam_s, cam_e2, proj_s, proj_e2,
+                       disparity, soft, mask, conf, volume, am, s, t,
+                       B, H, W, D, k, eps, beta, threshold, unnormalized,
+                       planes, kHead, kResiduals, stream};
+  switch (tile_rows) {
+    case kTileH:
+      return run_tile<kHead, kResiduals, kVolume, kTileH>(c);
+    case 8:
+      return run_pipeline_tile8(c);
+    case 32:
+      return run_pipeline_tile32(c);
+    default:
+      return cudaErrorInvalidConfiguration;
   }
-  return launch_fused<kHead, false, kResiduals, kVolume>(
-      camera, projector, cam_s, cam_e2, proj_s, proj_e2, disparity, soft,
-      mask, conf, volume, am, s, t, B, H, W, D, k, 0, D, eps, beta,
-      threshold, stream);
 }
 
 }  // namespace

@@ -76,81 +76,10 @@
 // entry (about 4k + 25 flops with the k x k window sums taken separably),
 // puts its floor at 0.11 ms a KITTI frame at 67 TFLOP/s.  Otherwise as K6
 // (camera_grad.cuh).
-#include "camera_grad.cuh"
+#include "head_rounds.cuh"
 
 namespace custereo {
 namespace {
-
-// g_d at one pixel from the head's per-pixel values: gs = gs_hat mask
-// beta, tos = t/s, inv_s = 1/s, am, gc = gc_hat and conf (read only by
-// the rescaled head).
-template <bool kUnnormalized>
-__device__ __forceinline__ float head_cotangent(float gs, float tos,
-                                                float inv_s, float am,
-                                                float gc, float conf,
-                                                float beta, float c,
-                                                float df) {
-  const float arg = kUnnormalized ? beta * c : beta * (c - conf);
-  const float w = expf(arg) * inv_s;
-  const float hit = am == df ? 1.f : 0.f;
-  return gs * w * (df - tos) + gc * hit;
-}
-
-// g_d formed from the head's maps [B, H, W] and the cost (camera_grad.cuh's
-// Source; K5 reads the maps itself).  kStaged: the entries' constants
-// staged over the halo; otherwise read from the maps at every entry.
-template <bool kUnnormalized, bool kStaged_ = true>
-struct HeadSource {
-  static constexpr bool kStaged = kStaged_;
-  // Staged tiles: gs_hat mask beta, t/s, 1/s, am, gc_hat, conf.
-  static constexpr int kMaps = kStaged ? 6 : 0;
-  static constexpr bool kReadsCost = true;
-  static constexpr bool kCentreCost = false;
-  const float *am, *mask, *conf, *s, *t, *gsoft, *gconf;
-  float beta;
-  // The cost volume (K4; K5 recomputes the cost and leaves it null).
-  const float* vol;
-
-  struct Entry {
-    float gs, tos, inv_s, am, gc, conf;
-  };
-
-  // The constants of frame pixel pix, from the maps.
-  __device__ Entry load(size_t pix) const {
-    const float inv_s = 1.f / __ldg(s + pix);
-    return {__ldg(gsoft + pix) * __ldg(mask + pix) * beta,
-            __ldg(t + pix) * inv_s,
-            inv_s,
-            __ldg(am + pix),
-            __ldg(gconf + pix),
-            __ldg(conf + pix)};
-  }
-
-  __device__ void stage(float* maps, int halo, int i, size_t pix,
-                        bool inside) const {
-    const Entry e = inside ? load(pix) : Entry{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    maps[i] = e.gs;
-    maps[halo + i] = e.tos;
-    maps[2 * halo + i] = e.inv_s;
-    maps[3 * halo + i] = e.am;
-    maps[4 * halo + i] = e.gc;
-    maps[5 * halo + i] = e.conf;
-  }
-
-  __device__ Entry entry(const float* maps, int halo, int i,
-                         size_t pix) const {
-    if constexpr (kStaged)
-      return {maps[i],          maps[halo + i],     maps[2 * halo + i],
-              maps[3 * halo + i], maps[4 * halo + i], maps[5 * halo + i]};
-    else
-      return load(pix);
-  }
-
-  __device__ float cotangent(const Entry& e, float c, float df) const {
-    return head_cotangent<kUnnormalized>(e.gs, e.tos, e.inv_s, e.am, e.gc,
-                                         e.conf, beta, c, df);
-  }
-};
 
 // K5's register blocking: outputs an item of the cross term's rows pass
 // (kHaloRows) and of its column sums (kHaloCols; gr's passes are
@@ -415,29 +344,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// K4's rounds kernel over d = 0..D: the constants staged where a plane's
-// buffers fit beside them, else read from the maps.
-template <bool kUnnormalized>
-cudaError_t launch_head_rounds(const HeadSource<kUnnormalized>& src,
-                               const float* camera, const float* projector,
-                               const float* cam_s, const float* cam_e2,
-                               const float* proj_s, const float* proj_e2,
-                               float* a1, float* bm, float* grmu, int B,
-                               int H, int W, int D, int k, float eps,
-                               size_t budget, cudaStream_t stream) {
-  using Staged = HeadSource<kUnnormalized, true>;
-  using Unstaged = HeadSource<kUnnormalized, false>;
-  if (grad_round(k, D, staged_consts<Staged>(), false, budget).planes >= 1)
-    return launch_all_planes<Staged, false>(
-        src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu,
-        B, H, W, D, k, eps, budget, stream);
-  return launch_all_planes<Unstaged, false>(
-      Unstaged{src.am, src.mask, src.conf, src.s, src.t, src.gsoft,
-               src.gconf, src.beta, src.vol},
-      camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, B, H,
-      W, D, k, eps, budget, stream);
-}
-
 // K5's chunked route: K4's rounds kernel on slabs of K1's costs, its
 // constants staged where a plane's buffers fit beside them.
 template <bool kUnnormalized, bool kStaged>
@@ -497,27 +403,47 @@ cudaError_t launch_halo_rounds(const HeadSource<kUnnormalized>& src,
   return cudaGetLastError();
 }
 
-// K4 (the cost read from `cost`) or K5 (recomputed), through
-// camera_grad.cuh's launch_grad_kernels.
+// K4 (the cost read from `cost`, its rounds kernel at a tile of
+// `tile_rows` rows) or K5 (recomputed, at the default tile), through
+// camera_grad.cuh's launch_grad_kernels.  K4 at a tile it has no
+// instantiation for, or whose blocks do not fit, is refused before
+// anything launches.
 template <bool kUnnormalized, bool kRecompute>
 int run(const float* camera, const float* projector, float* cam_s,
         float* cam_e2, float* proj_s, float* proj_e2, const float* cost,
         const float* am, const float* mask, const float* conf, const float* s,
         const float* t, const float* gsoft, const float* gconf, float* a1,
         float* bm, float* grmu, float* grad, float* slab, int B, int H,
-        int W, int D, int k, float eps, float beta, cudaStream_t stream) {
+        int W, int D, int k, float eps, float beta, cudaStream_t stream,
+        int tile_rows) {
   const HeadSource<kUnnormalized> src{am, mask, conf, s, t, gsoft, gconf,
                                       beta, cost};
+  if constexpr (!kRecompute) {
+    size_t budget = 0;
+    const cudaError_t e = optin_floats(&budget);
+    if (e != cudaSuccess) return e;
+    if ((tile_rows != 8 && tile_rows != kTileH && tile_rows != 32) ||
+        !head_rounds_fit(k, D, budget, tile_rows))
+      return cudaErrorInvalidConfiguration;
+  }
   return launch_grad_kernels(
       [&](size_t budget) {
-        if constexpr (kRecompute)
+        if constexpr (kRecompute) {
           return launch_halo_rounds(src, camera, projector, cam_s, cam_e2,
                                     proj_s, proj_e2, a1, bm, grmu, slab, B,
                                     H, W, D, k, eps, budget, stream);
-        else
-          return launch_head_rounds(src, camera, projector, cam_s, cam_e2,
-                                    proj_s, proj_e2, a1, bm, grmu, B, H, W,
-                                    D, k, eps, budget, stream);
+        } else {
+          if (tile_rows == kTileH)
+            return launch_head_rounds(src, camera, projector, cam_s, cam_e2,
+                                      proj_s, proj_e2, a1, bm, grmu, B, H, W,
+                                      D, k, eps, budget, stream);
+          const HeadRoundsCall c{am, mask, conf, s, t, gsoft, gconf, cost,
+                                 beta, kUnnormalized, camera, projector,
+                                 cam_s, cam_e2, proj_s, proj_e2, a1, bm,
+                                 grmu, B, H, W, D, k, eps, budget, stream};
+          return tile_rows == 8 ? head_rounds_tile8(c)
+                                : head_rounds_tile32(c);
+        }
       },
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, a1, bm, grmu, grad,
       B, H, W, D, k, stream);
@@ -532,16 +458,16 @@ int run_branch(const float* camera, const float* projector, float* cam_s,
                const float* gsoft, const float* gconf, float* a1, float* bm,
                float* grmu, float* grad, float* slab, int B, int H, int W,
                int D, int k, float eps, float beta, int unnormalized,
-               cudaStream_t stream) {
+               cudaStream_t stream, int tile_rows) {
   if (unnormalized)
     return run<true, kRecompute>(camera, projector, cam_s, cam_e2, proj_s,
                                  proj_e2, cost, am, mask, conf, s, t, gsoft,
                                  gconf, a1, bm, grmu, grad, slab, B, H, W, D,
-                                 k, eps, beta, stream);
+                                 k, eps, beta, stream, tile_rows);
   return run<false, kRecompute>(camera, projector, cam_s, cam_e2, proj_s,
                                 proj_e2, cost, am, mask, conf, s, t, gsoft,
                                 gconf, a1, bm, grmu, grad, slab, B, H, W, D,
-                                k, eps, beta, stream);
+                                k, eps, beta, stream, tile_rows);
 }
 
 }  // namespace
@@ -554,20 +480,23 @@ using namespace custereo;
 // cotangents gsoft, gconf: [B, H, W]; scratch cam_s/cam_e2: [B, H, W],
 // proj_s/proj_e2: [B, H, W + D], a1/bm/grmu: [B, H, W]; grad: [B, H, W];
 // all fp32, contiguous, on the current device.  `unnormalized` must be the
-// head branch the forward ran.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 when every launch was
-// accepted).
+// head branch the forward ran.  `tile_rows`: the rounds kernel's tile, 8,
+// 16 (the default) or 32 rows of 1024 / tile_rows columns; another, or one
+// whose blocks do not fit, is refused (cudaErrorInvalidConfiguration)
+// before anything launches.  Launches on `stream`, does not synchronise,
+// and returns cudaGetLastError() (0 when every launch was accepted).
 extern "C" int custereo_fused_pipeline_bwd(
     const float* camera, const float* projector, float* cam_s, float* cam_e2,
     float* proj_s, float* proj_e2, const float* cost, const float* am,
     const float* mask, const float* conf, const float* s, const float* t,
     const float* gsoft, const float* gconf, float* a1, float* bm, float* grmu,
     float* grad, int B, int H, int W, int D, int k, float eps, float beta,
-    int unnormalized, void* stream_ptr) {
+    int unnormalized, void* stream_ptr, int tile_rows) {
   return run_branch<false>(camera, projector, cam_s, cam_e2, proj_s, proj_e2,
                            cost, am, mask, conf, s, t, gsoft, gconf, a1, bm,
                            grmu, grad, nullptr, B, H, W, D, k, eps, beta,
-                           unnormalized, static_cast<cudaStream_t>(stream_ptr));
+                           unnormalized, static_cast<cudaStream_t>(stream_ptr),
+                           tile_rows);
 }
 
 // K5: as custereo_fused_pipeline_bwd without the cost volume; the cost is
@@ -587,5 +516,28 @@ extern "C" int custereo_fused_pipeline_bwd_recompute(
   return run_branch<true>(camera, projector, cam_s, cam_e2, proj_s, proj_e2,
                           nullptr, am, mask, conf, s, t, gsoft, gconf, a1, bm,
                           grmu, grad, slab, B, H, W, D, k, eps, beta,
-                          unnormalized, static_cast<cudaStream_t>(stream_ptr));
+                          unnormalized, static_cast<cudaStream_t>(stream_ptr),
+                          kTileH);
+}
+
+// The planes a round and chunk of K4's rounds kernel at (k, D) on the
+// current device at a tile of `tile_rows` rows, and whether its constants
+// are staged: round[0], round[1], round[2]; {0, 0, 0} and
+// cudaErrorInvalidConfiguration where it does not fit or the tile has no
+// instantiation.  What the bound model mirrors (kernel_model.grad_round,
+// k4_staged); launches nothing.
+extern "C" int custereo_head_rounds(int k, int D, int tile_rows, int* round) {
+  round[0] = round[1] = round[2] = 0;
+  size_t budget = 0;
+  const cudaError_t e = optin_floats(&budget);
+  if (e != cudaSuccess) return e;
+  if (tile_rows != 8 && tile_rows != kTileH && tile_rows != 32)
+    return cudaErrorInvalidConfiguration;
+  bool staged = false;
+  const Rounds r = head_round(k, D, budget, tile_rows, &staged);
+  if (r.planes < 1) return cudaErrorInvalidConfiguration;
+  round[0] = r.planes;
+  round[1] = r.chunk;
+  round[2] = staged;
+  return cudaSuccess;
 }

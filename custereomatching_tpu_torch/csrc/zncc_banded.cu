@@ -45,17 +45,20 @@ using namespace custereo;
 // scratch cam_s/cam_e2: [B, H, W], proj_s/proj_e2: [B, H, W + D];
 // out: [B, D + 1, H, W]; all fp32, contiguous, on the current device.
 // Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 when every launch was accepted).
+// cudaGetLastError() (0 when every launch was accepted).  `tile_rows` and
+// `planes`: the rounds kernel's tile and planes a round, as
+// custereo_fused_pipeline's (fused_pipeline.cu).
 extern "C" int custereo_banded_volume(const float* camera,
                                       const float* projector, float* cam_s,
                                       float* cam_e2, float* proj_s,
                                       float* proj_e2, float* out, int B,
                                       int H, int W, int D, int k, float eps,
-                                      void* stream_ptr) {
+                                      void* stream_ptr, int tile_rows,
+                                      int planes) {
   return run_pipeline<false, false, true>(
       camera, projector, cam_s, cam_e2, proj_s, proj_e2, nullptr, nullptr,
       nullptr, nullptr, out, nullptr, nullptr, nullptr, B, H, W, D, k, eps,
-      1.f, 0.f, 0, static_cast<cudaStream_t>(stream_ptr));
+      1.f, 0.f, 0, static_cast<cudaStream_t>(stream_ptr), tile_rows, planes);
 }
 
 extern "C" const char* custereo_error_string(int code) {

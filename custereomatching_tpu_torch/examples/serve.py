@@ -14,8 +14,10 @@ clock, numpy in and numpy out.
 
 Prints the p50 and p95 latency and ``SERVE: OK`` when every frame was
 served.  It runs on the card unless ``--device cpu`` asks for the CPU.
-``--autotune`` raises: the tile autotuner (``ops/tuning.py``) is not
-ported yet.
+``--autotune`` gives the engine's bucket K3's tile tuned for its shape on
+the card during the warmup (``ops.tuning``; the winner persists on disk
+across restarts); with ``--device cpu`` there is nothing to tune (the
+plain versions have no tile) and it says so.
 """
 
 from __future__ import annotations
@@ -56,13 +58,9 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (ROADMAP, modules to port: "
-                    "ops/tuning.py)")
+                    help="tune K3's tile for the bucket on first use "
+                    "(winners persist across restarts)")
     args = ap.parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune: the tile autotuner is not ported yet (ROADMAP, "
-            "modules to port: ops/tuning.py)")
 
     frames = args.camera_pngs or [
         str(DATA / "capture_camera.png")] * args.loops
@@ -74,7 +72,12 @@ def main(argv: Optional[List[str]] = None,
         StereoConfig(kernel_size=args.kernel_size,
                      num_disparities=args.num_disparities,
                      backend=args.backend),
-        buckets=[bucket], retries=args.retries, device=args.device)
+        buckets=[bucket], retries=args.retries, autotune=args.autotune,
+        device=args.device)
+    if args.autotune and not engine.autotune:
+        print(f"autotune: nothing to tune on the "
+              f"{engine.config.resolved_backend(engine.device)} backend "
+              f"(the plain versions have no tile)")
 
     if not engine.healthy():
         print("SERVE: device health probe FAILED", file=sys.stderr)
@@ -83,8 +86,10 @@ def main(argv: Optional[List[str]] = None,
           f"retries={args.retries}")
     t0 = time.perf_counter()
     engine.warmup()
-    print(f"warmup (kernel build + one call a bucket) "
-          f"{time.perf_counter() - t0:.1f}s")
+    print(f"warmup (kernel build{', tuning' if engine.autotune else ''} + "
+          f"one call a bucket) {time.perf_counter() - t0:.1f}s")
+    if engine.autotune:
+        print(f"autotuned tiles: {engine.tuned_tiles}")
 
     served, lat, first = [], [], None
     t_stream = time.perf_counter()

@@ -21,14 +21,18 @@ Usage:
 With ``--mesh`` the camera is a ``DTensor`` sharded over the mesh, the
 loss runs the sharded volume (K1 + K2 on each rank's halo-extended block)
 and the plain head, and a checkpoint holds the full tensors, so a sharded
-run and a single-device run resume each other's.  ``--autotune`` is
-accepted and raises: the tile autotuner (``ops/tuning.py``) is not ported
-yet (ROADMAP, modules to port).
+run and a single-device run resume each other's.  ``--autotune`` tunes
+the tiles of the training kernels for the run's shape on the card before
+training (``ops.tuning``: K3w's ``pipeline_blocks``, K4's
+``trainable_bwd_block_rows``; the winners persist on disk) and prints
+them; with ``--device cpu`` there is nothing to tune (the plain versions
+have no tile) and it says so.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import List, Optional
 
@@ -121,6 +125,26 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState
     return state._replace(step=int(ckpt["step"]))
 
 
+def autotuned_tiles(args: argparse.Namespace, config: StereoConfig,
+                    device: torch.device, log) -> dict:
+    """The config fields ``--autotune`` sets: the forward's and K4's tiles
+    tuned on the card for the run's shape, or none off the ``cuda``
+    backend, whose plain versions have no tile."""
+    backend = config.resolved_backend(device)
+    if backend != "cuda":
+        log(f"autotune: nothing to tune on the {backend} backend (the plain "
+            f"versions have no tile)")
+        return {}
+    from custereomatching_tpu_torch.ops import tuning
+
+    shape = (args.height, args.width, args.disparities, args.kernel_size)
+    tuned = {"pipeline_blocks": tuning.autotune_pipeline_blocks(*shape),
+             "trainable_bwd_block_rows":
+                 tuning.autotune_trainable_bwd_blocks(*shape)}
+    log(f"autotuned tiles: {tuned}")
+    return tuned
+
+
 def run(args: argparse.Namespace) -> List[str]:
     """Train as ``args`` say; return the report's lines (rank 0 prints
     them as they come when ``echo``)."""
@@ -146,6 +170,9 @@ def run(args: argparse.Namespace) -> List[str]:
     config = StereoConfig(kernel_size=args.kernel_size,
                           num_disparities=args.disparities,
                           backend=args.backend)
+    if args.autotune:
+        config = dataclasses.replace(config, **autotuned_tiles(args, config,
+                                                               device, log))
     model = StereoMatcher(config)
     log(f"backend: {config.resolved_backend(device)}  device: {device}")
 
@@ -218,13 +245,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (ROADMAP, modules to port: "
-                    "ops/tuning.py)")
+                    help="pick the tiles of the training kernels (forward "
+                    "pipeline and trainable backward) for this shape on "
+                    "the card before training; winners persist on disk")
     args = ap.parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune: the tile autotuner is not ported yet (ROADMAP, "
-            "modules to port: ops/tuning.py)")
     lines = launch(run, args, args.ranks, args.device)
     if args.ranks:
         print("\n".join(lines))

@@ -10,7 +10,8 @@ has run once.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +47,12 @@ class StereoEngine:
     launches a frame on the card); ``retries`` re-runs a frame after a
     transient device fault (``utils.failsafe.with_retries``: the op is
     stateless, so the same inputs give the same maps); :meth:`healthy` is
-    a readiness probe.  ``autotune`` is not ported yet (ROADMAP, modules to
-    port: ``ops/tuning.py``) and raises ``NotImplementedError`` when set.
+    a readiness probe.  ``autotune`` gives each bucket K3's tile tuned for
+    its shape (``ops.tuning.autotune_pipeline_blocks``: derived
+    candidates, the winners cached on disk per card), on first use or in
+    :meth:`warmup`, instead of the config's; the maps are the same at
+    every tile.  Off the ``cuda`` backend there is no tile and
+    ``autotune`` does nothing.
     """
 
     def __init__(self, config: StereoConfig,
@@ -57,20 +62,44 @@ class StereoEngine:
                  device: Optional[torch.device] = None):
         if config.num_disparities is None:
             raise ValueError("serving engine requires banded mode")
-        if autotune:
-            raise NotImplementedError(
-                "autotune: tile autotuning is not ported yet (ROADMAP, "
-                "modules to port: ops/tuning.py)")
         self.device = entry_device(device)
-        config.resolved_backend(self.device)  # raises on cuda + CPU
+        # Raises on cuda + CPU.
+        backend = config.resolved_backend(self.device)
         self.config = config
         self.model = StereoMatcher(config)
         self.buckets = sorted(tuple(b) for b in buckets)
         self.lr_check = lr_check
         self.retries = retries
-        self._fn = self._wrap(self.model.disparity_maps_lr if lr_check
-                              else self.model.disparity_maps)
+        self.autotune = autotune and backend == "cuda"
+        self._fn = self._model_fn(self.model)
+        self._bucket_fns: Dict[Tuple[int, int], object] = {}
+        # K3's tile of each bucket tuned so far (None: the default tile,
+        # where no tile runs its own blocks).
+        self.tuned_tiles: Dict[Tuple[int, int],
+                               Optional[Tuple[int, int]]] = {}
         self.warm = set()
+
+    def _model_fn(self, model: StereoMatcher):
+        return self._wrap(model.disparity_maps_lr if self.lr_check
+                          else model.disparity_maps)
+
+    def _fn_for(self, bucket: Tuple[int, int]):
+        """The pipeline for a bucket: with ``autotune``, a matcher at the
+        tile tuned for the bucket's shape (tuned on first use)."""
+        if not self.autotune:
+            return self._fn
+        fn = self._bucket_fns.get(bucket)
+        if fn is None:
+            from custereomatching_tpu_torch.ops import tuning
+
+            c = self.config
+            blocks = tuning.autotune_pipeline_blocks(
+                bucket[0], bucket[1], c.num_disparities, c.kernel_size)
+            fn = self._model_fn(StereoMatcher(
+                dataclasses.replace(c, pipeline_blocks=blocks)))
+            self._bucket_fns[bucket] = fn
+            self.tuned_tiles[bucket] = blocks
+        return fn
 
     def _wrap(self, fn):
         if self.retries:
@@ -94,11 +123,12 @@ class StereoEngine:
 
     @torch.no_grad()
     def warmup(self) -> None:
-        """Build the kernels and run every bucket once."""
+        """Build the kernels (with ``autotune``, tune every bucket) and run
+        every bucket once."""
         for bh, bw in self.buckets:
             z = torch.zeros((1, bh, bw), dtype=torch.float32,
                             device=self.device)
-            fence(self._fn(z, z))
+            fence(self._fn_for((bh, bw))(z, z))
             self.warm.add((bh, bw))
 
     @torch.no_grad()
@@ -119,7 +149,7 @@ class StereoEngine:
         B, H, W = cam.shape
         bh, bw = self._bucket_for(H, W)
         pad = ((0, 0), (0, bh - H), (0, bw - W))
-        maps = self._fn(
+        maps = self._fn_for((bh, bw))(
             torch.from_numpy(np.pad(cam, pad)).to(self.device),
             torch.from_numpy(np.pad(proj, pad)).to(self.device))
 

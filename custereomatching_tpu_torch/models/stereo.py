@@ -65,7 +65,8 @@ class StereoMatcher(nn.Module):
     ``grad_projector``, K7 for its projector gradient; K8 for an all-pairs
     :meth:`cost_volume`; K3 for :meth:`disparity_maps` (twice for
     :meth:`disparity_maps_lr`), K3w and K4 for
-    :meth:`trainable_disparity_maps`.  The ``torch`` backend runs their
+    :meth:`trainable_disparity_maps`, K3 and K3w at the config's
+    ``pipeline_blocks`` tile and K4 at its ``trainable_bwd_block_rows``.  The ``torch`` backend runs their
     plain versions.  The model has no parameters: its state is the config.
     """
 
@@ -126,16 +127,19 @@ class StereoMatcher(nn.Module):
             if cuda:
                 raise ValueError("fused pipeline requires banded mode")
             return self._volume_maps(camera, projector)
-        run = stereo_pipeline_cuda if cuda else stereo_pipeline_reference
-        return run(camera, projector, c.num_disparities, c.kernel_size,
-                   c.epsilon, c.softargmax_beta, c.cost_threshold)
+        args = (camera, projector, c.num_disparities, c.kernel_size,
+                c.epsilon, c.softargmax_beta, c.cost_threshold)
+        if cuda:
+            return stereo_pipeline_cuda(*args, *c.pipeline_tile())
+        return stereo_pipeline_reference(*args)
 
     def trainable_disparity_maps(self, camera: torch.Tensor,
                                  projector: torch.Tensor) -> PipelineMaps:
         """Differentiable batched ``[B, H, W]`` pair to disparity maps.
 
         Banded and camera-only, the ``cuda`` backend runs the trainable
-        fused pipeline (K3w forward, K4 backward): the cost-volume
+        fused pipeline (K3w forward at ``pipeline_blocks``' tile, K4
+        backward at ``trainable_bwd_block_rows``'): the cost-volume
         cotangent never exists in device memory; the ``torch`` backend runs
         its plain twin.  Gradients flow through ``soft_disparity`` and
         ``confidence``.  The fused pipeline's VJP is banded and
@@ -145,10 +149,14 @@ class StereoMatcher(nn.Module):
         c = self.config
         if c.grad_projector or c.num_disparities is None:
             return self._volume_maps(camera, projector)
-        run = (stereo_pipeline_trainable if self._backend(camera) == "cuda"
-               else stereo_pipeline_trainable_reference)
-        return run(camera, projector, c.num_disparities, c.kernel_size,
-                   c.epsilon, c.softargmax_beta, c.cost_threshold)
+        args = (camera, projector, c.num_disparities, c.kernel_size,
+                c.epsilon, c.softargmax_beta, c.cost_threshold)
+        if self._backend(camera) == "cuda":
+            tile_rows, planes = c.pipeline_tile()
+            return stereo_pipeline_trainable(
+                *args, tile_rows=tile_rows, planes=planes,
+                bwd_tile_rows=c.bwd_tile_rows())
+        return stereo_pipeline_trainable_reference(*args)
 
     def disparity_maps_lr(self, camera: torch.Tensor,
                           projector: torch.Tensor,

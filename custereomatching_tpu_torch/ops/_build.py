@@ -39,18 +39,23 @@ _L = ctypes.c_longlong
 # C entry point -> argument types; every entry returns cudaGetLastError().
 SIGNATURES = {
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, out,
-    # B, H, W, D, k, eps, stream
-    "custereo_banded_volume": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # B, H, W, D, k, eps, stream, tile_rows, planes
+    "custereo_banded_volume": [_P] * 7 + [_I] * 5 + [_F, _P, _I, _I],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2,
     # disparity, soft, mask, conf, B, H, W, D, k, eps, beta, threshold,
-    # unnormalized, stream
-    "custereo_fused_pipeline": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    # unnormalized, stream, tile_rows, planes
+    "custereo_fused_pipeline": [_P] * 10 + [_I] * 5 + [_F] * 3
+    + [_I, _P, _I, _I],
     # ... as above, with volume, am, s, t after conf
     "custereo_fused_pipeline_train": [_P] * 14 + [_I] * 5 + [_F] * 3
-    + [_I, _P],
+    + [_I, _P, _I, _I],
     # ... as above, without the volume
     "custereo_fused_pipeline_train_maps": [_P] * 13 + [_I] * 5 + [_F] * 3
-    + [_I, _P],
+    + [_I, _P, _I, _I],
+    # The launchers' rounds, queried: k, D, tile_rows, planes, out[2] (K1,
+    # K3); k, D, tile_rows, out[3] (K4)
+    "custereo_fused_rounds": [_I] * 4 + [_P],
+    "custereo_head_rounds": [_I] * 3 + [_P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, cotangent,
     # a1, bm, grmu, grad, B, H, W, D, k, eps, stream
     "custereo_camera_grad": [_P] * 12 + [_I] * 5 + [_F, _P],
@@ -59,9 +64,9 @@ SIGNATURES = {
     "custereo_camera_grad_recompute": [_P] * 11 + [_I] * 5 + [_F, _P, _P],
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, cost, am, mask,
     # conf, s, t, gsoft, gconf, a1, bm, grmu, grad, B, H, W, D, k, eps,
-    # beta, unnormalized, stream
+    # beta, unnormalized, stream, tile_rows
     "custereo_fused_pipeline_bwd": [_P] * 18 + [_I] * 5 + [_F] * 2
-    + [_I, _P],
+    + [_I, _P, _I],
     # ... as above, without the cost, and after the stream the slab of
     # K1's costs its chunked route fills (null where it does not run)
     "custereo_fused_pipeline_bwd_recompute": [_P] * 17 + [_I] * 5

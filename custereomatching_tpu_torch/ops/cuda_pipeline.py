@@ -48,6 +48,7 @@ from custereomatching_tpu_torch.ops.cuda_zncc import (
     check_volume,
     cost_slab,
     grad_scratch,
+    own_blocks,
     prepare,
     ptr_or_null,
     smem_floats,
@@ -60,7 +61,10 @@ from custereomatching_tpu_torch.ops.zncc import (
     camera_grad_banded,
     forward_banded,
 )
-from custereomatching_tpu_torch.utils.kernel_model import large_k_route
+from custereomatching_tpu_torch.utils.kernel_model import (
+    K_TILE_H,
+    large_k_route,
+)
 
 
 class PipelineMaps(NamedTuple):
@@ -107,12 +111,17 @@ stereo_pipeline_reference.calls = 0
 def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
                          num_disparities: int, kernel_size: int = 15,
                          epsilon: float = EPSILON, beta: float = 50.0,
-                         threshold: float = 0.6) -> PipelineMaps:
+                         threshold: float = 0.6, tile_rows: int = K_TILE_H,
+                         planes: int = 0) -> PipelineMaps:
     """``[B, H, W]`` pairs to four ``[B, H, W]`` disparity maps, with no
-    cost volume in device memory.  Where K3's block does not fit (k >= 129
-    on an H100) the large-k route runs it a slab of planes at a time
-    (``cuda_large_k.fused_pipeline_large``).  ``.launches`` counts K3's
-    launches."""
+    cost volume in device memory.  ``tile_rows`` (8, 16 or 32) and
+    ``planes`` (a round, 0 for the kernel's own choice) set K3's tile, the
+    counterpart of JAX's ``pipeline_blocks``; the maps are the same at
+    every tile, and one that does not fit raises ``ValueError``
+    (``cuda_zncc.own_blocks``).  Where K3's block does not fit at the
+    default tile (k >= 129 on an H100) the large-k route runs it a slab of
+    planes at a time (``cuda_large_k.fused_pipeline_large``).
+    ``.launches`` counts K3's launches."""
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
@@ -123,7 +132,7 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
                          f"{camera.device}")
     if beta <= 0:
         raise ValueError(f"beta must be > 0, got {beta}")
-    if large_k_route("K3", k, D, smem_floats(camera.device)):
+    if not own_blocks("K3", camera, D, k, tile_rows, planes):
         maps, _ = fused_pipeline_large(camera, projector, D, k, epsilon, beta,
                                        threshold, unnormalized_head(beta, D))
         return PipelineMaps(*maps[:4].unbind(0))
@@ -136,7 +145,7 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
             *(ptr(m) for m in maps), B, H, W, D, k, float(epsilon),
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
-            stream_of(camera.device))
+            stream_of(camera.device), int(tile_rows), int(planes))
     _build.check(code, "K3 fused pipeline launch")
     stereo_pipeline_cuda.launches += 1
     return PipelineMaps(*maps.unbind(0))
@@ -221,13 +230,15 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
                               num_disparities: int, kernel_size: int = 15,
                               epsilon: float = EPSILON, beta: float = 50.0,
                               threshold: float = 0.6,
-                              save_volume: bool = True
+                              save_volume: bool = True,
+                              tile_rows: int = K_TILE_H, planes: int = 0
                               ) -> Tuple[PipelineMaps, HeadResiduals]:
     """The training forward: the four maps of :func:`stereo_pipeline_cuda`
     plus the raw argmax, s and t, and with ``save_volume`` the cost volume
     ``[B, D+1, H, W]`` (K3w), else none (K3m: ``HeadResiduals.volume`` is
-    None).  ``.launches`` counts K3w's launches and ``.maps_launches``
-    K3m's."""
+    None), at the tile ``(tile_rows, planes)`` of
+    :func:`stereo_pipeline_cuda`.  ``.launches`` counts K3w's launches and
+    ``.maps_launches`` K3m's."""
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
@@ -240,7 +251,7 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
                          f"{camera.device}")
     if beta <= 0:
         raise ValueError(f"beta must be > 0, got {beta}")
-    if large_k_route(what, k, D, smem_floats(camera.device)):
+    if not own_blocks(what, camera, D, k, tile_rows, planes):
         maps, vol = fused_pipeline_large(
             camera, projector, D, k, epsilon, beta, threshold,
             unnormalized_head(beta, D), residuals=True, volume=save_volume)
@@ -260,7 +271,7 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
             *(ptr(m) for m in maps[:4]), *(ptr(v) for v in volume),
             *(ptr(m) for m in maps[4:]), B, H, W, D, k, float(epsilon),
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
-            stream_of(camera.device))
+            stream_of(camera.device), int(tile_rows), int(planes))
     _build.check(code, f"{what} fused pipeline (training) launch")
     if save_volume:
         fused_pipeline_train_cuda.launches += 1
@@ -335,16 +346,21 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
                             gsoft: torch.Tensor, gconf: torch.Tensor,
                             num_disparities: int, kernel_size: int = 15,
                             epsilon: float = EPSILON,
-                            beta: float = 50.0) -> torch.Tensor:
+                            beta: float = 50.0,
+                            tile_rows: int = K_TILE_H) -> torch.Tensor:
     """Camera gradient ``[B, H, W]`` of the trainable pipeline from the
     forward's residuals and the soft-disparity and confidence cotangents.
 
     On a CUDA tensor this launches K4, which reads ``residuals.volume``,
-    or, when that is None (K3m's residuals), K5, which recomputes each cost
+    its rounds kernel at a tile of ``tile_rows`` rows (8, 16 or 32: the
+    counterpart of JAX's ``bwd_block_rows``; the gradient is the same at
+    every tile, and one that does not fit raises ``ValueError``), or, when
+    the volume is None (K3m's residuals), K5, which recomputes each cost
     plane from the images (past its block, a slab of
-    ``kernel_model.COST_CHUNK`` planes at a time: never the whole volume).
-    Where neither kernel's blocks fit (K5 from k = 129, K4 from k = 187 on
-    an H100) the large-k route runs (``cuda_large_k.camera_grad_large``).
+    ``kernel_model.COST_CHUNK`` planes at a time: never the whole volume)
+    and has no tile to set (``tile_rows`` is not read).  Where neither
+    kernel's blocks fit (K5 from k = 129, K4 from k = 187 on an H100) the
+    large-k route runs (``cuda_large_k.camera_grad_large``).
     ``.launches`` counts K4's launches and ``.recompute_launches`` K5's.
     """
     D, k = int(num_disparities), int(kernel_size)
@@ -362,7 +378,11 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
     head = _check_maps(camera, what, am=r.am, mask=r.mask, conf=r.confidence,
                        s=r.s, t=r.t, gsoft=gsoft, gconf=gconf)
     volume = () if free else (check_volume(r.volume, camera, D, "K4 cost"),)
-    if large_k_route(what, k, D, smem_floats(camera.device)):
+    if free:
+        own = not large_k_route(what, k, D, smem_floats(camera.device))
+    else:
+        own = own_blocks(what, camera, D, k, tile_rows)
+    if not own:
         return camera_grad_large(
             camera, projector, volume[0] if volume else None, None, D, k,
             epsilon, head=(*head, beta, unnormalized_head(beta, D)))
@@ -380,8 +400,8 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
             *(ptr(v) for v in volume), *(ptr(m) for m in head),
             *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
             float(epsilon), float(beta), int(unnormalized_head(beta, D)),
-            stream_of(camera.device), *((ptr_or_null(slab),) if free
-                                        else ()))
+            stream_of(camera.device), ptr_or_null(slab) if free
+            else int(tile_rows))
     _build.check(code, f"{what} fused pipeline backward launch")
     if free:
         fused_pipeline_bwd_cuda.recompute_launches += 1
@@ -402,13 +422,14 @@ class _TrainablePipeline(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, camera, projector, num_disparities, kernel_size,
-                epsilon, beta, threshold, save_volume):
+                epsilon, beta, threshold, save_volume, tile, bwd_tile_rows):
         maps, res = fused_pipeline_train_cuda(
             camera, projector, num_disparities, kernel_size, epsilon, beta,
-            threshold, save_volume)
+            threshold, save_volume, *tile)
         ctx.save_for_backward(camera, projector,
                               *(res if save_volume else res[:5]))
-        ctx.args = (num_disparities, kernel_size, epsilon, beta)
+        ctx.args = (num_disparities, kernel_size, epsilon, beta,
+                    bwd_tile_rows)
         ctx.mark_non_differentiable(maps.disparity, maps.mask)
         return tuple(maps)
 
@@ -417,7 +438,7 @@ class _TrainablePipeline(torch.autograd.Function):
         camera, projector, *res = ctx.saved_tensors
         grad = fused_pipeline_bwd_cuda(camera, projector, HeadResiduals(*res),
                                        g_soft, g_conf, *ctx.args)
-        return grad, None, None, None, None, None, None, None
+        return grad, None, None, None, None, None, None, None, None, None
 
 
 def _check_trainable(camera: torch.Tensor) -> None:
@@ -430,7 +451,9 @@ def stereo_pipeline_trainable(camera: torch.Tensor, projector: torch.Tensor,
                               num_disparities: int, kernel_size: int = 15,
                               epsilon: float = EPSILON, beta: float = 50.0,
                               threshold: float = 0.6,
-                              save_volume: bool = True) -> PipelineMaps:
+                              save_volume: bool = True,
+                              tile_rows: int = K_TILE_H, planes: int = 0,
+                              bwd_tile_rows: int = K_TILE_H) -> PipelineMaps:
     """Differentiable fused pipeline: ``[B, H, W]`` pairs to four maps.
 
     With ``save_volume`` (the default) the forward (K3w) writes the cost
@@ -440,11 +463,15 @@ def stereo_pipeline_trainable(camera: torch.Tensor, projector: torch.Tensor,
     backward forms the head cotangent plane by plane, so the cost-volume
     cotangent never exists in device memory.  Camera gradients flow through
     ``soft_disparity`` and ``confidence``; the projector gets none.
+    ``(tile_rows, planes)`` is the forward's tile
+    (:func:`fused_pipeline_train_cuda`), ``bwd_tile_rows`` K4's (K5 has
+    none); the values are the same at every tile.
     """
     _check_trainable(camera)
     return PipelineMaps(*_TrainablePipeline.apply(
         camera, projector, int(num_disparities), int(kernel_size), epsilon,
-        beta, threshold, bool(save_volume)))
+        beta, threshold, bool(save_volume), (int(tile_rows), int(planes)),
+        int(bwd_tile_rows)))
 
 
 class _TrainableHead(torch.autograd.Function):
@@ -474,14 +501,17 @@ def stereo_pipeline_trainable_reference(camera: torch.Tensor,
                                         epsilon: float = EPSILON,
                                         beta: float = 50.0,
                                         threshold: float = 0.6,
-                                        save_volume: bool = True
+                                        save_volume: bool = True,
+                                        tile_rows: int = K_TILE_H,
+                                        planes: int = 0,
+                                        bwd_tile_rows: int = K_TILE_H
                                         ) -> PipelineMaps:
     """Plain twin of :func:`stereo_pipeline_trainable`: the closed-form
     volume op, then the head of :func:`head_cotangent`, each an autograd
-    node.  ``save_volume`` is accepted only to match the kernel node's
-    signature: it chooses what the kernels keep, and the plain ops compute
-    the same values and gradients either way.  ``.calls`` counts its
-    uses."""
+    node.  ``save_volume`` and the tiles are accepted only to match the
+    kernel node's signature: they choose what the kernels keep and how
+    they cut the image, and the plain ops compute the same values and
+    gradients either way.  ``.calls`` counts its uses."""
     _check_trainable(camera)
     stereo_pipeline_trainable_reference.calls += 1
     D = int(num_disparities)

@@ -35,6 +35,8 @@ from custereomatching_tpu_torch.ops.cuda_large_k import (
     projector_grad_large,
 )
 from custereomatching_tpu_torch.utils.kernel_model import (
+    K_TILE_H,
+    TILE_ROWS,
     cost_slab_planes,
     large_k_route,
 )
@@ -86,6 +88,41 @@ def smem_floats(device: torch.device) -> int:
     return _optin_floats(torch.device(device).index or 0)
 
 
+# The kernels whose rounds take a tile, and the tuner's name of each
+# (``ops.tuning.candidate_blocks``).
+TILE_KINDS = {"K1": "volume", "K3": "pipeline", "K3w": "pipeline",
+              "K3m": "pipeline", "K4": "trainable_bwd"}
+
+
+def own_blocks(kernel: str, camera: torch.Tensor, num_disparities: int,
+               kernel_size: int, tile_rows: int = K_TILE_H,
+               planes: int = 0) -> bool:
+    """Whether ``kernel`` (K1, the K3 family or K4) runs its own blocks on
+    ``camera``'s card at the tile ``(tile_rows, planes)``: the default
+    tile (16 rows, ``planes`` 0: ``fused_round``'s) where they fit, else
+    False and the wrapper takes the large-k route.  Another tile runs
+    where ``kernel_model.large_k_route`` says its blocks fit; elsewhere it
+    raises ``ValueError`` naming the tiles that do
+    (``ops.tuning.candidate_blocks``), before any launch: a tile is never
+    changed for another."""
+    D, k = int(num_disparities), int(kernel_size)
+    budget = smem_floats(camera.device)
+    if tile_rows == K_TILE_H and planes == 0:
+        return not large_k_route(kernel, k, D, budget)
+    if (tile_rows in TILE_ROWS and isinstance(planes, int) and planes >= 0
+            and not large_k_route(kernel, k, D, budget, tile_rows, planes)):
+        return True
+    # Imported here: ops.tuning imports the wrappers.
+    from custereomatching_tpu_torch.ops.tuning import candidate_blocks
+
+    B, H, W = camera.shape
+    kind = TILE_KINDS[kernel]
+    raise ValueError(
+        f"{kernel}: no block of tile ({tile_rows}, {planes}) runs at H={H}, "
+        f"W={W}, D={D}, k={k} on this card; candidate_blocks({kind!r}) "
+        f"gives {candidate_blocks(kind, H, W, D, k, budget)}")
+
+
 def check_projector_kernel_size(k: int) -> None:
     """K7's gate: k <= ``K7_MAX_KERNEL_SIZE``, with the ``ValueError`` of
     JAX's ``_proj_bwd_kernel`` beyond."""
@@ -106,14 +143,22 @@ def stats_scratch(camera: torch.Tensor, num_disparities: int):
 
 def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
                             num_disparities: int, kernel_size: int = 15,
-                            epsilon: float = EPSILON) -> torch.Tensor:
+                            epsilon: float = EPSILON,
+                            tile_rows: int = K_TILE_H,
+                            planes: int = 0) -> torch.Tensor:
     """Banded ZNCC volume of ``[B, H, W]`` pairs: ``[B, H, W, D+1]``.
 
     On a CUDA tensor this launches K1, which writes the volume
     plane-major ``[B, D+1, H, W]``; the result is a permuted view of it.
-    Where K1's block does not fit (k >= 129 on an H100) the large-k route
-    writes it (``cuda_large_k.banded_volume_large``).  ``.launches``
-    counts K1's launches.
+    ``tile_rows`` (8, 16 or 32) and ``planes`` (a round, 0 for the
+    kernel's own choice) set its rounds kernel's tile, the counterpart of
+    ``(hb, dt)`` of JAX's ``pallas_cost_volume_banded_hdw``; the values
+    are the same at every tile, and a tile that does not fit raises
+    ``ValueError`` (:func:`own_blocks`).  Where K1's block does not fit
+    at the default tile (k >= 129 on an H100) the large-k route writes
+    the volume (``cuda_large_k.banded_volume_large``).  A CPU tensor takes
+    the plain version, which has no tile.  ``.launches`` counts K1's
+    launches.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -122,7 +167,7 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if camera.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got "
                          f"{camera.device}")
-    if large_k_route("K1", k, D, smem_floats(camera.device)):
+    if not own_blocks("K1", camera, D, k, tile_rows, planes):
         return banded_volume_large(camera, projector, D, k,
                                    epsilon).permute(0, 2, 3, 1)
     lib = _build.kernels()
@@ -133,7 +178,7 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
         code = lib.custereo_banded_volume(
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
             ptr(out), B, H, W, D, k, float(epsilon),
-            stream_of(camera.device))
+            stream_of(camera.device), int(tile_rows), int(planes))
     _build.check(code, "K1 banded volume launch")
     cost_volume_banded_cuda.launches += 1
     return out.permute(0, 2, 3, 1)

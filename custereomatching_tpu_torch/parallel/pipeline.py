@@ -74,11 +74,12 @@ def chunk_state(camera: torch.Tensor, projector: torch.Tensor,
     of one ``[H, W]`` pair.
 
     One launch of the fused forward without the volume (K3m,
-    ``fused_pipeline_train_cuda(..., save_volume=False)``, on the
-    ``cuda`` backend; its plain version otherwise) over ``chunk - 1``
-    bands, on the camera and the right-shifted projector, both padded by
-    the largest stage offset ``(D + 1) − chunk`` so right-edge windows
-    still read the projector's last columns.  Its raw ``(am, conf, s, t)``
+    ``fused_pipeline_train_cuda(..., save_volume=False)`` at the config's
+    ``pipeline_blocks`` tile, on the ``cuda`` backend; its plain version
+    otherwise) over ``chunk - 1`` bands, on the camera and the
+    right-shifted projector, both padded by the largest stage offset
+    ``(D + 1) − chunk`` so right-edge windows still read the projector's
+    last columns.  Its raw ``(am, conf, s, t)``
     are the state: ``m = β·conf``; under the unnormalized head ``s`` and
     ``t`` are absolute sums and are rescaled by ``e^{−m}``; then they are
     lifted to global disparities (``am + off``, ``t + off·s``).
@@ -89,10 +90,13 @@ def chunk_state(camera: torch.Tensor, projector: torch.Tensor,
     cam_p = F.pad(camera, (0, pad_r))[None]
     proj_sh = shift_right(F.pad(projector, (0, pad_r)), d_offset)[None]
     cuda = c.resolved_backend(camera.device) == "cuda"
-    run = fused_pipeline_train_cuda if cuda else fused_pipeline_train_reference
     beta = c.softargmax_beta
-    _, res = run(cam_p, proj_sh, chunk - 1, c.kernel_size, c.epsilon, beta,
-                 c.cost_threshold, save_volume=False)
+    args = (cam_p, proj_sh, chunk - 1, c.kernel_size, c.epsilon, beta,
+            c.cost_threshold, False)
+    if cuda:
+        _, res = fused_pipeline_train_cuda(*args, *c.pipeline_tile())
+    else:
+        _, res = fused_pipeline_train_reference(*args)
     am, conf, s, t = (x[0, :, :W] for x in (res.am, res.confidence, res.s,
                                               res.t))
     m = beta * conf

@@ -166,17 +166,24 @@ def local_disparity_maps(cam_e: torch.Tensor, proj_e: torch.Tensor,
                          config: StereoConfig, halo: int,
                          trainable: bool = False) -> PipelineMaps:
     """Per-shard fused pipeline on halo-extended blocks, halo rows of the
-    maps cropped: K3 (or, ``trainable``, K3w + K4) on CUDA tensors, their
-    plain versions on CPU tensors."""
+    maps cropped: K3 (or, ``trainable``, K3w + K4) on CUDA tensors, at the
+    config's tiles (``pipeline_blocks``, ``trainable_bwd_block_rows``),
+    their plain versions on CPU tensors."""
     c = config
     cuda = c.resolved_backend(cam_e.device) == "cuda"
-    if trainable:
-        run = (stereo_pipeline_trainable if cuda
-               else stereo_pipeline_trainable_reference)
+    args = (cam_e, proj_e, c.num_disparities, c.kernel_size, c.epsilon,
+            c.softargmax_beta, c.cost_threshold)
+    tile_rows, planes = c.pipeline_tile()
+    if trainable and cuda:
+        maps = stereo_pipeline_trainable(*args, tile_rows=tile_rows,
+                                         planes=planes,
+                                         bwd_tile_rows=c.bwd_tile_rows())
+    elif trainable:
+        maps = stereo_pipeline_trainable_reference(*args)
+    elif cuda:
+        maps = stereo_pipeline_cuda(*args, tile_rows, planes)
     else:
-        run = stereo_pipeline_cuda if cuda else stereo_pipeline_reference
-    maps = run(cam_e, proj_e, c.num_disparities, c.kernel_size, c.epsilon,
-               c.softargmax_beta, c.cost_threshold)
+        maps = stereo_pipeline_reference(*args)
     return PipelineMaps(*(_crop(m, halo) for m in maps))
 
 

@@ -30,6 +30,11 @@ speckle frame and prints its lines, then one JSON object:
   cotangents, and of K8 on a random 330x422 pair (k=15).
 * ``engine``: host-clock latency of ``StereoEngine.infer`` on KITTI
   frames, as ``chip_smoke.py``'s serving phase measures it.
+* ``autotune``: the same latency without and with ``autotune`` (each
+  bucket's K3 tile tuned from an empty cache, ``ops.tuning``), at KITTI
+  (bucket 384x1280, D=192) and at ``serve``'s capture (330x422 in
+  384x512, D=48), in the order untuned, tuned, tuned, untuned; then
+  ``serve``'s own per-frame p50 without and with ``--autotune``.
 * ``allpairs``: the all-pairs step at 330x422, k=15 (the default
   ``StereoConfig``), its first call and the median of warm ones.
 * ``launch``: the host time of one call of the K3w and of the K4 wrapper
@@ -347,6 +352,70 @@ def mode_engine() -> dict:
     return {"engine_infer_ms": rounds}
 
 
+def _infer_ms(engine, frames) -> float:
+    """Host-clock median of ``engine.infer`` over ``frames``."""
+    latency = []
+    for cam, proj in frames:
+        t0 = time.perf_counter()
+        engine.infer(cam, proj)
+        latency.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(latency))
+
+
+def mode_autotune() -> dict:
+    """``StereoEngine.infer``'s host-clock median of 8 frames without and
+    with ``autotune`` (tuned from an empty cache file), untuned, tuned,
+    tuned, untuned, at KITTI and at serve's capture; then ``serve``'s p50
+    of 8 frames without and with ``--autotune``."""
+    import os
+
+    from custereomatching_tpu_torch.examples import serve
+    from custereomatching_tpu_torch.models.engine import StereoEngine
+    from custereomatching_tpu_torch.ops import tuning
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CUSTEREO_TUNE_CACHE"] = str(Path(tmp) / "tune.json")
+        tuning._CACHE.clear()
+        try:
+            for label, (H, W, D, bucket) in (
+                    ("kitti", (375, 1242, 192, (384, 1280))),
+                    ("capture", (330, 422, 48, (384, 512)))):
+                frames = [make_stereo_pair(H, W, d_min=4.0,
+                                           d_max=0.9 * D, seed=40 + i)[:2]
+                          for i in range(8)]
+                cfg = StereoConfig(kernel_size=15, num_disparities=D)
+                engines = {}
+                for tuned in (False, True):
+                    t0 = time.perf_counter()
+                    engines[tuned] = StereoEngine(
+                        cfg, buckets=[bucket], autotune=tuned,
+                        device="cuda")
+                    engines[tuned].warmup()
+                    out[f"{label}_warmup_s_{'tuned' if tuned else 'untuned'}"] \
+                        = time.perf_counter() - t0
+                ms = {False: [], True: []}
+                for tuned in (False, True, True, False):
+                    ms[tuned].append(_infer_ms(engines[tuned], frames))
+                out[f"{label}_tile"] = engines[True].tuned_tiles[bucket]
+                out[f"{label}_infer_ms_untuned"] = ms[False]
+                out[f"{label}_infer_ms_tuned"] = ms[True]
+                print(f"autotune: {label} {H}x{W} D={D} bucket {bucket}: "
+                      f"tile {out[f'{label}_tile']}; infer median untuned "
+                      f"{ms[False]} ms, tuned {ms[True]} ms")
+            for flags in ([], ["--autotune"], ["--autotune"], []):
+                rec = {}
+                serve.main(["--loops", "8", *flags], rec)
+                key = "serve_p50_ms_" + ("tuned" if flags else "untuned")
+                out.setdefault(key, []).append(
+                    float(np.percentile(rec["latency_ms"], 50)))
+            print(f"autotune: serve p50 untuned {out['serve_p50_ms_untuned']}"
+                  f" ms, --autotune {out['serve_p50_ms_tuned']} ms")
+        finally:
+            os.environ.pop("CUSTEREO_TUNE_CACHE", None)
+    return out
+
+
 def mode_allpairs() -> dict:
     """The all-pairs step of ``chip_smoke.py`` (the default all-pairs
     ``StereoMatcher`` at 330x422, k=15: K8, plain head, the mean soft
@@ -437,7 +506,7 @@ def mode_build() -> dict:
 
 MODES = {"train": mode_train, "free": mode_free, "volume": mode_volume,
          "hdw": mode_hdw, "k3": mode_k3, "kernels": mode_kernels,
-         "engine": mode_engine,
+         "engine": mode_engine, "autotune": mode_autotune,
          "allpairs": mode_allpairs, "launch": mode_launch,
          "build": mode_build}
 

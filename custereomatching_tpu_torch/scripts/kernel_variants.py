@@ -78,7 +78,7 @@ def _start(planes: int, *extra: int) -> List[Tuple[str, str]]:
         f"          src, camera, projector, cam_s, cam_e2, proj_s, proj_e2, "
         f"a1, bm,\n"
         f"          grmu, B, H, W, D, k, round.chunk, d_lo, d_hi, eps, "
-        f"stream);\n" for p in extra)
+        f"stream, tile);\n" for p in extra)
     edits = [(_ROUND, _ROUND.replace("kGradPlanes", str(planes)))]
     if extra:
         edits += [(_ASSERT, ""), (_CASE_1, cases + _CASE_1)]
@@ -87,7 +87,7 @@ def _start(planes: int, *extra: int) -> List[Tuple[str, str]]:
 
 _RING_LOOP = """    // gr_d at the ring's entries.
     for (int q = threadIdx.x; q < ring; q += kThreads) {
-      const int i = ring_entry(q, p, hc);
+      const int i = ring_entry<TH>(q, p, hc);
       const int rr = i / hc, cc = i - rr * hc;
       const int y = h0 - p + rr, xx = w0 - p + cc;
       float* ey = ybuf + rr * x.ys + cc;
@@ -121,7 +121,7 @@ _RING_HALVES = """    // gr_d at the ring's entries, half a round an item.
     constexpr int kHalf = (P + 1) / 2;
     for (int it = threadIdx.x; it < 2 * ring; it += kThreads) {
       const int q = it >> 1, j0 = (it & 1) * kHalf;
-      const int i = ring_entry(q, p, hc);
+      const int i = ring_entry<TH>(q, p, hc);
       const int rr = i / hc, cc = i - rr * hc;
       const int y = h0 - p + rr, xx = w0 - p + cc;
       float* ey = ybuf + rr * x.ys + cc;

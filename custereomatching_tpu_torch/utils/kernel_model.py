@@ -78,6 +78,9 @@ _ALL_MODES = _OP_MODES + _DMA_MODES + _TORCH_MODES
 # csrc/rate_probes.cu kRateThreads, kChains, kUnroll, kBoxK, kBoxD).
 K_TILE_H, K_TILE_W = 16, 64
 K_THREADS = K_TILE_H * K_TILE_W
+# The tile heights the rounds kernels of K1, K3 (K3w, K3m) and K4 are built
+# at (csrc/common.cuh Tile): TH rows of K_THREADS // TH columns.
+TILE_ROWS = (8, 16, 32)
 RATE_THREADS, RATE_CHAINS, RATE_UNROLL = 256, 8, 8
 BOX_PROBE_K, BOX_PROBE_D = 15, 192
 # The shared memory a block may opt into on an H100 (227 KB): the default
@@ -511,9 +514,18 @@ def _overlap(n_tiles: int, tile: int, ext: int, lo: int, hi: int) -> int:
     return total
 
 
-def _grid(H: int, W: int) -> Tuple[int, int]:
-    """(row tiles, column tiles) of the 16 x 64 pixel tiling."""
-    return _cdiv(H, K_TILE_H), _cdiv(W, K_TILE_W)
+def tile_cols(tile_rows: int) -> int:
+    """Columns of a tile of ``tile_rows`` rows (``Tile<TH>::kW``)."""
+    if tile_rows not in TILE_ROWS:
+        raise ValueError(f"tile_rows must be one of {TILE_ROWS}, got "
+                         f"{tile_rows!r}")
+    return K_THREADS // tile_rows
+
+
+def _grid(H: int, W: int, tile_rows: int = K_TILE_H) -> Tuple[int, int]:
+    """(row tiles, column tiles) of the pixel tiling (16 x 64 by
+    default)."""
+    return _cdiv(H, tile_rows), _cdiv(W, tile_cols(tile_rows))
 
 
 def _stats_cost(H: int, W: int, k: int, wout: int) -> OpCount:
@@ -565,15 +577,16 @@ def window_pass_cost(items: int, n: int, k: int,
     return OpCount(madd=items * ops)
 
 
-def _round_floats(k: int, chunk: int) -> Tuple[int, int]:
-    """K1's and K3's block in floats (``RoundTile`` of common.cuh): the
-    camera tile and a projector tile of ``chunk`` planes, and the
-    rows-pass and window-sum buffers of one plane (rows padded to an odd
-    stride)."""
-    p = k // 2
-    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+def _round_floats(k: int, chunk: int,
+                  tile_rows: int = K_TILE_H) -> Tuple[int, int]:
+    """K1's and K3's block in floats (``RoundTile`` of common.cuh) at a
+    tile of ``tile_rows`` rows: the camera tile and a projector tile of
+    ``chunk`` planes, and the rows-pass and window-sum buffers of one plane
+    (rows padded to an odd stride)."""
+    p, tw = k // 2, tile_cols(tile_rows)
+    rows, cam_w = tile_rows + 2 * p, tw + 2 * p
     return (rows * (2 * cam_w + chunk - 1),
-            K_TILE_H * (cam_w + 1) + K_TILE_H * (K_TILE_W + 1))
+            tile_rows * (cam_w + 1) + tile_rows * (tw + 1))
 
 
 def _whole_rounds(planes: int, chunk: int, D: int) -> Tuple[int, int]:
@@ -593,31 +606,51 @@ def _budget(budget: Optional[int]) -> int:
     return SMEM_OPTIN_BYTES // 4 if budget is None else int(budget)
 
 
-def fused_round(k: int, D: int,
-                budget: Optional[int] = None) -> Tuple[int, int]:
-    """(planes a round, planes a projector staging) of K1 and K3
-    (``fused_round`` of common.cuh on an H100): as many planes as give
-    every thread one rows-pass column, fewer where they do not fit beside
-    a one-plane projector tile, at most D + 1; the staging takes what is
-    left, D + 1 or a multiple of the round.  (0, 0) when not one plane
-    fits.  ``budget``: floats a block may hold (an H100's by default)."""
-    fixed, per = _round_floats(k, 1)
+def round_planes(k: int, D: int, budget: Optional[int] = None,
+                 tile_rows: int = K_TILE_H, planes: int = 0) -> int:
+    """The planes a round of K1 and K3 ask for before the projector's
+    staging is cut to whole rounds (``fused_round`` of common.cuh): as
+    many as give every thread one rows-pass column, fewer where they do
+    not fit beside the camera tile and a one-plane projector tile, at most
+    D + 1; ``planes`` > 0 asks for that many instead (at most D + 1), and
+    gets 0 where they do not fit.  0 when not one plane fits."""
+    fixed, per = _round_floats(k, 1, tile_rows)
     budget = _budget(budget)
     if fixed + per > budget:
+        return 0
+    cam_w = tile_cols(tile_rows) + 2 * (k // 2)
+    want = min(max(1, planes if planes > 0 else K_THREADS // cam_w), D + 1)
+    fit = (budget - fixed) // per
+    if want > fit:
+        return 0 if planes > 0 else fit
+    return want
+
+
+def fused_round(k: int, D: int, budget: Optional[int] = None,
+                tile_rows: int = K_TILE_H,
+                planes: int = 0) -> Tuple[int, int]:
+    """(planes a round, planes a projector staging) of K1 and K3
+    (``fused_round`` of common.cuh on an H100) at a tile of ``tile_rows``
+    rows: :func:`round_planes` (``planes`` > 0 asks for that many), then
+    the staging takes what is left, D + 1 or a multiple of the round.
+    (0, 0) when not one plane (or not ``planes``) fits.  ``budget``:
+    floats a block may hold (an H100's by default)."""
+    P = round_planes(k, D, budget, tile_rows, planes)
+    if P < 1:
         return 0, 0
-    p = k // 2
-    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
-    planes = min(max(1, K_THREADS // cam_w), (budget - fixed) // per, D + 1)
-    chunk = min((budget - fixed - planes * per) // rows + 1, D + 1)
-    return _whole_rounds(planes, chunk, D)
+    fixed, per = _round_floats(k, 1, tile_rows)
+    rows = tile_rows + 2 * (k // 2)
+    chunk = min((_budget(budget) - fixed - P * per) // rows + 1, D + 1)
+    return _whole_rounds(P, chunk, D)
 
 
-def fused_block_floats(k: int, D: int, budget: Optional[int] = None) -> int:
+def fused_block_floats(k: int, D: int, budget: Optional[int] = None,
+                       tile_rows: int = K_TILE_H, planes: int = 0) -> int:
     """Shared memory of a K1 or K3 block in floats (``RoundTile::floats``
     at :func:`fused_round`'s planes and chunk)."""
-    planes, chunk = fused_round(k, D, budget)
-    fixed, per = _round_floats(k, chunk)
-    return fixed + planes * per
+    P, chunk = fused_round(k, D, budget, tile_rows, planes)
+    fixed, per = _round_floats(k, chunk, tile_rows)
+    return fixed + P * per
 
 
 def halo_tile(k: int, chunk: int, planes: int) -> Dict[str, int]:
@@ -659,64 +692,75 @@ def halo_round(k: int, D: int,
     return _whole_rounds(planes, chunk, D)
 
 
-def _fused_rounds(H: int, W: int, k: int, lo: int, hi: int,
-                  what: str) -> OpCount:
+def _fused_rounds(H: int, W: int, k: int, lo: int, hi: int, what: str,
+                  tile_rows: int = K_TILE_H, want: int = 0) -> OpCount:
     """One launch of K1's and K3's rounds kernel (fused_pipeline.cuh) over
-    the planes lo..hi: a block a 16 x 64 tile staging the camera tile once
-    and the projector tile once a chunk (:func:`fused_round` for the
-    planes, a load and a store an entry); per plane the register-blocked
-    rows pass (an item a tile column) and column sums (an item
-    ``ROUND_COLS`` pixels of a row); each pixel's mux and ex2 read once,
-    and per plane its window sum read back and its two statistics
-    loads."""
-    p = k // 2
-    nbh, nbw = _grid(H, W)
+    the planes lo..hi: a block a tile (16 x 64 by default, ``tile_rows``
+    rows of :func:`tile_cols` columns) staging the camera tile once and
+    the projector tile once a chunk (:func:`fused_round` for the planes,
+    ``want`` of them where > 0; a load and a store an entry); per plane
+    the register-blocked rows pass (an item a tile column of
+    ``tile_rows`` outputs) and column sums (an item ``ROUND_COLS`` pixels
+    of a row); each pixel's mux and ex2 read once, and per plane its
+    window sum read back and its two statistics loads."""
+    p, tw = k // 2, tile_cols(tile_rows)
+    nbh, nbw = _grid(H, W, tile_rows)
     blocks = nbh * nbw
-    rows, cam_w = K_TILE_H + 2 * p, K_TILE_W + 2 * p
+    rows, cam_w = tile_rows + 2 * p, tw + 2 * p
     px, planes = H * W, hi - lo + 1
-    P, chunk = fused_round(k, hi - lo)
+    P, chunk = fused_round(k, hi - lo, None, tile_rows, want)
     if P < 1:
-        raise ValueError(f"{what} takes no k = {k} block on an H100")
+        raise ValueError(f"{what} takes no k = {k} block of {tile_rows} "
+                         f"rows{f' and {want} planes' if want else ''} on "
+                         f"an H100")
     stagings = _cdiv(planes, chunk)
-    c = window_pass_cost(blocks * cam_w * planes, ROUND_ROWS, k, True)
+    c = window_pass_cost(blocks * cam_w * planes, tile_rows, k, True)
     c = c + window_pass_cost(
-        blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes, ROUND_COLS,
+        blocks * tile_rows * (tw // ROUND_COLS) * planes, ROUND_COLS,
         k, False)
     return c + OpCount(
         smem=blocks * 2 * rows * (cam_w + stagings * (cam_w + chunk - 1))
         + 2 * px + planes * 3 * px)
 
 
-def _fused_round_cost(H: int, W: int, D: int, k: int,
-                      what: str) -> OpCount:
+def _fused_round_cost(H: int, W: int, D: int, k: int, what: str,
+                      tile_rows: int = K_TILE_H, planes: int = 0) -> OpCount:
     """The part K1 and K3 share: the statistics passes and the rounds over
-    d = 0..D (:func:`_fused_rounds`)."""
+    d = 0..D (:func:`_fused_rounds`, at a tile of ``tile_rows`` rows and
+    ``planes`` a round where > 0)."""
     return (_stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
-            + _fused_rounds(H, W, k, 0, D, what))
+            + _fused_rounds(H, W, k, 0, D, what, tile_rows, planes))
 
 
-def volume_forward_cost(H: int, W: int, D: int, k: int) -> OpCount:
+def volume_forward_cost(H: int, W: int, D: int, k: int,
+                        tile_rows: int = K_TILE_H,
+                        planes: int = 0) -> OpCount:
     """K1 (``csrc/zncc_banded.cu``): K3's rounds kernel without the head,
-    at beta = 1 (:func:`_fused_round_cost`); per pixel and plane one rsqrt,
-    five FMA-pipe ops and the volume store."""
-    px, planes = H * W, D + 1
-    c = _fused_round_cost(H, W, D, k, "K1") + OpCount(
-        rsqrt=planes * px, madd=px + planes * 5 * px)
+    at beta = 1 (:func:`_fused_round_cost`, at a tile of ``tile_rows``
+    rows and ``planes`` a round where > 0); per pixel and plane one
+    rsqrt, five FMA-pipe ops and the volume store."""
+    px, planes_d = H * W, D + 1
+    c = _fused_round_cost(H, W, D, k, "K1", tile_rows, planes) + OpCount(
+        rsqrt=planes_d * px, madd=px + planes_d * 5 * px)
     stats = (2 * px + 2 * H * (W + D)) * 4
-    return _with_bytes(c, c.bytes_r + stats, c.bytes_w + planes * px * 4)
+    return _with_bytes(c, c.bytes_r + stats, c.bytes_w + planes_d * px * 4)
 
 
 def fused_forward_cost(H: int, W: int, D: int, k: int,
                        write_volume: bool = False,
-                       residuals: Optional[bool] = None) -> OpCount:
+                       residuals: Optional[bool] = None,
+                       tile_rows: int = K_TILE_H,
+                       planes: int = 0) -> OpCount:
     """K3 / K3w / K3m (``csrc/fused_pipeline.cu``): the rounds of
-    :func:`_fused_round_cost`, and the online head in registers (one
+    :func:`_fused_round_cost` (at a tile of ``tile_rows`` rows and
+    ``planes`` a round where > 0), and the online head in registers (one
     rsqrt, one expf and eight FMA-pipe ops a pixel and plane), four maps
     out; ``residuals`` adds am, s and t (K3m; K3w always), ``write_volume``
     the volume store (K3w)."""
     residuals = write_volume if residuals is None else residuals
+    want = planes
     px, planes = H * W, D + 1
-    c = _fused_round_cost(H, W, D, k, "K3") + OpCount(
+    c = _fused_round_cost(H, W, D, k, "K3", tile_rows, want) + OpCount(
         rsqrt=planes * px + px,                  # + t / s once a pixel
         exp=planes * px,
         madd=px + planes * (8 + int(write_volume)) * px + 4 * px)
@@ -758,20 +802,23 @@ def stage_op_cost(H: int, W: int, D: int, S: int, k: int,
 
 
 def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
-                    recompute: bool, staged: bool = True) -> Dict[str, int]:
+                    recompute: bool, staged: bool = True,
+                    tile_rows: int = K_TILE_H) -> Dict[str, int]:
     """Shared-memory geometry of the rounds kernel of K4 (``head``), K6
     (``recompute``) and K2 and K7 (neither), ``GradRoundTile`` of
-    camera_grad.cuh; ``floats`` its block's total.  Without ``staged``
-    (K4 past k = 47) the entries' constants stay in their maps."""
+    camera_grad.cuh, at a tile of ``tile_rows`` rows (K4's may differ
+    from the default 16); ``floats`` its block's total.  Without
+    ``staged`` (K4 past k = 47) the entries' constants stay in their
+    maps."""
     p = k // 2
-    t = {"p": p, "halo_rows": K_TILE_H + 2 * p,
-         "halo_cols": K_TILE_W + 2 * p}
+    t = {"p": p, "halo_rows": tile_rows + 2 * p,
+         "halo_cols": tile_cols(tile_rows) + 2 * p}
     t["halo"] = t["halo_rows"] * t["halo_cols"]
     # ex2 and the source's maps, where staged.
     t["consts"] = (7 if head else 1) if staged else 0
     t["proj_w"] = t["halo_cols"] + chunk - 1
     t["ysz"] = t["halo_rows"] * (t["halo_cols"] + 1)
-    t["xsz"] = K_TILE_H * (t["halo_cols"] + 1)
+    t["xsz"] = tile_rows * (t["halo_cols"] + 1)
     t["fixed"] = (t["consts"] + int(recompute)) * t["halo"]
     t["proj"] = t["halo_rows"] * t["proj_w"] if recompute else 0
     t["floats"] = t["fixed"] + t["proj"] + planes * (t["ysz"] + t["xsz"])
@@ -779,18 +826,18 @@ def grad_round_tile(k: int, chunk: int, planes: int, *, head: bool,
 
 
 def grad_round(k: int, D: int, head: bool, recompute: bool,
-               staged: bool = True,
-               budget: Optional[int] = None) -> Tuple[int, int]:
+               staged: bool = True, budget: Optional[int] = None,
+               tile_rows: int = K_TILE_H) -> Tuple[int, int]:
     """(planes a round, planes a projector staging) of K4 (``head``), K6
     (``recompute``) or K2 and K7 (neither: ex2, or K7's projector ey2, the
     one staged map), the constants ``staged`` or not: ``grad_round`` of
-    camera_grad.cuh within ``budget`` floats (an H100's by default); (0, 0)
-    when not one plane fits."""
+    camera_grad.cuh at a tile of ``tile_rows`` rows within ``budget``
+    floats (an H100's by default); (0, 0) when not one plane fits."""
     budget = _budget(budget)
     planes = GRAD_PLANES
     while planes >= 1:
         t = grad_round_tile(k, 1, planes, head=head, recompute=recompute,
-                            staged=staged)
+                            staged=staged, tile_rows=tile_rows)
         if (planes == 1 or planes <= D + 1) and t["floats"] <= budget:
             if not recompute:
                 return planes, D + 1
@@ -804,11 +851,14 @@ def grad_round(k: int, D: int, head: bool, recompute: bool,
     return 0, 0
 
 
-def k4_staged(k: int, D: int, budget: Optional[int] = None) -> bool:
+def k4_staged(k: int, D: int, budget: Optional[int] = None,
+              tile_rows: int = K_TILE_H) -> bool:
     """Whether K4's rounds kernel stages its entries' constants (a plane's
-    buffers fit beside them: k <= 47 on an H100) or reads them from their
-    maps (``launch_head_rounds`` of fused_pipeline_bwd.cu)."""
-    return grad_round(k, D, True, False, budget=budget)[0] >= 1
+    buffers fit beside them: k <= 47 on an H100 at the default tile) or
+    reads them from their maps (``launch_head_rounds`` of
+    head_rounds.cuh)."""
+    return grad_round(k, D, True, False, budget=budget,
+                      tile_rows=tile_rows)[0] >= 1
 
 
 def halo_fits(k: int, D: int, budget: Optional[int] = None) -> bool:
@@ -845,7 +895,8 @@ def cost_slabs(D: int) -> Tuple[Tuple[int, int], ...]:
 
 
 def _grad_rounds(H: int, W: int, k: int, spans, *, head: bool,
-                 recompute: bool, staged: bool, name: str) -> OpCount:
+                 recompute: bool, staged: bool, name: str,
+                 tile_rows: int = K_TILE_H) -> OpCount:
     """The rounds kernel of ``csrc/camera_grad.cuh``, one launch a span
     (lo, hi) of the planes: over d = 0..D, or each slab of the chunked
     route, which also reads the A1, B and GRMU that the slab before left.
@@ -861,23 +912,25 @@ def _grad_rounds(H: int, W: int, k: int, spans, *, head: bool,
     own pixels also load sy (K2 also the cost, K6 read their window sum
     and form the cost) and add B and GRMU; entries outside store zeros;
     gr's rows pass and column sums; A1 (the box sum and the projector
-    read, a select and an FMA) for the round's np planes."""
-    p = k // 2
-    nbh, nbw = _grid(H, W)
+    read, a select and an FMA) for the round's np planes.  The block's
+    tile is ``tile_rows`` rows of :func:`tile_cols` columns (16 x 64 by
+    default)."""
+    p, th, tw = k // 2, tile_rows, tile_cols(tile_rows)
+    nbh, nbw = _grid(H, W, th)
     blocks = nbh * nbw
     px = H * W
-    inside = _overlap(nbh, K_TILE_H, p, 0, H) * _overlap(nbw, K_TILE_W, p,
-                                                         0, W)
+    inside = _overlap(nbh, th, p, 0, H) * _overlap(nbw, tw, p, 0, W)
     maps = 6 if head else 0
     c = OpCount()
     for lo, hi in spans:
         planes = hi - lo + 1
-        P, chunk = grad_round(k, hi - lo, head, recompute, staged)
+        P, chunk = grad_round(k, hi - lo, head, recompute, staged,
+                              tile_rows=th)
         if P < 1:
             raise ValueError(f"{name} takes no k = {k}, D = {hi - lo} "
-                             f"block on an H100")
+                             f"block of {th} rows on an H100")
         t = grad_round_tile(k, chunk, P, head=head, recompute=recompute,
-                            staged=staged)
+                            staged=staged, tile_rows=th)
         hc, halo = t["halo_cols"], t["halo"]
         outside = blocks * halo - inside
         rounds = sum(_cdiv(min(chunk, planes - d0), P)
@@ -903,11 +956,10 @@ def _grad_rounds(H: int, W: int, k: int, spans, *, head: bool,
             stagings = _cdiv(planes, chunk)
             c = c + OpCount(smem=blocks * 2 * rows * (
                 hc + stagings * (hc + chunk - 1)) + px)
-            c = c + window_pass_cost(blocks * hc * planes, ROUND_ROWS, k,
-                                     True)
+            c = c + window_pass_cost(blocks * hc * planes, th, k, True)
             c = c + window_pass_cost(
-                blocks * K_TILE_H * (K_TILE_W // ROUND_COLS) * planes,
-                ROUND_COLS, k, False)
+                blocks * th * (tw // ROUND_COLS) * planes, ROUND_COLS, k,
+                False)
         # Step b: per entry and plane slot ey2 and the volume loaded, the
         # store, an rsqrt, two FMA-pipe ops (and the head's); outside the
         # image a zero stored.
@@ -921,11 +973,9 @@ def _grad_rounds(H: int, W: int, k: int, spans, *, head: bool,
         c = c + OpCount(smem=slots * px * (1 if head else 2),
                         madd=slots * px * (8 if recompute else 5))
         c = c + window_pass_cost(
-            blocks * (K_TILE_H // GRAD_ROWS) * hc * planes, GRAD_ROWS, k,
-            False)
+            blocks * (th // GRAD_ROWS) * hc * planes, GRAD_ROWS, k, False)
         c = c + window_pass_cost(
-            blocks * K_TILE_H * (K_TILE_W // GRAD_COLS) * planes, GRAD_COLS,
-            k, False)
+            blocks * th * (tw // GRAD_COLS) * planes, GRAD_COLS, k, False)
         c = c + OpCount(smem=2 * planes * px, madd=2 * planes * px)
     return c
 
@@ -943,7 +993,8 @@ def _cost_slabs_cost(H: int, W: int, D: int, k: int) -> OpCount:
 
 
 def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
-                            recompute: bool) -> OpCount:
+                            recompute: bool,
+                            tile_rows: int = K_TILE_H) -> OpCount:
     """The rounds kernel of ``csrc/camera_grad.cuh``: K4 (``head``: g_d
     formed from six maps and the cost read), K6 (``recompute``: the
     cotangent read, the cost recomputed on the tile's own pixels) or K2
@@ -953,7 +1004,9 @@ def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
     combine.  Past its block K4 reads its constants from their maps
     (:func:`k4_staged`), and K6 takes the chunked route
     (:func:`cost_slab_planes`): K1's rounds over each slab
-    (:func:`_cost_slabs_cost`), then K2's rounds kernel on it."""
+    (:func:`_cost_slabs_cost`), then K2's rounds kernel on it.  The rounds
+    kernel's tile is ``tile_rows`` rows (K4's may differ from the default
+    16; the statistics and the combine stay at 16 x 64)."""
     name = "K4" if head else "K6" if recompute else "K2"
     slabs = recompute and cost_slab_planes("K6", k, D) > 0
     c = _stats_cost(H, W, k, W) + _stats_cost(H, W, k, W + D)
@@ -963,9 +1016,10 @@ def camera_grad_rounds_cost(H: int, W: int, D: int, k: int, *, head: bool,
             H, W, k, cost_slabs(D), head=False, recompute=False, staged=True,
             name=name)
     else:
-        c = c + _grad_rounds(H, W, k, ((0, D),), head=head,
-                             recompute=recompute,
-                             staged=not head or k4_staged(k, D), name=name)
+        c = c + _grad_rounds(
+            H, W, k, ((0, D),), head=head, recompute=recompute,
+            staged=not head or k4_staged(k, D, tile_rows=tile_rows),
+            name=name, tile_rows=tile_rows)
     return _with_bytes(c, *_grad_bytes(H, W, D, head=head,
                                        cost_read=slabs or not recompute,
                                        c=c))
@@ -996,11 +1050,13 @@ def volume_backward_cost(H: int, W: int, D: int, k: int,
                                    recompute=not with_cost)
 
 
-def fused_backward_c_cost(H: int, W: int, D: int, k: int) -> OpCount:
-    """K4 (``csrc/fused_pipeline_bwd.cu``, the rounds kernel): the head's
-    cotangent formed per plane from six staged maps and the cost read (one
-    expf a halo entry and plane)."""
-    return camera_grad_rounds_cost(H, W, D, k, head=True, recompute=False)
+def fused_backward_c_cost(H: int, W: int, D: int, k: int,
+                          tile_rows: int = K_TILE_H) -> OpCount:
+    """K4 (``csrc/fused_pipeline_bwd.cu``, the rounds kernel at a tile of
+    ``tile_rows`` rows): the head's cotangent formed per plane from six
+    staged maps and the cost read (one expf a halo entry and plane)."""
+    return camera_grad_rounds_cost(H, W, D, k, head=True, recompute=False,
+                                   tile_rows=tile_rows)
 
 
 def fused_backward_cost(H: int, W: int, D: int, k: int) -> OpCount:
@@ -1258,15 +1314,18 @@ def _slabs_fit(k: int, D: int, head: bool, budget: int) -> bool:
                for lo, hi in cost_slabs(D))
 
 
-def _rounds_fit(kernel: str, k: int, D: int, budget: int) -> bool:
+def _rounds_fit(kernel: str, k: int, D: int, budget: int,
+                tile_rows: int = K_TILE_H, planes: int = 0) -> bool:
     """Whether ``kernel``'s own blocks take (k, D) on an H100: the
     statistics tile and, for K8, its strip (``allpairs_block_floats``);
-    for K1 and the K3 family a plane of ``fused_round``; for K2 and K7 a
-    plane of ``grad_round`` (and a combine a map at a time); for K4 its
-    rounds with the constants staged or read from their maps; for K5 its
-    halo kernel or every slab of the chunked route; for K6 its recomputing
-    rounds or every slab.  The launchers' geometry, mirrored, within
-    ``budget`` floats."""
+    for K1 and the K3 family a plane of ``fused_round`` (``planes`` where
+    > 0); for K2 and K7 a plane of ``grad_round`` (and a combine a map at
+    a time); for K4 its rounds with the constants staged or read from
+    their maps; for K5 its halo kernel or every slab of the chunked route;
+    for K6 its recomputing rounds or every slab.  The rounds kernels of K1,
+    the K3 family and K4 at a tile of ``tile_rows`` rows; the others, the
+    statistics and the combine at the default.  The launchers' geometry,
+    mirrored, within ``budget`` floats."""
     if kernel not in LARGE_K_KERNELS:
         raise ValueError(f"no large-k route for {kernel}")
     if stats_block_floats(k) > budget:
@@ -1274,14 +1333,15 @@ def _rounds_fit(kernel: str, k: int, D: int, budget: int) -> bool:
     if kernel == "K8":
         return allpairs_block_floats(k) <= budget
     if kernel in ("K1", "K3", "K3w", "K3m"):
-        return fused_round(k, D, budget)[0] >= 1
+        return fused_round(k, D, budget, tile_rows, planes)[0] >= 1
     if combine_block_floats(k) > budget:
         return False
     if kernel in ("K2", "K7"):
         return grad_round(k, D, False, False, budget=budget)[0] >= 1
     if kernel == "K4":
-        return grad_round(k, D, True, False, k4_staged(k, D, budget),
-                          budget)[0] >= 1
+        return grad_round(k, D, True, False,
+                          k4_staged(k, D, budget, tile_rows), budget,
+                          tile_rows)[0] >= 1
     if kernel == "K5":
         return halo_fits(k, D, budget) or _slabs_fit(k, D, True, budget)
     return (grad_round(k, D, False, True, budget=budget)[0] >= 1
@@ -1289,15 +1349,19 @@ def _rounds_fit(kernel: str, k: int, D: int, budget: int) -> bool:
 
 
 def large_k_route(kernel: str, k: int, D: int = 0,
-                  budget: Optional[int] = None) -> bool:
+                  budget: Optional[int] = None, tile_rows: int = K_TILE_H,
+                  planes: int = 0) -> bool:
     """Whether ``kernel`` takes the large-k route at (k, D): where its own
     blocks do not fit within ``budget`` floats (:func:`_rounds_fit`; an
-    H100's by default).  The wrappers launch the route by it at their
+    H100's by default), for K1, the K3 family and K4 at a tile of
+    ``tile_rows`` rows (and for K1 and the K3 family ``planes`` a round
+    where > 0).  The wrappers launch the route by it at their
     card's budget; on an H100 that is every odd k >= 129 for K1-K3 and
     K5-K7, k >= 187 for K4 and k >= 145 for K8.  ``chip_smoke.py`` pins it against the
     launchers on the card: each takes the last k below the route and
     refuses the first k on it."""
-    return not _rounds_fit(kernel, k, D, _budget(budget))
+    return not _rounds_fit(kernel, k, D, _budget(budget), tile_rows,
+                           planes)
 
 
 def large_k_scratch(kernel: str, H: int, W: int, D: int, k: int
@@ -1447,7 +1511,7 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
     return out
 
 
-__all__ = ["LARGE_K_KERNELS", "OpCount",
+__all__ = ["LARGE_K_KERNELS", "OpCount", "TILE_ROWS",
            "allpairs_backward_cost", "allpairs_block_floats",
            "allpairs_forward_cost",
            "box_pass_loads", "camera_grad_rounds_cost",
@@ -1464,7 +1528,8 @@ __all__ = ["LARGE_K_KERNELS", "OpCount",
            "large_k_cost", "large_k_route", "large_k_scratch",
            "measure_vpu_rates", "parity_block_floats", "parity_chunks",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
-           "rate_probe_reference", "stage_op_cost", "stats_block_floats",
+           "rate_probe_reference", "round_planes", "stage_op_cost",
+           "stats_block_floats", "tile_cols",
            "to_parity_cost", "transpose_volume_cost",
            "volume_backward_cost",
            "volume_forward_cost", "window_pass_cost"]

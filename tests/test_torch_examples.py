@@ -139,9 +139,14 @@ def test_serve_matches_jax(monkeypatch, capsys, source):
     assert rec["camera"].shape == rec["maps"][0].mask.shape == (330, 422)
 
 
-def test_serve_autotune_raises():
-    with pytest.raises(NotImplementedError, match="ops/tuning.py"):
-        serve.main(["--device", "cpu", "--autotune"])
+def test_serve_autotune_raises(capsys):
+    """``--autotune`` no longer raises: on the CPU there is no tile to
+    tune, it says so and serves."""
+    assert serve.main(["--device", "cpu", "--autotune", "--loops", "1",
+                       "--num-disparities", "8", "--kernel-size", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "autotune: nothing to tune on the torch backend" in out
+    assert "SERVE: OK" in out
 
 
 def test_video_depth_synthetic_matches_jax(capsys):

@@ -109,9 +109,17 @@ def test_engine_crop_is_exact():
 
 @pytest.mark.parametrize("option", [dict(autotune=True)])
 def test_engine_options_not_ported(option):
-    with pytest.raises(NotImplementedError,
-                       match="modules to port: ops/tuning.py"):
-        StereoEngine(StereoConfig(num_disparities=4), device="cpu", **option)
+    """Once unported, now a no-op off the card: the plain versions have no
+    tile, so the engine tunes nothing and serves the untuned maps."""
+    cfg = StereoConfig(kernel_size=3, num_disparities=4)
+    engine = StereoEngine(cfg, buckets=[(16, 24)], device="cpu", **option)
+    plain = StereoEngine(cfg, buckets=[(16, 24)], device="cpu")
+    assert not engine.autotune
+    engine.warmup()
+    assert engine.tuned_tiles == {}
+    cam, proj = _batch(7, 1, 12, 20)
+    for g, w in zip(engine.infer(cam, proj), plain.infer(cam, proj)):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_cuda_backend_on_cpu_tensors_raises():

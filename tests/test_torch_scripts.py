@@ -121,3 +121,29 @@ def test_kernel_variants_refuse_unknown_names_and_need_a_card(capsys):
         pytest.skip("a card is present: this checks the path without one")
     assert kv.main([]) == 1
     assert kv.main(["--ab", "build/parent", "--rounds", "2"]) == 1
+
+
+def test_make_capture_regenerates_the_checked_in_pair(tmp_path, capsys):
+    """``make_capture --out DIR`` renders the pair of ``examples/data``:
+    each PNG decodes to the checked-in file's samples and the disparity is
+    the checked-in ``.npy`` byte for byte; without ``--out`` it refuses,
+    so the checked-in pair is never overwritten."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from custereomatching_tpu_torch.data.io import decode_png_gray
+    from custereomatching_tpu_torch.scripts import make_capture
+
+    data = Path(kv.ROOT) / "examples" / "data"
+    assert make_capture.main(["--out", str(tmp_path)]) == 0
+    assert "wrote capture pair" in capsys.readouterr().out
+    for name in ("capture_camera.png", "capture_projector.png"):
+        got = decode_png_gray(str(tmp_path / name))
+        want = decode_png_gray(str(data / name))
+        assert got.shape == want.shape == (330, 422)
+        np.testing.assert_array_equal(got, want)
+    assert ((tmp_path / "capture_disparity.npy").read_bytes()
+            == (data / "capture_disparity.npy").read_bytes())
+    with pytest.raises(SystemExit):
+        make_capture.main([])

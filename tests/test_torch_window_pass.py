@@ -76,7 +76,10 @@ def _const(text: str, name: str) -> int:
 
 def test_blocking_constants_mirror_the_sources():
     common = (CSRC / "common.cuh").read_text()
-    bwd = (CSRC / "fused_pipeline_bwd.cu").read_text()
+    # K4's launcher lives in head_rounds.cuh, which its tiles' translation
+    # units share with fused_pipeline_bwd.cu.
+    bwd = ((CSRC / "fused_pipeline_bwd.cu").read_text()
+           + (CSRC / "head_rounds.cuh").read_text())
     grad = (CSRC / "camera_grad.cuh").read_text()
     proj = (CSRC / "zncc_banded_proj_bwd.cu").read_text()
     volume = (CSRC / "zncc_banded.cu").read_text()
@@ -138,7 +141,10 @@ def test_blocking_constants_mirror_the_sources():
     assert "horizontal_sum(" not in volume + fused
     assert "grad_rows(xbuf, ybuf, gs, k, np);" in proj
     assert "void grad_rows(" not in proj and "void ring_entry(" not in proj
-    assert "fused_round(k, d_hi - d_lo," in fused and "staging_chunk(" in common
+    # The launcher sizes the round for the planes it walks, through
+    # fused_rounds_at, which the C query of the route pin shares.
+    assert "fused_rounds_at(k, d_hi - d_lo," in fused and (
+        "*round = fused_round(k, D," in fused) and "staging_chunk(" in common
     # K3's rows pass covers the tile height; gr's groups tile the tile.
     assert km.ROUND_ROWS == km.K_TILE_H and km.K_TILE_W % km.ROUND_COLS == 0
     assert km.K_TILE_H % km.GRAD_ROWS == 0
