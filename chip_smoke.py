@@ -5,7 +5,8 @@ volume-free training path, the plane-major path, the camera VJP
 without the cost residual, the bound model's rate probes, the large-k
 route, the left-right serving path, the pyramid, the failsafe layer, the
 parallel layer, the data layer, the golden oracle, the data-driven
-examples, the tile tuner and the rounds kernels at every tile.
+examples, the tile tuner, the rounds kernels at every tile and the
+bench.
 
     python3 chip_smoke.py
 
@@ -234,7 +235,19 @@ imports nothing of JAX.  Phases, each printing its lines:
     inputs (K1's volume as phase 3, the K3 family's maps as phase 4, K4's
     gradient as phase 8: the errors of the ``kernels`` line's tiled
     entries); every tiled kernel launched, no plain version; then each
-    timed at KITTI beside its default tile.
+    timed at KITTI beside its default tile;
+39. the bench: ``python -m custereomatching_tpu_torch.bench`` in a
+    subprocess at KITTI (its own preflight and every measurement of the
+    JAX bench); it must exit 0 with one stdout line, the JSON summary,
+    on the card (``platform`` ``gpu``), the headline above 0 and
+    ``vs_baseline`` in (0, 1.05], every secondary measurement present
+    and finite, every hard-disparity pixel that differs from the plain
+    path a top-two tie, and the pyramid's EPE <= 0.30 px and coverage
+    >= 0.97; its headline and secondaries printed.
+
+At its end the script writes the record the bench reads
+(``build/smoke/chip_smoke.json``: pass or fail, the card, the time, the
+digest of the kernel sources).
 
 The last three lines are the kernel summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and the result line
@@ -262,7 +275,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from custereomatching_tpu_torch import StereoConfig, StereoEngine, StereoMatcher
-from custereomatching_tpu_torch import native
+from custereomatching_tpu_torch import bench, native
 from custereomatching_tpu_torch.config import MeshConfig
 from custereomatching_tpu_torch.data import io as data_io
 from custereomatching_tpu_torch.data import kitti, make_stereo_pair
@@ -3850,6 +3863,51 @@ def tile_times(card: str, tuned: dict, times: dict, rates: dict) -> dict:
     return out
 
 
+BENCH_TIMEOUT_S = 420
+
+
+def phase_bench(card: str) -> dict:
+    """``python -m custereomatching_tpu_torch.bench`` at KITTI in a
+    subprocess from this checkout: exit 0, one stdout line, the summary on
+    the card, the headline and ``vs_baseline`` in (0, 1.05], every
+    secondary measurement present and finite (the decoder's name aside),
+    the parity check's differing pixels all top-two ties, the pyramid's
+    accuracy within PERF.md's limits."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "custereomatching_tpu_torch.bench"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        print(f"bench: {line}")
+    require(r.returncode == 0, f"bench exit 0 (got {r.returncode})")
+    lines = r.stdout.splitlines()
+    require(len(lines) == 1, f"bench stdout one line (got {len(lines)})")
+    summary = json.loads(lines[0])
+    sec = summary["secondary"]
+    print(f"bench: headline {summary['metric']} {summary['value']:.3f} "
+          f"{summary['unit']}, vs_baseline {summary['vs_baseline']:.4f}, "
+          f"device {summary['device']}; {seconds:.1f} s ({card})")
+    print(f"bench: secondary {json.dumps(sec)}")
+    require(summary["device"]["platform"] == "gpu"
+            and summary["device"]["name"] == torch.cuda.get_device_name(0),
+            "bench ran on the card")
+    require(summary["value"] > 0 and 0 < summary["vs_baseline"] <= 1.05,
+            "bench headline > 0 and vs_baseline in (0, 1.05]")
+    require(all(isinstance(v, (int, float)) and np.isfinite(v)
+                for name, v in sec.items() if name != "e2e_decoder"),
+            "every bench secondary measurement present and finite")
+    require(sec["parity_differing_pixels"]
+            == sec["parity_differing_top2_ties"],
+            "every hard-disparity pixel differing from the plain path a "
+            "top-two tie")
+    require(sec["pyramid_epe_px"] <= 0.30 and sec["pyramid_coverage"] >= 0.97,
+            "bench pyramid accuracy: EPE <= 0.30 px and coverage >= 0.97")
+    return summary
+
+
 LARGE_KERNELS = (
     # name, key, replaces
     ("large_k_banded_volume", "K1L",
@@ -4002,6 +4060,7 @@ def main() -> int:
     counts["tiled"], tile_errs = phase_tiled_path(card)
     errs.update(tile_errs)
     times.update(tile_times(card, tuned, times, rates))
+    phase_bench(card)
 
     kernels = []
     for name, key, source, replaces, path in KERNELS:
@@ -4041,6 +4100,7 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "model_ms": model_ms, "model_by": model_by})
+    bench.write_smoke_record(True, card)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -4050,4 +4110,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        # Only a run on the card has a record to write.
+        if torch.cuda.is_available():
+            bench.write_smoke_record(False, card_line())
+        raise
