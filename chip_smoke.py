@@ -104,7 +104,9 @@ imports nothing of JAX.  Phases, each printing its lines:
 21. K10a (the op-class rate probe, every mode, a small launch and its
     measuring size) against its plain twin within rtol 1e-5, K10b (HBM
     read) within rtol 1e-5 and K10c (HBM write) bit-equal, at KITTI's
-    volume;
+    volume and at ragged shapes whose rows and planes lie off 16-byte
+    boundaries (``kernel_model.HBM_EDGE_SHAPES``; K10b also from a volume
+    4 bytes off one);
 22. the bound-model path, counters reset: ``measure_vpu_rates(force=True)``
     (K10a in every mode and K10b and K10c in each of its three rounds,
     the plain twins never) and the card health probe
@@ -1707,16 +1709,23 @@ def phase_k10() -> dict:
             require(bool((got == got[0, 0]).all()),
                     f"K10a {mode}: every chain holds one value")
             del got, want
-    P, H, W = km.HBM_SHAPE
-    vol = torch.rand(km.HBM_SHAPE, device="cuda",
-                     generator=torch.Generator("cuda").manual_seed(10))
-    err["K10b"] = compare_probe(km.hbm_read_probe(vol),
-                                km.hbm_read_reference(vol), 1e-5,
-                                f"K10b plane sums of [{P}, {H}, {W}]")
-    del vol
-    err["K10c"] = compare_probe(km.hbm_write_probe(P, H, W),
-                                km.hbm_write_reference(P, H, W, "cuda"), 0,
-                                f"K10c out[d, h, w] = d over [{P}, {H}, {W}]")
+    err["K10b"] = err["K10c"] = 0.0
+    gen = torch.Generator("cuda").manual_seed(10)
+    for P, H, W in (km.HBM_SHAPE,) + km.HBM_EDGE_SHAPES:
+        # A volume that starts 4 bytes off a 16-byte boundary, then one
+        # that starts on it (torch's allocation).
+        flat = torch.rand(P * H * W + 1, device="cuda", generator=gen)
+        for off in (1, 0):
+            vol = flat[off:off + P * H * W].view(P, H, W)
+            err["K10b"] = max(err["K10b"], compare_probe(
+                km.hbm_read_probe(vol), km.hbm_read_reference(vol), 1e-5,
+                f"K10b plane sums of [{P}, {H}, {W}], {4 * off} bytes off "
+                f"a 16-byte boundary"))
+        del flat, vol
+        err["K10c"] = max(err["K10c"], compare_probe(
+            km.hbm_write_probe(P, H, W),
+            km.hbm_write_reference(P, H, W, "cuda"), 0,
+            f"K10c out[d, h, w] = d over [{P}, {H}, {W}]"))
     torch.cuda.empty_cache()
     return err
 

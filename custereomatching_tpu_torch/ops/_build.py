@@ -236,7 +236,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream_of(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current stream of ``device`` (the current device where it has
+    no index), as the C entry points take it: torch's raw-stream call, a
+    microsecond where a ``Stream`` object takes several."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(code: int, what: str) -> None:

@@ -27,7 +27,8 @@ speckle frame and prints its lines, then one JSON object:
 * ``kernels``: device time of each banded kernel, K1, K3, K3w, K3m, K2,
   K7, K4, K6 and K5 (CUDA events, the median of 10 chained calls of 3),
   on the speckle pair, a random volume cotangent and random head
-  cotangents, and of K8 on a random 330x422 pair (k=15).
+  cotangents, of K8 on a random 330x422 pair (k=15), of K9a and K9b on
+  the cotangent, and of the HBM probes K10b and K10c at their volume.
 * ``engine``: host-clock latency of ``StereoEngine.infer`` on KITTI
   frames, as ``chip_smoke.py``'s serving phase measures it.
 * ``autotune``: the same latency without and with ``autotune`` (each
@@ -73,6 +74,7 @@ from custereomatching_tpu_torch.models import StereoMatcher
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops.cuda_pipeline import stereo_pipeline_cuda
 from custereomatching_tpu_torch.utils import benchmark
+from custereomatching_tpu_torch.utils import kernel_model as km
 
 KITTI = (375, 1242, 192, 15)
 STEPS = 10
@@ -267,7 +269,7 @@ def mode_k3() -> dict:
 def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
     """(name, wrapper, arguments) of each kernel ``kernels`` times: the
     banded ones and the layout conversions K9a and K9b at KITTI, K8 at
-    330x422."""
+    330x422, the HBM probes K10b and K10c at their KITTI volume."""
     from custereomatching_tpu_torch.ops.cuda_allpairs import (
         cost_volume_allpairs_cuda,
     )
@@ -313,7 +315,10 @@ def kernel_cases() -> List[Tuple[str, Callable, tuple]]:
          (cam, proj, res_m, gs, gc, D, k, 1e-8, 50.0)),
         ("K8", cost_volume_allpairs_cuda, (acam, aproj, 15, 1e-8)),
         ("K9a", plane_major_to_parity, (g,)),
-        ("K9b", parity_to_plane_major, (g_parity,))]
+        ("K9b", parity_to_plane_major, (g_parity,)),
+        ("K10b", km.hbm_read_probe,
+         (torch.rand(km.HBM_SHAPE, device="cuda", generator=gen),)),
+        ("K10c", km.hbm_write_probe, (*km.HBM_SHAPE, "cuda"))]
 
 
 def mode_kernels() -> dict:

@@ -10,26 +10,30 @@ Each NAME of ``VARIANTS`` is a copy of the package under
 ``build/variants/NAME`` with one edit of ``csrc/camera_grad.cuh`` (the
 rounds kernel of K2, K4 and K6), for a ``k7_`` name of
 ``csrc/zncc_banded_proj_bwd.cu`` (K7's), for a ``k8_`` name of
-``csrc/zncc_allpairs.cu`` or for a ``k9_`` name of ``csrc/layout.cu``
-(K9a's): another round size, the ring's entries split in half rounds,
-K8's rows in run-time loops, K9a's block shape, or one phase cut (timing
+``csrc/zncc_allpairs.cu``, for a ``k9_`` name of ``csrc/layout.cu``
+(K9a's) or for a ``k10`` name of ``csrc/rate_probes.cu`` (K10b's and
+K10c's): another round size, the ring's entries split in half rounds,
+K8's rows in run-time loops, K9a's block shape, K10c's blocks
+interleaved over the volume, or one phase cut (timing
 only: the values are then wrong).  Each tree runs in its own process, with ``PYTHONPATH``
 at it:
 
 1. K1's and K8's volumes, K9a's parity copy of K1's, and K2's, K4's,
    K5's, K6's and K7's gradients on fixed inputs (KITTI and small shapes at k = 3, 27, 31, 47, 81 and
-   93; K8 at the same k on the images' first rows), compared bit for bit
-   with this tree's: every variant that keeps the values, and every
+   93; K8 at the same k on the images' first rows), and K10b's sums and
+   K10c's volume at ``kernel_model.HBM_EDGE_SHAPES``, compared bit for
+   bit with this tree's: every variant that keeps the values, and every
    ``--against`` tree (another checkout, e.g. the parent commit's ``git
    archive``), on the outputs both trees give (a tree whose kernel refuses
    a k gives none there);
-2. ``device_profile kernels`` (K1-K8 device ms) for this tree and every
-   variant in turns, then in the reverse order.
+2. ``device_profile kernels`` (K1-K10c device ms) for this tree and
+   every variant in turns, then in the reverse order.
 
 With ``--ab DIR`` it instead times every kernel of ``device_profile
 kernels`` in one process on the same inputs, through this tree's
 wrappers, on this tree's kernel library and on the one DIR's sources
-build (their C interface must be this tree's), the two back to back for
+build (their C interface must be this tree's; DIR may also name a
+variant, whose copy is made first), the two back to back for
 each kernel and which goes first alternating from round to round; it
 prints each kernel's medians, their ratio and the rounds each side won.
 Between processes the same kernel's time moves by a few percent; this
@@ -55,6 +59,7 @@ SOURCE = "csrc/camera_grad.cuh"
 K7_SOURCE = "csrc/zncc_banded_proj_bwd.cu"
 K8_SOURCE = "csrc/zncc_allpairs.cu"
 K9_SOURCE = "csrc/layout.cu"
+K10_SOURCE = "csrc/rate_probes.cu"
 CASES = ((375, 1242, 192, 15), (40, 130, 24, 31), (40, 130, 24, 47),
          (37, 200, 24, 3), (40, 130, 24, 27), (40, 130, 24, 81),
          (40, 130, 24, 93), (40, 130, 24, 127))
@@ -209,9 +214,21 @@ _K8_SUM = "          const float exy = sum - sx * sy[c] / k2;"
 _K9_STORE = "    for (int r = lane; r < rn; r += 32) dst[r] = row[r];"
 _K7_CENTRE = ("    if (valid) {\n"
               "      const float ey2 = ey2_t[centre];")
+# K10c's quads in chunks of 4 kWriteThreads, chunk c to block c mod grid
+# (csrc/rate_probes.cu): the blocks store side by side, one front moving
+# through the volume, where the shipped kernel gives each block a span.
+_K10C_SPAN = ("  long long q = blockIdx.x * per + threadIdx.x;\n"
+              "  if (q >= q_end) return;\n")
+_K10C_SPAN_STEP = "  for (; q < q_end; q += kWriteThreads) {\n"
+_K10C_CHUNK = ("  long long q = blockIdx.x * 4LL * kWriteThreads + threadIdx.x;\n"
+               "  if (q >= quads) return;\n")
+_K10C_CHUNK_STEP = ("  for (; q < quads; q += (q / kWriteThreads + 1) % 4\n"
+                    "                               ? kWriteThreads\n"
+                    "                               : (4LL * gridDim.x - 3) *\n"
+                    "                                     kWriteThreads) {\n")
 
-# name -> (whether the values stay the source's, edits (old, new) of SOURCE,
-# or of K7_SOURCE for a k7_ name)
+# name -> (whether the values stay the source's, edits (old, new) of the
+# source that source_of names)
 VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
     "p4": (True, _start(4)),
     "p10": (True, _start(10, 10, 5)),
@@ -275,6 +292,10 @@ VARIANTS: Dict[str, Tuple[bool, List[Tuple[str, str]]]] = {
          "* C);", "      stage[c * stride + r] = r + 0.25f;")]),
     "k9_cut_store": (False, [
         (_K9_STORE, _K9_STORE.replace("r < rn;", "r < rn && R < 0;"))]),
+    "k10c_interleaved": (True, [(_K10C_SPAN, _K10C_CHUNK),
+                                (_K10C_SPAN_STEP, _K10C_CHUNK_STEP)]),
+    "k10b_cut_sum": (False, [("      if (d0 + j < P) {",
+                              "      if (d0 + j < P && d0 < 0) {")]),
 }
 # What a cut variant's edits leave in the source: its values are wrong.
 CUT_MARKS = ("d0 < 0", "+ 0.25f", "k < 0", "R < 0")
@@ -282,8 +303,8 @@ CUT_MARKS = ("d0 < 0", "+ 0.25f", "k < 0", "R < 0")
 
 def source_of(name: str) -> str:
     """The source, under the package, that variant ``name`` edits."""
-    return {"k7_": K7_SOURCE, "k8_": K8_SOURCE,
-            "k9_": K9_SOURCE}.get(name[:3], SOURCE)
+    return {"k7_": K7_SOURCE, "k8_": K8_SOURCE, "k9_": K9_SOURCE,
+            "k10": K10_SOURCE}.get(name[:3], SOURCE)
 
 
 def edit_source(text: str, name: str) -> str:
@@ -311,11 +332,15 @@ def make_variant(name: str, dest: Path) -> Path:
 
 def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
     """K1's volume and K2's, K4's, K5's, K6's and K7's gradients at
-    ``cases`` (H, W, D, k) from fixed inputs, and K8's volume at
-    (min(H, 40), W, k), on the CPU tensors of ``device`` (a CPU device
-    takes the wrappers' plain versions); a kernel whose wrapper refuses a
-    case gives no output there."""
+    ``cases`` (H, W, D, k) from fixed inputs, K8's volume at
+    (min(H, 40), W, k), and K10b's sums (of a volume 4 bytes off a 16-byte
+    boundary) and K10c's volume at ``kernel_model.HBM_EDGE_SHAPES``, on
+    the CPU tensors of ``device`` (a CPU device takes the wrappers' plain
+    versions); a kernel whose wrapper refuses a case gives no output
+    there."""
     import torch
+
+    from custereomatching_tpu_torch.utils import kernel_model as km
 
     from custereomatching_tpu_torch.data import make_stereo_pair
     from custereomatching_tpu_torch.ops.cuda_allpairs import (
@@ -375,6 +400,12 @@ def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
         outs[f"K8 {rows}x{W} k={k}"] = cost_volume_allpairs_cuda(
             cam[:, :rows], proj[:, :rows], k, 1e-8).cpu()
         del res, res_m, volume
+    for P, H, W in km.HBM_EDGE_SHAPES:
+        gen = torch.Generator(device).manual_seed(P)
+        flat = torch.rand(P * H * W + 1, device=device, generator=gen)
+        outs[f"K10b {P}x{H}x{W}"] = km.hbm_read_probe(
+            flat[1:].view(P, H, W)).cpu()
+        outs[f"K10c {P}x{H}x{W}"] = km.hbm_write_probe(P, H, W, device).cpu()
     return outs
 
 
@@ -459,7 +490,8 @@ def main(argv: List[str]) -> int:
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
     if args.ab:
-        other = Path(args.ab).resolve()
+        other = (make_variant(args.ab, ROOT / "build" / "variants")
+                 if args.ab in VARIANTS else Path(args.ab).resolve())
         for name, t in ab_times(other, args.rounds).items():
             mine, theirs = (sorted(t[side])[len(t[side]) // 2]
                             for side in ("this", "other"))

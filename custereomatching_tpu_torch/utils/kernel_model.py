@@ -11,10 +11,13 @@ its public names.  A kernel's bound is the larger of two legs:
    themselves.
 2. **Memory**: the bytes the kernel moves through HBM (``bytes_r`` read,
    ``bytes_w`` written, scratch maps included), at the rates of the HBM
-   probes, which read and write a volume in the kernels' own pattern, a
-   pixel's planes one after another.  A dense stream that does not walk
-   the planes so (K9's tiled transpose) counts ``bytes`` only, priced at
-   the data sheet's bandwidth.
+   probes, which read and write a KITTI-sized volume with the card's bulk
+   copies (K10b a ring of ``cp.async.bulk`` copies issued ahead of the
+   threads that sum, K10c a dense stream of 16-byte stores): the most this
+   card gives a kernel for those bytes, whatever pattern the kernel's own
+   loads and stores follow.  A traffic without the read/write split (the
+   plain all-pairs VJP, the large-k route's launches) counts ``bytes``
+   only, priced at the data sheet's bandwidth.
 
 The classes, as one thread's instructions (a "warp-wide" op is 32 of
 them):
@@ -44,7 +47,8 @@ them):
     ``smem`` or ``madd``.
 
 Rate keys: the classes (seconds an element), ``hbm_r3d`` and ``hbm_w3d``
-(seconds a byte, K10b and K10c), ``t3d`` and ``dus3d`` (seconds a byte
+(seconds a byte, K10b and K10c; cached with the probes' design,
+``HBM_PROBE``), ``t3d`` and ``dus3d`` (seconds a byte
 read and written of the plain-torch volume ops of the parity adapter,
 ``permute().contiguous()`` and zeros plus a copy into plane-major).
 
@@ -125,6 +129,14 @@ RATE_ITERS = {"madd": 32768, "smem": 8192, "exp": 4096, "rsqrt": 4096,
               "boxadd": 256}
 # The HBM probes' volume: KITTI's, P = D + 1 = 193 planes of 375 x 1242.
 HBM_SHAPE = (193, 375, 1242)
+# Volumes the probes' checks add to it: rows and planes off 16-byte
+# boundaries, counts not a multiple of 4; one plane shorter than K10b's
+# run of pixels (csrc/rate_probes.cu kReadRun) and one of several runs.
+HBM_EDGE_SHAPES = ((5, 7, 13), (9, 37, 131))
+# The design of K10b and K10c, stored beside their rates in the cache: a
+# cache that holds another (or none) does not price with its hbm_r3d and
+# hbm_w3d, which were measured by other probes.
+HBM_PROBE = "bulk ring read, 16-byte store write"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -224,10 +236,20 @@ rate_probe.launches = 0
 rate_probe.mode_launches = {m: 0 for m in _OP_MODES}
 
 
+def _on_card(device: torch.device, entry, *args) -> int:
+    """``entry(*args, stream)`` on ``device``'s current stream, with
+    ``device`` made current only where it is not: a probe times what the
+    card takes, so its launch spends as little host time as it can."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return entry(*args, stream_of(device))
+    with torch.cuda.device(device):
+        return entry(*args, stream_of(device))
+
+
 def _check_volume(vol: torch.Tensor, what: str) -> None:
-    if vol.ndim != 3 or vol.dtype != torch.float32:
-        raise ValueError(f"{what}: expected a float32 [P, H, W] volume, got "
-                         f"{vol.dtype} {tuple(vol.shape)}")
+    if vol.ndim != 3 or vol.dtype != torch.float32 or vol.numel() == 0:
+        raise ValueError(f"{what}: expected a non-empty float32 [P, H, W] "
+                         f"volume, got {vol.dtype} {tuple(vol.shape)}")
 
 
 def hbm_read_reference(vol: torch.Tensor) -> torch.Tensor:
@@ -245,20 +267,25 @@ hbm_read_reference.calls = 0
 
 def hbm_read_probe(vol: torch.Tensor) -> torch.Tensor:
     """K10b: ``[H, W]`` plane sums of a plane-major ``[P, H, W]`` volume,
-    read as K2, K4 and K7 read theirs.  ``.launches`` counts its
+    each pixel's planes added in order.  The counterpart of JAX's
+    ``_dma_read_kernel``: a block's run of pixels streams through a ring
+    of shared-memory stages filled by ``cp.async.bulk`` copies issued
+    ahead of the threads that sum, so its rate ``hbm_r3d`` is the card's
+    bulk read rate for the volume.  On the CPU the plain version; on a
+    CUDA device the kernel, or the call raises.  ``.launches`` counts its
     launches."""
     _check_volume(vol, "K10b")
-    if vol.device.type == "cpu":
+    device = vol.device
+    if device.type == "cpu":
         return hbm_read_reference(vol)
-    if vol.device.type != "cuda":
+    if device.type != "cuda":
         raise ValueError(f"K10b runs on CUDA or (plain) CPU tensors, got "
-                         f"{vol.device}")
+                         f"{device}")
     vol = vol.contiguous()
     P, H, W = vol.shape
     out = vol.new_empty((H, W))
-    with torch.cuda.device(vol.device):
-        code = _build.kernels().custereo_hbm_read_probe(
-            ptr(vol), ptr(out), P, H, W, stream_of(vol.device))
+    code = _on_card(device, _build.kernels().custereo_hbm_read_probe,
+                    vol.data_ptr(), out.data_ptr(), P, H, W)
     _build.check(code, "K10b launch")
     hbm_read_probe.launches += 1
     return out
@@ -281,17 +308,23 @@ hbm_write_reference.calls = 0
 
 
 def hbm_write_probe(P: int, H: int, W: int, device="cuda") -> torch.Tensor:
-    """K10c: a new ``[P, H, W]`` volume with ``out[d, h, w] = d``, written
-    as K1 and K3w write theirs.  ``.launches`` counts its launches."""
+    """K10c: a new ``[P, H, W]`` volume with ``out[d, h, w] = d``.  The
+    counterpart of JAX's ``_dma_write_kernel``: the flat volume written as
+    one dense stream, a contiguous span a block and 16 bytes a store, so
+    its rate ``hbm_w3d`` is the card's bulk write rate for the volume.  On
+    the CPU the plain version; on a CUDA device the kernel, or the call
+    raises.  ``.launches`` counts its launches."""
+    if min(P, H, W) < 1:
+        raise ValueError(f"K10c: expected a non-empty [P, H, W] volume, got "
+                         f"[{P}, {H}, {W}]")
     device = torch.device(device)
     if device.type == "cpu":
         return hbm_write_reference(P, H, W)
     if device.type != "cuda":
         raise ValueError(f"K10c runs on CUDA or (plain) CPU, got {device}")
     out = torch.empty((P, H, W), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        code = _build.kernels().custereo_hbm_write_probe(
-            ptr(out), P, H, W, stream_of(device))
+    code = _on_card(device, _build.kernels().custereo_hbm_write_probe,
+                    out.data_ptr(), P, H, W)
     _build.check(code, "K10c launch")
     hbm_write_probe.launches += 1
     return out
@@ -333,7 +366,8 @@ def _run_rate(mode: str) -> float:
 
 
 def _run_dma_rate(mode: str) -> float:
-    """Seconds a byte of an HBM pattern (K10b or K10c at KITTI's volume)."""
+    """Seconds a byte of the card's bulk HBM read or write (K10b or K10c
+    at KITTI's volume)."""
     _need_card("K10b/K10c")
     P, H, W = HBM_SHAPE
     if mode == "hbm_r3d":
@@ -399,8 +433,10 @@ def measure_vpu_rates(force: bool = False,
 
     Cached on disk by card name (``build/rates/hopper_rates.json``, git
     ignored; never the JAX package's ``vpu_rates.json``), each entry with
-    the power limit ``nvidia-smi`` reported.  Measured in three rounds, the
-    median of each class.  A partial cache is topped up; with
+    the power limit ``nvidia-smi`` reported and the HBM probes' design
+    (``HBM_PROBE``).  Measured in three rounds, the median of each class.
+    A partial cache is topped up; ``hbm_r3d`` and ``hbm_w3d`` cached
+    beside another design, or none, count as missing.  With
     ``measure_if_missing=False`` a miss returns what the cache has, or
     ``None``.  ``device_name`` names the card instead of asking torch.
     Without a card, a call that would measure raises ``RuntimeError``."""
@@ -412,8 +448,10 @@ def measure_vpu_rates(force: bool = False,
             cache = json.loads(path.read_text())
         except (OSError, ValueError):
             cache = {}
-    have = {m: float(v) for m, v in cache.get(kind, {}).items()
-            if m in _ALL_MODES}
+    entry = cache.get(kind, {})
+    stale = () if entry.get("hbm_probe") == HBM_PROBE else _DMA_MODES
+    have = {m: float(v) for m, v in entry.items()
+            if m in _ALL_MODES and m not in stale}
     missing = [m for m in _ALL_MODES if m not in have]
     if not force and kind in cache and not missing:
         return have
@@ -428,7 +466,7 @@ def measure_vpu_rates(force: bool = False,
     rates = _measure(_ALL_MODES if force else missing)
     if not force:
         rates = {**have, **rates}
-    cache[kind] = {**rates,
+    cache[kind] = {**rates, "hbm_probe": HBM_PROBE,
                    "power_limit": card_line().rsplit(",", 1)[-1].strip()}
     try:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1239,16 +1277,14 @@ def allpairs_backward_cost(H: int, W: int, k: int) -> OpCount:
 def transpose_volume_cost(H: int, W: int, D: int) -> OpCount:
     """K9b (``transpose_kernel``, ``csrc/layout.cu``): every element read
     once, staged through a 32 x 32 shared tile (a store and a load),
-    written once.  A warp moves 128 contiguous bytes a row of the tile on
-    both sides, a dense stream, not the plane-by-plane walk of a pixel
-    that K10b and K10c measure: the bytes are priced at the data sheet's
-    bandwidth (``bytes`` only; at ``hbm_w3d`` the bound would pass K9b's
-    time).  The plain ``permute().contiguous()`` moves the same bytes; its
-    measured rate is ``t3d``."""
+    written once, the bytes at ``hbm_r3d`` and ``hbm_w3d`` as every
+    volume's.  (Before K10b and K10c measured the card's bulk rates, the
+    probes' thread-a-pixel write ran slower than K9b's stores, and K9b
+    was priced at the data sheet's bandwidth.)  The plain
+    ``permute().contiguous()`` moves the same bytes; its measured rate is
+    ``t3d``."""
     n = (D + 1) * H * W
-    c = OpCount(smem=2 * n)
-    c.bytes = 2.0 * n * 4
-    return c
+    return _with_bytes(OpCount(smem=2 * n), n * 4, n * 4)
 
 
 def parity_chunks(R: int) -> Tuple[int, int, int]:
@@ -1269,15 +1305,12 @@ def parity_block_floats(D: int) -> int:
 def to_parity_cost(H: int, W: int, D: int) -> OpCount:
     """K9a (``to_parity_kernel``, ``csrc/layout.cu``): every element read
     once (a warp's 32 pixels of one plane, coalesced), stored to shared
-    memory and loaded back (a store and a load), written once; with one
-    chunk of planes a block's output is one contiguous span, a dense
-    stream: the bytes are priced at the data sheet's bandwidth (``bytes``
-    only), as K9b's.  The plain ``permute().contiguous()`` moves the same
-    bytes."""
+    memory and loaded back (a store and a load), written once (with one
+    chunk of planes a block's output is one contiguous span), the bytes at
+    ``hbm_r3d`` and ``hbm_w3d``, as K9b's.  The plain
+    ``permute().contiguous()`` moves the same bytes."""
     n = (D + 1) * H * W
-    c = OpCount(smem=2 * n)
-    c.bytes = 2.0 * n * 4
-    return c
+    return _with_bytes(OpCount(smem=2 * n), n * 4, n * 4)
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,54 @@ def test_hbm_probe_twins_against_numpy():
         km.hbm_read_probe(torch.zeros(2, 3, 4, dtype=torch.float64))
 
 
+@pytest.mark.parametrize("shape", km.HBM_EDGE_SHAPES + ((3, 1, 1),))
+def test_hbm_probe_twins_at_ragged_shapes(shape):
+    """The contract the kernels are held to on the card, at shapes whose
+    rows and planes lie off 16-byte boundaries and whose counts are not a
+    multiple of 4: K10b's plain version adds each pixel's planes in plane
+    order (a numpy loop in that order, bit for bit, also from a volume 4
+    bytes off a boundary), K10c's is exact."""
+    P, H, W = shape
+    rng = np.random.default_rng(P)
+    flat = rng.random(P * H * W + 1, dtype=np.float32)
+    for off in (0, 1):
+        vol = flat[off:off + P * H * W].reshape(P, H, W)
+        want = np.zeros((H, W), np.float32)
+        for d in range(P):
+            want = want + vol[d]
+        got = km.hbm_read_probe(torch.from_numpy(flat)[off:off + P * H * W]
+                                .view(P, H, W))
+        np.testing.assert_array_equal(got.numpy(), want)
+    out = km.hbm_write_probe(P, H, W, "cpu")
+    assert out.dtype == torch.float32 and tuple(out.shape) == shape
+    for d in range(P):
+        assert bool((out[d] == d).all())
+
+
+def test_hbm_probes_check_their_arguments():
+    """The wrappers refuse what the kernels do not take, before any
+    launch: K10b a volume that is not fp32, not 3-D or empty, or on a
+    device that is neither CUDA nor the CPU; K10c an empty shape or such a
+    device."""
+    for bad in (torch.zeros(2, 3), torch.zeros(2, 3, 4, 5),
+                torch.zeros(0, 3, 4), torch.zeros(2, 3, 4,
+                                                  dtype=torch.float16)):
+        with pytest.raises(ValueError, match="non-empty float32"):
+            km.hbm_read_probe(bad)
+    with pytest.raises(ValueError, match="CUDA or"):
+        km.hbm_read_probe(torch.zeros(2, 3, 4, device="meta"))
+    for P, H, W in ((0, 3, 4), (2, 0, 4), (2, 3, -1)):
+        with pytest.raises(ValueError, match="non-empty"):
+            km.hbm_write_probe(P, H, W, "cpu")
+    with pytest.raises(ValueError, match="CUDA or"):
+        km.hbm_write_probe(2, 3, 4, "meta")
+    launches = km.hbm_read_probe.launches, km.hbm_write_probe.launches
+    km.hbm_read_probe(torch.ones(2, 3, 4))
+    km.hbm_write_probe(2, 3, 4, "cpu")
+    assert (km.hbm_read_probe.launches,
+            km.hbm_write_probe.launches) == launches
+
+
 def test_probe_constants_mirror_the_sources():
     """Pricing reads the kernels' geometry from Python mirrors: they must
     be the sources' constants."""
@@ -176,8 +224,9 @@ def _write_cache(path, entries):
 def test_rates_cache_branches(tmp_path):
     """After tests/test_kernel_model.py:124-141, by card name: a partial
     (compute-only) cache is returned as is when measuring is off, a card
-    the cache lacks gives None, a full cache is returned without
-    measuring, and the recorded power limit is not a rate."""
+    the cache lacks gives None, a full cache (its HBM rates beside the
+    probes' design) is returned without measuring, and the recorded power
+    limit and design are not rates."""
     partial = _write_cache(tmp_path / "partial.json",
                            {CARD: dict(RATES, power_limit="700.00 W")})
     got = km.measure_vpu_rates(cache_path=partial, measure_if_missing=False,
@@ -189,8 +238,38 @@ def test_rates_cache_branches(tmp_path):
     full = dict(RATES, hbm_r3d=3e-13, hbm_w3d=3e-13, t3d=1e-12,
                 dus3d=1e-12)
     path = _write_cache(tmp_path / "full.json",
-                        {CARD: dict(full, power_limit="700.00 W")})
+                        {CARD: dict(full, power_limit="700.00 W",
+                                    hbm_probe=km.HBM_PROBE)})
     assert km.measure_vpu_rates(cache_path=path, device_name=CARD) == full
+
+
+@pytest.mark.parametrize("tag", [None, "thread a pixel, planes in turn"])
+def test_rates_cache_drops_hbm_rates_of_other_probes(tmp_path, tag):
+    """HBM rates cached without the probes' design, or beside another,
+    were measured by other probes: they price nothing (the memory leg
+    falls back to the data sheet) and count as missing, so a call that may
+    measure measures them again; beside this design they are used."""
+    full = dict(RATES, hbm_r3d=3e-13, hbm_w3d=4e-13, t3d=1e-12,
+                dus3d=1e-12)
+    entry = dict(full, power_limit="700.00 W")
+    if tag is not None:
+        entry["hbm_probe"] = tag
+    old = _write_cache(tmp_path / "old.json", {CARD: entry})
+    got = km.measure_vpu_rates(cache_path=old, measure_if_missing=False,
+                               device_name=CARD)
+    assert got == {m: v for m, v in full.items()
+                   if m not in ("hbm_r3d", "hbm_w3d")}
+    vol = km.hbm_write_probe_cost(*km.HBM_SHAPE)
+    assert vol.time(got, 3.35e12)["t_memory_s"] == pytest.approx(
+        vol.bytes / 3.35e12)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="none is available"):
+            km.measure_vpu_rates(cache_path=old, device_name=CARD)
+    new = _write_cache(tmp_path / "new.json",
+                       {CARD: dict(entry, hbm_probe=km.HBM_PROBE)})
+    assert km.measure_vpu_rates(cache_path=new, measure_if_missing=False,
+                                device_name=CARD) == full
+    assert km.measure_vpu_rates(cache_path=new, device_name=CARD) == full
 
 
 def test_measuring_needs_a_card(tmp_path):
@@ -272,31 +351,34 @@ def test_cost_fns_populate_byte_pools():
     assert vol < costs[0].bytes_w < 1.1 * vol
     assert 2 * vol < costs[3].bytes_r < 2.1 * vol
     assert costs[6].bytes_r < 0.1 * vol
-    # Dense streams, priced at the data sheet's bandwidth: the plain
-    # all-pairs VJP's traffic and K9's tiled transpose.
+    # The plain all-pairs VJP's traffic has no read/write split: priced at
+    # the data sheet's bandwidth.  K9's tiled transpose reads and writes
+    # the volume once each, at the probes' bulk rates.
     plain = km.allpairs_backward_cost(330, 422, 15)
     assert plain.bytes > 0 and plain.bytes_r == 0
     k9 = km.transpose_volume_cost(H, W, D)
-    assert k9.bytes == 2 * vol and k9.bytes_r == k9.bytes_w == 0
-    hbm = dict(RATES, hbm_r3d=1e-12, hbm_w3d=1e-12)
+    assert k9.bytes == 2 * vol and k9.bytes_r == k9.bytes_w == vol
+    hbm = dict(RATES, hbm_r3d=1e-12, hbm_w3d=2e-12)
     assert k9.time(hbm, 3.35e12)["t_memory_s"] == pytest.approx(
+        vol * 1e-12 + vol * 2e-12)
+    assert k9.time(RATES, 3.35e12)["t_memory_s"] == pytest.approx(
         2 * vol / 3.35e12)
 
 
 def test_k9a_cost_counts_its_own_design():
     """K9a's count (``to_parity_cost``, the pixel-run kernel of
     csrc/layout.cu) moves the bytes K9a always moved, each element read
-    and written once, a dense stream at the data sheet's bandwidth, and
-    counts its shared store and load an element; K9b's count
-    (``transpose_volume_cost``, the tiled transpose it keeps) is
-    unchanged."""
+    and written once (at ``hbm_r3d`` and ``hbm_w3d``, as every volume),
+    and counts its shared store and load an element; K9b's count
+    (``transpose_volume_cost``, the tiled transpose it keeps) is the
+    same."""
     n = (D + 1) * H * W
     k9a, k9b = km.to_parity_cost(H, W, D), km.transpose_volume_cost(H, W, D)
     assert k9a.bytes == k9b.bytes == 2.0 * n * 4
-    assert k9a.bytes_r == k9a.bytes_w == 0
+    assert k9a.bytes_r == k9a.bytes_w == n * 4
     assert k9a["smem"] == 2 * n and sum(k9a.values()) == 2 * n
     assert dict(k9b) == dict(km.OpCount(smem=2 * n))
-    assert k9b.bytes_r == k9b.bytes_w == 0
+    assert k9b.bytes_r == k9b.bytes_w == n * 4
     t = k9a.time(RATES, 3.35e12)
     assert t["bound_by"] == "memory"
     assert round(1e3 * t["t_memory_s"], 4) == 0.2147

@@ -8,6 +8,7 @@ import torch
 
 from custereomatching_tpu_torch.scripts import device_profile as dp
 from custereomatching_tpu_torch.scripts import kernel_variants as kv
+from custereomatching_tpu_torch.utils import kernel_model as km
 
 
 def _event(name, ts, dur, cat="kernel", ph="X"):
@@ -60,20 +61,23 @@ def test_kernel_variants_edit_the_current_source(name, tmp_path):
     """Every variant's edits find their text once in its source
     (camera_grad.cuh, K7's zncc_banded_proj_bwd.cu for a ``k7_`` name, K8's
     zncc_allpairs.cu for a ``k8_`` name, K9a's layout.cu for a ``k9_``
-    name) and change it; the copy holds the whole package, so its kernels
+    name, K10c's rate_probes.cu for a ``k10`` name) and change it; the
+    copy holds the whole package, so its kernels
     build on their own; a variant that keeps the values changes no
     arithmetic of the cut kind (no phase skipped on ``d0 < 0``, ``k < 0``
     or ``R < 0``, no load replaced)."""
     rel = kv.source_of(name)
-    assert rel == {"k7": kv.K7_SOURCE, "k8": kv.K8_SOURCE,
-                   "k9": kv.K9_SOURCE}.get(name[:2], kv.SOURCE)
+    assert rel == {"k7_": kv.K7_SOURCE, "k8_": kv.K8_SOURCE,
+                   "k9_": kv.K9_SOURCE,
+                   "k10": kv.K10_SOURCE}.get(name[:3], kv.SOURCE)
     source = (kv.ROOT / kv.PACKAGE / rel).read_text()
     edited = kv.edit_source(source, name)
     assert edited != source
     assert not any(mark in source for mark in kv.CUT_MARKS)
     keeps, _ = kv.VARIANTS[name]
     passes = {kv.K8_SOURCE: "row_products",
-              kv.K9_SOURCE: "dst[r] = row[r];"}.get(
+              kv.K9_SOURCE: "dst[r] = row[r];",
+              kv.K10_SOURCE: "vol[x] = static_cast<float>(x / plane);"}.get(
                   rel, "grad_rows(xbuf, ybuf, gs, k, np);")
     assert keeps == (not any(mark in edited for mark in kv.CUT_MARKS)
                      and passes in edited)
@@ -85,17 +89,25 @@ def test_kernel_variants_edit_the_current_source(name, tmp_path):
 def test_kernel_variants_hold_k1_k4_k6_and_k7():
     """The outputs ``--against`` compares bit for bit: K1's and K8's
     volumes, K9a's parity copy of K1's and K2's, K4's, K5's, K6's and K7's
-    gradients at every case,
-    each of its shape and finite (on the CPU the wrappers' plain versions
-    give them); its cases hold k = 15 and each k a backward kernel's first
-    version stopped at (K5 27, K4 47, K6 81, K7 93)."""
+    gradients at every case, and K10b's sums and K10c's volume at the
+    probes' ragged shapes, each of its shape and finite (on the CPU the
+    wrappers' plain versions give them); its cases hold k = 15 and each k
+    a backward kernel's first version stopped at (K5 27, K4 47, K6 81, K7
+    93)."""
     assert {k for *_, k in kv.CASES} >= {15, 27, 47, 81, 93}
     cases = ((16, 48, 6, 3), (44, 40, 5, 5))
     got = kv.kernel_outputs(cases, "cpu")
     assert sorted(got) == sorted(
         [f"{name} {H}x{W} D={D} k={k}" for H, W, D, k in cases
          for name in ("K1", "K2", "K4", "K5", "K6", "K7", "K9a")]
-        + [f"K8 {min(H, 40)}x{W} k={k}" for H, W, _, k in cases])
+        + [f"K8 {min(H, 40)}x{W} k={k}" for H, W, _, k in cases]
+        + [f"K10{p} {P}x{H}x{W}" for P, H, W in km.HBM_EDGE_SHAPES
+           for p in "bc"])
+    for P, H, W in km.HBM_EDGE_SHAPES:
+        assert tuple(got[f"K10b {P}x{H}x{W}"].shape) == (H, W)
+        assert torch.equal(got[f"K10c {P}x{H}x{W}"],
+                           torch.arange(P, dtype=torch.float32).view(
+                               P, 1, 1).expand(P, H, W))
     for H, W, D, k in cases:
         tag = f"{H}x{W} D={D} k={k}"
         assert tuple(got[f"K1 {tag}"].shape) == (1, H, W, D + 1)
