@@ -207,6 +207,23 @@ imports nothing of JAX.  Phases, each printing its lines:
     volumes against it within rtol 1e-4 / atol 1e-5, K2's and K7's VJPs
     within rtol 1e-3 / atol 1e-6 (mean-loss-scaled cotangents), and the
     plain versions against it too;
+35b. the randomized-shape sweep (``fuzz``): the seeded cases of
+    ``utils/shape_sweep.py``, which ``tests/test_torch_fuzz_shapes.py``
+    holds against the JAX package on the CPU (the JAX sweep's space; D >=
+    W, D = 0, H < k, all-pairs with k // 2 > W, batches of 2 and 3, k =
+    1), each kernel that takes a case's k against its plain version at
+    the tolerances of its own phase: K1, K3w (volume), K3 (maps, ties and
+    threshold flips explained), K3w and K3m (maps bit-equal to K3's, K3m's
+    am/s/t to K3w's), K2, K6 (both entries), K4, K5 and K7 (mean-loss-
+    scaled cotangents; rtol 1e-3 / atol 1e-6 where the plain twin holds
+    that bound against its float64 run, else every pixel within
+    max(atol + rtol |float64|, 2 |twin - float64|) of the float64 run),
+    K9a and K9b (bit-equal) and K8; the CUDA all-pairs op's camera
+    gradient (K8, then the closed form on the card) against the plain
+    node's and the golden oracle's; at
+    k = 1 every banded kernel must refuse the case by its kernel-size
+    gate, as JAX's Pallas kernels do.  One line a kernel: its cases and
+    largest error (folded into the ``kernels`` line's errors);
 36. the data-driven examples at real size, each in process through its
     ``main(argv)`` with the counters reset just before: ``real_capture``
     (330x422, D = 48, k = 15, must pass), ``kitti_eval`` on a 4-frame
@@ -301,7 +318,9 @@ from custereomatching_tpu_torch.ops import (
     cuda_zncc,
     extract_disparity_hdw,
     golden,
+    stereo_matching,
     stereo_matching_hdw,
+    stereo_matching_torch,
     tuning,
 )
 from custereomatching_tpu_torch.ops import cuda_large_k as lk
@@ -379,6 +398,11 @@ from custereomatching_tpu_torch.utils.profiling import (
     banded_bounds,
     bound,
     card_line,
+)
+from custereomatching_tpu_torch.utils.shape_sweep import (
+    case_cotangent,
+    case_pair,
+    sweep_cases,
 )
 
 EPS = 1e-8
@@ -474,7 +498,11 @@ def phase_build() -> None:
                   f"spill stores {st} B, spill loads {ld} B")
 
 
-def compare_volume(got, want, label: str, kernel: str = "K1") -> float:
+def compare_volume(got, want, label: str, kernel: str = "K1",
+                   quiet: bool = False) -> float:
+    """A volume against its plain version within rtol 1e-4 / atol 1e-5;
+    prints its line (``quiet``: only where the check fails) and returns
+    max abs."""
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got).all()),
             f"{label}: non-finite {kernel} output")
@@ -483,8 +511,9 @@ def compare_volume(got, want, label: str, kernel: str = "K1") -> float:
     big = want.abs() > 1e-3
     max_rel = float((diff[big] / want.abs()[big]).max()) if big.any() else 0.
     max_abs = float(diff.max())
-    print(f"{kernel} {label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-          f"outside rtol 1e-4/atol 1e-5: {bad}")
+    if not quiet or bad:
+        print(f"{kernel} {label}: max_abs {max_abs:.3e} max_rel "
+              f"{max_rel:.3e} outside rtol 1e-4/atol 1e-5: {bad}")
     require(bad == 0, f"{kernel} {label} within rtol 1e-4 / atol 1e-5")
     return max_abs
 
@@ -512,11 +541,13 @@ def phase_k1() -> float:
 
 
 def compare_maps(got, want, cost, threshold: float, exact: bool,
-                 label: str) -> float:
+                 label: str, quiet: bool = False) -> float:
     """K3 maps against the plain pipeline.  ``exact``: disparity and mask
     must match bit for bit.  Otherwise a mask may flip only within 1e-5 of
     the threshold (at most 1e-4 of the pixels) and a disparity may differ
-    only where the mask flips or the top two costs lie within 1e-5."""
+    only where the mask flips or the top two costs lie within 1e-5.
+    ``quiet``: no line where every check holds (a failed one raises with
+    its label)."""
     torch.cuda.synchronize()
     for name in got._fields:
         require(bool(torch.isfinite(getattr(got, name)).all()),
@@ -541,17 +572,17 @@ def compare_maps(got, want, cost, threshold: float, exact: bool,
                 f"{label}: mask flips {n_flip} within 1e-4 of the pixels")
         require(bool(near[flips].all()),
                 f"{label}: every mask flip within 1e-5 of the threshold")
-        top2 = torch.topk(cost, 2, dim=-1).values
-        tie = (top2[..., 0] - top2[..., 1]) <= 1e-5
+        tie = top2_ties(cost)
         unexplained = differ & ~flips & ~tie
         n_tie = int((differ & ~flips & tie).sum())
         require(not bool(unexplained.any()),
                 f"{label}: {int(unexplained.sum())} disparity mismatches "
                 f"without a mask flip or a top-two tie")
-    print(f"K3 {label}: conf max_abs {float(conf_err.max()):.3e}, soft "
-          f"max_abs {float(soft_err.max()) if soft_err.numel() else 0.:.3e},"
-          f" mask flips {n_flip}, disparity mismatches {n_differ} "
-          f"(top-two ties {n_tie})")
+    if not quiet:
+        soft_max = float(soft_err.max()) if soft_err.numel() else 0.
+        print(f"K3 {label}: conf max_abs {float(conf_err.max()):.3e}, soft "
+              f"max_abs {soft_max:.3e}, mask flips {n_flip}, disparity "
+              f"mismatches {n_differ} (top-two ties {n_tie})")
     return float(conf_err.max())
 
 
@@ -740,13 +771,14 @@ def top2_ties(cost_hwd: torch.Tensor) -> torch.Tensor:
 
 
 def compare_grad(got, want, label: str, elementwise: bool,
-                 keep=None) -> float:
+                 keep=None, quiet: bool = False) -> float:
     """A camera gradient against its plain twin over the pixels in
     ``keep``: ||got - want|| / ||want|| <= GRAD_NORM_REL always, and with
     ``elementwise`` every pixel within rtol GRAD_RTOL / atol GRAD_ATOL.
     Prints max abs, max rel (over |want| > 1e-3 max |want|), the norm
     ratio and GRAD_ATOL / max |want| (how loose the atol is at this
-    gradient's scale); returns max abs."""
+    gradient's scale; ``quiet``: only where a check fails); returns max
+    abs."""
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got).all()), f"{label}: non-finite gradient")
     if keep is not None:
@@ -758,10 +790,11 @@ def compare_grad(got, want, label: str, elementwise: bool,
     max_rel = float((diff[big] / scale[big]).max()) if big.any() else 0.
     norm_rel = float(diff.norm() / want.norm())
     bad = int((diff > GRAD_ATOL + GRAD_RTOL * scale).sum())
-    print(f"{label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-          f"norm_rel {norm_rel:.3e} outside rtol {GRAD_RTOL}/atol "
-          f"{GRAD_ATOL}: {bad} of {diff.numel()}; atol/max|want| "
-          f"{GRAD_ATOL / float(scale.max()):.3e}")
+    if not quiet or norm_rel > GRAD_NORM_REL or (elementwise and bad):
+        print(f"{label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+              f"norm_rel {norm_rel:.3e} outside rtol {GRAD_RTOL}/atol "
+              f"{GRAD_ATOL}: {bad} of {diff.numel()}; atol/max|want| "
+              f"{GRAD_ATOL / float(scale.max()):.3e}")
     require(norm_rel <= GRAD_NORM_REL,
             f"{label}: norm-relative error within {GRAD_NORM_REL}")
     if elementwise:
@@ -3336,6 +3369,247 @@ def phase_golden() -> dict:
     return errs
 
 
+# The kernels the sweep holds, in the order of its summary lines; the
+# banded ones take odd k >= 3 (their gate refuses k = 1, as JAX's Pallas
+# kernels do), K8 every odd k.
+FUZZ_KERNELS = ("K1", "K3", "K3w", "K3m", "K2", "K6", "K4", "K5", "K7",
+                "K9a", "K9b", "K8")
+# Where fp32 cannot hold the elementwise bound, a gradient kernel may miss
+# float64 at a pixel by at most this many times its plain twin's miss.
+FUZZ_TWIN_FACTOR = 2.0
+
+
+def fuzz_grad(got, want, want64, label: str) -> tuple:
+    """A gradient kernel against its plain twin at a sweep case, quietly
+    (a line only where the fallback tier applies or a check fails):
+    ||got - want|| / ||want|| <= GRAD_NORM_REL always, and a bound at
+    every pixel.  Where fp32 can hold rtol GRAD_RTOL / atol GRAD_ATOL,
+    i.e. the plain twin lies within it of its float64 run (``want64``,
+    the same function on the inputs in float64), every pixel within it
+    of the twin.  Elsewhere (at small windows and a sharp head, k = 3,
+    beta = 80, the gradient reaches ~1 at a mean loss's cotangent, atol
+    1e-6 is no longer felt, and a pixel where the terms cancel moves by
+    more than 1e-3 of itself under fp32 rounding) every pixel within
+    max(GRAD_ATOL + GRAD_RTOL |want64|, FUZZ_TWIN_FACTOR |want - want64|)
+    of float64: the kernel may miss float64 by at most that much more
+    than its twin does at that pixel.  Returns the max abs error against
+    the twin and whether the twin held the bound everywhere."""
+    want64 = want64.to(want.dtype)
+    tol = GRAD_ATOL + GRAD_RTOL * want64.abs()
+    twin = (want - want64).abs()
+    fp32 = int((twin > tol).sum())
+    if fp32:
+        over = float(((got - want64).abs()
+                      / torch.maximum(tol, FUZZ_TWIN_FACTOR * twin)).max())
+        print(f"{label}: plain twin outside rtol {GRAD_RTOL} / atol "
+              f"{GRAD_ATOL} of float64 at {fp32} pixel(s); kernel against "
+              f"float64: max_abs {float((got - want64).abs().max()):.3e}, "
+              f"plain twin {float(twin.max()):.3e}; largest share of the "
+              f"per-pixel bound max(atol + rtol |float64|, "
+              f"{FUZZ_TWIN_FACTOR} |twin - float64|) used: {over:.3f}")
+        require(over <= 1.0, f"{label}: every pixel within the per-pixel "
+                             f"bound of float64")
+    return compare_grad(got, want, label, elementwise=fp32 == 0,
+                        quiet=True), fp32 == 0
+
+
+def fuzz_gate(cam, proj, D: int, k: int, beta: float, gated: dict) -> None:
+    """At k below the kernels' gate every banded wrapper must refuse the
+    case with its own ``ValueError``, before any launch."""
+    B, H, W = cam.shape
+    g = torch.zeros((B, D + 1, H, W), device=cam.device)
+    maps = torch.zeros((B, H, W), device=cam.device)
+    res = HeadResiduals(*(maps,) * 5, volume=None)
+    calls = {
+        "K1": lambda: cost_volume_banded_cuda(cam, proj, D, k, EPS),
+        "K3": lambda: stereo_pipeline_cuda(cam, proj, D, k, EPS, beta,
+                                           THRESHOLD),
+        "K3w": lambda: fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                                 THRESHOLD),
+        "K3m": lambda: fused_pipeline_train_cuda(
+            cam, proj, D, k, EPS, beta, THRESHOLD, save_volume=False),
+        "K2": lambda: camera_grad_banded_cuda(cam, proj, g, g, D, k, EPS),
+        "K6": lambda: camera_grad_banded_cuda(cam, proj, None, g, D, k, EPS),
+        "K4": lambda: fused_pipeline_bwd_cuda(
+            cam, proj, res._replace(volume=g), maps, maps, D, k, EPS, beta),
+        "K5": lambda: fused_pipeline_bwd_cuda(cam, proj, res, maps, maps, D,
+                                              k, EPS, beta),
+        "K7": lambda: projector_grad_banded_cuda(cam, proj, g, g, D, k, EPS),
+    }
+    launches = read_counters()
+    for key, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            require("kernel_size" in str(e), f"{key} refused k = {k} by its "
+                    f"kernel-size gate, not by another check ({e})")
+            gated[key] = gated.get(key, 0) + 1
+            continue
+        require(False, f"{key} refuses k = {k} (its gate is odd k >= "
+                       f"{cuda_zncc.MIN_KERNEL_SIZE})")
+    require(read_counters() == launches, f"no launch at k = {k}")
+
+
+def fuzz_banded(i: int, case, cam, proj, note) -> None:
+    """Every banded kernel at one sweep case against its plain version,
+    at the tolerances of its own phase: K1's and K3w's volumes as phase 3,
+    K3's maps as phase 4 (ties and threshold flips explained), K3w's and
+    K3m's maps bit-equal to K3's and K3m's am/s/t to K3w's, and K2, K6
+    (both entries), K4, K5 and K7 with mean-loss-scaled cotangents in the
+    tiers of :func:`fuzz_grad`."""
+    B, H, W, D, k = case.B, case.H, case.W, case.D, case.k
+    beta = 50.0 if i % 2 == 0 else 80.0
+    label = f"fuzz {case} beta={beta}"
+    plain = forward_banded(cam, proj, D, k, EPS)
+    cost = cost_volume_banded_cuda(cam, proj, D, k, EPS)
+    note("K1", compare_volume(cost, plain, label, quiet=True))
+
+    maps = stereo_pipeline_cuda(cam, proj, D, k, EPS, beta, THRESHOLD)
+    note("K3", compare_maps(maps, stereo_pipeline_reference(
+        cam, proj, D, k, EPS, beta, THRESHOLD), plain, THRESHOLD, False,
+        label, quiet=True))
+    maps_w, res_w = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                              THRESHOLD)
+    note("K3w", compare_volume(res_w.volume.permute(0, 2, 3, 1), plain,
+                               label, kernel="K3w", quiet=True))
+    maps_m, res_m = fused_pipeline_train_cuda(cam, proj, D, k, EPS, beta,
+                                              THRESHOLD, save_volume=False)
+    for key, m in (("K3w", maps_w), ("K3m", maps_m)):
+        for name in maps._fields:
+            require(torch.equal(getattr(m, name), getattr(maps, name)),
+                    f"{key} {label}: {name} bit-equal to K3's")
+    for name in ("am", "s", "t"):
+        require(torch.equal(getattr(res_m, name), getattr(res_w, name)),
+                f"K3m {label}: {name} bit-equal to K3w's")
+    e = float((maps_m.confidence - plain.amax(-1)).abs().max())
+    require(e <= 1e-5, f"K3m {label}: confidence within 1e-5 of the plain "
+                       f"volume's max")
+    note("K3m", e)
+
+    g = mean_loss_cotangent(1000 + i, B, H, W, D)
+    g_parity = g.permute(0, 2, 3, 1).contiguous()
+    vol = cost.permute(0, 3, 1, 2)
+    c64, p64, g64 = cam.double(), proj.double(), g_parity.double()
+    want = camera_grad_banded(cam, proj, g_parity, D, k, EPS)
+    want64 = camera_grad_banded(c64, p64, g64, D, k, EPS)
+    note("K2", *fuzz_grad(camera_grad_banded_cuda(
+        cam, proj, vol, g, D, k, EPS), want, want64, f"K2 {label}"))
+    note("K6", *fuzz_grad(camera_grad_banded_cuda(
+        cam, proj, None, g, D, k, EPS), want, want64, f"K6 {label}"))
+    note("K6", *fuzz_grad(camera_grad_banded_parity_cuda(
+        cam, proj, g_parity, D, k, EPS), want, want64,
+        f"K6 parity {label}"), case=False)
+    note("K7", *fuzz_grad(
+        projector_grad_banded_cuda(cam, proj, vol, g, D, k, EPS),
+        projector_grad_banded(cam, proj, plain, g_parity, D, k, EPS),
+        projector_grad_banded(c64, p64, forward_banded(c64, p64, D, k, EPS),
+                              g64, D, k, EPS), f"K7 {label}"))
+    gs, gc = cotangents(1000 + i, B, H, W)
+    for key, res in (("K4", res_w), ("K5", res_m)):
+        res64 = HeadResiduals(*(m.double() for m in res[:5]), volume=None)
+        note(key, *fuzz_grad(
+            fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, k, EPS, beta),
+            fused_pipeline_bwd_reference(cam, proj, res, gs, gc, D, k, EPS,
+                                         beta),
+            fused_pipeline_bwd_reference(c64, p64, res64, gs.double(),
+                                         gc.double(), D, k, EPS, beta),
+            f"{key} {label}"))
+
+
+def fuzz_layout(i: int, case, note) -> None:
+    """K9a and K9b at the case's volume, bit-equal to
+    ``permute().contiguous()``."""
+    vol = torch.from_numpy(np.random.default_rng(1000 + i).standard_normal(
+        (case.B, case.D + 1, case.H, case.W), dtype=np.float32)).cuda()
+    parity = plane_major_to_parity(vol)
+    require(torch.equal(parity, vol.permute(0, 2, 3, 1).contiguous()),
+            f"K9a fuzz {case}: bit-equal to permute().contiguous()")
+    require(torch.equal(parity_to_plane_major(parity), vol),
+            f"K9b fuzz {case}: bit-equal to permute().contiguous()")
+    note("K9a", 0.0)
+    note("K9b", 0.0)
+
+
+def fuzz_allpairs(case, cam, proj, note) -> None:
+    """K8 at one sweep case against its plain version; beyond k = 1, the
+    CUDA all-pairs op's camera gradient (K8's volume, then the closed form
+    ``camera_grad_allpairs`` on the card) against the plain node's and
+    the golden oracle's with a mean-loss-scaled cotangent, in the tiers
+    of :func:`fuzz_grad` (the plain node in float64 says where fp32 can
+    hold the elementwise bound)."""
+    B, H, W, k = case.B, case.H, case.W, case.k
+    label = f"fuzz {case}"
+    note("K8", compare_volume(cost_volume_allpairs_cuda(cam, proj, k, EPS),
+                              forward_allpairs(cam, proj, k, EPS), label,
+                              kernel="K8", quiet=True))
+    if k == 1:
+        return
+    g = torch.from_numpy(case_cotangent(case)).cuda() * (1.0 / (H * W))
+    grads = []
+    for op, x, gx in ((stereo_matching, cam, g),
+                      (stereo_matching_torch, cam, g),
+                      (stereo_matching_torch, cam.double(), g.double())):
+        c = x.clone().requires_grad_(True)
+        (op(c, proj.to(x.dtype), None, k) * gx).sum().backward()
+        grads.append(c.grad)
+    got, plain, plain64 = grads
+    note("allpairs_vjp", *fuzz_grad(got, plain, plain64, f"all-pairs VJP "
+                                    f"{label} against the plain node"))
+    for b in range(B):
+        note("allpairs_vjp", *fuzz_grad(
+            got[b], golden.zncc_camera_grad(cam[b], proj[b], g[b], None, k,
+                                            EPS), plain64[b],
+            f"all-pairs VJP {label} frame {b} against the golden oracle"),
+            case=False)
+
+
+def phase_fuzz() -> dict:
+    """The randomized-shape sweep on the card: the cases of
+    ``utils/shape_sweep.py`` (which ``tests/test_torch_fuzz_shapes.py``
+    holds against the JAX package on the CPU), each kernel that takes a
+    case's k against its plain version; at k = 1 the banded kernels'
+    gate must refuse the case.  One line a kernel: its cases and largest
+    error.  A case prints its own line only where a gradient check falls
+    back to its float64 tier or a check fails."""
+    t0 = time.perf_counter()
+    cases = sweep_cases()
+    errs, runs, gated, fallback = {}, {}, {}, {}
+
+    def note(key: str, err: float, elementwise: bool = True,
+             case: bool = True) -> None:
+        """Record a check of ``key``; ``case``: the first at this case."""
+        errs[key] = max(errs.get(key, 0.0), err)
+        runs[key] = runs.get(key, 0) + case
+        fallback[key] = fallback.get(key, 0) + (not elementwise)
+
+    for i, case in enumerate(cases):
+        cam, proj = (torch.from_numpy(a).cuda() for a in case_pair(case))
+        if case.D is None:
+            fuzz_allpairs(case, cam, proj, note)
+            continue
+        fuzz_layout(i, case, note)
+        if case.k < cuda_zncc.MIN_KERNEL_SIZE:
+            fuzz_gate(cam, proj, case.D, case.k, 50.0, gated)
+        else:
+            fuzz_banded(i, case, cam, proj, note)
+    torch.cuda.synchronize()
+    for key in FUZZ_KERNELS + ("allpairs_vjp",):
+        gate = (f"; refused k = 1 by its gate in {gated[key]} case(s), as "
+                f"JAX's Pallas kernels do" if key in gated else "")
+        tier = (f"; {fallback[key]} gradient check(s) held to the "
+                f"per-pixel bound against float64 (fp32 misses the "
+                f"elementwise bound there)" if fallback.get(key) else "")
+        print(f"fuzz {key}: {runs.get(key, 0)} case(s), max_abs "
+              f"{errs.get(key, 0.0):.3e}{gate}{tier}")
+        require(runs.get(key, 0) >= 1, f"fuzz: {key} ran at a drawn case")
+    print(f"fuzz: allpairs_vjp is the CUDA all-pairs op's camera gradient "
+          f"(K8, then the closed form on the card) against the plain node "
+          f"and the golden oracle; {len(cases)} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    errs.pop("allpairs_vjp", None)
+    return errs
+
+
 def hold_example(name: str, maps, cam, proj, D: int, k: int) -> dict:
     """An example's maps of one frame against the plain pipeline on the
     same inputs: hard disparity and mask equal except at top-two ties
@@ -4063,6 +4337,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_data(tmp)
         for key, err in phase_golden().items():
+            errs[key] = max(errs[key], err)
+        for key, err in phase_fuzz().items():
             errs[key] = max(errs[key], err)
         phase_examples(card, tmp)
     tuned = phase_tuning(card, rates)

@@ -342,7 +342,9 @@ def _projector_columns(f: torch.Tensor, d: int, p: int) -> torch.Tensor:
     W = f.shape[-1]
     s = d - p
     a = max(-s, 0)
-    return F.pad(f, (a, W + p))[..., s + a:s + a + W + p]
+    # Right pad d = s + p: the last column read, s + W + p - 1, may lie
+    # past the image by more than W (d > W + p).
+    return F.pad(f, (a, d))[..., s + a:s + a + W + p]
 
 
 def proj_fields(cost: torch.Tensor, g: torch.Tensor, cam_stats,

@@ -246,8 +246,10 @@ def camera_grad_allpairs(camera: torch.Tensor, projector: torch.Tensor,
     hp = _hankel_cols(projector, k)
     a1 = torch.zeros_like(camera)
     for j in range(k):
-        e_j = torch.sum(g2 * hp[..., None, :, j], dim=-1)
         s = p - j                        # a1[x] += E[x + s, j] in range
+        if abs(s) >= W:                  # no x in range: JAX's e_pad zeros
+            continue
+        e_j = torch.sum(g2 * hp[..., None, :, j], dim=-1)
         if s >= 0:
             a1[..., :W - s] += e_j[..., s:]
         else:

@@ -64,6 +64,8 @@ def shift_right(img: torch.Tensor, off: int) -> torch.Tensor:
     """``out[..., x] = img[..., x - off]`` with zero fill (``off >= 0``)."""
     if off == 0:
         return img
+    if off >= img.shape[-1]:             # every column reads the fill
+        return torch.zeros_like(img)
     return F.pad(img[..., :img.shape[-1] - off], (off, 0))
 
 

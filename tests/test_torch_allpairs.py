@@ -27,6 +27,8 @@ from custereomatching_tpu_torch.ops.cuda_allpairs import (
 )
 from custereomatching_tpu_torch.ops.zncc import (
     _hankel_cols,
+    _image_moments,
+    box2d,
     box_rows,
     camera_grad_allpairs,
     forward_allpairs,
@@ -122,6 +124,108 @@ def test_allpairs_camera_grad_matches_jax(shape):
     for want in wants:
         np.testing.assert_allclose(cam_t.grad.numpy(), np.asarray(want),
                                    **GRAD_TOL)
+
+
+# (H, W, k) with k // 2 > W: shifts of the closed form's A1 sum that
+# reach past the whole row.
+WIDE_WINDOWS = [(17, 4, 21), (3, 3, 9), (9, 9, 21), (6, 12, 31)]
+
+
+def _scaled(got, want, atol=GRAD_TOL["atol"]):
+    scale = np.abs(np.asarray(want)).max()
+    np.testing.assert_allclose(np.asarray(got) / scale,
+                               np.asarray(want) / scale,
+                               rtol=GRAD_TOL["rtol"], atol=atol)
+
+
+@pytest.mark.parametrize("shape", WIDE_WINDOWS)
+def test_allpairs_camera_grad_where_window_is_wider_than_image(shape):
+    """A shift |p - j| >= W of the A1 sum reads no column (JAX pads E by p
+    on both sides); the closed form returns JAX's gradient there."""
+    H, W, K = shape
+    cam, proj = _pair(10, H, W, normal=False)
+    g = np.random.default_rng(11).standard_normal((H, W, W)).astype(
+        np.float32)
+    jproj, jg = jnp.asarray(proj), jnp.asarray(g)
+    want = jax.grad(lambda c: jnp.sum(
+        jax_zncc.stereo_matching(c, jproj, None, K) * jg))(jnp.asarray(cam))
+    cam_t = torch.from_numpy(cam).requires_grad_(True)
+    (stereo_matching(cam_t, torch.from_numpy(proj), None, K)
+     * torch.from_numpy(g)).sum().backward()
+    _scaled(cam_t.grad.numpy(), want)
+
+
+def test_allpairs_model_backward_where_window_is_wider_than_image():
+    """The default all-pairs matcher at k = 21 on a 2 x 9 x 9 batch:
+    forward and the camera gradient of a mean soft-disparity loss against
+    the JAX XLA model.  The gradient is held scaled at atol 5e-5 (the JAX
+    sweep's, tests/test_fuzz_shapes.py:68): the soft-argmax at beta = 50
+    lifts fp32 rounding, and this port's and JAX's gradients lie 3.5e-5
+    and 1.4e-5 of the largest entry from the port's float64 run."""
+    jmodel, model = _jax_model(kernel_size=21)
+    assert model.config.backend == "torch"
+    cam, proj = _pair(12, 2, 9, 9, normal=False)
+    jproj = jnp.asarray(proj)
+
+    def jloss(c):
+        out = jmodel(c, jproj)
+        return jnp.mean(out.soft_disparity), out
+
+    (_, want), jgrad = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(cam))
+    cam_t = torch.from_numpy(cam).requires_grad_(True)
+    got = model(cam_t, torch.from_numpy(proj))
+    got.soft_disparity.mean().backward()
+    np.testing.assert_allclose(got.cost_volume.detach().numpy(),
+                               np.asarray(want.cost_volume), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.soft_disparity.detach().numpy(),
+                               np.asarray(want.soft_disparity), rtol=1e-3,
+                               atol=1e-3)
+    _scaled(cam_t.grad.numpy(), jgrad, atol=5e-5)
+
+
+def _camera_grad_unbounded_shifts(camera, projector, g, cost, k, eps=1e-8):
+    """The closed form with the A1 shift loop unbounded, which is right
+    where every shift lies inside the row (k // 2 < W)."""
+    p = k // 2
+    k2 = float(k * k)
+    W = camera.shape[-1]
+    sx, ex2 = _image_moments(camera, k)
+    sy, ey2 = _image_moments(projector, k)
+    mux = sx / k2
+    muy = sy / k2
+    r = torch.rsqrt(ex2[..., :, None] * ey2[..., None, :] + eps)
+    gr = g * r
+    b = torch.sum(g * cost * (r * r) * ey2[..., None, :], dim=-1)
+    grmu = torch.sum(gr * muy[..., None, :], dim=-1)
+    g2 = box_rows(gr, k, dim=-3)
+    hp = _hankel_cols(projector, k)
+    a1 = torch.zeros_like(camera)
+    for j in range(k):
+        e_j = torch.sum(g2 * hp[..., None, :, j], dim=-1)
+        s = p - j
+        if s >= 0:
+            a1[..., :W - s] += e_j[..., s:]
+        else:
+            a1[..., -s:] += e_j[..., :W + s]
+    return (a1 - box2d(grmu, k, dim=1) + box2d(b * mux, k, dim=1)
+            - camera * box2d(b, k, dim=1))
+
+
+@pytest.mark.parametrize("shape", [
+    (24, 60, 5), (16, 150, 15), (13, 40, 7), (9, 129, 3), (16, 40, 5),
+    (16, 96, 9), (12, 30, 9), (10, 12, 1), (12, 24, 5)])
+def test_allpairs_camera_grad_unchanged_inside_the_row(shape):
+    """Where every shift lies inside the row (the fixed shapes of this
+    file), bounding the shifts changes no bit of the gradient."""
+    H, W, K = shape
+    cam, proj = (torch.from_numpy(a) for a in _pair(13, 2, H, W))
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (2, H, W, W)).astype(np.float32))
+    cost = forward_allpairs(cam, proj, K)
+    assert torch.equal(camera_grad_allpairs(cam, proj, g, cost, K),
+                       _camera_grad_unbounded_shifts(cam, proj, g, cost, K))
 
 
 def test_camera_grad_allpairs_matches_autograd():

@@ -139,9 +139,9 @@ def test_serve_matches_jax(monkeypatch, capsys, source):
     assert rec["camera"].shape == rec["maps"][0].mask.shape == (330, 422)
 
 
-def test_serve_autotune_raises(capsys):
-    """``--autotune`` no longer raises: on the CPU there is no tile to
-    tune, it says so and serves."""
+def test_serve_autotune_on_the_cpu_serves_untuned(capsys):
+    """``--autotune`` on the CPU: there is no tile to tune, so it says so
+    and serves."""
     assert serve.main(["--device", "cpu", "--autotune", "--loops", "1",
                        "--num-disparities", "8", "--kernel-size", "5"]) == 0
     out = capsys.readouterr().out

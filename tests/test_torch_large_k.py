@@ -307,6 +307,28 @@ def test_k7_plain_and_route_match_pallas_interpret_at_k129():
     np.testing.assert_allclose(route.numpy(), want, **GRAD_TOL)
 
 
+def test_k7_route_takes_planes_past_the_row():
+    """K7's chain at k = 129 with D > W + k // 2, where a plane's projector
+    columns reach past the image by more than its width: the plain form of
+    its field steps against ``jax.grad`` of JAX's both-gradients op and the
+    plain closed form, on the same cost and cotangent."""
+    H, W, D, k = 4, 20, 100, 129
+    cam, proj = _pair(15, H, W)
+    g = (np.random.default_rng(16).standard_normal((H, W, D + 1))
+         / (H * W)).astype(np.float32)
+    jcam, jg = jnp.asarray(cam), jnp.asarray(g)
+    want = jax.grad(lambda p: jnp.sum(jax_zncc.stereo_matching_with_proj_grad(
+        jcam, p, D, k) * jg))(jnp.asarray(proj))
+    c, p, gt = _t(cam[None], proj[None], g[None])
+    cost = forward_banded(c, p, D, k)
+    plain = projector_grad_banded(c, p, cost, gt, D, k)
+    route = lk.projector_grad_large(c, p, cost.permute(0, 3, 1, 2), gt.permute(
+        0, 3, 1, 2), D, k, EPS)
+    np.testing.assert_allclose(route[0].numpy(), np.asarray(want),
+                               **GRAD_TOL)
+    torch.testing.assert_close(route, plain, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("k", [145, 147])
 def test_k8_plain_and_route_match_jax_past_its_strip(k):
     """K8 past its strip (k >= 145): the plain version against the JAX XLA

@@ -108,8 +108,8 @@ def test_engine_crop_is_exact():
 
 
 @pytest.mark.parametrize("option", [dict(autotune=True)])
-def test_engine_options_not_ported(option):
-    """Once unported, now a no-op off the card: the plain versions have no
+def test_engine_autotune_off_the_card_tunes_nothing(option):
+    """``autotune`` is a no-op off the card: the plain versions have no
     tile, so the engine tunes nothing and serves the untuned maps."""
     cfg = StereoConfig(kernel_size=3, num_disparities=4)
     engine = StereoEngine(cfg, buckets=[(16, 24)], device="cpu", **option)

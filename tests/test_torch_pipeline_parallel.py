@@ -28,6 +28,7 @@ from custereomatching_tpu_torch.parallel.pipeline import (
     empty_state,
     finalize_state,
     merge_states,
+    shift_right,
 )
 from custereomatching_tpu_torch.utils import kernel_model as km
 from tests import torch_parallel_ranks as ranks
@@ -105,6 +106,32 @@ def test_chunk_merge_equals_full_range(backend):
     np.testing.assert_allclose(got.confidence.numpy(),
                                np.asarray(full.confidence[0]),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("off", [0, 3, 9, 10, 14])
+def test_shift_right_matches_jax_past_the_width(off):
+    """The projector shift of a stage, at offsets up to past the image's
+    width, where every column reads the zero fill as in JAX's."""
+    img = np.random.default_rng(off).uniform(size=(3, 10)).astype(np.float32)
+    np.testing.assert_array_equal(
+        shift_right(torch.from_numpy(img), off).numpy(),
+        np.asarray(jax_pipeline._shift_right(jnp.asarray(img), off)))
+
+
+def test_chunk_state_matches_jax_at_an_offset_past_the_width():
+    """A chunk whose planes all lie past the padded image (JAX's
+    ``chunk_state`` takes any offset): every projector window reads
+    zeros."""
+    cam, proj = CAMS[1], PROJS[1]
+    D, k, chunk, off = 7, 5, 2, 50
+    got = chunk_state(torch.from_numpy(cam), torch.from_numpy(proj), off,
+                      chunk, StereoConfig(kernel_size=k, num_disparities=D))
+    want = jax_pipeline.chunk_state(
+        jnp.asarray(cam), jnp.asarray(proj), off, chunk,
+        JaxStereoConfig(kernel_size=k, num_disparities=D, backend="xla"))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)
 
 
 def test_merge_tie_breaks_to_lower_disparity():
