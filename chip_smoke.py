@@ -147,8 +147,12 @@ imports nothing of JAX.  Phases, each printing its lines:
     run their own blocks at the last k before that tile's route and are
     refused at its first;
 27. each route timed at KITTI with k = 129 (K8 at 330x422, k = 145)
-    beside its plain version, bound and model (K4 also on its own rounds),
-    and its output there held against its plain version's;
+    beside its plain version, bound and model (K4 also on its own rounds)
+    and its time before the window sums' redesign (``MS_BEFORE``), and its
+    output there held against its plain version's; then
+    ``device_profile large_k``: each route's device time by kernel (the
+    window sums' share), and the route against K2, K4, K5, K6 and K7 on
+    their own blocks at KITTI with k = 63, 95 and 127;
 28. the left-right serving path: ``StereoEngine(lr_check=True,
     retries=2)`` healthy, then, counters reset, warm-up and 8 KITTI frames:
     K3 twice a frame, no plain twin, every frame's maps bit-equal to two
@@ -382,7 +386,7 @@ from custereomatching_tpu_torch.parallel.sharded import (
     local_cost_volume,
     local_disparity_maps,
 )
-from custereomatching_tpu_torch.scripts import device_probe
+from custereomatching_tpu_torch.scripts import device_probe, device_profile
 from custereomatching_tpu_torch.utils import (
     benchmark,
     device_healthcheck,
@@ -445,11 +449,16 @@ K10A_MODES = ("madd", "smem", "exp", "rsqrt", "boxadd")
 K10A_TIMED_ITERS = 1024
 # Device ms of the kernels before their redesigns (at KITTI; K8 at
 # 330x422): K1-K7 on K1's first per-plane pass, K8 summing every output's
-# k^2 products, K9a on K9b's tiled transpose (NVIDIA H100 80GB HBM3 at
-# 700.00 W; PERF.md gives the runs).
+# k^2 products, K9a on K9b's tiled transpose; the large-k routes (KITTI, k
+# = 129; K8L 330x422, k = 145) on window sums of k loads an output through
+# L1 and L2 (NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md gives the runs).
 MS_BEFORE = {"K3": 1.4419, "K3w": 1.5533, "K3m": 1.4334, "K5": 5.4410,
              "K4": 2.3372, "K6": 4.0753, "K1": 1.4628, "K7": 2.3561,
-             "K2": 2.2018, "K8": 1.2642, "K9a": 0.6646}
+             "K2": 2.2018, "K8": 1.2642, "K9a": 0.6646,
+             "K1L": 13.7711, "K3L": 14.2021, "K3wL": 14.1912,
+             "K3mL": 14.3279, "K2L": 13.7273, "K6L": 27.0129,
+             "K4L": 13.7239, "K5L": 27.3019, "K7L": 14.3231,
+             "K8L": 12.8701}
 
 
 def require(ok: bool, what: str) -> None:
@@ -1967,11 +1976,17 @@ def phase_times(card: str, rates: dict) -> dict:
         if not name.startswith("K10"):
             require(m_ms <= ms, f"{name}: its model bound ({m_ms:.4f} ms) "
                     f"within its time ({ms:.4f} ms)")
-    for name, before in MS_BEFORE.items():
-        ms = times[name][0]
-        print(f"time: {name} ms {ms:.4f} ms_before {before:.4f} "
-              f"({before / ms:.2f} times faster; {card})")
+    print_before(times, card)
     return times
+
+
+def print_before(times: dict, card: str) -> None:
+    """Each kernel of ``times`` beside its ``MS_BEFORE`` time."""
+    for name, before in MS_BEFORE.items():
+        if name in times:
+            ms = times[name][0]
+            print(f"time: {name} ms {ms:.4f} ms_before {before:.4f} "
+                  f"({before / ms:.2f} times faster; {card})")
 
 
 def phase_large_k_times(card: str, rates: dict) -> dict:
@@ -2644,6 +2659,7 @@ def phase_large_k_route_times(card: str, rates: dict):
               f"model; {card})")
         require(m_ms <= ms, f"{key}: its model bound ({m_ms:.4f} ms) within "
                 f"its time ({ms:.4f} ms)")
+    print_before(out, card)
     del cases, vol, plain_vol, res, res_m, pm, g, g_hwd, head
     torch.cuda.empty_cache()
     return out, errs
@@ -4325,6 +4341,7 @@ def main() -> int:
     phase_route_pin(card)
     lk_times, lk_errs = phase_large_k_route_times(card, rates)
     times.update(lk_times)
+    device_profile.mode_large_k()
     for key, err in lk_errs.items():
         errs[key] = max(errs.get(key, 0.0), err)
     counts["lr"] = phase_lr_engine(card)

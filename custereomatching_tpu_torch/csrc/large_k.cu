@@ -1,11 +1,11 @@
-// The large-k route: simple kernels for the windows that no block of the
-// rounds kernels (K1-K7, fused_pipeline.cuh, camera_grad.cuh,
-// zncc_banded_proj_bwd.cu) or of K8's strip (zncc_allpairs.cu) holds.
-// From k = 129 a halo'd 16 x 64 tile and one plane's buffers pass the
-// 227 KB a block may hold (K8's strip from k = 145), and the halo alone,
-// (k - 1)^2 floats, passes it at k = 239, so a smaller tile only moves the
-// wall.  These kernels hold no tile in shared memory: every operand comes
-// from device memory through L1 and L2, so the route takes every odd k.
+// The large-k route: the windows that no block of the rounds kernels
+// (K1-K7, fused_pipeline.cuh, camera_grad.cuh, zncc_banded_proj_bwd.cu) or
+// of K8's strip (zncc_allpairs.cu) holds.  From k = 129 a halo'd 16 x 64
+// tile and one plane's buffers pass the 227 KB a block may hold (K8's
+// strip from k = 145), and the halo alone, (k - 1)^2 floats, passes it at
+// k = 239, so a smaller tile only moves the wall.  The route separates the
+// window instead: one axis at a time, a line of a stack, so what a block
+// stages grows with k and not with k^2, and the route takes every odd k.
 //
 // Replaces, where the blocks above do not fit, the same TPU kernels as the
 // kernels it stands in for:
@@ -21,7 +21,10 @@
 // ops/cuda_large_k.py strings them together (each C entry is one launch):
 //   box_axis        the k-tap zero-padded windowed sum along H or W of an
 //                   [N, H, W] stack, taps t = 0..k-1 added in the order of
-//                   _box_axis; two launches make box2d;
+//                   _box_axis; two launches make box2d.  A block stages
+//                   32 lines' tile and halo in shared memory, and a thread
+//                   makes kBoxOut adjacent outputs of its line with
+//                   window_sweep (common.cuh);
 //   pad_square      an image stack left-extended by zero columns, and its
 //                   square: box2d of the pair, then moments_finish, gives
 //                   the window sum S and E2 = S2 - S S / k^2 (_image_moments);
@@ -40,21 +43,39 @@
 //   proj_*          the same four steps in projector columns on the
 //                   extended range [-p, W) (projector_grad_banded, K7);
 //   row_products    the all-pairs row products sum_j cam[h, x + j - p]
-//                   proj[h, y + j - p] (_allpairs_cross), then box_axis over
-//                   the rows and allpairs_cost (forward_allpairs).
+//                   proj[h, y + j - p] (_allpairs_cross): a block stages
+//                   its camera and projector row segments in shared memory
+//                   and a thread keeps a kRpXPer x kRpYPer tile of (x, y)
+//                   in registers; then box_axis over the rows and
+//                   allpairs_cost (forward_allpairs).
 // Every product, sum, quotient and square root is rounded as the plain
 // form rounds it (__fmul_rn and friends, which nvcc never contracts into
 // an FMA; 1 / sqrt for torch.rsqrt), so only expf differs from the plain
-// version in its last bits.
+// version in its last bits.  The window sums start from -0.f, which adds
+// to the first tap exactly, and add each output's taps in order: the
+// values of a loop that starts from the first tap, bit for bit.
 //
-// What bounds it on the H100: nothing of the card's design.  A window sum
-// reads k operands an output through L1 and L2 (at k = 129 about 2 k
-// loads a volume entry for box2d), so the route runs far above the bound
-// of the function (PERF.md gives its times).  No workload uses k > 31; the
-// route exists so that every k the JAX kernels take gives a value here.
+// What bounds it on the H100.  The route's work is its window sums: k
+// adds an output of each box_axis pass (2 k an entry of a box2d: 23.2 G
+// adds for K1's volume at KITTI, k = 129) and 2 k rounded products and
+// adds an entry of K8's row products; the rest are elementwise passes over
+// slabs of 8 planes (15 MB at KITTI, within the 50 MB L2).  A thread
+// loads kBoxOut + k - 1 staged entries for kBoxOut outputs (a row product
+// tap 1 + kRpYPer loads for kRpXPer x kRpYPer pairs), so the adds, on the
+// FMA pipe, bind, as utils/kernel_model.py's large_k_cost counts them.
+// What keeps box_axis from that pipe's rate: window_sweep's middle loop
+// issues 41 instructions for 32 adds, and a block's staging, barriers and
+// stores about a fifth more again; on an H100 at 700 W its passes run at
+// about 45% of the FMA pipe, the row products at about 78% (PERF.md).  A
+// running or prefix sum would do less work but round otherwise; a fused
+// products + rows pass for K8 is the next step.  No workload uses k > 31;
+// the route exists so that every k the JAX kernels take gives a value
+// here.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "common.cuh"
 
 namespace {
 
@@ -76,35 +97,152 @@ __device__ __forceinline__ float inv_sqrt(float x) {
   return __fdiv_rn(1.f, __fsqrt_rn(x));
 }
 
-// out[n][h][w] = sum_{t<k} x[n][h + t - p][w] (axis 0) or
-// x[n][h][w + t - p] (axis 1), zero outside, the taps added from t = 0.
-__global__ void box_axis_kernel(const float* __restrict__ x,
-                                float* __restrict__ out, size_t N, int H,
-                                int W, int k, int axis) {
-  const int p = k / 2;
-  const size_t n_all = N * H * W;
-  GRID_STRIDE(i, n_all) {
-    const int w = static_cast<int>(i % W);
-    const int h = static_cast<int>((i / W) % H);
-    const size_t base = i - static_cast<size_t>(h) * W - w;
-    float acc = 0.f;
-    if (axis == 0) {
-      for (int t = 0; t < k; ++t) {
-        const int r = h + t - p;
-        const float v = (r >= 0 && r < H)
-                            ? __ldg(x + base + static_cast<size_t>(r) * W + w)
-                            : 0.f;
-        acc = t == 0 ? v : __fadd_rn(acc, v);
-      }
+// ---------------------------------------------------------------------------
+// box_axis: a block is 32 lanes x kBoxGroups groups.  Lane l owns a line
+// (a column for axis 0, a row of the stack for axis 1) and group g the
+// line's kBoxOut adjacent outputs g kBoxOut .. g kBoxOut + kBoxOut - 1 of
+// the block's tile of kBoxTile; so a block makes 32 lines x kBoxTile
+// outputs.  It stages its lines' entries [tile - p, tile + kBoxTile + p)
+// in shared memory, zero outside the image, kBoxSpan of a line at a time:
+// one chunk for every k <= 256; a larger k walks its span in chunks, each
+// output's taps still in order.
+constexpr int kBoxOut = 16;
+constexpr int kBoxGroups = 8;
+constexpr int kBoxThreads = 32 * kBoxGroups;    // 256
+constexpr int kBoxTile = kBoxOut * kBoxGroups;  // 128
+constexpr int kBoxSpan = kBoxTile + 255;  // 383: 32 lines, 49,024 B
+static_assert(kBoxSpan % 2 == 1, "axis 1's 32 staged lines in 32 banks");
+
+// Entries [i0, i1) of a line's window sums, entry i to output n where 0 <=
+// i - n < k, each output's taps in order: a whole line is window_sweep;
+// a chunk of one predicates the taps of its first kBoxOut - 1 entries and
+// of those from k on, which feed some outputs, and adds the others to all.
+template <class Load>
+__device__ __forceinline__ void box_entries(float (&acc)[kBoxOut], int k,
+                                            int i0, int i1,
+                                            const Load& load) {
+  const auto add = [](float& s, float v) { s = __fadd_rn(s, v); };
+  if (i0 == 0 && i1 == kBoxOut - 1 + k) {
+    custereo::window_sweep(acc, k, load, add);
+    return;
+  }
+  for (int i = i0; i < i1; ++i) {
+    const float v = load(i);
+    if (i >= kBoxOut - 1 && i < k) {
+#pragma unroll
+      for (int n = 0; n < kBoxOut; ++n) add(acc[n], v);
     } else {
-      const float* row = x + base + static_cast<size_t>(h) * W;
-      for (int t = 0; t < k; ++t) {
-        const int c = w + t - p;
-        const float v = (c >= 0 && c < W) ? __ldg(row + c) : 0.f;
-        acc = t == 0 ? v : __fadd_rn(acc, v);
+#pragma unroll
+      for (int n = 0; n < kBoxOut; ++n)
+        if (i - n >= 0 && i - n < k) add(acc[n], v);
+    }
+  }
+}
+
+// Axis 0: block (plane n x column tile, strip of kBoxTile rows); lanes are
+// 32 adjacent columns, so a warp's loads, staged rows and stores are
+// coalesced and its shared reads hit 32 banks.
+// out[n][h][w] = sum_{t<k} x[n][h + t - p][w], zero outside.
+__global__ void __launch_bounds__(kBoxThreads, 4)
+    box_axis_h_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      int H, int W, int k, int col_tiles, int strips) {
+  __shared__ float buf[kBoxSpan * 32];
+  const int p = k / 2, span = kBoxTile + k - 1;
+  const int lane = threadIdx.x & 31, first = (threadIdx.x >> 5) * kBoxOut;
+  const size_t n = blockIdx.x / col_tiles;
+  const int c0 = static_cast<int>(blockIdx.x - n * col_tiles) * 32;
+  const float* xn = x + n * H * W;
+  float* on = out + n * H * W;
+  // The lane's column (read only where in_column).
+  const float* column = xn + c0 + lane;
+  const bool in_column = c0 + lane < W;
+  for (int s = blockIdx.y; s < strips; s += gridDim.y) {
+    const int h0 = s * kBoxTile;
+    float acc[kBoxOut];
+#pragma unroll
+    for (int m = 0; m < kBoxOut; ++m) acc[m] = -0.f;
+    for (int s0 = 0; s0 < span; s0 += kBoxSpan) {
+      const int rows = min(kBoxSpan, span - s0);
+      __syncthreads();
+      // Lane l stages column c0 + l of the chunk's rows g, g + 8, ...
+      for (int r = threadIdx.x >> 5; r < rows; r += kBoxGroups) {
+        const int h = h0 - p + s0 + r;
+        buf[r * 32 + lane] =
+            (in_column && static_cast<unsigned>(h) < static_cast<unsigned>(H))
+                ? __ldg(column + static_cast<ptrdiff_t>(h) * W)
+                : 0.f;
+      }
+      __syncthreads();
+      const int i0 = max(s0 - first, 0);
+      const int i1 = min(s0 + rows - first, kBoxOut - 1 + k);
+      // Entry i of the group's line is staged row first + i - s0.
+      const float* line = buf + (first - s0) * 32 + lane;
+      if (i0 < i1 && h0 + first < H)
+        box_entries(acc, k, i0, i1, [&](int i) { return line[i * 32]; });
+    }
+    const int c = c0 + lane;
+    if (c < W) {
+#pragma unroll
+      for (int m = 0; m < kBoxOut; ++m) {
+        const int h = h0 + first + m;
+        if (h < H) on[static_cast<size_t>(h) * W + c] = acc[m];
       }
     }
-    out[i] = acc;
+  }
+}
+
+// Axis 1: block (32 rows of the stack's `rows`, column tile); lane l's row
+// is staged in buf's row l, kBoxSpan (odd) floats apart, so a warp's
+// reads of its 32 rows hit 32 banks; the stage goes a row at a time and
+// the outputs go back through buf, so both global sides are coalesced.
+// out[r][w] = sum_{t<k} x[r][w + t - p], zero outside.
+__global__ void __launch_bounds__(kBoxThreads, 4)
+    box_axis_w_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      size_t rows, int W, int k, int col_tiles) {
+  __shared__ float buf[kBoxSpan * 32];
+  const int p = k / 2, span = kBoxTile + k - 1;
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int first = g * kBoxOut;
+  const size_t r0 = static_cast<size_t>(blockIdx.x) * 32;
+  const int nrows = static_cast<int>(rows - r0 < 32 ? rows - r0 : 32);
+  for (int t = blockIdx.y; t < col_tiles; t += gridDim.y) {
+    const int w0 = t * kBoxTile;
+    float acc[kBoxOut];
+#pragma unroll
+    for (int m = 0; m < kBoxOut; ++m) acc[m] = -0.f;
+    for (int s0 = 0; s0 < span; s0 += kBoxSpan) {
+      const int len = min(kBoxSpan, span - s0);
+      __syncthreads();
+      const int w_first = w0 - p + s0;
+      for (int r = g; r < 32; r += kBoxGroups) {
+        // Row r's entries from column w_first on (read only inside it).
+        const float* src = x + (r0 + r) * W + w_first;
+        const bool in_rows = r < nrows;
+        for (int j = lane; j < len; j += 32)
+          buf[r * kBoxSpan + j] =
+              (in_rows && static_cast<unsigned>(w_first + j) <
+                              static_cast<unsigned>(W))
+                  ? __ldg(src + j)
+                  : 0.f;
+      }
+      __syncthreads();
+      const int i0 = max(s0 - first, 0);
+      const int i1 = min(s0 + len - first, kBoxOut - 1 + k);
+      // Entry i of the group's line is staged entry first + i - s0.
+      const float* line = buf + lane * kBoxSpan + first - s0;
+      if (i0 < i1 && w0 + first < W)
+        box_entries(acc, k, i0, i1, [&](int i) { return line[i]; });
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kBoxOut; ++m)
+      buf[lane * kBoxSpan + first + m] = acc[m];
+    __syncthreads();
+    const int cols = min(kBoxTile, W - w0);
+    for (int r = g; r < nrows; r += kBoxGroups) {
+      float* orow = out + (r0 + r) * W + w0;
+      for (int j = lane; j < cols; j += 32) orow[j] = buf[r * kBoxSpan + j];
+    }
   }
 }
 
@@ -480,28 +618,89 @@ __global__ void proj_combine_kernel(const float* __restrict__ a1p,
   }
 }
 
-// out[b][h][x][y] = sum_{j<k} cam[b][h][x + j - p] proj[b][h][y + j - p],
-// zero outside the row, the products rounded and added from j = 0.
-__global__ void row_products_kernel(const float* __restrict__ cam,
-                                    const float* __restrict__ proj,
-                                    float* __restrict__ out, int B, int H,
-                                    int W, int k) {
+// ---------------------------------------------------------------------------
+// row_products: block (y tile, x tile, image row (b, h)) of kRpWarps warps.
+// A warp's lanes are 32 adjacent y, each with kRpYPer of them 32 apart,
+// and the warp kRpXPer adjacent x, so a thread holds kRpXPer x kRpYPer
+// sums.  The block stages its camera columns [x0 - p, x0 + kRpTileX + p)
+// and projector columns [y0 - p, y0 + kRpTileY + p) of the row, zero
+// outside it, kRpTaps taps at a time (one chunk for every k <= 256); a
+// tap loads one camera entry (the warp's window slid by one: a broadcast)
+// and kRpYPer projector entries (32 banks), then makes kRpXPer x kRpYPer
+// products and adds.  A warp stores 32 neighbouring y of one (h, x).
+constexpr int kRpWarps = 2;
+constexpr int kRpXPer = 8;
+constexpr int kRpYPer = 2;
+constexpr int kRpThreads = 32 * kRpWarps;     // 64
+constexpr int kRpTileX = kRpWarps * kRpXPer;  // 16
+constexpr int kRpTileY = 32 * kRpYPer;        // 64
+constexpr int kRpTaps = 256;
+
+// out[r][x][y] = sum_{j<k} cam[r][x + j - p] proj[r][y + j - p] over the
+// rows r = (b, h) of the stack, zero outside the row, each product rounded
+// and added from j = 0.
+__global__ void __launch_bounds__(kRpThreads)
+    row_products_kernel(const float* __restrict__ cam,
+                        const float* __restrict__ proj,
+                        float* __restrict__ out, size_t rows, int W, int k) {
+  __shared__ float cs[kRpTileX + kRpTaps - 1];
+  __shared__ float ps[kRpTileY + kRpTaps - 1];
   const int p = k / 2;
-  const size_t n_all = static_cast<size_t>(B) * H * W * W;
-  GRID_STRIDE(i, n_all) {
-    const int y = static_cast<int>(i % W);
-    const int x = static_cast<int>((i / W) % W);
-    const size_t row = (i / W) / W;
-    const float* crow = cam + row * W;
-    const float* prow = proj + row * W;
-    float acc = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const int cx = x + j - p, cy = y + j - p;
-      const float a = (cx >= 0 && cx < W) ? __ldg(crow + cx) : 0.f;
-      const float v = (cy >= 0 && cy < W) ? __ldg(prow + cy) : 0.f;
-      acc = j == 0 ? __fmul_rn(a, v) : __fadd_rn(acc, __fmul_rn(a, v));
+  const int lane = threadIdx.x & 31, xl = (threadIdx.x >> 5) * kRpXPer;
+  const int y0 = blockIdx.x * kRpTileY, x0 = blockIdx.y * kRpTileX;
+  for (size_t r = blockIdx.z; r < rows; r += gridDim.z) {
+    const float* crow = cam + r * W;
+    const float* prow = proj + r * W;
+    float acc[kRpXPer][kRpYPer];
+#pragma unroll
+    for (int a = 0; a < kRpXPer; ++a)
+#pragma unroll
+      for (int c = 0; c < kRpYPer; ++c) acc[a][c] = -0.f;
+    for (int j0 = 0; j0 < k; j0 += kRpTaps) {
+      const int taps = min(kRpTaps, k - j0);
+      __syncthreads();
+#pragma unroll 4
+      for (int e = threadIdx.x; e < kRpTileX + taps - 1; e += kRpThreads) {
+        const int c = x0 - p + j0 + e;
+        cs[e] = (c >= 0 && c < W) ? __ldg(crow + c) : 0.f;
+      }
+#pragma unroll 4
+      for (int e = threadIdx.x; e < kRpTileY + taps - 1; e += kRpThreads) {
+        const int c = y0 - p + j0 + e;
+        ps[e] = (c >= 0 && c < W) ? __ldg(prow + c) : 0.f;
+      }
+      __syncthreads();
+      // Tap j reads camera entries cs[xl + j .. xl + j + kRpXPer - 1]: the
+      // window of tap j - 1 moved on by one.
+      float cv[kRpXPer];
+#pragma unroll
+      for (int a = 1; a < kRpXPer; ++a) cv[a] = cs[xl + a - 1];
+#pragma unroll 8
+      for (int j = 0; j < taps; ++j) {
+#pragma unroll
+        for (int a = 0; a + 1 < kRpXPer; ++a) cv[a] = cv[a + 1];
+        cv[kRpXPer - 1] = cs[xl + j + kRpXPer - 1];
+        float pv[kRpYPer];
+#pragma unroll
+        for (int c = 0; c < kRpYPer; ++c) pv[c] = ps[lane + 32 * c + j];
+#pragma unroll
+        for (int a = 0; a < kRpXPer; ++a)
+#pragma unroll
+          for (int c = 0; c < kRpYPer; ++c)
+            acc[a][c] = __fadd_rn(acc[a][c], __fmul_rn(cv[a], pv[c]));
+      }
     }
-    out[i] = acc;
+#pragma unroll
+    for (int a = 0; a < kRpXPer; ++a) {
+      const int xx = x0 + xl + a;
+      if (xx >= W) continue;
+      float* orow = out + (r * W + xx) * W;
+#pragma unroll
+      for (int c = 0; c < kRpYPer; ++c) {
+        const int y = y0 + lane + 32 * c;
+        if (y < W) orow[y] = acc[a][c];
+      }
+    }
   }
 }
 
@@ -537,11 +736,32 @@ __global__ void allpairs_cost_kernel(const float* __restrict__ a,
       __VA_ARGS__);                                                      \
   return cudaGetLastError()
 
+// Grid dimensions y and z hold at most 65,535 blocks; the kernels loop
+// over the rest.
+inline unsigned grid_yz(size_t n) {
+  return static_cast<unsigned>(n < 65535 ? n : 65535);
+}
+
 extern "C" int custereo_lk_box_axis(const float* x, float* out, long long N,
                                     int H, int W, int k, int axis,
                                     void* stream) {
-  LAUNCH(box_axis_kernel, static_cast<size_t>(N) * H * W, x, out,
-         static_cast<size_t>(N), H, W, k, axis);
+  if (N <= 0 || H <= 0 || W <= 0) return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (axis == 0) {
+    const int col_tiles = (W + 31) / 32;
+    const int strips = (H + kBoxTile - 1) / kBoxTile;
+    box_axis_h_kernel<<<dim3(static_cast<unsigned>(N * col_tiles),
+                             grid_yz(strips)),
+                        kBoxThreads, 0, st>>>(x, out, H, W, k, col_tiles,
+                                              strips);
+  } else {
+    const size_t rows = static_cast<size_t>(N) * H;
+    const int col_tiles = (W + kBoxTile - 1) / kBoxTile;
+    box_axis_w_kernel<<<dim3(static_cast<unsigned>((rows + 31) / 32),
+                             grid_yz(col_tiles)),
+                        kBoxThreads, 0, st>>>(x, out, rows, W, k, col_tiles);
+  }
+  return cudaGetLastError();
 }
 
 extern "C" int custereo_lk_pad_square(const float* img, float* out,
@@ -655,8 +875,13 @@ extern "C" int custereo_lk_proj_combine(const float* a1p, const float* boxes,
 extern "C" int custereo_lk_row_products(const float* cam, const float* proj,
                                         float* out, int B, int H, int W,
                                         int k, void* stream) {
-  LAUNCH(row_products_kernel, static_cast<size_t>(B) * H * W * W, cam, proj,
-         out, B, H, W, k);
+  if (B <= 0 || H <= 0 || W <= 0) return cudaGetLastError();
+  const size_t rows = static_cast<size_t>(B) * H;
+  row_products_kernel<<<dim3((W + kRpTileY - 1) / kRpTileY,
+                             (W + kRpTileX - 1) / kRpTileX, grid_yz(rows)),
+                        kRpThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cam, proj, out, rows, W, k);
+  return cudaGetLastError();
 }
 
 extern "C" int custereo_lk_allpairs_cost(const float* a, const float* cam_s,

@@ -11,9 +11,10 @@ odd k <= 129), so the port takes the route here wherever
 wrappers of ``cuda_zncc``, ``cuda_pipeline`` and ``cuda_allpairs`` call
 the functions below.
 
-The route is a chain of simple kernels (``csrc/large_k.cu``) that hold no
-tile in shared memory, each one step of the plain forms of
-``ops/zncc.py``: windowed sums along one axis (two make ``box2d``), the
+The route is a chain of kernels (``csrc/large_k.cu``) that separate the
+window, so what a block holds grows with k and not with k^2, each one
+step of the plain forms of ``ops/zncc.py``: windowed sums along one axis
+(two make ``box2d``; a block stages its lines in shared memory), the
 window statistics, K1's cost planes a slab of ``COST_CHUNK`` planes at a
 time, K3's head carried across the slabs, the camera VJP's fields (the
 cotangent read, or formed from the head's maps as ``head_cotangent``

@@ -43,6 +43,15 @@ speckle frame and prints its lines, then one JSON object:
 * ``build``: wall time of the kernel build as the port makes it (one
   nvcc per source, all started together, then a link) and as a single
   nvcc over every source, alternated, each into an empty directory.
+* ``large_k``: the large-k route (``ops/cuda_large_k.py``) through its
+  entry functions: each of its ten routes (K1L, K3L, K3wL, K3mL, K2L,
+  K6L, K4L, K5L, K7L at KITTI with k = 129, K8L at 330x422 with k = 145)
+  under ``torch.profiler``, the device time of a call by kernel name and
+  the share of the window-sum kernels (``box_axis``, ``row_products``);
+  then the route against K2, K4, K5, K6 and K7 on their own blocks at
+  KITTI with k = 63, 95 and 127 (CUDA events: own, route, route, own,
+  each the median of 5 calls; each pair's gradients compared
+  norm-relative).
 
 To compare two checkouts in one run (``train``, ``free``, ``k3``,
 ``kernels``, ``engine``, ``allpairs``, ``launch``), run this file by its
@@ -509,11 +518,139 @@ def mode_build() -> dict:
     return {f"build_{how}_s": t for how, t in times.items()}
 
 
+LARGE_K = 129
+LARGE_K_AP = (330, 422, 145)
+CROSS_K = (63, 95, 127)
+# Substrings of the route's window-sum kernels in a trace's names.
+WINDOW_KERNELS = ("box_axis", "row_products")
+
+
+def large_k_cases() -> List[Tuple[str, Callable, tuple]]:
+    """(name, route function, arguments) of the large-k route's ten
+    routes through ``ops/cuda_large_k.py``: K1L-K7L at KITTI (D = 192) with
+    k = 129 on ``kernel_variants.route_inputs``' fixed inputs, K8L on a
+    random 330x422 pair at k = 145."""
+    from custereomatching_tpu_torch.ops import cuda_large_k as lk
+    from custereomatching_tpu_torch.scripts.kernel_variants import (
+        route_calls,
+        route_inputs,
+    )
+
+    H, W, D, _ = KITTI
+    calls = route_calls(route_inputs(H, W, D, LARGE_K))
+    Ha, Wa, ka = LARGE_K_AP
+    gen = torch.Generator("cuda").manual_seed(0)
+    acam, aproj = torch.rand((2, 1, Ha, Wa), device="cuda", generator=gen)
+    return ([(name, fn, ()) for name, fn in calls.items()]
+            + [("K8L", lk.allpairs_volume_large, (acam, aproj, ka, 1e-8))])
+
+
+def route_profile(name: str, fn: Callable, args: tuple,
+                  calls: int = 2) -> dict:
+    """Device ms of one call of a route by kernel name (``calls`` calls
+    under the profiler after a warm one) and the window-sum kernels'
+    share of the route's device time."""
+    with torch.no_grad():
+        fn(*args)
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            with torch.profiler.profile(activities=activities) as prof:
+                for _ in range(calls):
+                    fn(*args)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+    intervals = device_intervals(events)
+    if not intervals:
+        raise RuntimeError(f"large_k {name}: the trace holds no device "
+                           f"events")
+    names = {n: us / 1e3 / calls for n, us in per_name_us(intervals).items()}
+    total = sum(names.values())
+    window = {w: sum(ms for n, ms in names.items() if w in n)
+              for w in WINDOW_KERNELS}
+    share = sum(window.values()) / total
+    print(f"large_k: {name} device {total:.4f} ms a call; "
+          + ", ".join(f"{w} {ms:.4f} ms" for w, ms in window.items())
+          + f"; window sums {share:.4f} of the route")
+    for n, ms in list(names.items())[:8]:
+        print(f"large_k: {name}   {ms:9.4f} ms  {n[:100]}")
+    return {"device_ms": total, "window_share": share,
+            **{f"{w}_ms": ms for w, ms in window.items()},
+            "by_kernel": {n[:100]: ms for n, ms in names.items()}}
+
+
+def cross_cases(k: int) -> List[Tuple[str, Callable, Callable]]:
+    """(name, own-block call, route call) of K2, K4, K5, K6 and K7 at KITTI
+    with ``k`` on ``kernel_variants.route_inputs``' fixed inputs: the
+    wrapper on the kernel's own blocks and ``ops/cuda_large_k.py``'s route
+    (``kernel_variants.route_calls``)."""
+    from custereomatching_tpu_torch.ops.cuda_pipeline import (
+        fused_pipeline_bwd_cuda,
+    )
+    from custereomatching_tpu_torch.ops.cuda_zncc import (
+        camera_grad_banded_cuda,
+        projector_grad_banded_cuda,
+    )
+    from custereomatching_tpu_torch.scripts.kernel_variants import (
+        route_calls,
+        route_inputs,
+    )
+
+    H, W, D, _ = KITTI
+    x = route_inputs(H, W, D, k)
+    route = route_calls(x)
+    cam, proj, cost, g = x["cam"], x["proj"], x["cost"], x["cotangent"]
+    head = (x["gsoft"], x["gconf"], D, k, 1e-8, 50.0)
+    return [
+        ("K2", lambda: camera_grad_banded_cuda(cam, proj, cost, g, D, k,
+                                               1e-8), route["K2L"]),
+        ("K4", lambda: fused_pipeline_bwd_cuda(cam, proj, x["residuals"],
+                                               *head), route["K4L"]),
+        ("K5", lambda: fused_pipeline_bwd_cuda(cam, proj, x["residuals_m"],
+                                               *head), route["K5L"]),
+        ("K6", lambda: camera_grad_banded_cuda(cam, proj, None, g, D, k,
+                                               1e-8), route["K6L"]),
+        ("K7", lambda: projector_grad_banded_cuda(cam, proj, cost, g, D, k,
+                                                  1e-8), route["K7L"])]
+
+
+def mode_large_k() -> dict:
+    out = {"profile": {}, "cross": {}}
+    for name, fn, args in large_k_cases():
+        out["profile"][name] = route_profile(name, fn, args)
+    torch.cuda.empty_cache()
+    for k in CROSS_K:
+        for name, own, route in cross_cases(k):
+            with torch.no_grad():
+                a, b = own(), route()
+                rel = float((a - b).norm() / b.norm())
+                ms = {}
+                # own, route, route, own
+                for side, fn in (("own", own), ("route", route),
+                                 ("route", route), ("own", own)):
+                    ms.setdefault(side, []).append(1e3 * benchmark(
+                        fn, warmup=1, iters=5, chain=1)["median_s"])
+            own_ms, route_ms = (float(np.mean(ms[s])) for s in ("own",
+                                                                 "route"))
+            print(f"large_k: {name} KITTI k={k}: own blocks {own_ms:.4f} "
+                  f"ms, route {route_ms:.4f} ms, route / own "
+                  f"{route_ms / own_ms:.3f}; |own - route| / |route| "
+                  f"{rel:.2e}")
+            out["cross"][f"{name} k={k}"] = {"own_ms": own_ms,
+                                             "route_ms": route_ms,
+                                             "rel_diff": rel}
+        torch.cuda.empty_cache()
+    return out
+
+
 MODES = {"train": mode_train, "free": mode_free, "volume": mode_volume,
          "hdw": mode_hdw, "k3": mode_k3, "kernels": mode_kernels,
          "engine": mode_engine, "autotune": mode_autotune,
          "allpairs": mode_allpairs, "launch": mode_launch,
-         "build": mode_build}
+         "build": mode_build, "large_k": mode_large_k}
 
 
 def main(argv: List[str]) -> int:

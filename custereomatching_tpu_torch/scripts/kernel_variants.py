@@ -20,8 +20,11 @@ at it:
 
 1. K1's and K8's volumes, K9a's parity copy of K1's, and K2's, K4's,
    K5's, K6's and K7's gradients on fixed inputs (KITTI and small shapes at k = 3, 27, 31, 47, 81 and
-   93; K8 at the same k on the images' first rows), and K10b's sums and
-   K10c's volume at ``kernel_model.HBM_EDGE_SHAPES``, compared bit for
+   93; K8 at the same k on the images' first rows), K10b's sums and
+   K10c's volume at ``kernel_model.HBM_EDGE_SHAPES``, and the outputs of
+   the large-k route's ten routes (``ops/cuda_large_k.py``: K1L-K7L at
+   KITTI with k = 129 and at 40x130 with k = 131 and 255, K8L at 330x422
+   with k = 145 and at 40x130 with k = 131 and 255), compared bit for
    bit with this tree's: every variant that keeps the values, and every
    ``--against`` tree (another checkout, e.g. the parent commit's ``git
    archive``), on the outputs both trees give (a tree whose kernel refuses
@@ -30,11 +33,12 @@ at it:
    every variant in turns, then in the reverse order.
 
 With ``--ab DIR`` it instead times every kernel of ``device_profile
-kernels`` in one process on the same inputs, through this tree's
-wrappers, on this tree's kernel library and on the one DIR's sources
-build (their C interface must be this tree's; DIR may also name a
-variant, whose copy is made first), the two back to back for
-each kernel and which goes first alternating from round to round; it
+kernels`` and every route of ``device_profile large_k`` in one process
+on the same inputs, through this tree's wrappers, on this tree's kernel
+library and on the one DIR's sources build (their C interface must be
+this tree's; DIR may also name a variant, whose copy is made first), the
+two back to back for each kernel and which goes first alternating from
+round to round; it
 prints each kernel's medians, their ratio and the rounds each side won.
 Between processes the same kernel's time moves by a few percent; this
 comparison does not pay for that.
@@ -63,6 +67,11 @@ K10_SOURCE = "csrc/rate_probes.cu"
 CASES = ((375, 1242, 192, 15), (40, 130, 24, 31), (40, 130, 24, 47),
          (37, 200, 24, 3), (40, 130, 24, 27), (40, 130, 24, 81),
          (40, 130, 24, 93), (40, 130, 24, 127))
+# The large-k route's outputs (H, W, D, k): K1L-K7L; K8L (H, W, k).
+ROUTE_CASES = ((375, 1242, 192, 129), (40, 130, 24, 131), (40, 130, 24, 255))
+AP_ROUTE_CASES = ((330, 422, 145), (40, 130, 131), (40, 130, 255))
+ROUTES = ("K1L", "K3L", "K3wL", "K3mL", "K2L", "K6L", "K4L", "K5L", "K7L")
+ROUTE_EPS, ROUTE_BETA, ROUTE_THRESHOLD = 1e-8, 50.0, 0.6
 
 _ROUND = "  for (int planes = kGradPlanes; planes >= 1; planes /= 2) {\n"
 _ASSERT = ('  static_assert(kGradPlanes == 8, "the planes a round instantiated '
@@ -330,14 +339,126 @@ def make_variant(name: str, dest: Path) -> Path:
     return tree
 
 
-def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
+def _flat(out) -> "torch.Tensor":
+    """A route's output as one tensor: a tuple's tensors (None left out)
+    flattened and joined."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return out
+    return torch.cat([t.flatten() for t in out if t is not None])
+
+
+def route_inputs(H: int, W: int, D: int, k: int, device: str = "cuda",
+                 seed: int = 8) -> Dict:
+    """Fixed inputs of the large-k route at (H, W, D, k): a stereo pair
+    ``cam``, ``proj`` ``[1, H, W]``, a random ``cost`` volume of its range
+    and ``cotangent`` (plane-major), the head cotangents ``gsoft`` and
+    ``gconf``, K3w's and K3m's ``residuals`` and ``residuals_m``, and the
+    route's head arguments from them, ``head`` for K4L and ``head_m`` for
+    K5L."""
+    import torch
+
+    from custereomatching_tpu_torch.data import make_stereo_pair
+    from custereomatching_tpu_torch.ops.cuda_pipeline import (
+        fused_pipeline_train_cuda,
+        unnormalized_head,
+    )
+
+    cam, proj, _ = make_stereo_pair(H, W, d_min=4.0, d_max=min(D, 184.0),
+                                    seed=seed)
+    cam = torch.from_numpy(cam[None]).to(device)
+    proj = torch.from_numpy(proj[None]).to(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    gs = torch.randn((1, H, W), device=device, generator=gen) / (H * W)
+    gc = torch.randn((1, H, W), device=device, generator=gen) / (H * W)
+    g = torch.randn((1, D + 1, H, W), device=device, generator=gen) / (H * W)
+    cost = torch.rand((1, D + 1, H, W), device=device, generator=gen) * 2 - 1
+    unnorm = unnormalized_head(ROUTE_BETA, D)
+    with torch.no_grad():
+        res = fused_pipeline_train_cuda(cam, proj, D, k, ROUTE_EPS,
+                                        ROUTE_BETA, ROUTE_THRESHOLD)[1]
+        res_m = fused_pipeline_train_cuda(cam, proj, D, k, ROUTE_EPS,
+                                          ROUTE_BETA, ROUTE_THRESHOLD,
+                                          save_volume=False)[1]
+
+    def head(r):
+        return (r.am, r.mask, r.confidence, r.s, r.t, gs, gc, ROUTE_BETA,
+                unnorm)
+
+    return {"cam": cam, "proj": proj, "D": D, "k": k, "cost": cost,
+            "cotangent": g, "head": head(res), "head_m": head(res_m),
+            "residuals": res, "residuals_m": res_m, "gsoft": gs,
+            "gconf": gc, "unnormalized": unnorm}
+
+
+def route_calls(x: Dict) -> Dict:
+    """{name: a call of no arguments} of the nine banded routes of
+    ``ops/cuda_large_k.py`` on :func:`route_inputs`' ``x``: K1L's volume,
+    K3L's four maps, K3wL's maps and volume, K3mL's maps (a tuple's
+    tensors), K2L's and K7L's gradients from the random cost, K6L's with
+    the cost recomputed, K4L's and K5L's from the head cotangents."""
+    from custereomatching_tpu_torch.ops import cuda_large_k as lk
+
+    cam, proj, D, k = x["cam"], x["proj"], x["D"], x["k"]
+    eps, g, cost = ROUTE_EPS, x["cotangent"], x["cost"]
+    pipe = (cam, proj, D, k, eps, ROUTE_BETA, ROUTE_THRESHOLD,
+            x["unnormalized"])
+    return {
+        "K1L": lambda: lk.banded_volume_large(cam, proj, D, k, eps),
+        # Without residuals the last three maps are not written.
+        "K3L": lambda: lk.fused_pipeline_large(*pipe)[0][:4],
+        "K3wL": lambda: lk.fused_pipeline_large(*pipe, residuals=True,
+                                                volume=True),
+        "K3mL": lambda: lk.fused_pipeline_large(*pipe, residuals=True),
+        "K2L": lambda: lk.camera_grad_large(cam, proj, cost, g, D, k, eps),
+        "K6L": lambda: lk.camera_grad_large(cam, proj, None, g, D, k, eps),
+        "K4L": lambda: lk.camera_grad_large(cam, proj,
+                                            x["residuals"].volume, None, D,
+                                            k, eps, head=x["head"]),
+        "K5L": lambda: lk.camera_grad_large(cam, proj, None, None, D, k,
+                                            eps, head=x["head_m"]),
+        "K7L": lambda: lk.projector_grad_large(cam, proj, cost, g, D, k,
+                                               eps)}
+
+
+def route_outputs(route_cases=ROUTE_CASES, ap_route_cases=AP_ROUTE_CASES,
+                  device: str = "cuda") -> Dict:
+    """The large-k route's outputs (:func:`route_calls`) at
+    ``route_cases`` (H, W, D, k) and K8L's volume at ``ap_route_cases``
+    (H, W, k), from fixed inputs, on the CPU; a CPU ``device`` takes the
+    steps' plain forms."""
+    import torch
+
+    from custereomatching_tpu_torch.ops import cuda_large_k as lk
+
+    outs = {}
+    for H, W, D, k in route_cases:
+        calls = route_calls(route_inputs(H, W, D, k, device))
+        for name in ROUTES:
+            with torch.no_grad():
+                outs[f"{name} {H}x{W} D={D} k={k}"] = _flat(
+                    calls[name]()).cpu()
+        del calls
+    for H, W, k in ap_route_cases:
+        gen = torch.Generator(device).manual_seed(2)
+        acam, aproj = torch.rand((2, 1, H, W), device=device, generator=gen)
+        with torch.no_grad():
+            outs[f"K8L {H}x{W} k={k}"] = lk.allpairs_volume_large(
+                acam, aproj, k, ROUTE_EPS).cpu()
+    return outs
+
+
+def kernel_outputs(cases=CASES, device: str = "cuda",
+                   route_cases=ROUTE_CASES,
+                   ap_route_cases=AP_ROUTE_CASES) -> Dict:
     """K1's volume and K2's, K4's, K5's, K6's and K7's gradients at
     ``cases`` (H, W, D, k) from fixed inputs, K8's volume at
-    (min(H, 40), W, k), and K10b's sums (of a volume 4 bytes off a 16-byte
-    boundary) and K10c's volume at ``kernel_model.HBM_EDGE_SHAPES``, on
-    the CPU tensors of ``device`` (a CPU device takes the wrappers' plain
-    versions); a kernel whose wrapper refuses a case gives no output
-    there."""
+    (min(H, 40), W, k), K10b's sums (of a volume 4 bytes off a 16-byte
+    boundary) and K10c's volume at ``kernel_model.HBM_EDGE_SHAPES``, and
+    the large-k route's (:func:`route_outputs`), on the CPU tensors of
+    ``device`` (a CPU device takes the wrappers' plain versions); a kernel
+    whose wrapper refuses a case gives no output there."""
     import torch
 
     from custereomatching_tpu_torch.utils import kernel_model as km
@@ -406,6 +527,7 @@ def kernel_outputs(cases=CASES, device: str = "cuda") -> Dict:
         outs[f"K10b {P}x{H}x{W}"] = km.hbm_read_probe(
             flat[1:].view(P, H, W)).cpu()
         outs[f"K10c {P}x{H}x{W}"] = km.hbm_write_probe(P, H, W, device).cpu()
+    outs.update(route_outputs(route_cases, ap_route_cases, device))
     return outs
 
 
@@ -438,9 +560,9 @@ def library_of(tree: Path) -> ctypes.CDLL:
 
 def ab_times(other: Path, rounds: int) -> Dict[str, Dict[str, List[float]]]:
     """{kernel: {"this": ms..., "other": ms...}}: ``device_profile``'s
-    kernel cases on this tree's library and on ``other``'s, ``rounds``
-    rounds, the two back to back for each kernel, ``other`` first in even
-    rounds."""
+    kernel cases and large-k routes on this tree's library and on
+    ``other``'s, ``rounds`` rounds, the two back to back for each kernel,
+    ``other`` first in even rounds."""
     import torch
 
     from custereomatching_tpu_torch.ops import _build
@@ -448,7 +570,7 @@ def ab_times(other: Path, rounds: int) -> Dict[str, Dict[str, List[float]]]:
     from custereomatching_tpu_torch.utils import benchmark
 
     libs = {"this": _build.kernels(), "other": library_of(other)}
-    cases = device_profile.kernel_cases()
+    cases = device_profile.kernel_cases() + device_profile.large_k_cases()
     times = {name: {"this": [], "other": []} for name, _, _ in cases}
     ours = _build.kernels
     try:

@@ -112,6 +112,17 @@ PARITY_PIXELS, PARITY_THREADS, PARITY_CHUNK = 64, 512, 256
 # the output rows of a block's strip.
 AP_WARPS, AP_X_PER_THREAD, AP_Y_PER_THREAD, AP_ROWS = 4, 4, 2, 16
 AP_TILE_X, AP_TILE_Y = AP_WARPS * AP_X_PER_THREAD, 32 * AP_Y_PER_THREAD
+# The large-k route's window sums (csrc/large_k.cu kBoxOut, kBoxGroups,
+# kBoxSpan; kRpWarps, kRpXPer, kRpYPer, kRpTaps): box_axis's outputs a
+# thread, groups a block (a block's tile of lines is LK_BOX_TILE long) and
+# staged entries of a line a chunk; row_products' warps, a thread's
+# camera and projector columns, and taps a chunk.
+LK_BOX_OUT, LK_BOX_GROUPS = 16, 8
+LK_BOX_TILE = LK_BOX_OUT * LK_BOX_GROUPS
+LK_BOX_SPAN = LK_BOX_TILE + 255
+LK_RP_WARPS, LK_RP_X_PER, LK_RP_Y_PER, LK_RP_TAPS = 2, 8, 2, 256
+LK_RP_THREADS = 32 * LK_RP_WARPS
+LK_RP_TILE_X, LK_RP_TILE_Y = LK_RP_WARPS * LK_RP_X_PER, 32 * LK_RP_Y_PER
 # An H100 SM issues four warp-wide FP32 instructions a clock for each
 # warp-wide shared-memory access (128 FP32 lanes, 32 load/store lanes).
 FMA_PER_SMEM = 4
@@ -1431,18 +1442,72 @@ def _lk(n: float, loads: float, madd: float = 0, rsqrt: float = 0,
     return c
 
 
-def _lk_box2d(n: float, k: int) -> OpCount:
-    """box2d of ``n`` entries: two ``box_axis`` launches, k loads, k - 1
-    adds and a store an output each (the loads bind)."""
-    return _lk(n, k + 1, nbytes=8 * n).scaled(2)
+def lk_box_items(N: int, H: int, W: int, axis: int) -> int:
+    """Work items of ``box_axis`` (csrc/large_k.cu) over an ``[N, H, W]``
+    stack: a thread's ``LK_BOX_OUT`` adjacent outputs of its line.  Along
+    H (``axis`` 0) a block is 32 columns x a strip of ``LK_BOX_TILE`` rows,
+    along W 32 rows of the stack x ``LK_BOX_TILE`` columns; a lane past the
+    image sums zeros (counted), a group wholly past its end skips."""
+    if axis == 0:
+        return N * 32 * _cdiv(W, 32) * _cdiv(H, LK_BOX_OUT)
+    return 32 * _cdiv(N * H, 32) * _cdiv(W, LK_BOX_OUT)
 
 
-def _lk_moments(n: float, n_in: float, k: int) -> OpCount:
-    """S and E2 of an image stack of ``n_in`` pixels widened to ``n``:
+def lk_box_chunks(k: int) -> int:
+    """Chunks a ``box_axis`` block stages its lines' span in: the tile and
+    its k - 1 halo entries, ``LK_BOX_SPAN`` entries of a line at a time
+    (one for every k <= 256)."""
+    return _cdiv(LK_BOX_TILE + k - 1, LK_BOX_SPAN)
+
+
+def _lk_box_axis(N: int, H: int, W: int, k: int, axis: int) -> OpCount:
+    """One ``box_axis`` launch: its items on the register-blocked pass
+    (``window_pass_cost``: ``LK_BOX_OUT + k - 1`` staged loads and
+    ``LK_BOX_OUT`` stores an item, k adds an output, the first onto -0),
+    the stack read and the sums written once."""
+    c = window_pass_cost(lk_box_items(N, H, W, axis), LK_BOX_OUT, k, False)
+    c.bytes = 8.0 * N * H * W
+    return c
+
+
+def _lk_box2d(N: int, H: int, W: int, k: int) -> OpCount:
+    """box2d of an ``[N, H, W]`` stack: ``box_axis`` along H, then W."""
+    return _lk_box_axis(N, H, W, k, 0) + _lk_box_axis(N, H, W, k, 1)
+
+
+def _lk_row_products(H: int, W: int, k: int) -> OpCount:
+    """``row_products`` of one frame: ``LK_RP_THREADS`` threads a block of
+    ``LK_RP_TILE_X`` x ``LK_RP_TILE_Y`` (x, y) a row, each thread
+    ``LK_RP_X_PER`` x ``LK_RP_Y_PER`` sums of k rounded products and adds
+    (2 k FMA-pipe ops an output, tile padding included) from ``1 +
+    LK_RP_Y_PER`` shared loads a tap, whichever pipe binds; the two rows
+    read and the ``[H, W, W]`` products written once."""
+    threads = H * _cdiv(W, LK_RP_TILE_X) * _cdiv(W, LK_RP_TILE_Y) * (
+        LK_RP_THREADS)
+    loads, ops = 1 + LK_RP_Y_PER, 2 * LK_RP_X_PER * LK_RP_Y_PER
+    if loads * FMA_PER_SMEM >= ops:
+        c = OpCount(smem=threads * k * loads)
+    else:
+        c = OpCount(madd=threads * k * ops)
+    c.bytes = 8.0 * H * W + 4.0 * H * W * W
+    return c
+
+
+def _lk_moments(H: int, W: int, wx: int, k: int) -> OpCount:
+    """S and E2 of an ``[H, W]`` image widened to ``wx`` columns:
     ``pad_square``, box2d of the pair, ``moments_finish``."""
-    return (_lk(n, 3, madd=1, nbytes=4 * n_in + 8 * n)
-            + _lk_box2d(2 * n, k)
+    n = H * wx
+    return (_lk(n, 3, madd=1, nbytes=4 * H * W + 8 * n)
+            + _lk_box2d(2, H, wx, k)
             + _lk(n, 3, madd=3, rsqrt=1, nbytes=12 * n))
+
+
+def _lk_slab_boxes(H: int, W: int, D: int, k: int) -> OpCount:
+    """box2d of every slab of ``cost_slabs(D)`` (planes of ``W`` columns)."""
+    c = OpCount()
+    for lo, hi in cost_slabs(D):
+        c = c + _lk_box2d(hi - lo + 1, H, W, k)
+    return c
 
 
 def _lk_cost_planes(H: int, W: int, D: int, k: int) -> OpCount:
@@ -1451,13 +1516,12 @@ def _lk_cost_planes(H: int, W: int, D: int, k: int) -> OpCount:
     and two divisions an entry)."""
     n = (D + 1) * H * W
     return (_lk(n, 3, madd=1, nbytes=4 * n + 8 * H * W)
-            + _lk_box2d(n, k)
+            + _lk_slab_boxes(H, W, D, k)
             + _lk(n, 6, madd=6, rsqrt=3, nbytes=8 * n))
 
 
 def _lk_stats(H: int, W: int, D: int, k: int) -> OpCount:
-    return (_lk_moments(H * W, H * W, k)
-            + _lk_moments(H * (W + D), H * W, k))
+    return _lk_moments(H, W, W, k) + _lk_moments(H, W, W + D, k)
 
 
 def _lk_head(H: int, W: int, D: int) -> OpCount:
@@ -1481,28 +1545,30 @@ def _lk_grad(H: int, W: int, D: int, k: int, head: bool,
     n, px = (D + 1) * H * we, H * we
     c = _lk(n, 5, madd=8 + (7 if head else 0), rsqrt=2,
             exp=1 if head else 0, nbytes=4 * n * (2 if not head else 1))
-    c = c + _lk_box2d(n, k) + _lk(n, 2, madd=2, nbytes=4 * n)
+    c = c + _lk_slab_boxes(H, we, D, k) + _lk(n, 2, madd=2, nbytes=4 * n)
     return (c + _lk(px, 6, madd=2, rsqrt=1, nbytes=24 * px)
-            + _lk_box2d(3 * px, k) + _lk(H * W, 5, madd=4,
-                                         nbytes=20 * H * W))
+            + _lk_box2d(3, H, we, k) + _lk(H * W, 5, madd=4,
+                                           nbytes=20 * H * W))
 
 
 def large_k_cost(kernel: str, H: int, W: int, D: int, k: int) -> OpCount:
     """The counted work of ``kernel``'s large-k route (csrc/large_k.cu,
     one frame): the statistics (:func:`_lk_moments`), K1's cost planes
     (:func:`_lk_cost_planes`), K3's head, the VJPs' fields and combine
-    (:func:`_lk_grad`), or K8's row products, row sums and normalisation
-    (``W`` the width, ``D`` unused)."""
+    (:func:`_lk_grad`), or K8's row products (:func:`_lk_row_products`),
+    row sums and normalisation (``W`` the width, ``D`` unused).  The
+    window sums bind: k adds an output of each ``box_axis`` pass and 2 k
+    FMA-pipe ops an output of the row products, priced at ``madd``."""
     if kernel == "K8":
         n = H * W * W
-        return (_lk_moments(H * W, H * W, k).scaled(2)
-                + _lk(n, 2 * k + 1, nbytes=8 * H * W + 4 * n)
-                + _lk(n, k + 1, nbytes=8 * n)
+        return (_lk_moments(H, W, W, k).scaled(2)
+                + _lk_row_products(H, W, k)
+                + _lk_box_axis(1, H, W * W, k, 0)
                 + _lk(n, 6, madd=6, rsqrt=3, nbytes=8 * n))
     if kernel == "K7":
         p = k // 2
-        return (_lk_moments(H * W, H * W, k)
-                + _lk_moments(H * (W + p), H * W, k)
+        return (_lk_moments(H, W, W, k)
+                + _lk_moments(H, W, W + p, k)
                 + _lk_grad(H, W, D, k, False, W + p))
     c = _lk_stats(H, W, D, k)
     if kernel in ("K1", "K3", "K3w", "K3m", "K6", "K5"):
@@ -1559,7 +1625,8 @@ __all__ = ["LARGE_K_KERNELS", "OpCount", "TILE_ROWS",
            "hbm_read_reference", "hbm_write_probe", "hbm_write_probe_cost",
            "hbm_write_reference", "k4_staged", "kernel_bound",
            "large_k_cost", "large_k_route", "large_k_scratch",
-           "measure_vpu_rates", "parity_block_floats", "parity_chunks",
+           "lk_box_chunks", "lk_box_items", "measure_vpu_rates",
+           "parity_block_floats", "parity_chunks",
            "projector_backward_cost", "rate_probe", "rate_probe_cost",
            "rate_probe_reference", "round_planes", "stage_op_cost",
            "stats_block_floats", "tile_cols",

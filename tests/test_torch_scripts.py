@@ -89,20 +89,24 @@ def test_kernel_variants_edit_the_current_source(name, tmp_path):
 def test_kernel_variants_hold_k1_k4_k6_and_k7():
     """The outputs ``--against`` compares bit for bit: K1's and K8's
     volumes, K9a's parity copy of K1's and K2's, K4's, K5's, K6's and K7's
-    gradients at every case, and K10b's sums and K10c's volume at the
-    probes' ragged shapes, each of its shape and finite (on the CPU the
-    wrappers' plain versions give them); its cases hold k = 15 and each k
-    a backward kernel's first version stopped at (K5 27, K4 47, K6 81, K7
-    93)."""
+    gradients at every case, K10b's sums and K10c's volume at the
+    probes' ragged shapes, and the large-k route's ten outputs, each of
+    its shape and finite (on the CPU the wrappers' plain versions give
+    them); its cases hold k = 15 and each k a backward kernel's first
+    version stopped at (K5 27, K4 47, K6 81, K7 93)."""
     assert {k for *_, k in kv.CASES} >= {15, 27, 47, 81, 93}
     cases = ((16, 48, 6, 3), (44, 40, 5, 5))
-    got = kv.kernel_outputs(cases, "cpu")
+    routes, ap_routes = ((12, 40, 5, 129),), ((6, 20, 145),)
+    got = kv.kernel_outputs(cases, "cpu", routes, ap_routes)
     assert sorted(got) == sorted(
         [f"{name} {H}x{W} D={D} k={k}" for H, W, D, k in cases
          for name in ("K1", "K2", "K4", "K5", "K6", "K7", "K9a")]
         + [f"K8 {min(H, 40)}x{W} k={k}" for H, W, _, k in cases]
         + [f"K10{p} {P}x{H}x{W}" for P, H, W in km.HBM_EDGE_SHAPES
-           for p in "bc"])
+           for p in "bc"]
+        + [f"{name} {H}x{W} D={D} k={k}" for H, W, D, k in routes
+           for name in kv.ROUTES]
+        + [f"K8L {H}x{W} k={k}" for H, W, k in ap_routes])
     for P, H, W in km.HBM_EDGE_SHAPES:
         assert tuple(got[f"K10b {P}x{H}x{W}"].shape) == (H, W)
         assert torch.equal(got[f"K10c {P}x{H}x{W}"],
@@ -123,6 +127,41 @@ def test_kernel_variants_hold_k1_k4_k6_and_k7():
         torch.testing.assert_close(got[f"K2 {tag}"], got[f"K6 {tag}"],
                                    rtol=1e-5, atol=1e-9)
     assert all(bool(torch.isfinite(v).all()) for v in got.values())
+
+
+def test_kernel_variants_hold_the_large_k_routes():
+    """The route outputs ``--against`` holds bit for bit: at KITTI with k =
+    129 (K8L at 330x422 with k = 145) and at 40x130 with k = 131 and 255,
+    each route through ``ops/cuda_large_k.py``'s functions; on the CPU
+    (the steps' plain forms) each has its shape, K1L is the plain banded
+    volume, K3wL's and K3mL's maps are K3L's with am, s and t, and K3wL's
+    volume is K1L's."""
+    from custereomatching_tpu_torch.data import make_stereo_pair
+    from custereomatching_tpu_torch.ops.zncc import forward_banded
+
+    assert (375, 1242, 192, 129) in kv.ROUTE_CASES
+    assert {k for *_, k in kv.ROUTE_CASES} == {129, 131, 255}
+    assert (330, 422, 145) in kv.AP_ROUTE_CASES
+    assert {k for *_, k in kv.AP_ROUTE_CASES} == {145, 131, 255}
+    H, W, D, k = 12, 40, 5, 131
+    got = kv.route_outputs(((H, W, D, k),), ((6, 20, 131),), "cpu")
+    out = {key.split()[0]: v for key, v in got.items()}
+    assert sorted(out) == sorted(kv.ROUTES + ("K8L",))
+    cam, proj, _ = make_stereo_pair(H, W, d_min=4.0, d_max=D, seed=8)
+    vol = forward_banded(torch.from_numpy(cam[None]),
+                         torch.from_numpy(proj[None]), D, k, 1e-8)
+    torch.testing.assert_close(out["K1L"], vol.permute(0, 3, 1, 2),
+                               rtol=1e-5, atol=1e-6)
+    px = H * W
+    assert tuple(out["K3L"].shape) == (4, 1, H, W)
+    assert out["K3wL"].numel() == 7 * px + (D + 1) * px
+    assert torch.equal(out["K3wL"][:4 * px], out["K3L"].flatten())
+    assert torch.equal(out["K3mL"], out["K3wL"][:7 * px])
+    assert torch.equal(out["K3wL"][7 * px:], out["K1L"].flatten())
+    for name in ("K2L", "K6L", "K4L", "K5L", "K7L"):
+        assert tuple(out[name].shape) == (1, H, W)
+    assert tuple(out["K8L"].shape) == (1, 6, 20, 20)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
 
 
 def test_kernel_variants_refuse_unknown_names_and_need_a_card(capsys):

@@ -539,3 +539,102 @@ def test_counts_past_the_old_limits(fn, shape, want):
     chunked = fn in ("fused_backward_cost", "k6_cost")
     assert (cost.bytes_w > volume) == chunked
     assert cost.bytes_r > (volume if fn != "fused_backward_cost" else 0)
+
+
+def _box_walk(k: int, span: int = km.LK_BOX_SPAN):
+    """The line entries each output of a ``box_axis`` block adds, in the
+    order it adds them: for every group of the block (``first`` = g
+    kBoxOut), the chunks of ``span`` staged entries in turn, each
+    ``box_entries``' range of the group's entries (``window_sweep`` for a
+    whole line, else the predicated loop); entry i of a group is staged
+    entry first + i.  Returns {(group, output): [staged entries]} and the
+    most entries a chunk staged."""
+    n_out, tile = km.LK_BOX_OUT, km.LK_BOX_TILE
+    total = tile + k - 1
+    taps, most = {}, 0
+    for g in range(km.LK_BOX_GROUPS):
+        first = g * n_out
+        out = [[] for _ in range(n_out)]
+        for s0 in range(0, total, span):
+            rows = min(span, total - s0)
+            most = max(most, rows)
+            i0, i1 = max(s0 - first, 0), min(s0 + rows - first, n_out - 1 + k)
+            if i0 >= i1:
+                continue
+            if i0 == 0 and i1 == n_out - 1 + k:
+                for n, t in enumerate(_tap_order(n_out, k)):
+                    out[n] += [first + i for i in t]
+                continue
+            for i in range(i0, i1):
+                assert 0 <= first + i - s0 < rows
+                for n in range(n_out):
+                    if 0 <= i - n < k:
+                        out[n].append(first + i)
+        for n in range(n_out):
+            taps[g, n] = out[n]
+    return taps, most
+
+
+@pytest.mark.parametrize("k, span", [
+    (3, km.LK_BOX_SPAN), (129, km.LK_BOX_SPAN), (255, km.LK_BOX_SPAN),
+    (257, km.LK_BOX_SPAN), (641, km.LK_BOX_SPAN), (129, 143), (15, 23),
+    (31, 40)])
+def test_large_k_box_adds_each_output_taps_in_order(k, span):
+    """``box_axis`` (csrc/large_k.cu): output m of a block's tile adds
+    staged entries m, m + 1, ..., m + k - 1 in that order, the taps t =
+    0..k-1 of the plain ``_box_axis``, whether its line is staged whole
+    (every k <= 256) or in chunks (a larger k, or a smaller span), and no
+    chunk stages more than ``span`` entries of a line."""
+    taps, most = _box_walk(k, span)
+    for (g, n), t in taps.items():
+        m = g * km.LK_BOX_OUT + n
+        assert t == list(range(m, m + k))
+    assert most <= span
+
+
+def test_large_k_box_stages_every_k_it_takes_in_one_chunk():
+    """The model's staged loads of a ``box_axis`` item: kBoxOut + k - 1
+    entries for kBoxOut outputs, each entry once, from one chunk of at most
+    ``LK_BOX_SPAN`` entries a line for every odd k from 129 (the route's
+    first) to 255; a block's 32 lines of it fit the 48 KB of static shared
+    memory; k = 257 takes two chunks."""
+    for k in range(129, 256, 2):
+        assert km.lk_box_chunks(k) == 1
+        assert km.LK_BOX_TILE + k - 1 <= km.LK_BOX_SPAN
+        access = km.LK_BOX_OUT + k - 1 + km.LK_BOX_OUT
+        c = km.window_pass_cost(1, km.LK_BOX_OUT, k, False)
+        # The adds bind: k an output, the loads and stores beside them.
+        assert access * km.FMA_PER_SMEM < km.LK_BOX_OUT * k
+        assert c["madd"] == km.LK_BOX_OUT * k and c["smem"] == 0
+        taps, _ = _box_walk(k)
+        reads = sorted(e for t in taps.values() for e in t)
+        assert set(reads) == set(range(km.LK_BOX_TILE + k - 1))
+    assert km.lk_box_chunks(257) == 2
+    assert 32 * km.LK_BOX_SPAN * 4 <= 48 * 1024
+
+
+def test_large_k_window_constants_mirror_the_source():
+    """``kernel_model``'s mirrors of csrc/large_k.cu's window-sum blocking
+    (``box_axis``: outputs a thread, groups, staged span; ``row_products``:
+    warps, a thread's x and y, taps a chunk), the kernels staging in
+    shared memory and summing with ``window_sweep``, and no grid-stride
+    loop left in either."""
+    src = (CSRC / "large_k.cu").read_text()
+    assert tuple(_const(src, n) for n in ("kBoxOut", "kBoxGroups")) == (
+        km.LK_BOX_OUT, km.LK_BOX_GROUPS)
+    span = re.search(r"constexpr int kBoxSpan = kBoxTile \+ (\d+);", src)
+    assert km.LK_BOX_TILE + int(span[1]) == km.LK_BOX_SPAN
+    assert km.LK_BOX_SPAN % 2 == 1
+    assert "constexpr int kBoxTile = kBoxOut * kBoxGroups;" in src
+    assert tuple(_const(src, n) for n in (
+        "kRpWarps", "kRpXPer", "kRpYPer", "kRpTaps")) == (
+            km.LK_RP_WARPS, km.LK_RP_X_PER, km.LK_RP_Y_PER, km.LK_RP_TAPS)
+    assert "__shared__ float buf[kBoxSpan * 32];" in src
+    assert "__shared__ float cs[kRpTileX + kRpTaps - 1];" in src
+    assert "custereo::window_sweep(acc, k, load, add);" in src
+    assert '#include "common.cuh"' in src
+    for name in ("box_axis_h_kernel", "box_axis_w_kernel",
+                 "row_products_kernel"):
+        body = src[src.index(f"    {name}("):]
+        body = body[:body.index("\n}\n")]
+        assert "GRID_STRIDE" not in body and "__shared__" in body
