@@ -1,0 +1,9 @@
+"""A step's least-work time over the device's kernel time a step: how
+near the step's kernels run to the card's published peaks, whatever
+kernels they are (``leastwork.train_step``)."""
+
+
+def read(t):
+    if t.peaks is None or t.kernel_s <= 0 or t.units == 0:
+        return None
+    return 100.0 * t.units * t.work.seconds(t.peaks) / t.kernel_s
