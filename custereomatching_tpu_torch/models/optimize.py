@@ -34,6 +34,7 @@ from custereomatching_tpu_torch.parallel.sharded import (
     shard_batch,
     sharded_disparity,
 )
+from custereomatching_tpu_torch.utils.profiling import span
 
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
@@ -125,21 +126,25 @@ def make_train_step(model: StereoMatcher, mesh=None):
     ``state.camera`` is then a ``DTensor`` (``init_state`` of
     :func:`..parallel.sharded.shard_batch`'s camera), each rank's Adam
     updates its own block, and the metrics are global plain tensors.
+    A step is the span ``custereo.train.step``, its loss (the forward)
+    ``custereo.train.loss``.
     """
 
     def step(state: TrainState, projector: torch.Tensor,
              target_disparity: torch.Tensor
              ) -> Tuple[TrainState, StepMetrics]:
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = disparity_loss(model, state.camera, projector,
-                              target_disparity, mesh)
-        loss.backward()
-        grad = state.camera.grad
-        grad_norm = torch.sqrt(torch.sum(grad * grad))
-        state.optimizer.step()
-        return (state._replace(step=state.step + 1),
-                StepMetrics(loss=_full(loss.detach()),
-                            grad_norm=_full(grad_norm)))
+        with span("custereo.train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("custereo.train.loss"):
+                loss = disparity_loss(model, state.camera, projector,
+                                      target_disparity, mesh)
+            loss.backward()
+            grad = state.camera.grad
+            grad_norm = torch.sqrt(torch.sum(grad * grad))
+            state.optimizer.step()
+            return (state._replace(step=state.step + 1),
+                    StepMetrics(loss=_full(loss.detach()),
+                                grad_norm=_full(grad_norm)))
 
     return step
 

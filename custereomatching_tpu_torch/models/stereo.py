@@ -37,6 +37,7 @@ from custereomatching_tpu_torch.parallel.sharded import (
     sharded_cost_volume,
     sharded_disparity,
 )
+from custereomatching_tpu_torch.utils.profiling import span
 
 
 class StereoOutput(NamedTuple):
@@ -120,18 +121,20 @@ class StereoMatcher(nn.Module):
         """Batched ``[B, H, W]`` pair to disparity maps, volume-free on the
         ``cuda`` backend (K3).  Inference only.  The fused pipeline is
         banded: all-pairs raises ``ValueError`` on ``cuda`` and takes the
-        volume path on ``torch``, as in the JAX package."""
-        c = self.config
-        cuda = self._backend(camera) == "cuda"
-        if c.num_disparities is None:
+        volume path on ``torch``, as in the JAX package.  The call is the
+        span ``custereo.model.disparity_maps``."""
+        with span("custereo.model.disparity_maps"):
+            c = self.config
+            cuda = self._backend(camera) == "cuda"
+            if c.num_disparities is None:
+                if cuda:
+                    raise ValueError("fused pipeline requires banded mode")
+                return self._volume_maps(camera, projector)
+            args = (camera, projector, c.num_disparities, c.kernel_size,
+                    c.epsilon, c.softargmax_beta, c.cost_threshold)
             if cuda:
-                raise ValueError("fused pipeline requires banded mode")
-            return self._volume_maps(camera, projector)
-        args = (camera, projector, c.num_disparities, c.kernel_size,
-                c.epsilon, c.softargmax_beta, c.cost_threshold)
-        if cuda:
-            return stereo_pipeline_cuda(*args, *c.pipeline_tile())
-        return stereo_pipeline_reference(*args)
+                return stereo_pipeline_cuda(*args, *c.pipeline_tile())
+            return stereo_pipeline_reference(*args)
 
     def trainable_disparity_maps(self, camera: torch.Tensor,
                                  projector: torch.Tensor) -> PipelineMaps:

@@ -10,6 +10,9 @@ Nothing includes PyTorch's headers, which keeps a build to seconds.
 Every pointer and the stream go to the library as ``ctypes.c_void_p``:
 without ``argtypes`` ctypes would pass 64-bit pointers as 32-bit ints.
 A failed build raises with nvcc's output; nothing falls back.
+
+Every call of an entry point that launches a kernel goes through
+:func:`launch`, which names the launch in the profiler's trace.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import torch
+
+from custereomatching_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -242,6 +247,20 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
+
+
+def launch(kernel: str, entry: str, *args,
+           what: Optional[str] = None) -> None:
+    """Call the C entry point ``entry`` with ``args`` inside the span
+    ``custereo.kernel.<kernel>`` (``kernel``: K1 ... K10c, or
+    ``large_k.<step>`` for a step of the large-k route), and raise as
+    :func:`check` does, the error named by ``what`` (default ``<kernel>
+    launch``).  The ctypes call leaves no event of its own in a profile,
+    so this span is what names the launch, and the host time before it,
+    there."""
+    with profiling.span(f"custereo.kernel.{kernel}"):
+        code = getattr(kernels(), entry)(*args)
+    check(code, what or f"{kernel} launch")
 
 
 def check(code: int, what: str) -> None:

@@ -58,14 +58,14 @@ def cost_volume_allpairs_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if large_k_route("K8", k, budget=smem_floats(camera.device)):
         return allpairs_volume_large(camera, projector, k, epsilon)
     B, H, W = camera.shape
-    lib = _build.kernels()
     out = camera.new_empty((B, H, W, W))
     stats = camera.new_empty((4, B, H, W))
     with torch.cuda.device(camera.device):
-        code = lib.custereo_allpairs_volume(
+        _build.launch(
+            "K8", "custereo_allpairs_volume",
             ptr(camera), ptr(projector), *(ptr(s) for s in stats.unbind(0)),
-            ptr(out), B, H, W, k, float(epsilon), stream_of(camera.device))
-    _build.check(code, "K8 all-pairs volume launch")
+            ptr(out), B, H, W, k, float(epsilon), stream_of(camera.device),
+            what="K8 all-pairs volume launch")
     cost_volume_allpairs_cuda.launches += 1
     return out
 

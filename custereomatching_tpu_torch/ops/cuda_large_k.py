@@ -64,11 +64,13 @@ def _dense(*ts):
     return tuple(None if t is None else t.contiguous() for t in ts)
 
 
-def _launch(name: str, fn_attr, *args, device) -> None:
-    lib = _build.kernels()
+def _launch(step: str, fn_attr, *args, device) -> None:
+    """Launch the route's kernel ``step`` (C entry ``custereo_lk_<step>``)
+    on ``device``'s current stream, counting it on ``fn_attr``."""
+    entry = f"custereo_lk_{step}"
     with torch.cuda.device(device):
-        code = getattr(lib, name)(*args, stream_of(device))
-    _build.check(code, f"large-k {name} launch")
+        _build.launch(f"large_k.{step}", entry, *args, stream_of(device),
+                      what=f"large-k {entry} launch")
     fn_attr.launches += 1
 
 
@@ -85,7 +87,7 @@ def box_axis(x: torch.Tensor, k: int, axis: int,
         y = _box_axis(x, k, 1 + axis)
         return y if out is None else out.copy_(y)
     out = torch.empty_like(x) if out is None else out
-    _launch("custereo_lk_box_axis", box_axis, ptr(x), ptr(out), N, H, W, k,
+    _launch("box_axis", box_axis, ptr(x), ptr(out), N, H, W, k,
             axis, device=x.device)
     return out
 
@@ -107,7 +109,7 @@ def pad_square(img: torch.Tensor, left: int) -> torch.Tensor:
         v = F.pad(img, (left, 0))
         return torch.stack([v, v * v])
     out = img.new_empty((2, N, H, W + left))
-    _launch("custereo_lk_pad_square", pad_square, ptr(img), ptr(out), N, H,
+    _launch("pad_square", pad_square, ptr(img), ptr(out), N, H,
             W, left, device=img.device)
     return out
 
@@ -121,7 +123,7 @@ def moments_finish(s: torch.Tensor, s2: torch.Tensor, k: int) -> None:
     if not _cuda(s):
         s2.copy_(s2 - s * s / k2)
         return
-    _launch("custereo_lk_moments_finish", moments_finish, ptr(s), ptr(s2),
+    _launch("moments_finish", moments_finish, ptr(s), ptr(s2),
             s.numel(), k2, device=s.device)
 
 
@@ -150,7 +152,7 @@ def band_products(cam: torch.Tensor, proj: torch.Tensor, d_lo: int,
             d = d_lo + j
             out[:, j] = cam * F.pad(proj, (d, 0))[..., :W]
         return out
-    _launch("custereo_lk_band_products", band_products, ptr(cam), ptr(proj),
+    _launch("band_products", band_products, ptr(cam), ptr(proj),
             ptr(out), B, H, W, d_lo, P, device=cam.device)
     return out
 
@@ -176,7 +178,7 @@ def band_cost(sxy: torch.Tensor, stats, out: torch.Tensor, out_lo: int,
             out[:, d - out_lo] = (exy + eps) * torch.rsqrt(cam_e2 * ey2
                                                            + eps)
         return
-    _launch("custereo_lk_band_cost", band_cost, ptr(sxy), ptr(cam_s),
+    _launch("band_cost", band_cost, ptr(sxy), ptr(cam_s),
             ptr(cam_e2), ptr(proj_s), ptr(proj_e2), ptr(out), out.shape[1],
             out_lo, B, H, W, D, d_lo, P, k2, float(eps), device=sxy.device)
 
@@ -227,7 +229,7 @@ def online_head(cost: torch.Tensor, cost_lo: int, state: torch.Tensor,
             maps[4], maps[5], maps[6] = am, s, t
         return
     res = (maps[4], maps[5], maps[6]) if residuals else (None,) * 3
-    _launch("custereo_lk_online_head", online_head, ptr(cost),
+    _launch("online_head", online_head, ptr(cost),
             cost.shape[1], cost_lo, ptr(state), *(ptr(m) for m in maps[:4]),
             *(_p(r) for r in res), B, H, W, d_lo, P, float(beta),
             float(threshold), int(unnormalized), int(first), int(last),
@@ -279,7 +281,7 @@ def grad_fields(cost: torch.Tensor, cost_lo: int, g_vol, head, stats,
         maps = (am, mask, conf, s, t, gsoft, gconf)
     else:
         maps, beta, unnorm = (None,) * 7, 1.0, False
-    _launch("custereo_lk_grad_fields", grad_fields, ptr(cost),
+    _launch("grad_fields", grad_fields, ptr(cost),
             cost.shape[1], cost_lo, _p(g_vol), *(_p(m) for m in maps),
             ptr(cam_e2), ptr(proj_s), ptr(proj_e2), ptr(gr), ptr(bm),
             ptr(grmu), B, H, W, D, d_lo, P, k2, float(eps), float(beta),
@@ -300,7 +302,7 @@ def grad_a1(box: torch.Tensor, proj: torch.Tensor, a1: torch.Tensor,
             acc = acc + box[:, j] * F.pad(proj, (d_lo + j, 0))[..., :W]
         a1.copy_(acc)
         return
-    _launch("custereo_lk_grad_a1", grad_a1, ptr(box), ptr(proj), ptr(a1), B,
+    _launch("grad_a1", grad_a1, ptr(box), ptr(proj), ptr(a1), B,
             H, W, d_lo, P, int(first), device=box.device)
 
 
@@ -315,7 +317,7 @@ def grad_stack(bm: torch.Tensor, grmu: torch.Tensor, cam_s: torch.Tensor,
     if not _cuda(bm):
         return torch.stack([grmu, bm * (cam_s / k2), bm])
     out = bm.new_empty((3,) + tuple(bm.shape))
-    _launch("custereo_lk_grad_stack", grad_stack, ptr(bm), ptr(grmu),
+    _launch("grad_stack", grad_stack, ptr(bm), ptr(grmu),
             ptr(cam_s), ptr(out), bm.numel(), k2, device=bm.device)
     return out
 
@@ -329,7 +331,7 @@ def grad_combine(a1: torch.Tensor, boxes: torch.Tensor, cam: torch.Tensor
     if not _cuda(a1):
         return a1 - boxes[0] + boxes[1] - cam * boxes[2]
     out = torch.empty_like(a1)
-    _launch("custereo_lk_grad_combine", grad_combine, ptr(a1), ptr(boxes),
+    _launch("grad_combine", grad_combine, ptr(a1), ptr(boxes),
             ptr(cam), ptr(out), a1.numel(), device=a1.device)
     return out
 
@@ -377,7 +379,7 @@ def proj_fields(cost: torch.Tensor, g: torch.Tensor, cam_stats,
         z2.copy_(a)
         z3.copy_(c3)
         return
-    _launch("custereo_lk_proj_fields", proj_fields, ptr(cost), ptr(g),
+    _launch("proj_fields", proj_fields, ptr(cost), ptr(g),
             ptr(cam_s), ptr(cam_e2), ptr(proj_e2e), ptr(gr), ptr(z2),
             ptr(z3), B, H, W, D, p, d_lo, P, k2, float(eps), int(first),
             device=gr.device)
@@ -397,7 +399,7 @@ def proj_a1(box: torch.Tensor, cam: torch.Tensor, a1p: torch.Tensor,
             acc = acc + _projector_columns(cam, d_lo + j, p) * box[:, j]
         a1p.copy_(acc)
         return
-    _launch("custereo_lk_proj_a1", proj_a1, ptr(box), ptr(cam), ptr(a1p), B,
+    _launch("proj_a1", proj_a1, ptr(box), ptr(cam), ptr(a1p), B,
             H, We - p, p, d_lo, P, int(first), device=box.device)
 
 
@@ -411,7 +413,7 @@ def proj_stack(z2: torch.Tensor, z3: torch.Tensor, proj_se: torch.Tensor,
     if not _cuda(z2):
         return torch.stack([z2, proj_se / k2 * z3, z3])
     out = z2.new_empty((3,) + tuple(z2.shape))
-    _launch("custereo_lk_proj_stack", proj_stack, ptr(z2), ptr(z3),
+    _launch("proj_stack", proj_stack, ptr(z2), ptr(z3),
             ptr(proj_se), ptr(out), z2.numel(), k2, device=z2.device)
     return out
 
@@ -428,7 +430,7 @@ def proj_combine(a1p: torch.Tensor, boxes: torch.Tensor,
                 - proj * boxes[2][..., p:] + boxes[1][..., p:])
     B, H, W = proj.shape
     out = torch.empty_like(proj)
-    _launch("custereo_lk_proj_combine", proj_combine, ptr(a1p), ptr(boxes),
+    _launch("proj_combine", proj_combine, ptr(a1p), ptr(boxes),
             ptr(proj), ptr(out), B, H, W, p, device=proj.device)
     return out
 
@@ -449,7 +451,7 @@ def row_products(cam: torch.Tensor, proj: torch.Tensor, k: int,
         for j in range(1, k):
             g += hc[..., :, None, j] * hp[..., None, :, j]
         return out.copy_(g)
-    _launch("custereo_lk_row_products", row_products, ptr(cam), ptr(proj),
+    _launch("row_products", row_products, ptr(cam), ptr(proj),
             ptr(out), B, H, W, k, device=cam.device)
     return out
 
@@ -468,7 +470,7 @@ def allpairs_cost(a: torch.Tensor, stats, k: int, eps: float,
         exy = a - cam_s[..., :, None] * proj_s[..., None, :] / k2
         return out.copy_((exy + eps) * torch.rsqrt(
             cam_e2[..., :, None] * proj_e2[..., None, :] + eps))
-    _launch("custereo_lk_allpairs_cost", allpairs_cost, ptr(a), ptr(cam_s),
+    _launch("allpairs_cost", allpairs_cost, ptr(a), ptr(cam_s),
             ptr(cam_e2), ptr(proj_s), ptr(proj_e2), ptr(out), B, H, W, k2,
             float(eps), device=a.device)
     return out

@@ -136,17 +136,17 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
         maps, _ = fused_pipeline_large(camera, projector, D, k, epsilon, beta,
                                        threshold, unnormalized_head(beta, D))
         return PipelineMaps(*maps[:4].unbind(0))
-    lib = _build.kernels()
     B, H, W = camera.shape
     maps = camera.new_empty((4, B, H, W))
     scratch = stats_scratch(camera, D)
     with torch.cuda.device(camera.device):
-        code = lib.custereo_fused_pipeline(
+        _build.launch(
+            "K3", "custereo_fused_pipeline",
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
             *(ptr(m) for m in maps), B, H, W, D, k, float(epsilon),
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
-            stream_of(camera.device), int(tile_rows), int(planes))
-    _build.check(code, "K3 fused pipeline launch")
+            stream_of(camera.device), int(tile_rows), int(planes),
+            what="K3 fused pipeline launch")
     stereo_pipeline_cuda.launches += 1
     return PipelineMaps(*maps.unbind(0))
 
@@ -258,21 +258,21 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
         disparity, soft, mask, conf, am, s, t = maps.unbind(0)
         return (PipelineMaps(disparity, soft, mask, conf),
                 HeadResiduals(am, mask, conf, s, t, vol))
-    lib = _build.kernels()
-    entry = (lib.custereo_fused_pipeline_train if save_volume
-             else lib.custereo_fused_pipeline_train_maps)
+    entry = ("custereo_fused_pipeline_train" if save_volume
+             else "custereo_fused_pipeline_train_maps")
     B, H, W = camera.shape
     maps = camera.new_empty((7, B, H, W))
     volume = (camera.new_empty((B, D + 1, H, W)),) if save_volume else ()
     scratch = stats_scratch(camera, D)
     with torch.cuda.device(camera.device):
-        code = entry(
+        _build.launch(
+            what, entry,
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
             *(ptr(m) for m in maps[:4]), *(ptr(v) for v in volume),
             *(ptr(m) for m in maps[4:]), B, H, W, D, k, float(epsilon),
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
-            stream_of(camera.device), int(tile_rows), int(planes))
-    _build.check(code, f"{what} fused pipeline (training) launch")
+            stream_of(camera.device), int(tile_rows), int(planes),
+            what=f"{what} fused pipeline (training) launch")
     if save_volume:
         fused_pipeline_train_cuda.launches += 1
     else:
@@ -386,23 +386,23 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
         return camera_grad_large(
             camera, projector, volume[0] if volume else None, None, D, k,
             epsilon, head=(*head, beta, unnormalized_head(beta, D)))
-    lib = _build.kernels()
-    entry = (lib.custereo_fused_pipeline_bwd_recompute if free
-             else lib.custereo_fused_pipeline_bwd)
+    entry = ("custereo_fused_pipeline_bwd_recompute" if free
+             else "custereo_fused_pipeline_bwd")
     B, H, W = camera.shape
     grad = camera.new_empty((B, H, W))
     scratch = grad_scratch(camera, D)
     # K5's chunked route fills a slab of K1's costs (after the stream).
     slab = cost_slab(camera, "K5", D, k) if free else None
     with torch.cuda.device(camera.device):
-        code = entry(
+        _build.launch(
+            what, entry,
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
             *(ptr(v) for v in volume), *(ptr(m) for m in head),
             *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
             float(epsilon), float(beta), int(unnormalized_head(beta, D)),
-            stream_of(camera.device), ptr_or_null(slab) if free
-            else int(tile_rows))
-    _build.check(code, f"{what} fused pipeline backward launch")
+            stream_of(camera.device),
+            ptr_or_null(slab) if free else int(tile_rows),
+            what=f"{what} fused pipeline backward launch")
     if free:
         fused_pipeline_bwd_cuda.recompute_launches += 1
     else:

@@ -170,16 +170,16 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if not own_blocks("K1", camera, D, k, tile_rows, planes):
         return banded_volume_large(camera, projector, D, k,
                                    epsilon).permute(0, 2, 3, 1)
-    lib = _build.kernels()
     B, H, W = camera.shape
     out = camera.new_empty((B, D + 1, H, W))
     scratch = stats_scratch(camera, D)
     with torch.cuda.device(camera.device):
-        code = lib.custereo_banded_volume(
+        _build.launch(
+            "K1", "custereo_banded_volume",
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch),
             ptr(out), B, H, W, D, k, float(epsilon),
-            stream_of(camera.device), int(tile_rows), int(planes))
-    _build.check(code, "K1 banded volume launch")
+            stream_of(camera.device), int(tile_rows), int(planes),
+            what="K1 banded volume launch")
     cost_volume_banded_cuda.launches += 1
     return out.permute(0, 2, 3, 1)
 
@@ -261,22 +261,22 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if large_k_route(what, k, D, smem_floats(camera.device)):
         return camera_grad_large(camera, projector, volume[0] if volume
                                  else None, cotangent, D, k, epsilon)
-    lib = _build.kernels()
-    entry = (lib.custereo_camera_grad_recompute if cost is None
-             else lib.custereo_camera_grad)
+    entry = ("custereo_camera_grad_recompute" if cost is None
+             else "custereo_camera_grad")
     B, H, W = camera.shape
     grad = camera.new_empty((B, H, W))
     scratch = grad_scratch(camera, D)
     # K6's chunked route fills a slab of K1's costs (after the stream).
     slab = cost_slab(camera, "K6", D, k) if cost is None else None
     with torch.cuda.device(camera.device):
-        code = entry(
+        _build.launch(
+            what, entry,
             ptr(camera), ptr(projector), *(ptr(s) for s in scratch[:4]),
             *(ptr(v) for v in volume), ptr(cotangent),
             *(ptr(s) for s in scratch[4:]), ptr(grad), B, H, W, D, k,
             float(epsilon), stream_of(camera.device),
-            *((ptr_or_null(slab),) if cost is None else ()))
-    _build.check(code, f"{what} camera VJP launch")
+            *((ptr_or_null(slab),) if cost is None else ()),
+            what=f"{what} camera VJP launch")
     if cost is None:
         camera_grad_banded_cuda.recompute_launches += 1
     else:
@@ -344,7 +344,6 @@ def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     if large_k_route("K7", k, D, smem_floats(camera.device)):
         return projector_grad_large(camera, projector, cost, cotangent, D, k,
                                     epsilon)
-    lib = _build.kernels()
     B, H, W = camera.shape
     p = k // 2
     grad = camera.new_empty((B, H, W))
@@ -353,12 +352,12 @@ def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     # -p .. W-1.
     proj_s, proj_e2, z2, z3 = camera.new_empty((4, B, H, W + p)).unbind(0)
     with torch.cuda.device(camera.device):
-        code = lib.custereo_projector_grad(
+        _build.launch(
+            "K7", "custereo_projector_grad",
             ptr(camera), ptr(projector), ptr(cam_s), ptr(cam_e2),
             ptr(proj_s), ptr(proj_e2), ptr(cost), ptr(cotangent), ptr(a1p),
             ptr(z2), ptr(z3), ptr(grad), B, H, W, D, k, float(epsilon),
-            stream_of(camera.device))
-    _build.check(code, "K7 projector VJP launch")
+            stream_of(camera.device), what="K7 projector VJP launch")
     projector_grad_banded_cuda.launches += 1
     return grad
 

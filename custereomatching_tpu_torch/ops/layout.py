@@ -48,21 +48,20 @@ def parity_to_plane_major_reference(g: torch.Tensor) -> torch.Tensor:
 parity_to_plane_major_reference.calls = 0
 
 
-def _transpose(x: torch.Tensor, out_shape, planes: int, entry: str,
-               what: str, wrapper) -> torch.Tensor:
-    """Launch one of the two C entries on ``x`` (contiguous) into a new
-    ``out_shape`` tensor, counting the launch on ``wrapper``."""
+def _transpose(x: torch.Tensor, out_shape, planes: int, kernel: str,
+               entry: str, what: str, wrapper) -> torch.Tensor:
+    """Launch ``kernel`` (K9a or K9b) through its C entry on ``x``
+    (contiguous) into a new ``out_shape`` tensor, counting the launch on
+    ``wrapper``."""
     x = x.contiguous()
     out = x.new_empty(out_shape)
     if x.numel() == 0:
         return out
     frames = x.shape[0] if x.ndim == 4 else 1
-    lib = _build.kernels()
     with torch.cuda.device(x.device):
-        code = getattr(lib, entry)(ptr(x), ptr(out), frames, planes,
-                                   x.numel() // (frames * planes),
-                                   stream_of(x.device))
-    _build.check(code, f"{what} launch")
+        _build.launch(kernel, entry, ptr(x), ptr(out), frames, planes,
+                      x.numel() // (frames * planes), stream_of(x.device),
+                      what=f"{what} launch")
     wrapper.launches += 1
     return out
 
@@ -79,7 +78,7 @@ def plane_major_to_parity(volume: torch.Tensor) -> torch.Tensor:
                          f"{volume.device}")
     shape = tuple(volume.shape)
     return _transpose(volume, shape[:-3] + shape[-2:] + shape[-3:-2],
-                      shape[-3], "custereo_plane_major_to_parity",
+                      shape[-3], "K9a", "custereo_plane_major_to_parity",
                       "K9a plane-major to parity", plane_major_to_parity)
 
 
@@ -98,7 +97,7 @@ def parity_to_plane_major(g: torch.Tensor) -> torch.Tensor:
                          f"{g.device}")
     shape = tuple(g.shape)
     return _transpose(g, shape[:-3] + shape[-1:] + shape[-3:-1], shape[-1],
-                      "custereo_parity_to_plane_major",
+                      "K9b", "custereo_parity_to_plane_major",
                       "K9b parity to plane-major", parity_to_plane_major)
 
 

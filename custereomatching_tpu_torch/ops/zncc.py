@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from custereomatching_tpu_torch.utils.profiling import span
+
 EPSILON = 1e-8
 
 
@@ -228,34 +230,36 @@ def camera_grad_allpairs(camera: torch.Tensor, projector: torch.Tensor,
     product, written as k broadcast multiply-reductions (exact fp32 whatever
     the global TF32 flags say).  The
     JAX package leaves this backward to XLA, so on the card it stays plain
-    PyTorch too.  ``.calls`` counts its uses."""
+    PyTorch too, inside the span ``custereo.vjp.allpairs``.  ``.calls``
+    counts its uses."""
     camera_grad_allpairs.calls += 1
-    k = int(kernel_size)
-    p = k // 2
-    k2 = float(k * k)
-    W = camera.shape[-1]
-    sx, ex2 = _image_moments(camera, k)
-    sy, ey2 = _image_moments(projector, k)
-    mux = sx / k2
-    muy = sy / k2
-    r = torch.rsqrt(ex2[..., :, None] * ey2[..., None, :] + epsilon)
-    gr = g * r
-    b = torch.sum(g * cost * (r * r) * ey2[..., None, :], dim=-1)
-    grmu = torch.sum(gr * muy[..., None, :], dim=-1)
-    g2 = box_rows(gr, k, dim=-3)
-    hp = _hankel_cols(projector, k)
-    a1 = torch.zeros_like(camera)
-    for j in range(k):
-        s = p - j                        # a1[x] += E[x + s, j] in range
-        if abs(s) >= W:                  # no x in range: JAX's e_pad zeros
-            continue
-        e_j = torch.sum(g2 * hp[..., None, :, j], dim=-1)
-        if s >= 0:
-            a1[..., :W - s] += e_j[..., s:]
-        else:
-            a1[..., -s:] += e_j[..., :W + s]
-    return (a1 - box2d(grmu, k, dim=1) + box2d(b * mux, k, dim=1)
-            - camera * box2d(b, k, dim=1))
+    with span("custereo.vjp.allpairs"):
+        k = int(kernel_size)
+        p = k // 2
+        k2 = float(k * k)
+        W = camera.shape[-1]
+        sx, ex2 = _image_moments(camera, k)
+        sy, ey2 = _image_moments(projector, k)
+        mux = sx / k2
+        muy = sy / k2
+        r = torch.rsqrt(ex2[..., :, None] * ey2[..., None, :] + epsilon)
+        gr = g * r
+        b = torch.sum(g * cost * (r * r) * ey2[..., None, :], dim=-1)
+        grmu = torch.sum(gr * muy[..., None, :], dim=-1)
+        g2 = box_rows(gr, k, dim=-3)
+        hp = _hankel_cols(projector, k)
+        a1 = torch.zeros_like(camera)
+        for j in range(k):
+            s = p - j                    # a1[x] += E[x + s, j] in range
+            if abs(s) >= W:              # no x in range: JAX's e_pad zeros
+                continue
+            e_j = torch.sum(g2 * hp[..., None, :, j], dim=-1)
+            if s >= 0:
+                a1[..., :W - s] += e_j[..., s:]
+            else:
+                a1[..., -s:] += e_j[..., :W + s]
+        return (a1 - box2d(grmu, k, dim=1) + box2d(b * mux, k, dim=1)
+                - camera * box2d(b, k, dim=1))
 
 
 camera_grad_allpairs.calls = 0

@@ -1,7 +1,8 @@
 """Utilities: host timer, the CUDA-event benchmark harness, the disparity
 metrics, failure classification, retries and the health probe
-(``failsafe``), the card's peaks and least-work bounds (``profiling``) and the
-calibrated bound model with its rate probes (``kernel_model``)."""
+(``failsafe``), the port's spans, the card's peaks and least-work bounds
+(``profiling``) and the calibrated bound model with its rate probes
+(``kernel_model``)."""
 
 from custereomatching_tpu_torch.utils.failsafe import (
     device_healthcheck,
@@ -31,6 +32,7 @@ from custereomatching_tpu_torch.utils.metrics import (
 from custereomatching_tpu_torch.utils.profiling import (
     DEVICE_SPECS,
     device_specs,
+    span,
     trace,
     zncc_roofline,
 )
@@ -49,7 +51,7 @@ __all__ = ["DEVICE_SPECS", "OpCount", "Timer", "TimerError",
            "fused_backward_c_cost", "fused_backward_cost",
            "fused_forward_cost", "is_transient_device_error",
            "kernel_bound", "measure_vpu_rates",
-           "projector_backward_cost", "to_parity_cost", "trace",
+           "projector_backward_cost", "span", "to_parity_cost", "trace",
            "transpose_volume_cost",
            "volume_backward_cost", "volume_forward_cost", "with_retries",
            "zncc_roofline"]

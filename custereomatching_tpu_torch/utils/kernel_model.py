@@ -68,7 +68,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from custereomatching_tpu_torch.ops import _build
-from custereomatching_tpu_torch.ops._build import ptr, stream_of
 
 CACHE_PATH = (Path(__file__).resolve().parents[2] / "build" / "rates"
               / "hopper_rates.json")
@@ -234,10 +233,9 @@ def rate_probe(mode: str, iters: int, blocks: int,
                       device=device)
     fill = BOX_FILL if mode == "boxadd" else SMEM_FILL
     with torch.cuda.device(device):
-        code = _build.kernels().custereo_rate_probe(
-            _MODE_IDS[mode], ptr(out), blocks, iters, RATE_A0, 0.0, fill,
-            stream_of(device))
-    _build.check(code, f"K10a {mode} launch")
+        _build.launch("K10a", "custereo_rate_probe", _MODE_IDS[mode],
+                      _build.ptr(out), blocks, iters, RATE_A0, 0.0, fill,
+                      _build.stream_of(device), what=f"K10a {mode} launch")
     rate_probe.launches += 1
     rate_probe.mode_launches[mode] += 1
     return out
@@ -247,14 +245,16 @@ rate_probe.launches = 0
 rate_probe.mode_launches = {m: 0 for m in _OP_MODES}
 
 
-def _on_card(device: torch.device, entry, *args) -> int:
-    """``entry(*args, stream)`` on ``device``'s current stream, with
-    ``device`` made current only where it is not: a probe times what the
-    card takes, so its launch spends as little host time as it can."""
+def _on_card(device: torch.device, kernel: str, entry: str, *args) -> None:
+    """``_build.launch(kernel, entry, *args, stream)`` on ``device``'s
+    current stream, with ``device`` made current only where it is not: a
+    probe times what the card takes, so its launch spends as little host
+    time as it can."""
     if device.index is None or device.index == torch.cuda.current_device():
-        return entry(*args, stream_of(device))
+        _build.launch(kernel, entry, *args, _build.stream_of(device))
+        return
     with torch.cuda.device(device):
-        return entry(*args, stream_of(device))
+        _build.launch(kernel, entry, *args, _build.stream_of(device))
 
 
 def _check_volume(vol: torch.Tensor, what: str) -> None:
@@ -295,9 +295,8 @@ def hbm_read_probe(vol: torch.Tensor) -> torch.Tensor:
     vol = vol.contiguous()
     P, H, W = vol.shape
     out = vol.new_empty((H, W))
-    code = _on_card(device, _build.kernels().custereo_hbm_read_probe,
-                    vol.data_ptr(), out.data_ptr(), P, H, W)
-    _build.check(code, "K10b launch")
+    _on_card(device, "K10b", "custereo_hbm_read_probe", vol.data_ptr(),
+             out.data_ptr(), P, H, W)
     hbm_read_probe.launches += 1
     return out
 
@@ -334,9 +333,8 @@ def hbm_write_probe(P: int, H: int, W: int, device="cuda") -> torch.Tensor:
     if device.type != "cuda":
         raise ValueError(f"K10c runs on CUDA or (plain) CPU, got {device}")
     out = torch.empty((P, H, W), dtype=torch.float32, device=device)
-    code = _on_card(device, _build.kernels().custereo_hbm_write_probe,
-                    out.data_ptr(), P, H, W)
-    _build.check(code, "K10c launch")
+    _on_card(device, "K10c", "custereo_hbm_write_probe", out.data_ptr(), P,
+             H, W)
     hbm_write_probe.launches += 1
     return out
 

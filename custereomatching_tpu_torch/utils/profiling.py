@@ -1,13 +1,14 @@
-"""Profiling: device traces, the card's published peaks and the least-work
-bounds of the port's kernels.
+"""Profiling: device traces, the port's spans, the card's published peaks
+and the least-work bounds of the port's kernels.
 
 The counterpart of ``custereomatching_tpu/utils/profiling.py``: (a) a
 context manager around ``torch.profiler`` that exports a Chrome trace,
-(b) the data sheet's peaks by card name, (c) the roofline of one ZNCC
-frame (the JAX formula), and (d) the least work of each kernel's function
-at those peaks, the bound ``chip_smoke.py`` sets beside each kernel's
-time.  These bounds do not depend on how a kernel is written; the
-calibrated, design-dependent bound is ``utils/kernel_model.py``'s.
+and :func:`span`, the port's named ranges in such a trace, (b) the data
+sheet's peaks by card name, (c) the roofline of one ZNCC frame (the JAX
+formula), and (d) the least work of each kernel's function at those
+peaks, the bound ``chip_smoke.py`` sets beside each kernel's time.
+These bounds do not depend on how a kernel is written; the calibrated,
+design-dependent bound is ``utils/kernel_model.py``'s.
 """
 
 from __future__ import annotations
@@ -72,6 +73,26 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
             torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# What :func:`span` returns while no profiler records: one shared no-op.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named ``name`` in the profiler's trace, for a ``with``
+    block: ``torch.profiler.record_function(name)`` while a torch profiler
+    records on this thread (the autograd engine's threads inherit its
+    state), else one shared ``nullcontext``, so that a span costs one C
+    call when nothing is traced.  The range is a host event on the same
+    clock as the device's, so a kernel launched inside it belongs to it.
+
+    The port's spans are named ``custereo.<layer>.<what>``: ``kernel.<K>``
+    around each launch (``ops._build.launch``), ``model.disparity_maps``,
+    ``train.step``, ``train.loss`` and ``vjp.allpairs``."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def zncc_roofline(H: int, W: int, D: int, k: int, *,
@@ -178,5 +199,5 @@ def allpairs_bound(B: int, H: int, W: int, k: int) -> Tuple[float, str]:
 
 __all__ = ["COTANGENT_FLOPS", "DEVICE_SPECS", "HEAD_FLOPS", "PEAK_BYTES",
            "PEAK_FLOPS", "allpairs_bound", "banded_bounds", "bound",
-           "card_line", "cost_flops", "device_specs", "trace", "vjp_flops",
-           "zncc_roofline"]
+           "card_line", "cost_flops", "device_specs", "span", "trace",
+           "vjp_flops", "zncc_roofline"]

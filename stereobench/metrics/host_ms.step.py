@@ -1,0 +1,13 @@
+"""Host time a step of the port's span ``custereo.train.step``: how long
+the host takes to enqueue one train step, whatever the device does
+meanwhile."""
+
+SPAN = "custereo.train.step"
+
+
+def read(t):
+    us = [float(e["dur"]) for evs in t._host.values() for e in evs
+          if e["name"] == SPAN and t.lo <= float(e["ts"]) <= t.hi]
+    if not us or t.units == 0:
+        return None
+    return 1e-3 * sum(us) / t.units
