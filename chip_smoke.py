@@ -344,6 +344,8 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     unnormalized_head,
 )
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
+    allpairs_volume_and_stats,
+    camera_grad_allpairs_cuda,
     cost_volume_allpairs_cuda,
 )
 from custereomatching_tpu_torch.ops.cuda_zncc import (
@@ -653,6 +655,7 @@ KERNEL_COUNTERS = {
     "k3w": (fused_pipeline_train_cuda, "launches"),
     "k4": (fused_pipeline_bwd_cuda, "launches"),
     "k8": (cost_volume_allpairs_cuda, "launches"),
+    "k8b": (camera_grad_allpairs_cuda, "launches"),
     "k7": (projector_grad_banded_cuda, "launches"),
     "k6": (camera_grad_banded_cuda, "recompute_launches"),
     "k3m": (fused_pipeline_train_cuda, "maps_launches"),
@@ -676,19 +679,17 @@ PLAIN_COUNTERS = {
     "plain_train_bwd": fused_pipeline_bwd_reference,
     "plain_trainable": stereo_pipeline_trainable_reference,
     "plain_allpairs": forward_allpairs,
+    "plain_allpairs_vjp": camera_grad_allpairs,
     "plain_proj_vjp": projector_grad_banded,
     "plain_to_parity": plane_major_to_parity_reference,
     "plain_to_plane_major": parity_to_plane_major_reference}
-# The all-pairs camera VJP has no kernel in either package (the JAX
-# package leaves it to XLA): it is the all-pairs path's own backward.
-PATH_PLAIN_COUNTERS = {"allpairs_vjp": camera_grad_allpairs}
 
 
 def reset_counters() -> None:
     for fn, attr in KERNEL_COUNTERS.values():
         setattr(fn, attr, 0)
     km.rate_probe.mode_launches = dict.fromkeys(K10A_MODES, 0)
-    for fn in (*PLAIN_COUNTERS.values(), *PATH_PLAIN_COUNTERS.values()):
+    for fn in PLAIN_COUNTERS.values():
         fn.calls = 0
 
 
@@ -698,8 +699,6 @@ def read_counters() -> dict:
     counts.update({f"k10a_{mode}": n
                    for mode, n in km.rate_probe.mode_launches.items()})
     counts.update({name: fn.calls for name, fn in PLAIN_COUNTERS.items()})
-    counts.update({name: fn.calls
-                   for name, fn in PATH_PLAIN_COUNTERS.items()})
     return counts
 
 
@@ -1113,6 +1112,52 @@ def phase_k8() -> float:
     return err
 
 
+# K8b (B, H, W, k): the JAX suite's all-pairs shapes and a batch, the
+# verify shape, k = 1, a batch of 3, windows wider than the image (k // 2
+# > W), K8's large-k route (k = 145) and a combine past its block (k =
+# 201: the large-k route's combine).
+K8B_SHAPES = AP_SHAPES + [(1,) + VERIFY, (1, 330, 422, 1), (3, 40, 90, 7),
+                          (2, 20, 6, 31), (1, 9, 5, 13), (1, 330, 422, 145),
+                          (1, 40, 130, 201)]
+
+
+def phase_k8b() -> float:
+    """K8b against the plain closed form ``camera_grad_allpairs`` on the
+    card, both on K8's volume (its statistics K8b's) and a random
+    cotangent at a mean loss's scale, held as the other VJPs are
+    (rtol/atol per pixel at the smaller shapes, the norm everywhere); at
+    k = 1 both are exactly zero.  One launch a call; from k = 145 the
+    volume takes the large-k route."""
+    err = 0.0
+    for i, (B, H, W, k) in enumerate(K8B_SHAPES):
+        label = (f"K8b B={B} H={H} W={W} k={k} (first tap, taps "
+                 f"{km.allpairs_grad_taps(W, k)})")
+        cam, proj = uniform_pair(560 + i, B, H, W)
+        routes = lk.allpairs_volume_large.launches
+        cost, stats = allpairs_volume_and_stats(cam, proj, k, EPS)
+        require((lk.allpairs_volume_large.launches > routes) == (k >= 145),
+                f"{label}: the volume's route")
+        g = torch.randn((B, H, W, W), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(i))
+        g *= 1.0 / (H * W)
+        launches = camera_grad_allpairs_cuda.launches
+        got = camera_grad_allpairs_cuda(cam, proj, g, cost, stats, k, EPS)
+        require(camera_grad_allpairs_cuda.launches == launches + 1,
+                f"{label}: one launch")
+        want = camera_grad_allpairs(cam, proj, g, cost, k, EPS)
+        if k == 1:
+            torch.cuda.synchronize()
+            require(torch.equal(got, want) and not bool(got.any()),
+                    f"{label}: exactly zero, as the plain version")
+            print(f"{label}: exactly zero, as the plain version")
+        else:
+            err = max(err, compare_grad(got, want, label,
+                                        elementwise=B * H * W * W <= 20e6))
+        del cost, stats, g, got, want
+        torch.cuda.empty_cache()
+    return err
+
+
 def phase_k7() -> float:
     err = 0.0
     shapes = (K7_SHAPES + [shape for shape, _ in EDGE] + K7_LARGE_K
@@ -1158,7 +1203,7 @@ def phase_allpairs_path() -> dict:
     counts = read_counters()
     print(f"all-pairs path: counters {counts}")
     require(counts["k8"] == 1, "K8 launched once")
-    require(counts["allpairs_vjp"] == 1, "the all-pairs VJP ran once")
+    require(counts["k8b"] == 1, "K8b launched once")
     require(not any(counts[name] for name in PLAIN_COUNTERS),
             "plain twins unused on the all-pairs path")
     require(tuple(out.cost_volume.shape) == (1, H, W, W)
@@ -1844,6 +1889,7 @@ def model_costs() -> dict:
     blocks = km.rate_probe_size("madd")[0]
     return {
         "K8": km.allpairs_forward_cost(Hv, Wv, kv),
+        "K8b": km.allpairs_grad_cost(Hv, Wv, kv),
         "K1": km.volume_forward_cost(H, W, D, k),
         "K3": km.fused_forward_cost(H, W, D, k),
         "K2": km.volume_backward_cost(H, W, D, k),
@@ -1884,7 +1930,18 @@ def phase_times(card: str, rates: dict) -> dict:
                                forward_allpairs, ap, ap,
                                f"{Hv}x{Wv} k={kv}", card)
              + (allpairs_bound(1, Hv, Wv, kv),)}
-    del acam, aproj, ap
+    # K8b on K8's volume, its bound the VJP's mandatory traffic.
+    with torch.no_grad():
+        acost, astats = allpairs_volume_and_stats(acam, aproj, kv, EPS)
+    ag = torch.randn((1, Hv, Wv, Wv), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(1))
+    ag *= 1.0 / (Hv * Wv)
+    times["K8b"] = interleaved(
+        "K8b", camera_grad_allpairs_cuda, camera_grad_allpairs,
+        (acam, aproj, ag, acost, astats, kv, EPS),
+        (acam, aproj, ag, acost, kv, EPS), f"{Hv}x{Wv} k={kv}", card) + (
+        bound(0, km.allpairs_backward_cost(Hv, Wv, kv).bytes),)
+    del acam, aproj, ap, acost, astats, ag
     torch.cuda.empty_cache()
 
     H, W, D, k = KITTI
@@ -2076,6 +2133,7 @@ def phase_allpairs_k1_path() -> dict:
     counts = read_counters()
     print(f"all-pairs k=1 path: counters {counts}")
     require(counts["k8"] == 1, "K8 launched once at k = 1")
+    require(counts["k8b"] == 1, "K8b launched once at k = 1")
     require(counts["plain_allpairs"] == 0, "the plain volume unused at k = 1")
     require(not any(counts[name] for name in PLAIN_COUNTERS),
             "plain twins unused on the all-pairs k = 1 path")
@@ -2086,7 +2144,8 @@ def phase_allpairs_k1_path() -> dict:
     StereoMatcher(StereoConfig(kernel_size=1, backend="torch"))(
         cam_p, proj).soft_disparity.mean().backward()
     # At k = 1 the centred values vanish (E2 = 0, and A1 - box(GRMU) = 0),
-    # so the closed-form gradient is zero up to rounding on both sides.
+    # so the closed-form gradient is zero up to rounding on both sides
+    # (K8b's is exactly zero).
     diff = float((cam.grad - cam_p.grad).abs().max())
     print(f"all-pairs k=1 path: camera gradient max |got| "
           f"{float(cam.grad.abs().max()):.3e}, max |plain| "
@@ -3548,8 +3607,8 @@ def fuzz_layout(i: int, case, note) -> None:
 
 def fuzz_allpairs(case, cam, proj, note) -> None:
     """K8 at one sweep case against its plain version; beyond k = 1, the
-    CUDA all-pairs op's camera gradient (K8's volume, then the closed form
-    ``camera_grad_allpairs`` on the card) against the plain node's and
+    CUDA all-pairs op's camera gradient (K8's volume, then K8b) against
+    the plain node's and
     the golden oracle's with a mean-loss-scaled cotangent, in the tiers
     of :func:`fuzz_grad` (the plain node in float64 says where fp32 can
     hold the elementwise bound)."""
@@ -3619,7 +3678,7 @@ def phase_fuzz() -> dict:
               f"{errs.get(key, 0.0):.3e}{gate}{tier}")
         require(runs.get(key, 0) >= 1, f"fuzz: {key} ran at a drawn case")
     print(f"fuzz: allpairs_vjp is the CUDA all-pairs op's camera gradient "
-          f"(K8, then the closed form on the card) against the plain node "
+          f"(K8, then K8b) against the plain node "
           f"and the golden oracle; {len(cases)} cases in "
           f"{time.perf_counter() - t0:.1f} s")
     errs.pop("allpairs_vjp", None)
@@ -4317,6 +4376,7 @@ def main() -> int:
     errs["K4"] = phase_k4()
     counts["train"] = phase_train_path()
     errs["K8"] = phase_k8()
+    errs["K8b"] = phase_k8b()
     errs["K7"] = phase_k7()
     counts["allpairs"] = phase_allpairs_path()
     counts["grad_projector"] = phase_grad_projector_path()
@@ -4402,6 +4462,18 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "model_ms": model_ms, "model_by": model_by})
+    # K8b ports no TPU kernel (the JAX package leaves the all-pairs camera
+    # VJP to XLA), so it has a record of its own beside the table's.
+    ms, plain_ms, _, (bound_ms, bound_by), (model_ms, model_by) = \
+        times["K8b"]
+    require(counts["allpairs"]["k8b"] == 1, "K8b launched on its path")
+    print(json.dumps({"k8b": {
+        "name": "zncc_allpairs_camera_vjp", "route": "cuda",
+        "source": "custereomatching_tpu_torch/csrc/zncc_allpairs_bwd.cu",
+        "replaces": None, "launches": counts["allpairs"]["k8b"],
+        "max_abs_err": errs["K8b"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "model_ms": model_ms,
+        "model_by": model_by}}))
     bench.write_smoke_record(True, card)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -532,7 +532,7 @@ def measure_speed_of_light(run: Run) -> Dict:
 def measure_allpairs(run: Run) -> Dict:
     """The reference's verify workload: the all-pairs ``[1, H, W, W]``
     volume (K8), and forward + backward with an all-ones cotangent (K8,
-    the plain camera VJP), the volume returned with the gradient."""
+    then K8b), the volume returned with the gradient."""
     Hr, Wr = run.allpairs
     rng = np.random.default_rng(1)
     cam = run.to(rng.random((Hr, Wr), dtype=np.float32))

@@ -5,7 +5,8 @@ The counterpart of ``examples/verify.py``: the reference's own protocol
 a non-zero exit code on failure.  On a CUDA card each kernel is held
 against its plain PyTorch version on the same inputs: K1 (banded volume),
 K2 (camera VJP), K7 (projector VJP) and K8 (all-pairs volume), and the
-camera gradient through K8's autograd node against the plain node's.  The
+camera gradient through K8's autograd node (its backward K8b) against the
+plain node's.  The
 closed-form VJPs are also held against torch autograd of the moments-form
 forward.  On the CPU the kernel wrappers take their plain versions, so
 there only the closed forms are checked against autograd, at a small size.
@@ -126,7 +127,7 @@ def verify_allpairs(cam, proj, k: int, rng) -> bool:
                       proj, ones)
     (g_plain,) = grads(lambda c, p: stereo_matching_torch(c, p, None, k),
                        cam, proj, ones)
-    ok &= check("camera grad through K8's node vs the plain node", g_node,
+    ok &= check("camera grad through K8 + K8b vs the plain node", g_node,
                 g_plain, *GRAD_TOL, scaled=True)
     g = torch.from_numpy(rng.standard_normal(
         tuple(cost.shape)).astype(np.float32)).to(cam.device)

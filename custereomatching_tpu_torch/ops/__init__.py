@@ -1,8 +1,8 @@
 """Compute ops of the port: the ZNCC cost volumes and their VJPs (plain
-PyTorch and kernels K1, K2, K6, K7, K8), in the parity and the plane-major
-layout, the layout conversions (K9a, K9b), the fused pipeline (plain and
-kernel K3), its trainable forms (kernels K3w and K4, K3m and K5), the
-disparity heads, the left-right consistency check, the golden oracle
+PyTorch and kernels K1, K2, K6, K7, K8, K8b), in the parity and the
+plane-major layout, the layout conversions (K9a, K9b), the fused pipeline
+(plain and kernel K3), its trainable forms (kernels K3w and K4, K3m and
+K5), the disparity heads, the left-right consistency check, the golden oracle
 (``golden``, a direct patch sum) and, where a kernel's blocks do not fit,
 the large-k route (``cuda_large_k``)."""
 
@@ -16,6 +16,7 @@ from custereomatching_tpu_torch.ops import golden
 from custereomatching_tpu_torch.ops.consistency import lr_consistency_mask
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
     CudaAllPairsMatching,
+    camera_grad_allpairs_cuda,
     cost_volume_allpairs_cuda,
 )
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
@@ -112,9 +113,9 @@ def stereo_matching(camera: torch.Tensor, projector: torch.Tensor,
     A CPU tensor takes the plain op.  On a CUDA tensor the banded volume
     launches K1, its camera gradient K2 and, with ``grad_projector``, its
     projector gradient K7; the all-pairs volume launches K8, and its
-    camera gradient is the plain closed form (the JAX package leaves it to
-    XLA).  All-pairs with ``grad_projector`` is autograd of the plain
-    moments form on any device, as in the JAX package.  Without
+    camera gradient K8b (the JAX package leaves that VJP to XLA).
+    All-pairs with ``grad_projector`` is autograd of the plain moments
+    form on any device, as in the JAX package.  Without
     ``grad_projector`` the projector gets no gradient.  ``precision`` is
     the JAX op's knob; every kernel here sums in exact fp32 for both
     values.
@@ -153,8 +154,8 @@ def cost_volume(camera: torch.Tensor, projector: torch.Tensor,
     Routed as the JAX ``cost_volume_single``: with ``grad_projector``
     the volume is differentiable in both images (``cuda``, banded: K1
     with K2 and K7 backward; otherwise autograd of the plain moments
-    form); without it, in the camera only (K1 + K2, K8 + the plain
-    all-pairs VJP, or the plain ops)."""
+    form); without it, in the camera only (K1 + K2, K8 + K8b, or the
+    plain ops)."""
     c = config
     if c.resolved_backend(camera.device) == "cuda":
         return stereo_matching(camera, projector, c.num_disparities,
@@ -200,6 +201,7 @@ __all__ = [
     "PipelineMaps",
     "box2d",
     "camera_grad_allpairs",
+    "camera_grad_allpairs_cuda",
     "camera_grad_banded",
     "camera_grad_banded_cuda",
     "camera_grad_banded_parity_cuda",

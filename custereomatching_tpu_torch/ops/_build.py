@@ -82,6 +82,9 @@ SIGNATURES = {
     # camera, projector, cam_s, cam_e2, proj_s, proj_e2, out, B, H, W, k,
     # eps, stream
     "custereo_allpairs_volume": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # cotangent, cost, camera, projector, cam_s, cam_e2, proj_s, proj_e2,
+    # e, a1, bm, grmu, grad (or null), B, H, W, k, j_lo, taps, eps, stream
+    "custereo_allpairs_grad": [_P] * 13 + [_I] * 6 + [_F, _P],
     # in, out, B, planes, pixels, stream
     "custereo_plane_major_to_parity": [_P] * 2 + [_I] * 3 + [_P],
     "custereo_parity_to_plane_major": [_P] * 2 + [_I] * 3 + [_P],
@@ -252,7 +255,7 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 def launch(kernel: str, entry: str, *args,
            what: Optional[str] = None) -> None:
     """Call the C entry point ``entry`` with ``args`` inside the span
-    ``custereo.kernel.<kernel>`` (``kernel``: K1 ... K10c, or
+    ``custereo.kernel.<kernel>`` (``kernel``: K1 ... K10c and K8b, or
     ``large_k.<step>`` for a step of the large-k route), and raise as
     :func:`check` does, the error named by ``what`` (default ``<kernel>
     launch``).  The ctypes call leaves no event of its own in a profile,

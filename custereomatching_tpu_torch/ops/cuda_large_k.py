@@ -672,10 +672,12 @@ projector_grad_large.launches = 0
 
 
 def allpairs_volume_large(camera: torch.Tensor, projector: torch.Tensor,
-                          k: int, eps: float) -> torch.Tensor:
+                          k: int, eps: float):
     """K8 on the large-k route (``forward_allpairs``): the row products into
     the output, their windowed sum over k rows, then the normalisation
-    back into the output; ``[B, H, W, W]``."""
+    back into the output.  Returns the ``[B, H, W, W]`` volume and the
+    window statistics it was made from (``cam_s``, ``cam_e2``, ``proj_s``,
+    ``proj_e2``, each ``[B, H, W]``), which K8b reads."""
     allpairs_volume_large.launches += 1
     camera, projector = _dense(camera, projector)
     B, H, W = camera.shape
@@ -683,7 +685,7 @@ def allpairs_volume_large(camera: torch.Tensor, projector: torch.Tensor,
     out = camera.new_empty((B, H, W, W))
     row_products(camera, projector, k, out)
     rows = box_axis(out.view(B, H, W * W), k, 0).view(B, H, W, W)
-    return allpairs_cost(rows, stats, k, eps, out)
+    return allpairs_cost(rows, stats, k, eps, out), stats
 
 
 allpairs_volume_large.launches = 0

@@ -228,10 +228,10 @@ def camera_grad_allpairs(camera: torch.Tensor, projector: torch.Tensor,
     box_rows(g r)``: ``A1[y, x] = sum_j E[y, x + p - j, j]`` with ``E[y] =
     G2[y] @ _hankel_cols(proj)[y]``, the JAX per-row ``[W, W] @ [W, k]``
     product, written as k broadcast multiply-reductions (exact fp32 whatever
-    the global TF32 flags say).  The
-    JAX package leaves this backward to XLA, so on the card it stays plain
-    PyTorch too, inside the span ``custereo.vjp.allpairs``.  ``.calls``
-    counts its uses."""
+    the global TF32 flags say).  The plain version of K8b
+    (``cuda_allpairs.camera_grad_allpairs_cuda``; the JAX package leaves
+    this backward to XLA), inside the span ``custereo.vjp.allpairs`` as
+    K8b's launch is.  ``.calls`` counts its uses."""
     camera_grad_allpairs.calls += 1
     with span("custereo.vjp.allpairs"):
         k = int(kernel_size)

@@ -444,8 +444,11 @@ def route_outputs(route_cases=ROUTE_CASES, ap_route_cases=AP_ROUTE_CASES,
         gen = torch.Generator(device).manual_seed(2)
         acam, aproj = torch.rand((2, 1, H, W), device=device, generator=gen)
         with torch.no_grad():
-            outs[f"K8L {H}x{W} k={k}"] = lk.allpairs_volume_large(
-                acam, aproj, k, ROUTE_EPS).cpu()
+            vol = lk.allpairs_volume_large(acam, aproj, k, ROUTE_EPS)
+            # A tree from before K8b returns the volume without its
+            # statistics.
+            outs[f"K8L {H}x{W} k={k}"] = (
+                vol[0] if isinstance(vol, tuple) else vol).cpu()
     return outs
 
 

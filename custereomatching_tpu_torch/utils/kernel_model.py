@@ -16,7 +16,7 @@ its public names.  A kernel's bound is the larger of two legs:
    threads that sum, K10c a dense stream of 16-byte stores): the most this
    card gives a kernel for those bytes, whatever pattern the kernel's own
    loads and stores follow.  A traffic without the read/write split (the
-   plain all-pairs VJP, the large-k route's launches) counts ``bytes``
+   all-pairs VJP's floor, the large-k route's launches) counts ``bytes``
    only, priced at the data sheet's bandwidth.
 
 The classes, as one thread's instructions (a "warp-wide" op is 32 of
@@ -111,6 +111,13 @@ PARITY_PIXELS, PARITY_THREADS, PARITY_CHUNK = 64, 512, 256
 # the output rows of a block's strip.
 AP_WARPS, AP_X_PER_THREAD, AP_Y_PER_THREAD, AP_ROWS = 4, 4, 2, 16
 AP_TILE_X, AP_TILE_Y = AP_WARPS * AP_X_PER_THREAD, 32 * AP_Y_PER_THREAD
+# K8b (csrc/zncc_allpairs_bwd.cu kGbThreads, kGbTileX, kGbRows, kGbTaps,
+# kGbTapChunk): a block's threads, its camera columns (the projector
+# columns of a chunk: a thread each), the output rows of a strip, the taps
+# of an E unit and the most taps a walk over the columns.
+GB_THREADS, GB_TILE_X, GB_ROWS, GB_TAPS, GB_TAP_CHUNK = 256, 4, 16, 8, 128
+GB_CHUNK_W, GB_PAIRS = GB_THREADS // GB_TILE_X, GB_ROWS * GB_TILE_X
+GB_SPLITS = GB_CHUNK_W // 32
 # The large-k route's window sums (csrc/large_k.cu kBoxOut, kBoxGroups,
 # kBoxSpan; kRpWarps, kRpXPer, kRpYPer, kRpTaps): box_axis's outputs a
 # thread, groups a block (a block's tile of lines is LK_BOX_TILE long) and
@@ -1272,15 +1279,74 @@ def allpairs_forward_cost(H: int, W: int, k: int) -> OpCount:
 
 
 def allpairs_backward_cost(H: int, W: int, k: int) -> OpCount:
-    """Mandatory-traffic floor of the plain all-pairs camera backward
-    (``ops/zncc.py::camera_grad_allpairs``, plain torch, as JAX leaves it
-    to XLA): the cotangent and the cost residual read once each, the
-    images read, the gradient written.  Priced at the data sheet's
-    bandwidth (``bytes`` only)."""
+    """Mandatory-traffic floor of the all-pairs camera backward (K8b,
+    :func:`allpairs_grad_cost`; its plain version
+    ``ops/zncc.py::camera_grad_allpairs``, as JAX leaves it to XLA): the
+    cotangent and the cost residual read once each, the images read, the
+    gradient written.  Priced at the data sheet's bandwidth (``bytes``
+    only)."""
     vol = H * W * W
     c = OpCount()
     c.bytes = (2 * vol + 2 * H * W) * 4 + H * W * 4
     return c
+
+
+def allpairs_grad_taps(W: int, k: int) -> Tuple[int, int]:
+    """(first tap, taps) of K8b's E: the taps j of the k that meet a
+    projector column of a ``W``-wide row, ``[max(0, p - W + 1), min(k, p +
+    W))``; the others add nothing to A1 (k // 2 >= W leaves some out)."""
+    p = k // 2
+    lo = max(0, p - W + 1)
+    return lo, min(k, p + W) - lo
+
+
+def allpairs_grad_block_floats(W: int, k: int) -> int:
+    """Shared memory of a K8b block in floats (``allpairs_grad_smem_floats``
+    of zncc_allpairs_bwd.cu): the own rows' gr (then G2) and B entries of a
+    chunk, the strip's projector rows over the chunk and a walk's taps
+    (padded to an odd stride) and its sy rows, and a split's partial sums
+    of GRMU, B and a walk's E."""
+    groups = _cdiv(min(allpairs_grad_taps(W, k)[1], GB_TAP_CHUNK), GB_TAPS)
+    psw = (GB_CHUNK_W + groups * GB_TAPS) | 1
+    return (2 * GB_PAIRS * (GB_CHUNK_W + 1) + GB_ROWS * (psw + GB_CHUNK_W)
+            + GB_SPLITS * GB_PAIRS * (2 + groups * GB_TAPS))
+
+
+def allpairs_grad_cost(H: int, W: int, k: int) -> OpCount:
+    """K8b (``csrc/zncc_allpairs_bwd.cu``): the main kernel, the diagonal
+    sum and the combine, counted as a floor over the volume's n = H W^2
+    entries.  Each walk over the columns reads every in-image row of each
+    strip and its halo (``rows`` entries): ey2 from the caches, an rsqrt
+    and two ops, and at a halo row the cotangent again from the caches;
+    then the k-row window, k adds an output, and G2 stored.  At the own
+    rows (the first walk): gr and B's entry (three ops) stored, then read
+    back with sy for GRMU's FMA and B's add (three shared loads).  E's slid
+    taps: two shared loads a column and group of ``GB_TAPS`` taps, its
+    FMAs issuing beside them (the pipe that binds counted, as
+    :func:`window_pass_cost` does).  The warp-uniform loads of ex2 and the
+    staging of the projector and sy rows are not counted.  Then E out of
+    shared memory, the diagonal sum (a cached load and an add a tap and
+    pixel) and the combine (:func:`_combine_cost`).  Bytes: the cotangent
+    and the cost once, the statistics and the projector, E written and
+    read back, the three maps, the images, the gradient."""
+    p = k // 2
+    taps = allpairs_grad_taps(W, k)[1]
+    walks = _cdiv(taps, GB_TAP_CHUNK)
+    groups = _cdiv(taps, GB_TAPS)
+    n, px = H * W * W, H * W
+    rows = _overlap(_cdiv(H, GB_ROWS), GB_ROWS, p, 0, H) * W * W
+    halo = rows - n
+    c = OpCount(smem=walks * (rows + halo + n) + 5 * n + 2 * px * taps,
+                rsqrt=walks * rows,
+                madd=walks * (2 * rows + k * n) + 5 * n + px * taps)
+    if 2 * FMA_PER_SMEM >= GB_TAPS:
+        c = c + OpCount(smem=2 * n * groups)
+    else:
+        c = c + OpCount(madd=n * groups * GB_TAPS)
+    c = c + _combine_cost(H, W, k, W)
+    bytes_r = 2 * n * 4 + 4 * px * 4 + px * taps * 4 + 5 * px * 4
+    bytes_w = px * taps * 4 + 3 * px * 4 + px * 4
+    return _with_bytes(c, bytes_r, bytes_w)
 
 
 def transpose_volume_cost(H: int, W: int, D: int) -> OpCount:
@@ -1610,7 +1676,8 @@ def kernel_bound(cost: OpCount, rates: Optional[Dict[str, float]] = None,
 
 __all__ = ["LARGE_K_KERNELS", "OpCount", "TILE_ROWS",
            "allpairs_backward_cost", "allpairs_block_floats",
-           "allpairs_forward_cost",
+           "allpairs_forward_cost", "allpairs_grad_block_floats",
+           "allpairs_grad_cost", "allpairs_grad_taps",
            "box_pass_loads", "camera_grad_rounds_cost",
            "combine_block_floats",
            "cost_slab_planes",

@@ -1,6 +1,6 @@
 """PyTorch port, all-pairs slice: the plain all-pairs volume (K8's twin),
-its closed-form camera VJP, the K8 wrapper's CPU path and the default
-(all-pairs) StereoMatcher, held against the JAX package on the CPU (its
+its closed-form camera VJP (K8b's twin), the K8 and K8b wrappers' CPU
+paths and the default (all-pairs) StereoMatcher, held against the JAX package on the CPU (its
 Pallas kernel in interpret mode, its XLA op and its model)."""
 
 import dataclasses
@@ -23,6 +23,7 @@ from custereomatching_tpu_torch import config_from_jax
 from custereomatching_tpu_torch.ops import stereo_matching
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
     CudaAllPairsMatching,
+    camera_grad_allpairs_cuda,
     cost_volume_allpairs_cuda,
 )
 from custereomatching_tpu_torch.ops.zncc import (
@@ -262,6 +263,36 @@ def test_k8_wrapper_cpu_takes_plain_version():
     assert p.grad is None
     want = camera_grad_allpairs(cam, proj, torch.ones((B, H, W, W)), got, K)
     torch.testing.assert_close(c.grad, want, rtol=0, atol=0)
+
+
+def test_k8b_wrapper_cpu_takes_plain_version():
+    """On CPU tensors K8b's wrapper is the plain closed form, bit for bit,
+    whatever statistics it is handed (the plain version recomputes them),
+    and counts no launch."""
+    B, H, W, K = 2, 9, 21, 5
+    cam, proj = (torch.from_numpy(a) for a in _pair(9, B, H, W))
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (B, H, W, W)).astype(np.float32))
+    cost = forward_allpairs(cam, proj, K)
+    launches = camera_grad_allpairs_cuda.launches
+    calls = camera_grad_allpairs.calls
+    got = camera_grad_allpairs_cuda(cam, proj, g, cost, (), K)
+    assert camera_grad_allpairs.calls == calls + 1
+    assert camera_grad_allpairs_cuda.launches == launches
+    torch.testing.assert_close(got, camera_grad_allpairs(cam, proj, g, cost,
+                                                         K), rtol=0, atol=0)
+
+
+def test_k8b_wrapper_rejects_other_devices():
+    """K8b runs on CUDA tensors, its plain version on CPU tensors; any
+    other device raises, counting no launch."""
+    B, H, W, K = 1, 6, 8, 3
+    cam = torch.zeros((B, H, W), device="meta")
+    vol = torch.zeros((B, H, W, W), device="meta")
+    launches = camera_grad_allpairs_cuda.launches
+    with pytest.raises(ValueError, match="K8b runs on CUDA or"):
+        camera_grad_allpairs_cuda(cam, cam, vol, vol, (cam,) * 4, K)
+    assert camera_grad_allpairs_cuda.launches == launches
 
 
 @pytest.mark.parametrize("bad", [

@@ -351,7 +351,7 @@ def test_cost_fns_populate_byte_pools():
     assert vol < costs[0].bytes_w < 1.1 * vol
     assert 2 * vol < costs[3].bytes_r < 2.1 * vol
     assert costs[6].bytes_r < 0.1 * vol
-    # The plain all-pairs VJP's traffic has no read/write split: priced at
+    # The all-pairs VJP floor's traffic has no read/write split: priced at
     # the data sheet's bandwidth.  K9's tiled transpose reads and writes
     # the volume once each, at the probes' bulk rates.
     plain = km.allpairs_backward_cost(330, 422, 15)
@@ -460,6 +460,31 @@ def test_device_specs_refuses_an_unknown_card():
 def test_least_work_bounds_keep_their_kitti_values(kernel, ms, by):
     got_ms, got_by = profiling.banded_bounds(1, H, W, D, K)[kernel]
     assert round(got_ms, 4) == ms and got_by == by
+
+
+def test_k8b_count_reads_the_volumes_of_the_vjp_floor():
+    """K8b's count (``allpairs_grad_cost``) at the verify shape, 330 x 422
+    and k = 15, against the all-pairs VJP's mandatory traffic
+    (``allpairs_backward_cost``): it reads the cotangent and the cost once
+    each, as the floor does, and beside them moves only [H, W]-sized maps
+    and E's [H, W, 15] buffer, written and read back once (4.7% more
+    bytes); its work holds an rsqrt and k window adds an entry at least."""
+    H, W, k = 330, 422, 15
+    n, px = H * W * W, H * W
+    floor = km.allpairs_backward_cost(H, W, k)
+    cost = km.allpairs_grad_cost(H, W, k)
+    assert floor.bytes == 4 * (2 * n + 3 * px)
+    assert cost.bytes_r >= 8 * n and cost.bytes_w == 4 * px * (k + 4)
+    assert cost.bytes == cost.bytes_r + cost.bytes_w
+    assert floor.bytes < cost.bytes < 1.05 * floor.bytes
+    assert cost.bytes - 8 * n == 4 * px * (2 * k + 13)
+    assert cost["rsqrt"] >= n and cost["madd"] >= k * n
+    assert cost["boxadd"] == 0 and cost["exp"] == 0
+    # Priced at the data sheet's bandwidth, the floor is the issue's
+    # 0.1408 ms; K8b's model is no faster.
+    assert 1e3 * floor.bytes / 3.35e12 == pytest.approx(0.1408, abs=1e-4)
+    assert (km.kernel_bound(cost, RATES, 3.35e12)["bound_s"]
+            >= floor.bytes / 3.35e12)
 
 
 def test_allpairs_least_work_bound():

@@ -341,7 +341,7 @@ def test_k8_plain_and_route_match_jax_past_its_strip(k):
     c, p = _t(cam[None], proj[None])
     plain = cost_volume_allpairs_cuda(c, p, k)
     np.testing.assert_allclose(plain[0].numpy(), want, **FWD_TOL)
-    route = lk.allpairs_volume_large(c, p, k, EPS)
+    route, _ = lk.allpairs_volume_large(c, p, k, EPS)
     torch.testing.assert_close(route, plain, rtol=0, atol=0)
 
 

@@ -22,7 +22,7 @@ PACKAGE = ROOT / "custereomatching_tpu_torch"
 # The kernels a launch may name; the large-k route's steps are its C
 # entries' names after ``custereo_lk_``.
 KERNELS = {"K1", "K2", "K3", "K3w", "K3m", "K4", "K5", "K6", "K7", "K8",
-           "K9a", "K9b", "K10a", "K10b", "K10c"} | {
+           "K8b", "K9a", "K9b", "K10a", "K10b", "K10c"} | {
     "large_k." + e[len("custereo_lk_"):] for e in _build.SIGNATURES
     if e.startswith("custereo_lk_")}
 # Entry points that launch nothing: the launchers' rounds, queried.

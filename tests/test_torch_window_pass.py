@@ -432,6 +432,38 @@ def test_k8_strip_fits_every_k_it_took():
         km.allpairs_forward_cost(40, 200, 145)
 
 
+def test_k8b_blocking_mirrors_the_source_and_fits():
+    """K8b's blocking (``csrc/zncc_allpairs_bwd.cu``), mirrored in
+    ``kernel_model``: 256 threads, 4 camera columns and 64 projector
+    columns a chunk, strips of 16 rows summed by ``window_sweep``, E units
+    of 8 taps, walks of at most 128 taps, and the banded VJPs' combine
+    called as it is.  Its block fits every k (the taps of a walk are
+    capped), four blocks an SM at the verify shape; the taps skip those
+    that meet no projector column (k // 2 >= W)."""
+    src = (CSRC / "zncc_allpairs_bwd.cu").read_text()
+    assert tuple(_const(src, n) for n in (
+        "kGbThreads", "kGbTileX", "kGbRows", "kGbTaps", "kGbTapChunk")) == (
+            km.GB_THREADS, km.GB_TILE_X, km.GB_ROWS, km.GB_TAPS,
+            km.GB_TAP_CHUNK)
+    assert "constexpr int kGbChunkW = kGbThreads / kGbTileX;" in src
+    assert "constexpr int kGbSplits = kGbChunkW / 32;" in src
+    assert (km.GB_CHUNK_W, km.GB_PAIRS, km.GB_SPLITS) == (64, 64, 2)
+    assert "window_sweep(\n          acc, k," in src
+    assert "return launch_grad_combine(camera, cam_s, a1, bm, grmu, grad" \
+        in src
+    assert '#include "camera_grad.cuh"' in src
+    assert km.allpairs_grad_block_floats(422, 15) == (
+        2 * 64 * 65 + 16 * (81 + 64) + 2 * 64 * (2 + 2 * 8))
+    assert 4 * (4 * km.allpairs_grad_block_floats(422, 15) + 1024) <= (
+        228 * 1024)
+    for W, k in ((422, 145), (422, 255), (1242, 1001), (5, 13), (3, 1)):
+        assert km.allpairs_grad_block_floats(W, k) <= LIMIT
+    assert km.allpairs_grad_taps(422, 15) == (0, 15)
+    assert km.allpairs_grad_taps(422, 1) == (0, 1)
+    assert km.allpairs_grad_taps(5, 13) == (2, 9)
+    assert km.allpairs_grad_taps(6, 31) == (10, 11)
+
+
 @pytest.mark.parametrize("shape, want, bytes_rw", [
     ((24, 60, 5), {"madd": 944960, "smem": 720384, "exp": 0,
                    "rsqrt": 259200}, (34560, 368640)),
