@@ -27,6 +27,7 @@ from custereomatching_tpu_torch.ops.consistency import (
     _select_shifted_f as _select_shifted,
 )
 from custereomatching_tpu_torch.ops.cuda_pipeline import PipelineMaps
+from custereomatching_tpu_torch.utils.profiling import span
 
 
 def _avg_pool(img: torch.Tensor, f: int) -> torch.Tensor:
@@ -45,9 +46,10 @@ def _avg_pool(img: torch.Tensor, f: int) -> torch.Tensor:
 
 def _upsample(x: torch.Tensor, f: int, H: int, W: int) -> torch.Tensor:
     """Nearest-neighbour f-fold upsampling of ``[..., h, w]`` maps, cropped
-    to ``[..., H, W]``."""
-    up = x.repeat_interleave(f, dim=-2).repeat_interleave(f, dim=-1)
-    return up[..., :H, :W]
+    to ``[..., H, W]``: one copy of the expanded maps."""
+    *lead, h, w = x.shape
+    up = x[..., :, None, :, None].expand(*lead, h, f, w, f)
+    return up.reshape(*lead, h * f, w * f)[..., :H, :W]
 
 
 def _warp_projector(projector: torch.Tensor, shift: torch.Tensor, lo: int,
@@ -94,48 +96,57 @@ class PyramidStereoMatcher:
             self.config, num_disparities=2 * self.residual))
 
     def coarse_pair(self, camera: torch.Tensor, projector: torch.Tensor):
-        """The coarse level's inputs: both images f x f mean-pooled."""
+        """The coarse level's inputs: both images f x f mean-pooled (the
+        span ``custereo.pyramid.pool``)."""
         f = self.downsample
-        return _avg_pool(camera, f), _avg_pool(projector, f)
+        with span("custereo.pyramid.pool"):
+            return _avg_pool(camera, f), _avg_pool(projector, f)
 
     def warp(self, projector: torch.Tensor, coarse_soft: torch.Tensor):
         """``(shift, warped projector)`` of the fine level: the shift
         ``round(d_up) - r`` (clamped to ``[-r, D]``) that centres the fine
         band ``[0, 2r]`` on the upsampled coarse estimate ``d_up``, and the
-        projector read at ``x - shift``."""
+        projector read at ``x - shift``.  The shift is computed at the
+        coarse resolution and then upsampled: the same values, each pass
+        but the last over 1/f^2 of the pixels.  The span
+        ``custereo.pyramid.warp``."""
         H, W = projector.shape[-2:]
         f, r = self.downsample, self.residual
-        d_up = _upsample(coarse_soft, f, H, W) * f
         D = self.config.num_disparities
-        shift = torch.clamp(torch.round(d_up) - r, -r, D)
-        return shift, _warp_projector(projector, shift, -r, D)
+        with span("custereo.pyramid.warp"):
+            shift = torch.clamp(torch.round(coarse_soft * f) - r, -r, D)
+            shift = _upsample(shift, f, H, W)
+            return shift, _warp_projector(projector, shift, -r, D)
 
     def compose(self, fine: PipelineMaps, shift: torch.Tensor
                 ) -> PipelineMaps:
         """The fine level's maps to full disparities.  Band index d at
         pixel x read proj_w[x - d] = proj[x - d - shift(x - d)]: the total
         disparity is d + shift(x - d).  Negative disparities are physically
-        invalid: they are clamped and lose their confidence."""
+        invalid: they are clamped and lose their confidence.  The hard and
+        soft maps go through each step together, stacked.  The span
+        ``custereo.pyramid.compose``."""
         r = self.residual
-
-        def total(d_res):
-            shift_at = _select_shifted(shift, torch.round(d_res), 0, 2 * r)
-            return (shift_at + d_res).to(d_res.dtype)
-
-        hard = total(fine.disparity) * fine.mask
-        soft = total(fine.soft_disparity) * fine.mask
-        neg = (hard < 0) | (soft < 0)
-        mask = torch.where(neg, torch.zeros_like(fine.mask), fine.mask)
-        return PipelineMaps(disparity=torch.clamp_min(hard, 0.0) * mask,
-                            soft_disparity=torch.clamp_min(soft, 0.0) * mask,
-                            mask=mask, confidence=fine.confidence)
+        with span("custereo.pyramid.compose"):
+            d_res = torch.stack((fine.disparity, fine.soft_disparity))
+            shift_at = _select_shifted(shift.expand_as(d_res),
+                                       torch.round(d_res), 0, 2 * r)
+            total = (shift_at + d_res) * fine.mask
+            mask = torch.where((total < 0).any(0), 0.0, fine.mask)
+            hard, soft = (torch.clamp_min(total, 0.0) * mask).unbind(0)
+            return PipelineMaps(disparity=hard, soft_disparity=soft,
+                                mask=mask, confidence=fine.confidence)
 
     def __call__(self, camera: torch.Tensor,
                  projector: torch.Tensor) -> PipelineMaps:
         """Batched ``[B, H, W]`` pair to disparity maps: the coarse level on
         the pooled pair, the fine level on the camera and the warped
-        projector, each one :meth:`StereoMatcher.disparity_maps` call."""
-        coarse = self._coarse.disparity_maps(
-            *self.coarse_pair(camera, projector))
-        shift, proj_w = self.warp(projector, coarse.soft_disparity)
-        return self.compose(self._fine.disparity_maps(camera, proj_w), shift)
+        projector, each one :meth:`StereoMatcher.disparity_maps` call.  The
+        call is the span ``custereo.model.pyramid``, which encloses the
+        glue's spans and both levels' ``custereo.model.disparity_maps``."""
+        with span("custereo.model.pyramid"):
+            coarse = self._coarse.disparity_maps(
+                *self.coarse_pair(camera, projector))
+            shift, proj_w = self.warp(projector, coarse.soft_disparity)
+            return self.compose(self._fine.disparity_maps(camera, proj_w),
+                                shift)

@@ -23,13 +23,15 @@ def _select_shifted_f(src: torch.Tensor, k_map: torch.Tensor, lo: int,
     The JAX package selects with ``hi - lo + 1`` where-passes over
     statically shifted copies, a TPU choice (XLA's lane gathers are slow
     there).  Here it is one ``torch.gather`` with two masks; the selection
-    is exact."""
+    is exact.  Each range test is a clamp compared with what it clamped,
+    and the clamped column is the gather's index, so that the selection
+    takes ten passes over the map."""
     W = src.shape[-1]
     k = k_map.to(torch.int64)
     cols = torch.arange(W, device=src.device) - k
-    valid = (cols >= 0) & (cols < W) & (k >= lo) & (k <= hi)
-    picked = torch.gather(src, -1, cols.clamp(0, W - 1))
-    return torch.where(valid, picked, torch.zeros_like(picked))
+    index = cols.clamp(0, W - 1)
+    valid = (index == cols) & (k.clamp(lo, hi) == k)
+    return torch.where(valid, torch.gather(src, -1, index), 0.0)
 
 
 def lr_consistency_mask(disparity_left: torch.Tensor,

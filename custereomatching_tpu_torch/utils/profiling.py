@@ -89,7 +89,9 @@ def span(name: str):
 
     The port's spans are named ``custereo.<layer>.<what>``: ``kernel.<K>``
     around each launch (``ops._build.launch``), ``model.disparity_maps``,
-    ``train.step``, ``train.loss`` and ``vjp.allpairs``."""
+    ``model.pyramid`` and inside it the pyramid's glue, ``pyramid.pool``,
+    ``pyramid.warp`` and ``pyramid.compose``, ``train.step``,
+    ``train.loss`` and ``vjp.allpairs``."""
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN

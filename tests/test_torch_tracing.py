@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from custereomatching_tpu_torch import StereoConfig, StereoMatcher, utils
-from custereomatching_tpu_torch.models import optimize
+from custereomatching_tpu_torch.models import PyramidStereoMatcher, optimize
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.utils import profiling
 
@@ -124,6 +124,55 @@ def test_disparity_maps_is_a_span():
     with torch.no_grad():
         events = _profiled(lambda: model.disparity_maps(camera, projector))
     assert len(_named(events, "custereo.model.disparity_maps")) == 1
+
+
+PYRAMID_GLUE = ("custereo.pyramid.pool", "custereo.pyramid.warp",
+                "custereo.pyramid.compose")
+
+
+def _pyramid():
+    return PyramidStereoMatcher(StereoConfig(num_disparities=12,
+                                             kernel_size=5),
+                                downsample=2, residual=3)
+
+
+def test_a_pyramid_call_is_a_span():
+    camera, projector = _pair(2, 16, 30, seed=3)
+    with torch.no_grad():
+        events = _profiled(lambda: _pyramid()(camera, projector))
+    assert len(_named(events, "custereo.model.pyramid")) == 1
+
+
+def test_the_pyramid_span_encloses_its_glue_and_both_levels():
+    camera, projector = _pair(1, 16, 30, seed=4)
+    with torch.no_grad():
+        events = _profiled(lambda: _pyramid()(camera, projector))
+    (outer,) = _named(events, "custereo.model.pyramid")
+    for name in PYRAMID_GLUE:
+        (glue,) = _named(events, name)
+        assert _encloses(outer, glue)
+    levels = _named(events, "custereo.model.disparity_maps")
+    assert len(levels) == 2
+    assert all(_encloses(outer, level) for level in levels)
+    (pool,), (warp,), (compose,) = (_named(events, n) for n in PYRAMID_GLUE)
+    coarse, fine = sorted(levels, key=lambda e: e.time_range.start)
+    assert (pool.time_range.end <= coarse.time_range.start
+            and coarse.time_range.end <= warp.time_range.start
+            and warp.time_range.end <= fine.time_range.start
+            and fine.time_range.end <= compose.time_range.start)
+
+
+def test_the_pyramid_spans_are_the_shared_no_op_off_the_trace(monkeypatch):
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) made off the trace")
+
+    camera, projector = _pair(1, 16, 30, seed=5)
+    model = _pyramid()
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    assert not torch._C._autograd._profiler_enabled()
+    with torch.no_grad():
+        maps = model(camera, projector)
+    assert maps.mask.shape == camera.shape
 
 
 # ---------------------------------------------------------------------------
