@@ -49,19 +49,24 @@ imports nothing of JAX.  Phases, each printing its lines:
 10. K8 (all-pairs volume) against its plain version at the JAX suite's
     shapes, a batch, the 330x422 verify shape at k = 3, 15 and 129, a
     width that is no multiple of the block tile and 375x1242 (the wide y
-    extent);
+    extent); K8b (its camera VJP) against the plain closed form; K8h and
+    K8hb (the volume head and its VJP) against the plain head and its
+    autograd, on K8's volume at 330x422, K1's at KITTI and random volumes
+    with exact ties (three row tiles, 16-byte loads, a band past one
+    tile), the hard map, mask and confidence bit-equal, then both timed
+    at 330x422 beside the plain head and their bounds by bytes;
 11. K7 (projector VJP) against the plain closed form on the same cost and
     cotangent, at the JAX suite's shapes, a batch, the edge shapes of phase
     4, k = 47 and 93 (the largest k its combine kernel stages the three
     maps together at) and KITTI;
 12. the all-pairs path, with every launch counter reset just before it:
-    the default ``StereoMatcher`` (all-pairs) forward, plain head and
-    backward of a mean soft-disparity loss at 330x422, k=15; K8 must run
-    once and the plain forward never, and the camera gradient must match
-    the plain node's (plain volume and plain VJP);
+    the default ``StereoMatcher`` (all-pairs) forward, head and backward
+    of a mean soft-disparity loss at 330x422, k=15; K8, K8h, K8hb and K8b
+    must run once and the plain forward never, and the camera gradient
+    must match the plain node's (plain volume and plain VJP);
 13. the projector-gradient path, counters reset: the banded KITTI model
-    with ``grad_projector=True``, forward, plain head and backward; K1, K2
-    and K7 must run once each, and both gradients must match the plain
+    with ``grad_projector=True``, forward, head and backward; K1, K2, K7,
+    K8h and K8hb must run once each, and both gradients must match the plain
     closed forms fed the same head cotangent;
 14. K6 (camera VJP recomputing the cost) through both entries (the
     plane-major cotangent, and the parity one staged by K9b) against the
@@ -98,8 +103,8 @@ imports nothing of JAX.  Phases, each printing its lines:
     gradient against the parity path's (``StereoMatcher.__call__``) and
     both host-clock step times;
 20. the camera VJP without the cost residual at KITTI, counters reset: K1's
-    plane-major volume, K9a to parity, the plain head's cotangent, K9b and
-    K6; each once, the gradient against the plain closed form; then the
+    plane-major volume, K9a to parity, the head's cotangent (K8h, K8hb),
+    K9b and K6; each once, the gradient against the plain closed form; then the
     step's host-clock time;
 21. K10a (the op-class rate probe, every mode, a small launch and its
     measuring size) against its plain twin within rtol 1e-5, K10b (HBM
@@ -180,8 +185,13 @@ imports nothing of JAX.  Phases, each printing its lines:
     mesh for 5 Adam steps (K1 + K2 a step) and ``pipelined_video_maps`` on
     a one-stage mesh (4 frames, D = 191: K3m a frame); every counter
     rises by its calls, no plain version runs, every forward output is
-    bit-equal to the unsharded call, the gradients within rtol 1e-3 /
-    atol 1e-6, the losses finite and falling; the host-clock time of
+    bit-equal to the unsharded call (``sharded_apply``'s maps to the
+    parallel layer's head, the plain one, on K1's unsharded volume; the
+    one-card model runs K8h there, whose hard map, mask and confidence
+    it matches bit for bit and soft map within rtol 1e-4 / atol 1e-3
+    px), the gradients within rtol 1e-3 / atol 1e-6 (``sharded_apply``'s
+    also against the one-card model's, K8hb + K2), the losses finite and
+    falling; the host-clock time of
     ``sharded_disparity_maps`` against ``StereoMatcher.disparity_maps``;
     the process group destroyed;
 33. the sharded compute on one card, on the same pairs: at ``space`` = 2
@@ -311,6 +321,7 @@ from custereomatching_tpu_torch.examples import (
 )
 from custereomatching_tpu_torch.models import PyramidStereoMatcher
 from custereomatching_tpu_torch.models import (
+    StereoOutput,
     adam,
     entry,
     init_state,
@@ -343,11 +354,13 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     stereo_pipeline_trainable_reference,
     unnormalized_head,
 )
+from custereomatching_tpu_torch.ops import cuda_head
 from custereomatching_tpu_torch.ops.cuda_allpairs import (
     allpairs_volume_and_stats,
     camera_grad_allpairs_cuda,
     cost_volume_allpairs_cuda,
 )
+from custereomatching_tpu_torch.ops.cuda_head import extract_disparity_cuda
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     K7_MAX_KERNEL_SIZE,
     camera_grad_banded_cuda,
@@ -656,6 +669,8 @@ KERNEL_COUNTERS = {
     "k4": (fused_pipeline_bwd_cuda, "launches"),
     "k8": (cost_volume_allpairs_cuda, "launches"),
     "k8b": (camera_grad_allpairs_cuda, "launches"),
+    "k8h": (extract_disparity_cuda, "launches"),
+    "k8hb": (extract_disparity_cuda, "grad_launches"),
     "k7": (projector_grad_banded_cuda, "launches"),
     "k6": (camera_grad_banded_cuda, "recompute_launches"),
     "k3m": (fused_pipeline_train_cuda, "maps_launches"),
@@ -1053,7 +1068,7 @@ def phase_train_path() -> dict:
 
     # K2 as the path ran it, outside the counted window: entry()'s camera
     # gradient against the plain closed-form VJP fed the same cotangent,
-    # the plain head's gradient on K1's volume.
+    # the head's gradient (K8h, K8hb, as the path's) on K1's volume.
     _, _, _, De, ke = ENTRY
     cfg_e = StereoConfig(kernel_size=ke, num_disparities=De)
     cam_d = cam_e.detach()
@@ -1158,6 +1173,131 @@ def phase_k8b() -> float:
     return err
 
 
+# K8h's soft map against the plain head's: the head's rtol, and an atol
+# for the cancellation in w - corr all-pairs (corr's rounding in the
+# order of the sums, a few ulp of L: 1.5e-4 px at L = 422).
+HEAD_SOFT_RTOL, HEAD_SOFT_ATOL = 1e-4, 1e-3
+# K8h / K8hb (B, H, W, D or None for all-pairs): the verify shape (8-byte
+# loads), all-pairs at KITTI's width (three row tiles), KITTI's band (L =
+# 193: 4-byte loads), L = 64 (16-byte loads) and a band past one tile.
+K8H_SHAPES = [(1, 330, 422, None), (1, 40, 1242, None), (1, 375, 1242, 192),
+              (2, 40, 300, 63), (1, 20, 700, 599)]
+
+
+def head_grad_plain(cost, D: int, g_soft, g_conf):
+    """The plain head's cost cotangent through autograd."""
+    leaf = cost.detach().clone().requires_grad_(True)
+    r = extract_disparity(leaf, D, THRESHOLD, 50.0)
+    return torch.autograd.grad((r.soft_disparity, r.confidence), leaf,
+                               (g_soft, g_conf))[0]
+
+
+def phase_volume_head(card: str) -> dict:
+    """K8h and K8hb against the plain head on the card: on K8's volume at
+    the verify shape, K1's at KITTI and random volumes in [-1, 1] with
+    exact ties (the maximum repeated at a later index); the hard map, the
+    mask and the confidence bit-equal, the soft map within rtol 1e-4 /
+    atol 1e-3 px (the atol: w - corr cancels all-pairs),
+    the cost cotangent of a mean loss's scale held as the camera VJPs'
+    (``compare_grad``); one launch of each a call.  Then both timed at
+    330x422, B = 1, beside the plain head's forward and its autograd
+    backward and their bounds by bytes.  Returns {key: (max abs error of
+    the soft map and cotangent, kernel ms, plain ms, (bound ms, by))}."""
+    err = {"K8h": 0.0, "K8hb": 0.0}
+    for i, (B, H, W, D) in enumerate(K8H_SHAPES):
+        label = f"B={B} H={H} W={W} " + ("all-pairs" if D is None
+                                          else f"D={D}")
+        if (H, W, D) == VERIFY[:2] + (None,):
+            cost = cost_volume_allpairs_cuda(
+                *uniform_pair(1700 + i, B, H, W), VERIFY[2], EPS)
+        elif (H, W, D) == KITTI[:3]:
+            cost = cost_volume_banded_cuda(
+                *uniform_pair(1700 + i, B, H, W), D, KITTI[3], EPS)
+        else:
+            L = W if D is None else D + 1
+            gen = torch.Generator("cuda").manual_seed(i)
+            cost = torch.rand((B, H, W, L), device="cuda",
+                              generator=gen) * 2 - 1
+            rows = cost.view(-1, L)[::3]
+            top = rows.amax(-1) + 0.05
+            rows[:, L // 3] = top
+            rows[:, L // 2] = top
+        launches = (extract_disparity_cuda.launches,
+                    extract_disparity_cuda.grad_launches)
+        leaf = cost.detach().clone().requires_grad_(True)
+        got = extract_disparity_cuda(leaf, D, THRESHOLD, 50.0)
+        want = extract_disparity(cost, D, THRESHOLD, 50.0)
+        torch.cuda.synchronize()
+        for name in ("disparity", "mask", "confidence"):
+            require(torch.equal(getattr(got, name), getattr(want, name)),
+                    f"K8h {label}: {name} bit-equal to the plain head's")
+        soft_err = float((got.soft_disparity - want.soft_disparity)
+                         .abs().max())
+        require(torch.allclose(got.soft_disparity, want.soft_disparity,
+                               rtol=HEAD_SOFT_RTOL, atol=HEAD_SOFT_ATOL),
+                f"K8h {label}: soft map within rtol {HEAD_SOFT_RTOL} / atol "
+                f"{HEAD_SOFT_ATOL} px")
+        gen = torch.Generator("cuda").manual_seed(100 + i)
+        n = got.confidence.numel()
+        g_soft, g_conf = (torch.randn(got.confidence.shape, device="cuda",
+                                      generator=gen) / n for _ in range(2))
+        (grad,) = torch.autograd.grad((got.soft_disparity, got.confidence),
+                                      leaf, (g_soft, g_conf))
+        require((extract_disparity_cuda.launches,
+                 extract_disparity_cuda.grad_launches)
+                == (launches[0] + 1, launches[1] + 1),
+                f"K8h {label}: one launch of K8h and of K8hb")
+        grad_err = compare_grad(grad, head_grad_plain(cost, D, g_soft,
+                                                      g_conf),
+                                f"K8hb {label}", elementwise=True)
+        ties = int((cost == want.confidence[..., None]).sum(-1).gt(1)
+                   .sum())
+        print(f"K8h {label}: hard map, mask and confidence bit-equal; soft "
+              f"max_abs {soft_err:.3e}; {ties} pixels with a tied maximum")
+        err["K8h"] = max(err["K8h"], soft_err)
+        err["K8hb"] = max(err["K8hb"], grad_err)
+        del cost, leaf, got, want, grad, g_soft, g_conf
+        torch.cuda.empty_cache()
+
+    # Times at the verify shape, on K8's volume.
+    H, W, k = VERIFY
+    cam, proj = uniform_pair(1, 1, H, W)
+    with torch.no_grad():
+        cost = cost_volume_allpairs_cuda(cam, proj, k, EPS)
+        maps, resid = cuda_head._head_forward(cost, None, THRESHOLD, 50.0,
+                                              False)
+    g_soft = torch.randn((1, H, W), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    g_soft *= 1.0 / (H * W)
+    leaf = cost.clone().requires_grad_(True)
+    plain = extract_disparity(leaf, None, THRESHOLD, 50.0)
+    entries, pixels = cost.numel(), H * W
+    fwd = interleaved(
+        "K8h", cuda_head._head_forward,
+        extract_disparity, (cost, None, THRESHOLD, 50.0, False),
+        (cost, None, THRESHOLD, 50.0), f"{H}x{W} all-pairs", card)
+    bwd = interleaved(
+        "K8hb", cuda_head._head_vjp,
+        lambda: torch.autograd.grad(plain.soft_disparity, leaf, g_soft,
+                                    retain_graph=True),
+        (cost, maps.confidence, resid, g_soft, None, True, THRESHOLD, 50.0,
+         False), (), f"{H}x{W} all-pairs", card)
+    # Bytes: K8h reads the volume and writes four maps and three
+    # residuals; K8hb reads the volume, the confidence, the residuals and
+    # the cotangent and writes the volume's cotangent.
+    out = {"K8h": (err["K8h"], fwd[0], fwd[1],
+                   bound(0, 4 * (entries + 7 * pixels))),
+           "K8hb": (err["K8hb"], bwd[0], bwd[1],
+                    bound(0, 4 * (2 * entries + 5 * pixels)))}
+    for name, (e, ms, plain_ms, (b_ms, by)) in out.items():
+        print(f"bound: {name} {b_ms:.4f} ms by {by}; the kernel takes "
+              f"{ms:.4f} ms, {ms / b_ms:.2f} times its bound; the plain "
+              f"head {plain_ms:.4f} ms ({card})")
+    del cam, proj, cost, maps, resid, g_soft, leaf, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_k7() -> float:
     err = 0.0
     shapes = (K7_SHAPES + [shape for shape, _ in EDGE] + K7_LARGE_K
@@ -1204,6 +1344,8 @@ def phase_allpairs_path() -> dict:
     print(f"all-pairs path: counters {counts}")
     require(counts["k8"] == 1, "K8 launched once")
     require(counts["k8b"] == 1, "K8b launched once")
+    require(counts["k8h"] == 1 and counts["k8hb"] == 1,
+            "the head: K8h and K8hb launched once each")
     require(not any(counts[name] for name in PLAIN_COUNTERS),
             "plain twins unused on the all-pairs path")
     require(tuple(out.cost_volume.shape) == (1, H, W, W)
@@ -1252,6 +1394,8 @@ def phase_grad_projector_path() -> dict:
     print(f"grad_projector path: counters {counts}")
     require(counts["k1"] == 1 and counts["k2"] == 1 and counts["k7"] == 1,
             "K1, K2 and K7 launched once each")
+    require(counts["k8h"] == 1 and counts["k8hb"] == 1,
+            "the head: K8h and K8hb launched once each")
     require(not any(counts[name] for name in PLAIN_COUNTERS),
             "plain twins unused on the grad_projector path")
     for name, grad in (("camera", cam.grad), ("projector", proj.grad)):
@@ -1260,7 +1404,8 @@ def phase_grad_projector_path() -> dict:
                 f"grad_projector path: {name} gradient")
 
     # Both gradients against the plain closed forms fed the same head
-    # cotangent, the plain head's gradient on K1's volume.
+    # cotangent, the head's gradient (K8h, K8hb, as the path's) on K1's
+    # volume.
     cam_d, proj_d = cam.detach(), proj.detach()
     cost = cost_volume_banded_cuda(cam_d, proj_d, D, k, EPS)
     cost = cost.detach().requires_grad_(True)
@@ -1715,8 +1860,8 @@ def phase_plane_major_path() -> dict:
 
 def phase_no_residual_path() -> dict:
     """The camera VJP when the forward volume is not kept: K1's volume,
-    K9a to the parity layout, the plain head and its cotangent, then the
-    restaged K6 entry (K9b, K6)."""
+    K9a to the parity layout, the head and its cotangent (K8h, K8hb),
+    then the restaged K6 entry (K9b, K6)."""
     H, W, D, k = KITTI
     cfg = StereoConfig(kernel_size=k, num_disparities=D)
     cams, projs, _ = speckle_frames(1, seed=100)
@@ -1760,9 +1905,9 @@ def phase_no_residual_path() -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts["step_ms"] = 1e3 * float(np.median(times[1:]))
-    print(f"no-residual VJP path: step (K1, K9a, plain head and its "
-          f"cotangent, K9b, K6) host-clock median {counts['step_ms']:.3f} "
-          f"ms at {H}x{W} D={D} k={k}")
+    print(f"no-residual VJP path: step (K1, K9a, K8h, K8hb, K9b, K6) "
+          f"host-clock median {counts['step_ms']:.3f} ms at {H}x{W} D={D} "
+          f"k={k}")
     return counts
 
 
@@ -2118,7 +2263,7 @@ def phase_k8_k1() -> float:
 
 def phase_allpairs_k1_path() -> dict:
     """The default all-pairs matcher at k = 1, counters reset: forward,
-    plain head and backward of a mean soft-disparity loss at 330x422; K8
+    head (K8h) and backward of a mean soft-disparity loss at 330x422; K8
     once, the plain volume never; the camera gradient against the plain
     node's."""
     H, W, _ = VERIFY
@@ -2946,10 +3091,13 @@ def phase_parallel_unsharded() -> dict:
     inputs: K1's volume (rtol 1e-4 / atol 1e-5), K3's maps (as phase 4's
     KITTI case, ties and threshold flips explained), K2's camera gradient
     of the mean soft disparity against the plain VJP fed the same head
-    cotangent, K3w + K4's maps and camera gradient against the plain
-    trainable pipeline (as phase 8's KITTI case), and K3's maps at the
-    stage pipeline's D over its frames.  Returns the pairs and the
-    unsharded results."""
+    cotangent (the head the parallel layer runs on each block: the plain
+    ``extract_disparity``, so ``out`` is K1's volume under it), K3w +
+    K4's maps and camera gradient against the plain trainable pipeline
+    (as phase 8's KITTI case), and K3's maps at the stage pipeline's D
+    over its frames.  Returns the pairs and the unsharded results, with
+    the one-card model's maps (K1, K8h) and camera gradient (K8hb, K2)
+    as ``model_out`` and ``grad_m``."""
     H, W = BUCKET
     B, k, D = PAR_B, PAR_K, PAR_D
     cfg = StereoConfig(kernel_size=k, num_disparities=D)
@@ -2960,7 +3108,8 @@ def phase_parallel_unsharded() -> dict:
     label = f"bucket B={B} H={H} W={W} D={D} k={k}"
     with torch.no_grad():
         cv = model.cost_volume(cam, proj)
-        out = model(cam, proj)
+        out = StereoOutput(cv, *extract_disparity(cv, D, thr, beta))
+        model_out = model(cam, proj)
         maps = model.disparity_maps(cam, proj)
         pipe = stereo_pipeline_cuda(vcams, vprojs, PIPE_D, k, eps, beta, thr)
         cost = forward_banded(cam, proj, D, k, eps)
@@ -2971,9 +3120,13 @@ def phase_parallel_unsharded() -> dict:
     del cost
 
     cam_u = cam.clone().requires_grad_(True)
-    model(cam_u, proj).soft_disparity.mean().backward()
+    extract_disparity(model.cost_volume(cam_u, proj), D, thr,
+                      beta).soft_disparity.mean().backward()
+    cam_m = cam.clone().requires_grad_(True)
+    model(cam_m, proj).soft_disparity.mean().backward()
     c = cv.clone().requires_grad_(True)
-    (g,) = torch.autograd.grad(model.disparity(c).soft_disparity.mean(), c)
+    (g,) = torch.autograd.grad(
+        extract_disparity(c, D, thr, beta).soft_disparity.mean(), c)
     compare_grad(cam_u.grad, camera_grad_banded(cam, proj, g, D, k, eps),
                  f"K2 {label}: camera gradient of the mean soft disparity "
                  f"against the plain VJP on its head cotangent",
@@ -2994,6 +3147,7 @@ def phase_parallel_unsharded() -> dict:
     return {"cam": cam, "proj": proj, "vcams": vcams, "vprojs": vprojs,
             "cv": cv, "out": out, "maps": maps, "pipe": pipe,
             "grad_u": cam_u.grad, "grad_t": grad_t, "tmaps": tmaps,
+            "model_out": model_out, "grad_m": cam_m.grad,
             "err": err}
 
 
@@ -3056,16 +3210,31 @@ def phase_parallel_one_rank(card: str, ref: dict) -> dict:
     require(not any(counts[name] for name in PLAIN_COUNTERS),
             "parallel one rank: plain versions unused")
 
-    def same(a, b, what):
-        require(torch.equal(a.full_tensor() if hasattr(a, "full_tensor")
-                            else a, b), f"parallel one rank: {what} "
-                "bit-equal to the unsharded call")
+    def full(a):
+        return a.full_tensor() if hasattr(a, "full_tensor") else a
+
+    def same(a, b, what, of="the unsharded call"):
+        require(torch.equal(full(a), b), f"parallel one rank: {what} "
+                f"bit-equal to {of}")
 
     same(cv, want_cv, "sharded_cost_volume")
     for name in ("cost_volume", "disparity", "soft_disparity", "mask",
                  "confidence"):
         same(getattr(out, name), getattr(want_out, name),
-             f"sharded_apply {name}")
+             f"sharded_apply {name}",
+             "the parallel layer's head (plain) on the unsharded volume")
+    # The one-card model runs K8h where the parallel layer runs the plain
+    # head on each block: max and first argmax are exact, the soft map
+    # differs by the order of the sums.
+    want_m = ref["model_out"]
+    for name in ("disparity", "mask", "confidence"):
+        same(getattr(out, name), getattr(want_m, name),
+             f"sharded_apply {name}", "the one-card model's (K8h)")
+    require(torch.allclose(full(out.soft_disparity), want_m.soft_disparity,
+                           rtol=HEAD_SOFT_RTOL, atol=HEAD_SOFT_ATOL),
+            f"parallel one rank: sharded_apply soft_disparity within rtol "
+            f"{HEAD_SOFT_RTOL} / atol {HEAD_SOFT_ATOL} px of the one-card "
+            f"model's (K8h)")
     for name in maps._fields:
         same(getattr(maps, name), getattr(want_maps, name),
              f"sharded_disparity_maps {name}")
@@ -3075,6 +3244,10 @@ def phase_parallel_one_rank(card: str, ref: dict) -> dict:
     err = compare_grad(cam_s.grad.full_tensor(), grad_u,
                        "parallel one rank: sharded_apply camera gradient "
                        "(K2) against the unsharded", elementwise=True)
+    err = max(err, compare_grad(
+        cam_s.grad.full_tensor(), ref["grad_m"], "parallel one rank: "
+        "sharded_apply camera gradient (plain head, K2) against the "
+        "one-card model's (K8hb, K2)", elementwise=True))
     err = max(err, compare_grad(
         cam_s2.grad.full_tensor(), grad_t, "parallel one rank: trainable "
         "sharded camera gradient (K3w + K4) against the unsharded",
@@ -4377,6 +4550,7 @@ def main() -> int:
     counts["train"] = phase_train_path()
     errs["K8"] = phase_k8()
     errs["K8b"] = phase_k8b()
+    head = phase_volume_head(card)
     errs["K7"] = phase_k7()
     counts["allpairs"] = phase_allpairs_path()
     counts["grad_projector"] = phase_grad_projector_path()
@@ -4474,6 +4648,18 @@ def main() -> int:
         "max_abs_err": errs["K8b"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "model_ms": model_ms,
         "model_by": model_by}}))
+    # K8h and K8hb port no TPU kernel either (the JAX package leaves the
+    # head to XLA).
+    for key, (err, ms, plain_ms, (bound_ms, bound_by)) in head.items():
+        require(counts["allpairs"][key.lower()] == 1,
+                f"{key} launched on its path")
+        print(json.dumps({key.lower(): {
+            "name": {"K8h": "volume_head",
+                     "K8hb": "volume_head_vjp"}[key], "route": "cuda",
+            "source": "custereomatching_tpu_torch/csrc/volume_head.cu",
+            "replaces": None, "launches": counts["allpairs"][key.lower()],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}}))
     bench.write_smoke_record(True, card)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -22,6 +22,7 @@ from custereomatching_tpu_torch.ops.consistency import (
     lr_consistency_mask,
     matched_pair_right,
 )
+from custereomatching_tpu_torch.ops.cuda_head import extract_disparity_cuda
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     PipelineMaps,
     stereo_pipeline_cuda,
@@ -64,11 +65,13 @@ class StereoMatcher(nn.Module):
     The ``cuda`` backend runs the kernels on CUDA tensors: K1 for a banded
     :meth:`cost_volume`, K2 for its camera gradient and, with
     ``grad_projector``, K7 for its projector gradient; K8 for an all-pairs
-    :meth:`cost_volume`; K3 for :meth:`disparity_maps` (twice for
-    :meth:`disparity_maps_lr`), K3w and K4 for
-    :meth:`trainable_disparity_maps`, K3 and K3w at the config's
-    ``pipeline_blocks`` tile and K4 at its ``trainable_bwd_block_rows``.  The ``torch`` backend runs their
-    plain versions.  The model has no parameters: its state is the config.
+    :meth:`cost_volume`, K8b for its camera gradient; K8h for
+    :meth:`disparity` over either volume, K8hb for its gradient; K3 for
+    :meth:`disparity_maps` (twice for :meth:`disparity_maps_lr`), K3w and
+    K4 for :meth:`trainable_disparity_maps`, K3 and K3w at the config's
+    ``pipeline_blocks`` tile and K4 at its ``trainable_bwd_block_rows``.
+    The ``torch`` backend runs their plain versions.  The model has no
+    parameters: its state is the config.
     """
 
     def __init__(self, config: StereoConfig = StereoConfig()):
@@ -93,10 +96,15 @@ class StereoMatcher(nn.Module):
         return cost_volume(camera, projector, self.config)
 
     def disparity(self, cost_volume: torch.Tensor) -> DisparityResult:
-        """Batched disparity head over a ``[B, H, W, L]`` volume."""
+        """Batched disparity head over a ``[B, H, W, L]`` volume: K8h, whose
+        backward is K8hb, on the ``cuda`` backend; the plain head on
+        ``torch``."""
         c = self.config
-        return extract_disparity(cost_volume, c.num_disparities,
-                                 c.cost_threshold, c.softargmax_beta)
+        head = (extract_disparity_cuda
+                if c.resolved_backend(cost_volume.device) == "cuda"
+                else extract_disparity)
+        return head(cost_volume, c.num_disparities, c.cost_threshold,
+                    c.softargmax_beta)
 
     def forward(self, camera: torch.Tensor,
                 projector: torch.Tensor) -> StereoOutput:
@@ -147,8 +155,8 @@ class StereoMatcher(nn.Module):
         its plain twin.  Gradients flow through ``soft_disparity`` and
         ``confidence``.  The fused pipeline's VJP is banded and
         camera-only, so ``grad_projector`` and all-pairs take the volume
-        path and the plain head on either backend (where the JAX package's
-        Pallas backend raises for all-pairs)."""
+        path and :meth:`disparity` on either backend (where the JAX
+        package's Pallas backend raises for all-pairs)."""
         c = self.config
         if c.grad_projector or c.num_disparities is None:
             return self._volume_maps(camera, projector)

@@ -85,6 +85,14 @@ SIGNATURES = {
     # cotangent, cost, camera, projector, cam_s, cam_e2, proj_s, proj_e2,
     # e, a1, bm, grmu, grad (or null), B, H, W, k, j_lo, taps, eps, stream
     "custereo_allpairs_grad": [_P] * 13 + [_I] * 6 + [_F, _P],
+    # cost, disparity, soft, mask, conf, resid, pixels, frame, W, L, beta,
+    # threshold, all_pairs, plane_major, stream
+    "custereo_volume_head": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_F] * 2
+    + [_I, _I, _P],
+    # cost, conf, resid, g_soft (or null), g_conf (or null), g_cost,
+    # pixels, frame, L, beta, threshold, all_pairs, plane_major, stream
+    "custereo_volume_head_grad": [_P] * 6 + [_L] * 2 + [_I] + [_F] * 2
+    + [_I, _I, _P],
     # in, out, B, planes, pixels, stream
     "custereo_plane_major_to_parity": [_P] * 2 + [_I] * 3 + [_P],
     "custereo_parity_to_plane_major": [_P] * 2 + [_I] * 3 + [_P],

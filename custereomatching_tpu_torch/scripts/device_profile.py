@@ -18,7 +18,8 @@ speckle frame and prints its lines, then one JSON object:
   with ``save_volume=False``: K3m, the soft-disparity MSE, K5, Adam),
   profiled the same way.
 * ``volume``: the volume path's step (``StereoMatcher.__call__``, the
-  soft-disparity MSE, its backward through the plain head and K2),
+  soft-disparity MSE, its backward through the head, K8h and K8hb, and
+  K2),
   profiled the same way; copies are the kernels named ``*copy*``.
 * ``hdw``: the same step in the plane-major layout
   (``stereo_matching_hdw``, ``extract_disparity_hdw``: K1, the plain head
@@ -432,8 +433,8 @@ def mode_autotune() -> dict:
 
 def mode_allpairs() -> dict:
     """The all-pairs step of ``chip_smoke.py`` (the default all-pairs
-    ``StereoMatcher`` at 330x422, k=15: K8, plain head, the mean soft
-    disparity's backward through the plain VJP): its first call, then the
+    ``StereoMatcher`` at 330x422, k=15: K8, K8h, the mean soft
+    disparity's backward through K8hb and K8b): its first call, then the
     host-clock median of ``STEPS`` more, each synchronised."""
     H, W, k = 330, 422, 15
     model = StereoMatcher(StereoConfig(kernel_size=k, backend="cuda"))
