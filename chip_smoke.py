@@ -23,10 +23,10 @@ imports nothing of JAX.  Phases, each printing its lines:
 4. K3 (fused pipeline) against its plain version, both head branches,
    also at shapes on the edges of its register blocking (H not a multiple
    of 16, W not of 64, D + 1 not of the planes a round, k = 3 to 27);
-5. the serving path, with every launch counter reset just before it:
-   ``entry()``, a batched ``StereoMatcher`` forward and a
-   ``StereoEngine`` serving 8 KITTI-size frames; the kernel counters must
-   rise by the number of calls and the plain versions must not run;
+5. the serving path, counted (what ``profiling.COUNTS`` gains across
+   it): ``entry()``, a batched ``StereoMatcher`` forward and a
+   ``StereoEngine`` serving 8 KITTI-size frames; exactly the launches of
+   ``PATH_LAUNCHES`` must run, and no plain version;
 6. K2 (camera VJP) against the plain closed form, the same random
    cotangent fed to both, at the small shapes, entry()'s shape, KITTI and
    k = 31, 47 and 127 (rounds of 8, 4 and 1 planes; at k = 127 the
@@ -39,11 +39,11 @@ imports nothing of JAX.  Phases, each printing its lines:
    and the whole trainable pipeline (K3w + K4) against its plain twin,
    both head branches, KITTI speckle, the edge shapes of phase 4 and
    k = 31 and 47 (planes a round falling to 4 and 1);
-9. the training path, with every launch counter reset just before it:
-   ``entry()``'s soft disparity backpropagated to the camera (K1 + K2),
-   then ``optimize_camera`` for 5 Adam steps at KITTI size (K3w + K4); the
-   kernel counters must rise by the number of calls, the plain versions
-   must not run, and the losses must be finite and falling; then, outside
+9. the training path, counted: ``entry()``'s soft disparity
+   backpropagated to the camera (K1 + K2), then ``optimize_camera`` for 5
+   Adam steps at KITTI size (K3w + K4); exactly the launches of
+   ``PATH_LAUNCHES`` must run, and no plain version, and the losses must
+   be finite and falling; then, outside
    the counted run, entry()'s camera gradient against the plain VJP fed
    the same head cotangent;
 10. K8 (all-pairs volume) against its plain version at the JAX suite's
@@ -59,12 +59,12 @@ imports nothing of JAX.  Phases, each printing its lines:
     cotangent, at the JAX suite's shapes, a batch, the edge shapes of phase
     4, k = 47 and 93 (the largest k its combine kernel stages the three
     maps together at) and KITTI;
-12. the all-pairs path, with every launch counter reset just before it:
-    the default ``StereoMatcher`` (all-pairs) forward, head and backward
-    of a mean soft-disparity loss at 330x422, k=15; K8, K8h, K8hb and K8b
-    must run once and the plain forward never, and the camera gradient
-    must match the plain node's (plain volume and plain VJP);
-13. the projector-gradient path, counters reset: the banded KITTI model
+12. the all-pairs path, counted: the default ``StereoMatcher``
+    (all-pairs) forward, head and backward of a mean soft-disparity loss
+    at 330x422, k=15; K8, K8h, K8hb and K8b must run once and the plain
+    forward never, and the camera gradient must match the plain node's
+    (plain volume and plain VJP);
+13. the projector-gradient path, counted: the banded KITTI model
     with ``grad_projector=True``, forward, head and backward; K1, K2, K7,
     K8h and K8hb must run once each, and both gradients must match the plain
     closed forms fed the same head cotangent;
@@ -91,18 +91,18 @@ imports nothing of JAX.  Phases, each printing its lines:
     bit-equal to K2 on K1's volume and K5 bit-equal to K4 on it
     (required), K5 against K4 on K3w's residuals (printed); K5's peak
     device memory at k = 127 beside k = 15's, less than one volume;
-18. the volume-free training path, counters reset: 5 Adam steps at KITTI
+18. the volume-free training path, counted: 5 Adam steps at KITTI
     of ``optimize_camera``'s loss through
     ``stereo_pipeline_trainable(save_volume=False)``; K3m and K5 once a
     step, K3w, K4 and every plain twin never, losses finite and falling;
     then the K5 gradient against the K4 one, and each mode's peak device
     memory and host-clock step time;
-19. the plane-major path at KITTI, counters reset: ``stereo_matching_hdw``
+19. the plane-major path at KITTI, counted: ``stereo_matching_hdw``
     + ``extract_disparity_hdw`` and the backward of a mean soft-disparity
     loss; K1 and K2 once each, the volume K1's buffer as it is; its camera
     gradient against the parity path's (``StereoMatcher.__call__``) and
     both host-clock step times;
-20. the camera VJP without the cost residual at KITTI, counters reset: K1's
+20. the camera VJP without the cost residual at KITTI, counted: K1's
     plane-major volume, K9a to parity, the head's cotangent (K8h, K8hb),
     K9b and K6; each once, the gradient against the plain closed form; then the
     step's host-clock time;
@@ -112,7 +112,7 @@ imports nothing of JAX.  Phases, each printing its lines:
     volume and at ragged shapes whose rows and planes lie off 16-byte
     boundaries (``kernel_model.HBM_EDGE_SHAPES``; K10b also from a volume
     4 bytes off one);
-22. the bound-model path, counters reset: ``measure_vpu_rates(force=True)``
+22. the bound-model path, counted: ``measure_vpu_rates(force=True)``
     (K10a in every mode and K10b and K10c in each of its three rounds,
     the plain twins never) and the card health probe
     (``scripts/device_probe.py``, which must pass); each rate printed
@@ -129,7 +129,7 @@ imports nothing of JAX.  Phases, each printing its lines:
     and K7 at KITTI with k = 127, each beside its bound and model.
 
 24. K8 at k = 1 (JAX's gate is odd k >= 1) against its plain version at
-    the JAX suite's all-pairs shapes and 330x422; then, counters reset, the
+    the JAX suite's all-pairs shapes and 330x422; then, counted, the
     all-pairs matcher at k = 1 forward and backward: K8 once, the plain
     volume never, the camera gradient against the plain node's;
 25. the large-k route (``csrc/large_k.cu``, ``ops/cuda_large_k.py``) at
@@ -140,7 +140,7 @@ imports nothing of JAX.  Phases, each printing its lines:
     187 (and the route called at 129), against their plain versions; K3w's
     volume bit-equal to K1's, K3w's and K3m's maps to K3's, K6 to K2 and K5
     to K4's route on K1's volume;
-26. the large-k path, counters reset, through the entry points at k = 129
+26. the large-k path, counted, through the entry points at k = 129
     (and K4's route at 187, all-pairs at 145): every route and every one
     of its kernels runs, no plain twin;
 26b. the route choice pinned against the launchers: for every kernel and
@@ -159,11 +159,11 @@ imports nothing of JAX.  Phases, each printing its lines:
     window sums' share), and the route against K2, K4, K5, K6 and K7 on
     their own blocks at KITTI with k = 63, 95 and 127;
 28. the left-right serving path: ``StereoEngine(lr_check=True,
-    retries=2)`` healthy, then, counters reset, warm-up and 8 KITTI frames:
+    retries=2)`` healthy, then, counted, warm-up and 8 KITTI frames:
     K3 twice a frame, no plain twin, every frame's maps bit-equal to two
     direct K3 calls composed with the plain mask, some confident pixels
     masked, coverage, EPE and the per-frame median;
-29. the pyramid, counters reset: ``PyramidStereoMatcher`` at KITTI (k =
+29. the pyramid, counted: ``PyramidStereoMatcher`` at KITTI (k =
     15, D = 192) on the JAX bench's scene, K3 twice a call, each level's
     K3 maps against the plain pipeline on that level's inputs, EPE <=
     0.30 px and coverage >= 0.97 printed beside the JAX package's values,
@@ -178,13 +178,13 @@ imports nothing of JAX.  Phases, each printing its lines:
     cotangent), K3w + K4's maps and camera gradient (as in phase 8), and
     K3's maps at D = 191 over the stage pipeline's 4 frames;
 32. the parallel layer at one rank on the same pairs:
-    ``initialize_multihost()`` gives an NCCL world of one; counters reset,
+    ``initialize_multihost()`` gives an NCCL world of one; counted,
     ``sharded_cost_volume`` and ``sharded_apply`` on a 1 x 1 mesh (K1; K2
     behind a mean soft-disparity loss), ``sharded_disparity_maps`` (K3)
     and with ``trainable=True`` (K3w + K4), ``optimize_camera`` with the
     mesh for 5 Adam steps (K1 + K2 a step) and ``pipelined_video_maps`` on
-    a one-stage mesh (4 frames, D = 191: K3m a frame); every counter
-    rises by its calls, no plain version runs, every forward output is
+    a one-stage mesh (4 frames, D = 191: K3m a frame); exactly these
+    launches run, no plain version runs, every forward output is
     bit-equal to the unsharded call (``sharded_apply``'s maps to the
     parallel layer's head, the plain one, on K1's unsharded volume; the
     one-card model runs K8h there, whose hard map, mask and confidence
@@ -239,7 +239,7 @@ imports nothing of JAX.  Phases, each printing its lines:
     gate, as JAX's Pallas kernels do.  One line a kernel: its cases and
     largest error (folded into the ``kernels`` line's errors);
 36. the data-driven examples at real size, each in process through its
-    ``main(argv)`` with the counters reset just before: ``real_capture``
+    ``main(argv)``, counted: ``real_capture``
     (330x422, D = 48, k = 15, must pass), ``kitti_eval`` on a 4-frame
     375x1242 KITTI-2015 split written by ``kitti.write_fixture`` (D = 192,
     must pass at ``--max-epe 3.0``), ``serve`` (8 frames, ``retries=2``,
@@ -260,7 +260,7 @@ imports nothing of JAX.  Phases, each printing its lines:
     measured) against the plain version; ``StereoEngine(autotune=True)``
     (maps bit-equal to the untuned engine's and held against the plain
     pipeline) and ``serve --autotune`` on the card;
-38. the tiled path, counters reset before each tile: at 8 and 32 rows a
+38. the tiled path, counted at each tile: at 8 and 32 rows a
     ``StereoMatcher`` configured with that tile serves a KITTI pair (K3)
     and takes a training step (K3w + K4), the volume-free trainable
     pipeline runs forward (K3m) and K1 writes the volume, each bit-equal
@@ -301,6 +301,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -411,6 +412,7 @@ from custereomatching_tpu_torch.utils import (
 )
 from custereomatching_tpu_torch.utils import kernel_model as km
 from custereomatching_tpu_torch.utils.profiling import (
+    COUNTS,
     PEAK_BYTES,
     PEAK_FLOPS,
     allpairs_bound,
@@ -658,63 +660,54 @@ def phase_k3() -> float:
     return err
 
 
-# Each kernel's wrapper and the attribute that counts its launches (one
-# wrapper launches K2 or K6, one K3w or K3m, one K4 or K5, with a counter
-# for each).
-KERNEL_COUNTERS = {
-    "k1": (cost_volume_banded_cuda, "launches"),
-    "k3": (stereo_pipeline_cuda, "launches"),
-    "k2": (camera_grad_banded_cuda, "launches"),
-    "k3w": (fused_pipeline_train_cuda, "launches"),
-    "k4": (fused_pipeline_bwd_cuda, "launches"),
-    "k8": (cost_volume_allpairs_cuda, "launches"),
-    "k8b": (camera_grad_allpairs_cuda, "launches"),
-    "k8h": (extract_disparity_cuda, "launches"),
-    "k8hb": (extract_disparity_cuda, "grad_launches"),
-    "k7": (projector_grad_banded_cuda, "launches"),
-    "k6": (camera_grad_banded_cuda, "recompute_launches"),
-    "k3m": (fused_pipeline_train_cuda, "maps_launches"),
-    "k5": (fused_pipeline_bwd_cuda, "recompute_launches"),
-    "k9a": (plane_major_to_parity, "launches"),
-    "k9b": (parity_to_plane_major, "launches"),
-    "k10a": (km.rate_probe, "launches"),
-    "k10b": (km.hbm_read_probe, "launches"),
-    "k10c": (km.hbm_write_probe, "launches")}
 OTHER_TILES = tuple(th for th in km.TILE_ROWS if th != km.K_TILE_H)
 TILE_KERNEL_KEYS = ("K1", "K3", "K3w", "K3m", "K4")
-# Plain twins of kernels: no main path may call them.
-PLAIN_COUNTERS = {
-    "plain_rate_probe": km.rate_probe_reference,
-    "plain_hbm_read": km.hbm_read_reference,
-    "plain_hbm_write": km.hbm_write_reference,
-    "plain_volume": forward_banded,
-    "plain_pipeline": stereo_pipeline_reference,
-    "plain_vjp": camera_grad_banded,
-    "plain_train_fwd": fused_pipeline_train_reference,
-    "plain_train_bwd": fused_pipeline_bwd_reference,
-    "plain_trainable": stereo_pipeline_trainable_reference,
-    "plain_allpairs": forward_allpairs,
-    "plain_allpairs_vjp": camera_grad_allpairs,
-    "plain_proj_vjp": projector_grad_banded,
-    "plain_to_parity": plane_major_to_parity_reference,
-    "plain_to_plane_major": parity_to_plane_major_reference}
+# What each counted path runs (``COUNTS`` since just before it): exactly
+# these launches and no plain twin.  The bound model's path measures in
+# rounds, so it runs at least these, and nothing else.
+PATH_LAUNCHES = {
+    "serve": Counter({"K1": 2, "K8h": 2, "K3": 1 + N_FRAMES}),
+    "train": Counter({"K1": 1, "K8h": 1, "K8hb": 1, "K2": 1,
+                      "K3w": TRAIN_STEPS, "K4": TRAIN_STEPS}),
+    "allpairs": Counter({"K8": 1, "K8h": 1, "K8hb": 1, "K8b": 1}),
+    "grad_projector": Counter({"K1": 1, "K8h": 1, "K8hb": 1, "K2": 1,
+                               "K7": 1}),
+    "volume_free": Counter({"K3m": TRAIN_STEPS, "K5": TRAIN_STEPS}),
+    "plane_major": Counter({"K1": 1, "K2": 1}),
+    "no_residual": Counter({"K1": 1, "K9a": 1, "K8h": 1, "K8hb": 1,
+                            "K9b": 1, "K6": 1}),
+    "bound_model": Counter({"K10a": 3 * len(K10A_MODES), "K10b": 3,
+                            "K10c": 3,
+                            **{f"K10a.{m}": 3 for m in K10A_MODES}}),
+    "allpairs_k1": Counter({"K8": 1, "K8h": 1, "K8hb": 1, "K8b": 1}),
+    "lr": Counter({"K3": 2 * (1 + N_FRAMES)}),
+    "pyramid": Counter({"K3": 2}),
+}
 
 
-def reset_counters() -> None:
-    for fn, attr in KERNEL_COUNTERS.values():
-        setattr(fn, attr, 0)
-    km.rate_probe.mode_launches = dict.fromkeys(K10A_MODES, 0)
-    for fn in PLAIN_COUNTERS.values():
-        fn.calls = 0
+def launched(before: Counter) -> Counter:
+    """What ran since ``before``, a copy of ``COUNTS``: kernel launches by
+    name, plain twins' calls (``plain.<function>``) and the large-k
+    route's calls (``route.<K>``)."""
+    return COUNTS - before
 
 
-def read_counters() -> dict:
-    counts = {name: getattr(fn, attr)
-              for name, (fn, attr) in KERNEL_COUNTERS.items()}
-    counts.update({f"k10a_{mode}": n
-                   for mode, n in km.rate_probe.mode_launches.items()})
-    counts.update({name: fn.calls for name, fn in PLAIN_COUNTERS.items()})
-    return counts
+def plain_calls(ran: Counter) -> Counter:
+    return Counter({n: c for n, c in ran.items() if n.startswith("plain.")})
+
+
+def require_launched(what: str, before: Counter, want: Counter,
+                     at_least: bool = False) -> Counter:
+    """What ran since ``before``, printed and held to ``want``: exactly,
+    or (``at_least``) at least as often and nothing else.  Returns it."""
+    ran = launched(before)
+    print(f"{what}: launched {dict(sorted(ran.items()))}")
+    ok = (ran >= want and ran.keys() == want.keys()) if at_least \
+        else ran == want
+    require(ok, f"{what}: launched {'at least ' if at_least else ''}"
+            f"{dict(sorted(want.items()))} and nothing else, got "
+            f"{dict(sorted(ran.items()))}")
+    return ran
 
 
 def phase_main_path() -> dict:
@@ -724,7 +717,7 @@ def phase_main_path() -> dict:
     frames = speckle_frames(N_FRAMES, seed=40)
     engine = StereoEngine(cfg, buckets=[BUCKET], device="cuda")
 
-    reset_counters()
+    before = COUNTS.copy()
     with torch.no_grad():
         forward, args = entry("cuda")
         soft = fence(forward(*args))
@@ -736,14 +729,9 @@ def phase_main_path() -> dict:
         t0 = time.perf_counter()
         served.append(engine.infer(cam, proj))
         latency.append(time.perf_counter() - t0)
-    counts = read_counters()
-    print(f"main path: counters {counts}")
-    require(counts["k1"] == 2, "K1 launched once per volume call (2)")
-    require(counts["k3"] == 1 + N_FRAMES,
-            f"K3 launched once per warm-up and served frame "
-            f"({1 + N_FRAMES})")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain versions unused on the main path")
+    # K1 and K8h once per volume call, K3 once per warm-up and served
+    # frame.
+    counts = require_launched("main path", before, PATH_LAUNCHES["serve"])
 
     require(tuple(soft.shape) == (1, 96, 160)
             and bool(torch.isfinite(soft).all()), "entry() output")
@@ -1045,22 +1033,16 @@ def phase_train_path() -> dict:
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()
+    before = COUNTS.copy()
     # A mean loss, as disparity_loss is.
     forward(cam_e, proj_e).mean().backward()
     camera, losses = optimize_camera(model, camera0, proj, target,
                                      learning_rate=TRAIN_LR,
                                      num_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"train path: counters {counts}")
-    require(counts["k1"] == 1 and counts["k2"] == 1,
-            "entry() backward: K1 and K2 launched once each")
-    require(counts["k3w"] == TRAIN_STEPS and counts["k4"] == TRAIN_STEPS,
-            f"K3w and K4 launched once per step ({TRAIN_STEPS})")
-    require(counts["k3"] == 0, "K3 (serving) unused on the training path")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain versions unused on the training path")
+    # entry() forward and backward: K1, K8h, K8hb and K2 once each; K3w
+    # and K4 once per step; no K3 (serving).
+    counts = require_launched("train path", before, PATH_LAUNCHES["train"])
     require(cam_e.grad is not None
             and tuple(cam_e.grad.shape) == ENTRY[:3]
             and bool(torch.isfinite(cam_e.grad).all()),
@@ -1148,17 +1130,16 @@ def phase_k8b() -> float:
         label = (f"K8b B={B} H={H} W={W} k={k} (first tap, taps "
                  f"{km.allpairs_grad_taps(W, k)})")
         cam, proj = uniform_pair(560 + i, B, H, W)
-        routes = lk.allpairs_volume_large.launches
+        before = COUNTS.copy()
         cost, stats = allpairs_volume_and_stats(cam, proj, k, EPS)
-        require((lk.allpairs_volume_large.launches > routes) == (k >= 145),
+        require(launched(before)["route.K8"] == (k >= 145),
                 f"{label}: the volume's route")
         g = torch.randn((B, H, W, W), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(i))
         g *= 1.0 / (H * W)
-        launches = camera_grad_allpairs_cuda.launches
+        before = COUNTS.copy()
         got = camera_grad_allpairs_cuda(cam, proj, g, cost, stats, k, EPS)
-        require(camera_grad_allpairs_cuda.launches == launches + 1,
-                f"{label}: one launch")
+        require(launched(before)["K8b"] == 1, f"{label}: one launch")
         want = camera_grad_allpairs(cam, proj, g, cost, k, EPS)
         if k == 1:
             torch.cuda.synchronize()
@@ -1222,8 +1203,7 @@ def phase_volume_head(card: str) -> dict:
             top = rows.amax(-1) + 0.05
             rows[:, L // 3] = top
             rows[:, L // 2] = top
-        launches = (extract_disparity_cuda.launches,
-                    extract_disparity_cuda.grad_launches)
+        before = COUNTS.copy()
         leaf = cost.detach().clone().requires_grad_(True)
         got = extract_disparity_cuda(leaf, D, THRESHOLD, 50.0)
         want = extract_disparity(cost, D, THRESHOLD, 50.0)
@@ -1243,10 +1223,8 @@ def phase_volume_head(card: str) -> dict:
                                       generator=gen) / n for _ in range(2))
         (grad,) = torch.autograd.grad((got.soft_disparity, got.confidence),
                                       leaf, (g_soft, g_conf))
-        require((extract_disparity_cuda.launches,
-                 extract_disparity_cuda.grad_launches)
-                == (launches[0] + 1, launches[1] + 1),
-                f"K8h {label}: one launch of K8h and of K8hb")
+        require_launched(f"K8h {label}", before,
+                         Counter({"K8h": 1, "K8hb": 1}))
         grad_err = compare_grad(grad, head_grad_plain(cost, D, g_soft,
                                                       g_conf),
                                 f"K8hb {label}", elementwise=True)
@@ -1334,20 +1312,15 @@ def phase_allpairs_path() -> dict:
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()
+    before = COUNTS.copy()
     t0 = time.perf_counter()
     out = model(cam, proj)
     out.soft_disparity.mean().backward()
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
-    counts = read_counters()
-    print(f"all-pairs path: counters {counts}")
-    require(counts["k8"] == 1, "K8 launched once")
-    require(counts["k8b"] == 1, "K8b launched once")
-    require(counts["k8h"] == 1 and counts["k8hb"] == 1,
-            "the head: K8h and K8hb launched once each")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the all-pairs path")
+    # K8, K8b and the head's K8h and K8hb once each.
+    counts = require_launched("all-pairs path", before,
+                              PATH_LAUNCHES["allpairs"])
     require(tuple(out.cost_volume.shape) == (1, H, W, W)
             and bool(torch.isfinite(out.cost_volume).all())
             and bool(torch.isfinite(out.soft_disparity).all()),
@@ -1387,17 +1360,12 @@ def phase_grad_projector_path() -> dict:
     proj = torch.from_numpy(projs).cuda().requires_grad_(True)
     torch.cuda.synchronize()
 
-    reset_counters()
+    before = COUNTS.copy()
     model(cam, proj).soft_disparity.mean().backward()
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"grad_projector path: counters {counts}")
-    require(counts["k1"] == 1 and counts["k2"] == 1 and counts["k7"] == 1,
-            "K1, K2 and K7 launched once each")
-    require(counts["k8h"] == 1 and counts["k8hb"] == 1,
-            "the head: K8h and K8hb launched once each")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the grad_projector path")
+    # K1, K2, K7 and the head's K8h and K8hb once each.
+    counts = require_launched("grad_projector path", before,
+                              PATH_LAUNCHES["grad_projector"])
     for name, grad in (("camera", cam.grad), ("projector", proj.grad)):
         require(grad is not None and tuple(grad.shape) == (1, H, W)
                 and bool(torch.isfinite(grad).all()),
@@ -1428,13 +1396,10 @@ def phase_grad_projector_path() -> dict:
     proj_e.requires_grad_(True)
     small = StereoMatcher(StereoConfig(kernel_size=ke, num_disparities=De,
                                        grad_projector=True))
-    before = (camera_grad_banded_cuda.launches,
-              projector_grad_banded_cuda.launches)
+    before = COUNTS.copy()
     small(cam_e, proj_e).soft_disparity.mean().backward()
-    after = (camera_grad_banded_cuda.launches,
-             projector_grad_banded_cuda.launches)
-    require(after == (before[0], before[1] + 1),
-            "projector-only gradient: K7 launched, K2 not")
+    require_launched("grad_projector path: projector-only gradient", before,
+                     Counter({"K1": 1, "K8h": 1, "K8hb": 1, "K7": 1}))
     print("grad_projector path: a projector-only gradient launches K7 and "
           "not K2")
     return counts
@@ -1746,16 +1711,11 @@ def phase_volume_free_path() -> dict:
         return loss_of
 
     torch.cuda.synchronize()
-    reset_counters()
+    before = COUNTS.copy()
     losses, _, _ = adam_steps(camera0, loss_fn(False), TRAIN_STEPS)
-    counts = read_counters()
-    print(f"volume-free path: counters {counts}")
-    require(counts["k3m"] == TRAIN_STEPS and counts["k5"] == TRAIN_STEPS,
-            f"K3m and K5 launched once per step ({TRAIN_STEPS})")
-    require(counts["k3w"] == 0 and counts["k4"] == 0 and counts["k3"] == 0,
-            "K3, K3w and K4 unused on the volume-free path")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the volume-free path")
+    # K3m and K5 once per step; no K3, K3w or K4.
+    counts = require_launched("volume-free path", before,
+                              PATH_LAUNCHES["volume_free"])
     print(f"volume-free path: {TRAIN_STEPS} Adam steps at {H}x{W} D={D} "
           f"k={k} lr={TRAIN_LR}: losses {losses}")
     require(all(np.isfinite(losses)), "every loss finite")
@@ -1814,18 +1774,13 @@ def phase_plane_major_path() -> dict:
         return out.cost_volume
 
     torch.cuda.synchronize()
-    reset_counters()
+    before = COUNTS.copy()
     cam = cam0.clone().requires_grad_(True)
     vol = plane_major(cam)
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"plane-major path: counters {counts}")
-    require(counts["k1"] == 1 and counts["k2"] == 1,
-            "K1 and K2 launched once each")
-    require(not any(counts[name] for name in ("k6", "k7", "k9a", "k9b")),
-            "no K6, K7 or layout kernel on the plane-major path")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the plane-major path")
+    # K1 and K2 once each; no K6, K7 or layout kernel.
+    counts = require_launched("plane-major path", before,
+                              PATH_LAUNCHES["plane_major"])
     require(tuple(vol.shape) == (1, D + 1, H, W)
             and bool(torch.isfinite(vol).all()), "plane-major volume")
     require(vol.is_contiguous(), "the plane-major volume is K1's buffer")
@@ -1879,16 +1834,13 @@ def phase_no_residual_path() -> dict:
         return g, camera_grad_banded_parity_cuda(cam, proj, g, D, k,
                                                  cfg.epsilon)
 
-    reset_counters()
+    before = COUNTS.copy()
     g, grad = step()
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"no-residual VJP path: counters {counts}")
-    require(all(counts[name] == 1 for name in ("k1", "k9a", "k9b", "k6")),
-            "K1, K9a, K9b and K6 launched once each")
-    require(counts["k2"] == 0, "K2 unused without the cost residual")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the no-residual VJP path")
+    # K1, K9a, K8h, K8hb, K9b and K6 once each; no K2 without the cost
+    # residual.
+    counts = require_launched("no-residual VJP path", before,
+                              PATH_LAUNCHES["no_residual"])
     require(tuple(grad.shape) == (1, H, W)
             and bool(torch.isfinite(grad).all()), "camera gradient")
     want = camera_grad_banded(cam, proj, g, D, k, cfg.epsilon)
@@ -1963,23 +1915,18 @@ def phase_k10() -> dict:
 
 
 def phase_bound_model(card: str):
-    """The bound model's path, counters reset: every rate measured anew
+    """The bound model's path, counted: every rate measured anew
     into the rates cache, then the card health probe against it.
-    Returns (counters, rates)."""
+    Returns (what it launched, rates)."""
     torch.cuda.synchronize()
-    reset_counters()
+    before = COUNTS.copy()
     t0 = time.perf_counter()
     rates = km.measure_vpu_rates(force=True, cache_path=str(km.CACHE_PATH))
     seconds = time.perf_counter() - t0
     rc = device_probe.main([])
-    counts = read_counters()
-    print(f"bound model: counters {counts}")
-    require(all(counts[f"k10a_{mode}"] >= 3 for mode in K10A_MODES)
-            and counts["k10b"] >= 3 and counts["k10c"] >= 3,
-            "K10a in every mode, K10b and K10c launched in each of three "
-            "rounds")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the bound-model path")
+    # K10a in every mode, K10b and K10c in each of three rounds.
+    counts = require_launched("bound model", before,
+                              PATH_LAUNCHES["bound_model"], at_least=True)
     require(rc == 0, "device_probe finds the card healthy")
     print(f"bound model: rates measured in {seconds:.1f} s into "
           f"{km.CACHE_PATH.relative_to(km.CACHE_PATH.parents[2])}: "
@@ -2262,7 +2209,7 @@ def phase_k8_k1() -> float:
 
 
 def phase_allpairs_k1_path() -> dict:
-    """The default all-pairs matcher at k = 1, counters reset: forward,
+    """The default all-pairs matcher at k = 1, counted: forward,
     head (K8h) and backward of a mean soft-disparity loss at 330x422; K8
     once, the plain volume never; the camera gradient against the plain
     node's."""
@@ -2271,17 +2218,13 @@ def phase_allpairs_k1_path() -> dict:
     cam0, proj = uniform_pair(1510, 1, H, W)
     cam = cam0.clone().requires_grad_(True)
     torch.cuda.synchronize()
-    reset_counters()
+    before = COUNTS.copy()
     out = model(cam, proj)
     out.soft_disparity.mean().backward()
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"all-pairs k=1 path: counters {counts}")
-    require(counts["k8"] == 1, "K8 launched once at k = 1")
-    require(counts["k8b"] == 1, "K8b launched once at k = 1")
-    require(counts["plain_allpairs"] == 0, "the plain volume unused at k = 1")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the all-pairs k = 1 path")
+    # K8, K8b, K8h and K8hb once each; the plain volume unused at k = 1.
+    counts = require_launched("all-pairs k=1 path", before,
+                              PATH_LAUNCHES["allpairs_k1"])
     want = forward_allpairs(cam0, proj, 1, EPS)
     compare_volume(out.cost_volume.detach(), want,
                    f"all-pairs k=1 path: volume at {H}x{W}", kernel="K8")
@@ -2306,24 +2249,11 @@ def phase_allpairs_k1_path() -> dict:
     return counts
 
 
-# The routes of the large-k path: key, the base kernel it stands in for,
-# the route function and its counter.
-LARGE_ROUTES = {
-    "K1L": ("K1", lk.banded_volume_large, "launches"),
-    "K3L": ("K3", lk.fused_pipeline_large, "launches"),
-    "K3wL": ("K3w", lk.fused_pipeline_large, "train_launches"),
-    "K3mL": ("K3m", lk.fused_pipeline_large, "maps_launches"),
-    "K2L": ("K2", lk.camera_grad_large, "launches"),
-    "K6L": ("K6", lk.camera_grad_large, "recompute_launches"),
-    "K4L": ("K4", lk.camera_grad_large, "head_launches"),
-    "K5L": ("K5", lk.camera_grad_large, "head_recompute_launches"),
-    "K7L": ("K7", lk.projector_grad_large, "launches"),
-    "K8L": ("K8", lk.allpairs_volume_large, "launches"),
-}
-KERNEL_COUNTERS.update({key.lower(): (fn, attr)
-                        for key, (_, fn, attr) in LARGE_ROUTES.items()})
-KERNEL_COUNTERS.update({f"lk_{fn.__name__}": (fn, "launches")
-                        for fn in lk.STEPS})
+# The routes of the large-k path: key and the base kernel it stands in
+# for, whose name its calls count under (``route.<base>``).
+LARGE_ROUTES = {f"{base}L": base for base in ("K1", "K3", "K3w", "K3m",
+                                              "K2", "K6", "K4", "K5", "K7",
+                                              "K8")}
 # (B, H, W, D) of the large-k checks: an edge shape, a batch, and the
 # shape of the large-k path (phase 26).
 LK_SHAPES = [(1, 37, 200, 20), (2, 24, 150, 10), (1, 40, 130, 24)]
@@ -2447,14 +2377,13 @@ def phase_large_k() -> dict:
                     elementwise=True))
             else:
                 torch.cuda.synchronize()
-                before = (lk.proj_fields.launches, lk.box_axis.launches)
+                before = COUNTS.copy()
                 try:
                     projector_grad_banded_cuda(cam, proj, pm, g, D, k, EPS)
                     raised = False
                 except ValueError as exc:
                     raised = "lane-aligned" in str(exc)
-                require(raised and before == (lk.proj_fields.launches,
-                                              lk.box_axis.launches),
+                require(raised and COUNTS == before,
                         f"K7 {label}: ValueError before any launch")
                 print(f"K7 {label}: ValueError before any launch, as JAX's "
                       f"_proj_bwd_kernel")
@@ -2486,7 +2415,7 @@ def phase_large_k() -> dict:
 
 
 def phase_large_k_path() -> dict:
-    """The large-k path, counters reset, through the entry points at
+    """The large-k path, counted, through the entry points at
     k = 129 (40x130, D = 24): the matcher's forward and backward (K1 and
     K2 on the route), ``disparity_maps`` (K3), ``trainable_disparity_maps``
     (K3w on the route, K4 on its own rounds), the volume-free trainable
@@ -2500,7 +2429,7 @@ def phase_large_k_path() -> dict:
     g_par = mean_loss_cotangent(1751, B, H, W, D).permute(0, 2, 3, 1)
     g_par = g_par.contiguous()
     torch.cuda.synchronize()
-    reset_counters()
+    before = COUNTS.copy()
     cam = cam0.clone().requires_grad_(True)
     StereoMatcher(cfg)(cam, proj).soft_disparity.mean().backward()
     with torch.no_grad():
@@ -2525,17 +2454,19 @@ def phase_large_k_path() -> dict:
     ap = StereoMatcher(StereoConfig(kernel_size=LK_AP[0][3]))(cam, proj)
     ap.soft_disparity.mean().backward()
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"large-k path: counters {counts}")
-    for key in LARGE_ROUTES:
-        require(counts[key.lower()] >= 1, f"{key} ran on the large-k path")
-    for fn in lk.STEPS:
-        require(counts[f"lk_{fn.__name__}"] >= 1,
-                f"the route's {fn.__name__} kernel launched")
-    require(counts["k4"] == 1 and counts["k9b"] == 1,
+    counts = launched(before)
+    print(f"large-k path: launched {dict(sorted(counts.items()))}")
+    for key, base in LARGE_ROUTES.items():
+        require(counts[f"route.{base}"] >= 1,
+                f"{key} ran on the large-k path")
+    for entry in _build.SIGNATURES:
+        if entry.startswith("custereo_lk_"):
+            step = entry[len("custereo_lk_"):]
+            require(counts[f"large_k.{step}"] >= 1,
+                    f"the route's {step} kernel launched")
+    require(counts["K4"] == 1 and counts["K9b"] == 1,
             "K4's own rounds at k=129 and K9b ran once")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the large-k path")
+    require(not plain_calls(counts), "plain twins unused on the large-k path")
     require(bool(torch.isfinite(served.soft_disparity).all())
             and bool(torch.isfinite(k6).all())
             and bool(torch.isfinite(cam.grad).all())
@@ -2581,11 +2512,6 @@ def _pin_call(kernel: str, cam, proj, D: int, k: int,
     }[kernel]
 
 
-def _count(name: str) -> int:
-    fn, attr = KERNEL_COUNTERS[name]
-    return getattr(fn, attr)
-
-
 def phase_route_pin(card: str) -> None:
     """The wrappers' route choice (``kernel_model.large_k_route`` at the
     card's opt-in budget, ``cuda_zncc.smem_floats``) against the C
@@ -2612,19 +2538,19 @@ def phase_route_pin(card: str) -> None:
           f"({budget} floats; the model's H100 default "
           f"{km.SMEM_OPTIN_BYTES}; {card})")
     for kernel in km.LARGE_K_KERNELS:
-        own, route = kernel.lower(), f"{kernel.lower()}l"
+        own, route = kernel, f"route.{kernel}"
         for D in (PIN_D if kernel != "K8" else (0,)):
             first = next(k for k in range(3, 257, 2)
                          if km.large_k_route(kernel, k, D, budget))
             for k in (first - 2, first):
                 call = _pin_call(kernel, cam, proj, D, k)
                 torch.cuda.synchronize()
-                before = (_count(own), _count(route))
+                before = (COUNTS[own], COUNTS[route])
                 label = f"{kernel} D={D} k={k}"
                 if k < first:
                     out = call()
                     torch.cuda.synchronize()
-                    require((_count(own), _count(route))
+                    require((COUNTS[own], COUNTS[route])
                             == (before[0] + 1, before[1]),
                             f"route pin {label}: its own blocks launched")
                     del out
@@ -2641,7 +2567,7 @@ def phase_route_pin(card: str) -> None:
                         code = int(found.group(1)) if found else -1
                 torch.cuda.synchronize()
                 require(code in CONFIG_REFUSALS
-                        and (_count(own), _count(route)) == before,
+                        and (COUNTS[own], COUNTS[route]) == before,
                         f"route pin {label}: the launcher refuses its own "
                         f"blocks (CUDA error {code})")
             print(f"route pin {kernel} D={D}: own blocks run at k={first - 2}"
@@ -2681,7 +2607,6 @@ def pin_tiles(card: str, cam, proj, budget: int) -> None:
     print(f"route pin: the launchers' rounds equal the model's at {n} (tile, "
           f"k, D) cases, K1/K3 at 5 planes a round each ({card})")
     for kernel in TILE_KERNEL_KEYS:
-        fn, attr = KERNEL_COUNTERS[kernel.lower()]
         for th in OTHER_TILES:
             for D in PIN_D:
                 first = next(k for k in range(3, 257, 2)
@@ -2689,12 +2614,12 @@ def pin_tiles(card: str, cam, proj, budget: int) -> None:
                 for k in (first - 2, first):
                     call = _pin_call(kernel, cam, proj, D, k, th)
                     torch.cuda.synchronize()
-                    before = getattr(fn, attr)
+                    before = COUNTS[kernel]
                     label = f"{kernel} tile {th} D={D} k={k}"
                     if k < first:
                         result = call()
                         torch.cuda.synchronize()
-                        require(getattr(fn, attr) == before + 1,
+                        require(COUNTS[kernel] == before + 1,
                                 f"route pin {label}: its own blocks launched")
                         del result
                         continue
@@ -2711,7 +2636,7 @@ def pin_tiles(card: str, cam, proj, budget: int) -> None:
                             code = int(found.group(1)) if found else -1
                     torch.cuda.synchronize()
                     require(code in CONFIG_REFUSALS
-                            and getattr(fn, attr) == before,
+                            and COUNTS[kernel] == before,
                             f"route pin {label}: the launcher refuses its "
                             f"own blocks (CUDA error {code})")
                 print(f"route pin {kernel} tile {th} D={D}: own blocks run "
@@ -2746,7 +2671,7 @@ def compare_route(key: str, got, want, cost, label: str) -> float:
     top-two ties of ``cost``, the plain volume); K3w's and K3m's argmax
     apart only at those ties, s and t within 1e-3, K3w's volume as K1's;
     gradients norm-relative 1e-4.  Returns the max abs error."""
-    base = LARGE_ROUTES[key][0]
+    base = LARGE_ROUTES[key]
     label = f"{label} large-k route"
     if base in ("K1", "K8"):
         return compare_volume(got, want, label, kernel=key)
@@ -2838,7 +2763,7 @@ def phase_large_k_route_times(card: str, rates: dict):
     bounds = banded_bounds(1, H, W, D, k)
     where = f"KITTI {H}x{W} D={D} k={k}"
     for key, (kernel, plain, kargs, pargs) in cases.items():
-        base = LARGE_ROUTES[key][0]
+        base = LARGE_ROUTES[key]
         ms, p, got, want = lk_interleaved(key, kernel, plain, kargs, pargs,
                                           where, card)
         errs[key] = compare_route(key, got, want, plain_vol, where)
@@ -2875,7 +2800,7 @@ LR_RETRIES = 2
 
 def phase_lr_engine(card: str) -> dict:
     """``StereoEngine(lr_check=True, retries=2)`` on the card: healthy(),
-    then, counters reset, warm-up and 8 KITTI frames; K3 twice a frame (and
+    then, counted, warm-up and 8 KITTI frames; K3 twice a frame (and
     twice for the warm-up), no plain twin; every frame's maps equal, bit
     for bit, two direct K3 calls (the pair, the flipped pair flipped
     back) composed with the plain ``lr_consistency_mask``; the check
@@ -2887,20 +2812,15 @@ def phase_lr_engine(card: str) -> dict:
                           retries=LR_RETRIES, device="cuda")
     require(engine.healthy(), "engine.healthy() on the card")
     frames = speckle_frames(N_FRAMES, seed=40)
-    reset_counters()
+    before = COUNTS.copy()
     engine.warmup()
     served, latency = [], []
     for cam, proj in zip(frames[0], frames[1]):
         t0 = time.perf_counter()
         served.append(engine.infer(cam, proj))
         latency.append(time.perf_counter() - t0)
-    counts = read_counters()
-    print(f"lr engine: counters {counts}")
-    require(counts["k3"] == 2 * (1 + N_FRAMES),
-            f"K3 launched twice per warm-up and served frame "
-            f"({2 * (1 + N_FRAMES)})")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the left-right path")
+    # K3 twice per warm-up and served frame.
+    counts = require_launched("lr engine", before, PATH_LAUNCHES["lr"])
 
     args = (D, k, cfg.epsilon, cfg.softargmax_beta, cfg.cost_threshold)
     removed = []
@@ -2947,7 +2867,7 @@ PYRAMID_CALLS = 5
 def phase_pyramid(card: str) -> dict:
     """``PyramidStereoMatcher(StereoConfig(kernel_size=15,
     num_disparities=192))`` on the bench scene (375x1242, d 4..40, noise
-    0.01, seed 0), counters reset: K3 twice a call (coarse, fine), no
+    0.01, seed 0), counted: K3 twice a call (coarse, fine), no
     plain twin; each level's K3 maps against the plain pipeline on the
     same inputs (as phase 4 at KITTI), the call bit-equal to the levels
     composed; EPE, bad3 and coverage beside the JAX package's; EPE <=
@@ -2960,14 +2880,11 @@ def phase_pyramid(card: str) -> dict:
     cam = torch.from_numpy(cam_np[None]).cuda()
     proj = torch.from_numpy(proj_np[None]).cuda()
     torch.cuda.synchronize()
-    reset_counters()
+    before = COUNTS.copy()
     with torch.no_grad():
         maps = fence(pyr(cam, proj))
-    counts = read_counters()
-    print(f"pyramid: counters {counts}")
-    require(counts["k3"] == 2, "K3 launched twice a pyramid call")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "plain twins unused on the pyramid path")
+    # K3 twice a pyramid call.
+    counts = require_launched("pyramid", before, PATH_LAUNCHES["pyramid"])
     # Each level's K3 call against the plain pipeline on the same inputs
     # (the pooled pair; the camera and the projector warped by the
     # coarse K3 maps), and the call bit-equal to the levels composed.
@@ -3030,10 +2947,10 @@ def phase_failsafe() -> None:
                                f"{state['code']} (injected)")
         return stereo_pipeline_cuda(cam, proj, D, k, EPS, 50.0, THRESHOLD)
 
-    launches = stereo_pipeline_cuda.launches
+    before = COUNTS.copy()
     maps = with_retries(flaky, retries=2, backoff_s=0.01)()
-    require(state["calls"] == 2 and stereo_pipeline_cuda.launches
-            == launches + 1 and bool(torch.isfinite(maps.confidence).all()),
+    require(state["calls"] == 2 and launched(before) == Counter({"K3": 1})
+            and bool(torch.isfinite(maps.confidence).all()),
             "an allocation failure is retried and served")
     state.update(fail=1, calls=0, code=700)
     try:
@@ -3153,9 +3070,9 @@ def phase_parallel_unsharded() -> dict:
 
 def phase_parallel_one_rank(card: str, ref: dict) -> dict:
     """The parallel layer end to end at one rank: an NCCL world of one, a
-    1 x 1 mesh and a one-stage pipeline, counters reset around the paths,
+    1 x 1 mesh and a one-stage pipeline, counted around the paths,
     every result held against ``ref`` (:func:`phase_parallel_unsharded`).
-    Returns the counters."""
+    Returns what it launched."""
     H, W = BUCKET
     B, k, D = PAR_B, PAR_K, PAR_D
     cfg = StereoConfig(kernel_size=k, num_disparities=D)
@@ -3178,7 +3095,7 @@ def phase_parallel_one_rank(card: str, ref: dict) -> dict:
     print(f"parallel one rank: world {dist.get_world_size()} "
           f"({dist.get_backend()}), mesh {mesh}, stages {stages}")
 
-    reset_counters()
+    before = COUNTS.copy()
     with torch.no_grad():
         cv = sharded_cost_volume(cam, proj, cfg, mesh)            # K1
     cam_s, proj_s = shard_batch((cam, proj), mesh)
@@ -3197,18 +3114,10 @@ def phase_parallel_one_rank(card: str, ref: dict) -> dict:
     with torch.no_grad():
         piped = pipelined_video_maps(vcams, vprojs, cfg_p, stages)  # K3m
     torch.cuda.synchronize()
-    counts = read_counters()
-    print(f"parallel one rank: counters {counts}")
-    want = {"k1": 2 + TRAIN_STEPS, "k2": 1 + TRAIN_STEPS, "k3": 1,
-            "k3w": 1, "k4": 1, "k3m": PIPE_T}
-    for name, n in want.items():
-        require(counts[name] == n, f"parallel one rank: {name} launched {n} "
-                f"times (got {counts[name]})")
-    require(not any(counts[name] for name in KERNEL_COUNTERS
-                    if name not in want),
-            "parallel one rank: no other kernel launched")
-    require(not any(counts[name] for name in PLAIN_COUNTERS),
-            "parallel one rank: plain versions unused")
+    counts = require_launched(
+        "parallel one rank", before,
+        Counter({"K1": 2 + TRAIN_STEPS, "K2": 1 + TRAIN_STEPS, "K3": 1,
+                 "K3w": 1, "K4": 1, "K3m": PIPE_T}))
 
     def full(a):
         return a.full_tensor() if hasattr(a, "full_tensor") else a
@@ -3684,7 +3593,7 @@ def fuzz_gate(cam, proj, D: int, k: int, beta: float, gated: dict) -> None:
                                               k, EPS, beta),
         "K7": lambda: projector_grad_banded_cuda(cam, proj, g, g, D, k, EPS),
     }
-    launches = read_counters()
+    before = COUNTS.copy()
     for key, call in calls.items():
         try:
             call()
@@ -3695,7 +3604,7 @@ def fuzz_gate(cam, proj, D: int, k: int, beta: float, gated: dict) -> None:
             continue
         require(False, f"{key} refuses k = {k} (its gate is odd k >= "
                        f"{cuda_zncc.MIN_KERNEL_SIZE})")
-    require(read_counters() == launches, f"no launch at k = {k}")
+    require(COUNTS == before, f"no launch at k = {k}")
 
 
 def fuzz_banded(i: int, case, cam, proj, note) -> None:
@@ -3894,21 +3803,20 @@ def hold_example(name: str, maps, cam, proj, D: int, k: int) -> dict:
 
 
 def run_example(name: str, module, argv, card: str):
-    """``module.main(argv)`` in process, counters reset just before: it
+    """``module.main(argv)`` in process, counted: it
     must return 0, launch K3 and never the plain pipeline."""
     rec = {}
-    reset_counters()
+    before = COUNTS.copy()
     t0 = time.perf_counter()
     rc = module.main(argv, rec)
     seconds = time.perf_counter() - t0
-    counts = read_counters()
+    counts = launched(before)
     print(f"examples: {name} {' '.join(argv)} -> rc {rc} in {seconds:.2f} s; "
-          f"K3 launches {counts['k3']}, plain pipeline calls "
-          f"{counts['plain_pipeline']} ({card})")
+          f"K3 launches {counts['K3']}, plain pipeline calls "
+          f"{counts['plain.stereo_pipeline_reference']} ({card})")
     require(rc == 0, f"{name} exits 0")
-    require(counts["k3"] >= 1, f"{name} launched K3")
-    require(not any(counts[n] for n in PLAIN_COUNTERS),
-            f"{name}: no plain version ran")
+    require(counts["K3"] >= 1, f"{name} launched K3")
+    require(not plain_calls(counts), f"{name}: no plain version ran")
     return rec, counts
 
 
@@ -3956,7 +3864,7 @@ def phase_examples(card: str, tmp: str) -> dict:
 
     rec, out["video_depth"] = run_example("video_depth", video_depth, [],
                                           card)
-    require(out["video_depth"]["k3"] >= 17,
+    require(out["video_depth"]["K3"] >= 17,
             "video_depth: K3 once a frame and once to warm up")
     require(np.isfinite(rec["depth"]).all(), "video_depth: finite depth")
     print(f"examples: video_depth 16 frames 375x1242 D=192: "
@@ -4255,7 +4163,7 @@ def phase_tuning(card: str, rates: dict) -> dict:
 
 def phase_tiled_path(card: str) -> tuple:
     """The tiles other than the default through the entry points: for
-    each, counters reset, a ``StereoMatcher`` whose config sets
+    each, counted, a ``StereoMatcher`` whose config sets
     ``pipeline_blocks`` (that tile at its own planes) and
     ``trainable_bwd_block_rows`` serves a KITTI pair (K3) and takes a
     training step's forward and backward (K3w + K4), the volume-free
@@ -4297,15 +4205,16 @@ def phase_tiled_path(card: str) -> tuple:
         tile = (th, km.round_planes(k, D, None, th))
         cfg = dataclasses.replace(base, pipeline_blocks=tile,
                                   trainable_bwd_block_rows=th)
-        reset_counters()
+        before = COUNTS.copy()
         got = run(cfg, tile)
-        seen = read_counters()
-        print(f"tiled path: tile {tile}: counters {seen}")
-        require(not any(seen[n] for n in PLAIN_COUNTERS),
+        seen = launched(before)
+        print(f"tiled path: tile {tile}: launched "
+              f"{dict(sorted(seen.items()))}")
+        require(not plain_calls(seen),
                 f"tiled path {tile}: no plain version ran")
         for key in TILE_KERNEL_KEYS:
-            counts[f"{key.lower()}t{th}"] = seen[key.lower()]
-            require(seen[key.lower()] >= 1,
+            counts[f"{key.lower()}t{th}"] = seen[key]
+            require(seen[key] >= 1,
                     f"tiled path: {key} launched at {th} rows")
         for name, g, w in zip(("K3 maps", "K3w maps", "K4 gradient",
                                "K3m maps", "K1 volume"), got, want):
@@ -4465,7 +4374,7 @@ LARGE_KERNELS = (
 
 
 KERNELS = (
-    # name, key, source, replaces, path whose counters give its launches
+    # name, key, source, replaces, the path whose launches count it
     ("zncc_banded_volume", "K1", "custereomatching_tpu_torch/csrc/"
      "zncc_banded.cu", "custereomatching_tpu/ops/pallas_zncc.py:156",
      "serve"),
@@ -4602,7 +4511,7 @@ def main() -> int:
     for name, key, source, replaces, path in KERNELS:
         ms, plain_ms, library_ms, (bound_ms, bound_by), (model_ms, model_by) \
             = times[key]
-        launches = counts[path][key.lower()]
+        launches = counts[path][key]
         require(launches >= 1, f"{key} launched on its path ({path})")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -4614,7 +4523,7 @@ def main() -> int:
     for name, key, replaces in LARGE_KERNELS:
         ms, plain_ms, library_ms, (bound_ms, bound_by), (model_ms, model_by) \
             = times[key]
-        launches = counts["large_k"][key.lower()]
+        launches = counts["large_k"][f"route.{LARGE_ROUTES[key]}"]
         require(launches >= 1, f"{key} launched on the large-k path")
         kernels.append({
             "name": name, "route": "cuda",
@@ -4640,24 +4549,23 @@ def main() -> int:
     # VJP to XLA), so it has a record of its own beside the table's.
     ms, plain_ms, _, (bound_ms, bound_by), (model_ms, model_by) = \
         times["K8b"]
-    require(counts["allpairs"]["k8b"] == 1, "K8b launched on its path")
+    require(counts["allpairs"]["K8b"] == 1, "K8b launched on its path")
     print(json.dumps({"k8b": {
         "name": "zncc_allpairs_camera_vjp", "route": "cuda",
         "source": "custereomatching_tpu_torch/csrc/zncc_allpairs_bwd.cu",
-        "replaces": None, "launches": counts["allpairs"]["k8b"],
+        "replaces": None, "launches": counts["allpairs"]["K8b"],
         "max_abs_err": errs["K8b"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "model_ms": model_ms,
         "model_by": model_by}}))
     # K8h and K8hb port no TPU kernel either (the JAX package leaves the
     # head to XLA).
     for key, (err, ms, plain_ms, (bound_ms, bound_by)) in head.items():
-        require(counts["allpairs"][key.lower()] == 1,
-                f"{key} launched on its path")
+        require(counts["allpairs"][key] == 1, f"{key} launched on its path")
         print(json.dumps({key.lower(): {
             "name": {"K8h": "volume_head",
                      "K8hb": "volume_head_vjp"}[key], "route": "cuda",
             "source": "custereomatching_tpu_torch/csrc/volume_head.cu",
-            "replaces": None, "launches": counts["allpairs"][key.lower()],
+            "replaces": None, "launches": counts["allpairs"][key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}}))
     bench.write_smoke_record(True, card)

@@ -104,16 +104,7 @@ from custereomatching_tpu_torch.ops import (
     stereo_matching_hdw,
     stereo_matching_torch,
 )
-from custereomatching_tpu_torch.ops.cuda_allpairs import (
-    cost_volume_allpairs_cuda,
-)
-from custereomatching_tpu_torch.ops.cuda_pipeline import (
-    fused_pipeline_bwd_cuda,
-    fused_pipeline_train_cuda,
-    stereo_pipeline_cuda,
-)
 from custereomatching_tpu_torch.ops.cuda_zncc import (
-    camera_grad_banded_cuda,
     cost_volume_banded_cuda,
     projector_grad_banded_cuda,
 )
@@ -124,6 +115,7 @@ from custereomatching_tpu_torch.parallel.pipeline import (
 from custereomatching_tpu_torch.utils import kernel_model as km
 from custereomatching_tpu_torch.utils.metrics import disparity_metrics
 from custereomatching_tpu_torch.utils.profiling import (
+    COUNTS,
     PEAK_BYTES,
     PEAK_FLOPS,
     allpairs_bound,
@@ -155,18 +147,8 @@ REPO = Path(__file__).resolve().parents[1]
 SMOKE_RECORD = REPO / "build" / "smoke" / "chip_smoke.json"
 SMOKE_STALE_DAYS = 14
 
-# The wrappers whose launches a run on the card must show, by the
-# attribute that counts them.
-LAUNCH_COUNTERS = {
-    "K1": (cost_volume_banded_cuda, "launches"),
-    "K2": (camera_grad_banded_cuda, "launches"),
-    "K3": (stereo_pipeline_cuda, "launches"),
-    "K3w": (fused_pipeline_train_cuda, "launches"),
-    "K3m": (fused_pipeline_train_cuda, "maps_launches"),
-    "K4": (fused_pipeline_bwd_cuda, "launches"),
-    "K7": (projector_grad_banded_cuda, "launches"),
-    "K8": (cost_volume_allpairs_cuda, "launches"),
-}
+# The kernels a run on the card must launch (``COUNTS``' names).
+KERNELS = ("K1", "K2", "K3", "K3w", "K3m", "K4", "K7", "K8")
 
 
 def log(msg: str) -> None:
@@ -864,8 +846,7 @@ def run_all(args: argparse.Namespace, device: torch.device) -> Dict:
     if device.type == "cuda":
         smoke_status(info["name"])
     run = setup(args, device)
-    for fn, attr in LAUNCH_COUNTERS.values():
-        setattr(fn, attr, 0)
+    before = COUNTS.copy()
     secondary = measure_pipeline(run)
     for measure in (measure_batched, measure_pyramid, measure_train_step,
                     measure_volume_parity, measure_volume_hdw,
@@ -874,8 +855,8 @@ def run_all(args: argparse.Namespace, device: torch.device) -> Dict:
                     measure_engine_bucket, measure_e2e, measure_parity,
                     measure_projector_grad):
         secondary.update(measure(run))
-    launches = {name: getattr(fn, attr)
-                for name, (fn, attr) in LAUNCH_COUNTERS.items()}
+    ran = COUNTS - before
+    launches = {name: ran[name] for name in KERNELS}
     log(f"kernel launches in this run: {launches}")
     if run.cuda and not all(launches.values()):
         raise RuntimeError(f"a kernel of the bench's paths never launched: "

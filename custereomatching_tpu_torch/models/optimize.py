@@ -107,9 +107,9 @@ def disparity_loss(model: StereoMatcher, camera: torch.Tensor,
             (camera, projector, target_disparity), mesh)
         cv = model.sharded_cost_volume(camera, projector, mesh)
         d = sharded_disparity(cv, c)
-    elif (c.num_disparities is not None and not c.grad_projector
-            and c.resolved_backend(camera.device) == "cuda"):
-        # Trainable fused pipeline: no cost-volume cotangent in memory.
+    elif c.resolved_backend(camera.device) == "cuda":
+        # The fused pipeline where it applies (no cost-volume cotangent in
+        # memory), else the volume path: the method chooses.
         d = model.trainable_disparity_maps(camera, projector)
     else:
         d = model.disparity(model.cost_volume(camera, projector))

@@ -12,7 +12,8 @@ without ``argtypes`` ctypes would pass 64-bit pointers as 32-bit ints.
 A failed build raises with nvcc's output; nothing falls back.
 
 Every call of an entry point that launches a kernel goes through
-:func:`launch`, which names the launch in the profiler's trace.
+:func:`launch`, which names the launch in the profiler's trace and counts
+it in ``profiling.COUNTS``.
 """
 
 from __future__ import annotations
@@ -266,12 +267,13 @@ def launch(kernel: str, entry: str, *args,
     ``custereo.kernel.<kernel>`` (``kernel``: K1 ... K10c and K8b, or
     ``large_k.<step>`` for a step of the large-k route), and raise as
     :func:`check` does, the error named by ``what`` (default ``<kernel>
-    launch``).  The ctypes call leaves no event of its own in a profile,
-    so this span is what names the launch, and the host time before it,
-    there."""
+    launch``); a launch that passes adds 1 to ``profiling.COUNTS[kernel]``.
+    The ctypes call leaves no event of its own in a profile, so this span
+    is what names the launch, and the host time before it, there."""
     with profiling.span(f"custereo.kernel.{kernel}"):
         code = getattr(kernels(), entry)(*args)
     check(code, what or f"{kernel} launch")
+    profiling.COUNTS[kernel] += 1
 
 
 def check(code: int, what: str) -> None:

@@ -52,14 +52,10 @@ def cost_volume_allpairs_cuda(camera: torch.Tensor, projector: torch.Tensor,
     takes them (k = 1 included: one staged row, a one-tap sweep, E2 = 0,
     so every cost is eps / sqrt(eps)); where its strip does not fit
     (k >= 145 on an H100) the large-k route writes the volume
-    (``cuda_large_k.allpairs_volume_large``).  ``.launches`` counts K8's
-    launches.
+    (``cuda_large_k.allpairs_volume_large``).
     """
     return allpairs_volume_and_stats(camera, projector, kernel_size,
                                      epsilon, precision)[0]
-
-
-cost_volume_allpairs_cuda.launches = 0
 
 
 def allpairs_volume_and_stats(camera: torch.Tensor, projector: torch.Tensor,
@@ -90,7 +86,6 @@ def allpairs_volume_and_stats(camera: torch.Tensor, projector: torch.Tensor,
             ptr(camera), ptr(projector), *(ptr(s) for s in stats.unbind(0)),
             ptr(out), B, H, W, k, float(epsilon), stream_of(camera.device),
             what="K8 all-pairs volume launch")
-    cost_volume_allpairs_cuda.launches += 1
     return out, stats.unbind(0)
 
 
@@ -112,7 +107,6 @@ def camera_grad_allpairs_cuda(camera: torch.Tensor, projector: torch.Tensor,
     large-k route's combine.  Every tensor must be fp32, contiguous and on
     the camera's card, or the call raises.  A CPU tensor takes the plain
     version, which recomputes the statistics (``stats`` unused).
-    ``.launches`` counts K8b's launches.
     """
     k = int(kernel_size)
     camera, projector = prepare(camera, projector, 0, k, min_kernel_size=1)
@@ -153,11 +147,7 @@ def camera_grad_allpairs_cuda(camera: torch.Tensor, projector: torch.Tensor,
             boxes = lk.box2d_stack(
                 lk.grad_stack(bm, grmu, stats[0], k).flatten(0, 1), k)
             out = lk.grad_combine(a1, boxes.view(3, B, H, W), camera)
-    camera_grad_allpairs_cuda.launches += 1
     return out
-
-
-camera_grad_allpairs_cuda.launches = 0
 
 
 class CudaAllPairsMatching(torch.autograd.Function):

@@ -76,7 +76,6 @@ def _head_forward(cost: torch.Tensor, num_disparities: Optional[int],
                 pixels, H * W, W, L, beta, threshold,
                 int(num_disparities is None), int(plane_major),
                 stream_of(cost.device), what="K8h volume head launch")
-        extract_disparity_cuda.launches += 1
     return maps, resid
 
 
@@ -109,7 +108,6 @@ def _head_vjp(cost: torch.Tensor, conf: torch.Tensor, resid: torch.Tensor,
                 None if g_conf is None else ptr(g_conf), ptr(out), pixels,
                 H * W, L, beta, threshold, int(all_pairs), int(plane_major),
                 stream_of(cost.device), what="K8hb volume head VJP launch")
-        extract_disparity_cuda.grad_launches += 1
     return out
 
 
@@ -152,8 +150,7 @@ def extract_disparity_cuda(cost_volume: torch.Tensor,
     anything else on a CUDA tensor raises ``ValueError``, as does beta <=
     0.  The hard map, the mask and the confidence are the plain head's
     bit for bit; the soft map and the gradient differ by the order of the
-    sums.  A CPU tensor takes the plain head.  ``.launches`` counts K8h's
-    launches, ``.grad_launches`` K8hb's."""
+    sums.  A CPU tensor takes the plain head."""
     if cost_volume.device.type == "cpu":
         return extract_disparity(cost_volume, num_disparities, threshold,
                                  beta)
@@ -162,7 +159,3 @@ def extract_disparity_cuda(cost_volume: torch.Tensor,
                          f"{cost_volume.device}")
     return DisparityResult(*VolumeHead.apply(
         cost_volume, num_disparities, float(threshold), float(beta)))
-
-
-extract_disparity_cuda.launches = 0
-extract_disparity_cuda.grad_launches = 0

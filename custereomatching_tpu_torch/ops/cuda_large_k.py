@@ -22,10 +22,10 @@ does) and its combine, K7's fields in projector columns, and K8's row
 products, row sums and normalisation.
 
 Every step is a function here that launches its kernel on a CUDA tensor
-(its ``.launches`` counts the launches) and runs its plain form on a CPU
-tensor, so the chains themselves run on the CPU against the plain ops.
-The route functions count their own calls (``.launches`` and, where one
-function serves two kernels, a counter for each).
+(``large_k.<step>`` in ``profiling.COUNTS``) and runs its plain form on a
+CPU tensor, so the chains themselves run on the CPU against the plain ops.
+A route function counts each call, on either device, as ``route.<K>``, K
+the kernel it stands in for.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from custereomatching_tpu_torch.utils.kernel_model import (
     cost_slabs,
     large_k_scratch,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 def _cuda(t: torch.Tensor) -> bool:
@@ -64,14 +65,13 @@ def _dense(*ts):
     return tuple(None if t is None else t.contiguous() for t in ts)
 
 
-def _launch(step: str, fn_attr, *args, device) -> None:
+def _launch(step: str, *args, device) -> None:
     """Launch the route's kernel ``step`` (C entry ``custereo_lk_<step>``)
-    on ``device``'s current stream, counting it on ``fn_attr``."""
+    on ``device``'s current stream."""
     entry = f"custereo_lk_{step}"
     with torch.cuda.device(device):
         _build.launch(f"large_k.{step}", entry, *args, stream_of(device),
                       what=f"large-k {entry} launch")
-    fn_attr.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -87,12 +87,9 @@ def box_axis(x: torch.Tensor, k: int, axis: int,
         y = _box_axis(x, k, 1 + axis)
         return y if out is None else out.copy_(y)
     out = torch.empty_like(x) if out is None else out
-    _launch("box_axis", box_axis, ptr(x), ptr(out), N, H, W, k,
+    _launch("box_axis", ptr(x), ptr(out), N, H, W, k,
             axis, device=x.device)
     return out
-
-
-box_axis.launches = 0
 
 
 def box2d_stack(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -109,12 +106,9 @@ def pad_square(img: torch.Tensor, left: int) -> torch.Tensor:
         v = F.pad(img, (left, 0))
         return torch.stack([v, v * v])
     out = img.new_empty((2, N, H, W + left))
-    _launch("pad_square", pad_square, ptr(img), ptr(out), N, H,
+    _launch("pad_square", ptr(img), ptr(out), N, H,
             W, left, device=img.device)
     return out
-
-
-pad_square.launches = 0
 
 
 def moments_finish(s: torch.Tensor, s2: torch.Tensor, k: int) -> None:
@@ -123,11 +117,8 @@ def moments_finish(s: torch.Tensor, s2: torch.Tensor, k: int) -> None:
     if not _cuda(s):
         s2.copy_(s2 - s * s / k2)
         return
-    _launch("moments_finish", moments_finish, ptr(s), ptr(s2),
+    _launch("moments_finish", ptr(s), ptr(s2),
             s.numel(), k2, device=s.device)
-
-
-moments_finish.launches = 0
 
 
 def moments(img: torch.Tensor, k: int, left: int = 0
@@ -152,12 +143,9 @@ def band_products(cam: torch.Tensor, proj: torch.Tensor, d_lo: int,
             d = d_lo + j
             out[:, j] = cam * F.pad(proj, (d, 0))[..., :W]
         return out
-    _launch("band_products", band_products, ptr(cam), ptr(proj),
+    _launch("band_products", ptr(cam), ptr(proj),
             ptr(out), B, H, W, d_lo, P, device=cam.device)
     return out
-
-
-band_products.launches = 0
 
 
 def band_cost(sxy: torch.Tensor, stats, out: torch.Tensor, out_lo: int,
@@ -178,12 +166,9 @@ def band_cost(sxy: torch.Tensor, stats, out: torch.Tensor, out_lo: int,
             out[:, d - out_lo] = (exy + eps) * torch.rsqrt(cam_e2 * ey2
                                                            + eps)
         return
-    _launch("band_cost", band_cost, ptr(sxy), ptr(cam_s),
+    _launch("band_cost", ptr(sxy), ptr(cam_s),
             ptr(cam_e2), ptr(proj_s), ptr(proj_e2), ptr(out), out.shape[1],
             out_lo, B, H, W, D, d_lo, P, k2, float(eps), device=sxy.device)
-
-
-band_cost.launches = 0
 
 
 def online_head(cost: torch.Tensor, cost_lo: int, state: torch.Tensor,
@@ -229,14 +214,11 @@ def online_head(cost: torch.Tensor, cost_lo: int, state: torch.Tensor,
             maps[4], maps[5], maps[6] = am, s, t
         return
     res = (maps[4], maps[5], maps[6]) if residuals else (None,) * 3
-    _launch("online_head", online_head, ptr(cost),
+    _launch("online_head", ptr(cost),
             cost.shape[1], cost_lo, ptr(state), *(ptr(m) for m in maps[:4]),
             *(_p(r) for r in res), B, H, W, d_lo, P, float(beta),
             float(threshold), int(unnormalized), int(first), int(last),
             device=cost.device)
-
-
-online_head.launches = 0
 
 
 def grad_fields(cost: torch.Tensor, cost_lo: int, g_vol, head, stats,
@@ -281,14 +263,11 @@ def grad_fields(cost: torch.Tensor, cost_lo: int, g_vol, head, stats,
         maps = (am, mask, conf, s, t, gsoft, gconf)
     else:
         maps, beta, unnorm = (None,) * 7, 1.0, False
-    _launch("grad_fields", grad_fields, ptr(cost),
+    _launch("grad_fields", ptr(cost),
             cost.shape[1], cost_lo, _p(g_vol), *(_p(m) for m in maps),
             ptr(cam_e2), ptr(proj_s), ptr(proj_e2), ptr(gr), ptr(bm),
             ptr(grmu), B, H, W, D, d_lo, P, k2, float(eps), float(beta),
             int(unnorm), int(first), device=gr.device)
-
-
-grad_fields.launches = 0
 
 
 def grad_a1(box: torch.Tensor, proj: torch.Tensor, a1: torch.Tensor,
@@ -302,11 +281,8 @@ def grad_a1(box: torch.Tensor, proj: torch.Tensor, a1: torch.Tensor,
             acc = acc + box[:, j] * F.pad(proj, (d_lo + j, 0))[..., :W]
         a1.copy_(acc)
         return
-    _launch("grad_a1", grad_a1, ptr(box), ptr(proj), ptr(a1), B,
+    _launch("grad_a1", ptr(box), ptr(proj), ptr(a1), B,
             H, W, d_lo, P, int(first), device=box.device)
-
-
-grad_a1.launches = 0
 
 
 def grad_stack(bm: torch.Tensor, grmu: torch.Tensor, cam_s: torch.Tensor,
@@ -317,12 +293,9 @@ def grad_stack(bm: torch.Tensor, grmu: torch.Tensor, cam_s: torch.Tensor,
     if not _cuda(bm):
         return torch.stack([grmu, bm * (cam_s / k2), bm])
     out = bm.new_empty((3,) + tuple(bm.shape))
-    _launch("grad_stack", grad_stack, ptr(bm), ptr(grmu),
+    _launch("grad_stack", ptr(bm), ptr(grmu),
             ptr(cam_s), ptr(out), bm.numel(), k2, device=bm.device)
     return out
-
-
-grad_stack.launches = 0
 
 
 def grad_combine(a1: torch.Tensor, boxes: torch.Tensor, cam: torch.Tensor
@@ -331,12 +304,9 @@ def grad_combine(a1: torch.Tensor, boxes: torch.Tensor, cam: torch.Tensor
     if not _cuda(a1):
         return a1 - boxes[0] + boxes[1] - cam * boxes[2]
     out = torch.empty_like(a1)
-    _launch("grad_combine", grad_combine, ptr(a1), ptr(boxes),
+    _launch("grad_combine", ptr(a1), ptr(boxes),
             ptr(cam), ptr(out), a1.numel(), device=a1.device)
     return out
-
-
-grad_combine.launches = 0
 
 
 def _projector_columns(f: torch.Tensor, d: int, p: int) -> torch.Tensor:
@@ -379,13 +349,10 @@ def proj_fields(cost: torch.Tensor, g: torch.Tensor, cam_stats,
         z2.copy_(a)
         z3.copy_(c3)
         return
-    _launch("proj_fields", proj_fields, ptr(cost), ptr(g),
+    _launch("proj_fields", ptr(cost), ptr(g),
             ptr(cam_s), ptr(cam_e2), ptr(proj_e2e), ptr(gr), ptr(z2),
             ptr(z3), B, H, W, D, p, d_lo, P, k2, float(eps), int(first),
             device=gr.device)
-
-
-proj_fields.launches = 0
 
 
 def proj_a1(box: torch.Tensor, cam: torch.Tensor, a1p: torch.Tensor,
@@ -399,11 +366,8 @@ def proj_a1(box: torch.Tensor, cam: torch.Tensor, a1p: torch.Tensor,
             acc = acc + _projector_columns(cam, d_lo + j, p) * box[:, j]
         a1p.copy_(acc)
         return
-    _launch("proj_a1", proj_a1, ptr(box), ptr(cam), ptr(a1p), B,
+    _launch("proj_a1", ptr(box), ptr(cam), ptr(a1p), B,
             H, We - p, p, d_lo, P, int(first), device=box.device)
-
-
-proj_a1.launches = 0
 
 
 def proj_stack(z2: torch.Tensor, z3: torch.Tensor, proj_se: torch.Tensor,
@@ -413,12 +377,9 @@ def proj_stack(z2: torch.Tensor, z3: torch.Tensor, proj_se: torch.Tensor,
     if not _cuda(z2):
         return torch.stack([z2, proj_se / k2 * z3, z3])
     out = z2.new_empty((3,) + tuple(z2.shape))
-    _launch("proj_stack", proj_stack, ptr(z2), ptr(z3),
+    _launch("proj_stack", ptr(z2), ptr(z3),
             ptr(proj_se), ptr(out), z2.numel(), k2, device=z2.device)
     return out
-
-
-proj_stack.launches = 0
 
 
 def proj_combine(a1p: torch.Tensor, boxes: torch.Tensor,
@@ -430,12 +391,9 @@ def proj_combine(a1p: torch.Tensor, boxes: torch.Tensor,
                 - proj * boxes[2][..., p:] + boxes[1][..., p:])
     B, H, W = proj.shape
     out = torch.empty_like(proj)
-    _launch("proj_combine", proj_combine, ptr(a1p), ptr(boxes),
+    _launch("proj_combine", ptr(a1p), ptr(boxes),
             ptr(proj), ptr(out), B, H, W, p, device=proj.device)
     return out
-
-
-proj_combine.launches = 0
 
 
 def row_products(cam: torch.Tensor, proj: torch.Tensor, k: int,
@@ -451,12 +409,9 @@ def row_products(cam: torch.Tensor, proj: torch.Tensor, k: int,
         for j in range(1, k):
             g += hc[..., :, None, j] * hp[..., None, :, j]
         return out.copy_(g)
-    _launch("row_products", row_products, ptr(cam), ptr(proj),
+    _launch("row_products", ptr(cam), ptr(proj),
             ptr(out), B, H, W, k, device=cam.device)
     return out
-
-
-row_products.launches = 0
 
 
 def allpairs_cost(a: torch.Tensor, stats, k: int, eps: float,
@@ -470,19 +425,10 @@ def allpairs_cost(a: torch.Tensor, stats, k: int, eps: float,
         exy = a - cam_s[..., :, None] * proj_s[..., None, :] / k2
         return out.copy_((exy + eps) * torch.rsqrt(
             cam_e2[..., :, None] * proj_e2[..., None, :] + eps))
-    _launch("allpairs_cost", allpairs_cost, ptr(a), ptr(cam_s),
+    _launch("allpairs_cost", ptr(a), ptr(cam_s),
             ptr(cam_e2), ptr(proj_s), ptr(proj_e2), ptr(out), B, H, W, k2,
             float(eps), device=a.device)
     return out
-
-
-allpairs_cost.launches = 0
-
-# Every step, for the counters.
-STEPS = (box_axis, pad_square, moments_finish, band_products, band_cost,
-         online_head, grad_fields, grad_a1, grad_stack, grad_combine,
-         proj_fields, proj_a1, proj_stack, proj_combine, row_products,
-         allpairs_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +483,7 @@ def banded_volume_large(camera: torch.Tensor, projector: torch.Tensor,
                         D: int, k: int, eps: float) -> torch.Tensor:
     """K1 on the large-k route: the plane-major volume ``[B, D+1, H, W]``
     of ``forward_banded``, a slab of planes at a time."""
-    banded_volume_large.launches += 1
+    COUNTS["route.K1"] += 1
     camera, projector = _dense(camera, projector)
     B, H, W = camera.shape
     stats = banded_stats(camera, projector, D, k)
@@ -549,9 +495,6 @@ def banded_volume_large(camera: torch.Tensor, projector: torch.Tensor,
     return out
 
 
-banded_volume_large.launches = 0
-
-
 def fused_pipeline_large(camera: torch.Tensor, projector: torch.Tensor,
                          D: int, k: int, eps: float, beta: float,
                          threshold: float, unnormalized: bool,
@@ -561,15 +504,9 @@ def fused_pipeline_large(camera: torch.Tensor, projector: torch.Tensor,
     large-k route: K1's cost planes a slab at a time (into the volume for
     K3w, else a slab), the head carried across the slabs.  Returns the
     maps ``[7, B, H, W]`` (disparity, soft, mask, conf, am, s, t; the last
-    three only with ``residuals``) and the volume or None.  ``.launches``
-    counts K3's calls, ``.train_launches`` K3w's, ``.maps_launches``
-    K3m's."""
-    if volume:
-        fused_pipeline_large.train_launches += 1
-    elif residuals:
-        fused_pipeline_large.maps_launches += 1
-    else:
-        fused_pipeline_large.launches += 1
+    three only with ``residuals``) and the volume or None."""
+    COUNTS["route.K3w" if volume else "route.K3m" if residuals
+           else "route.K3"] += 1
     camera, projector = _dense(camera, projector)
     B, H, W = camera.shape
     stats = banded_stats(camera, projector, D, k)
@@ -593,11 +530,6 @@ def fused_pipeline_large(camera: torch.Tensor, projector: torch.Tensor,
     return maps, vol
 
 
-fused_pipeline_large.launches = 0
-fused_pipeline_large.train_launches = 0
-fused_pipeline_large.maps_launches = 0
-
-
 def camera_grad_large(camera: torch.Tensor, projector: torch.Tensor,
                       cost: Optional[torch.Tensor],
                       cotangent: Optional[torch.Tensor], D: int, k: int,
@@ -606,12 +538,11 @@ def camera_grad_large(camera: torch.Tensor, projector: torch.Tensor,
     (the plane-major ``cost`` and ``cotangent``), K6 (``cost`` None: K1's
     planes recomputed a slab at a time), K4 (``head`` = (am, mask, conf,
     s, t, gsoft, gconf, beta, unnormalized) and ``cost``: the cotangent
-    formed per plane) or K5 (``head``, ``cost`` None).  ``.launches``
-    counts K2's calls, ``.recompute_launches`` K6's, ``.head_launches``
-    K4's and ``.head_recompute_launches`` K5's."""
-    name = ("head_" if head is not None else "") + (
-        "recompute_launches" if cost is None else "launches")
-    setattr(camera_grad_large, name, getattr(camera_grad_large, name) + 1)
+    formed per plane) or K5 (``head``, ``cost`` None)."""
+    if head is None:
+        COUNTS["route.K2" if cost is not None else "route.K6"] += 1
+    else:
+        COUNTS["route.K4" if cost is not None else "route.K5"] += 1
     camera, projector, cost, cotangent = _dense(camera, projector, cost,
                                                 cotangent)
     if head is not None:
@@ -636,12 +567,6 @@ def camera_grad_large(camera: torch.Tensor, projector: torch.Tensor,
     return grad_combine(a1, boxes.view(3, B, H, W), camera)
 
 
-camera_grad_large.launches = 0
-camera_grad_large.recompute_launches = 0
-camera_grad_large.head_launches = 0
-camera_grad_large.head_recompute_launches = 0
-
-
 def projector_grad_large(camera: torch.Tensor, projector: torch.Tensor,
                          cost: torch.Tensor, cotangent: torch.Tensor, D: int,
                          k: int, eps: float) -> torch.Tensor:
@@ -649,7 +574,7 @@ def projector_grad_large(camera: torch.Tensor, projector: torch.Tensor,
     statistics and the projector's over the image widened left by p, the
     fields in projector columns a slab at a time, their boxes over the
     extended columns, then the combine."""
-    projector_grad_large.launches += 1
+    COUNTS["route.K7"] += 1
     camera, projector, cost, cotangent = _dense(camera, projector, cost,
                                                 cotangent)
     B, H, W = camera.shape
@@ -668,9 +593,6 @@ def projector_grad_large(camera: torch.Tensor, projector: torch.Tensor,
     return proj_combine(a1p, boxes.view(3, B, H, W + p), projector, p)
 
 
-projector_grad_large.launches = 0
-
-
 def allpairs_volume_large(camera: torch.Tensor, projector: torch.Tensor,
                           k: int, eps: float):
     """K8 on the large-k route (``forward_allpairs``): the row products into
@@ -678,7 +600,7 @@ def allpairs_volume_large(camera: torch.Tensor, projector: torch.Tensor,
     back into the output.  Returns the ``[B, H, W, W]`` volume and the
     window statistics it was made from (``cam_s``, ``cam_e2``, ``proj_s``,
     ``proj_e2``, each ``[B, H, W]``), which K8b reads."""
-    allpairs_volume_large.launches += 1
+    COUNTS["route.K8"] += 1
     camera, projector = _dense(camera, projector)
     B, H, W = camera.shape
     stats = moments(camera, k) + moments(projector, k)
@@ -686,9 +608,3 @@ def allpairs_volume_large(camera: torch.Tensor, projector: torch.Tensor,
     row_products(camera, projector, k, out)
     rows = box_axis(out.view(B, H, W * W), k, 0).view(B, H, W, W)
     return allpairs_cost(rows, stats, k, eps, out), stats
-
-
-allpairs_volume_large.launches = 0
-
-ROUTES = (banded_volume_large, fused_pipeline_large, camera_grad_large,
-          projector_grad_large, allpairs_volume_large)

@@ -65,6 +65,7 @@ from custereomatching_tpu_torch.utils.kernel_model import (
     K_TILE_H,
     large_k_route,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 class PipelineMaps(NamedTuple):
@@ -94,18 +95,14 @@ def stereo_pipeline_reference(camera: torch.Tensor, projector: torch.Tensor,
                               num_disparities: int, kernel_size: int = 15,
                               epsilon: float = EPSILON, beta: float = 50.0,
                               threshold: float = 0.6) -> PipelineMaps:
-    """Plain version of K3: the banded volume, then the disparity head.
-    ``.calls`` counts its uses."""
-    stereo_pipeline_reference.calls += 1
+    """Plain version of K3: the banded volume, then the disparity head."""
+    COUNTS["plain.stereo_pipeline_reference"] += 1
     cost = forward_banded(camera, projector, num_disparities, kernel_size,
                           epsilon)
     d = extract_disparity(cost, num_disparities, threshold, beta)
     return PipelineMaps(disparity=d.disparity,
                         soft_disparity=d.soft_disparity, mask=d.mask,
                         confidence=d.confidence)
-
-
-stereo_pipeline_reference.calls = 0
 
 
 def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
@@ -120,8 +117,7 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
     every tile, and one that does not fit raises ``ValueError``
     (``cuda_zncc.own_blocks``).  Where K3's block does not fit at the
     default tile (k >= 129 on an H100) the large-k route runs it a slab of
-    planes at a time (``cuda_large_k.fused_pipeline_large``).
-    ``.launches`` counts K3's launches."""
+    planes at a time (``cuda_large_k.fused_pipeline_large``)."""
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
@@ -147,11 +143,7 @@ def stereo_pipeline_cuda(camera: torch.Tensor, projector: torch.Tensor,
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
             stream_of(camera.device), int(tile_rows), int(planes),
             what="K3 fused pipeline launch")
-    stereo_pipeline_cuda.launches += 1
     return PipelineMaps(*maps.unbind(0))
-
-
-stereo_pipeline_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -211,9 +203,8 @@ def fused_pipeline_train_reference(camera: torch.Tensor,
                                    save_volume: bool = True
                                    ) -> Tuple[PipelineMaps, HeadResiduals]:
     """Plain version of K3w and (without ``save_volume``) K3m: the plain
-    volume and :func:`head_residuals`, the volume kept or dropped.
-    ``.calls`` counts its uses."""
-    fused_pipeline_train_reference.calls += 1
+    volume and :func:`head_residuals`, the volume kept or dropped."""
+    COUNTS["plain.fused_pipeline_train_reference"] += 1
     cost = forward_banded(camera, projector, num_disparities, kernel_size,
                           epsilon)
     am, conf, s, t = head_residuals(cost, num_disparities, beta)
@@ -221,9 +212,6 @@ def fused_pipeline_train_reference(camera: torch.Tensor,
     return maps, HeadResiduals(
         am, maps.mask, conf, s, t,
         cost.permute(0, 3, 1, 2) if save_volume else None)
-
-
-fused_pipeline_train_reference.calls = 0
 
 
 def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
@@ -237,8 +225,7 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
     plus the raw argmax, s and t, and with ``save_volume`` the cost volume
     ``[B, D+1, H, W]`` (K3w), else none (K3m: ``HeadResiduals.volume`` is
     None), at the tile ``(tile_rows, planes)`` of
-    :func:`stereo_pipeline_cuda`.  ``.launches`` counts K3w's launches and
-    ``.maps_launches`` K3m's."""
+    :func:`stereo_pipeline_cuda`."""
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
     if camera.device.type == "cpu":
@@ -273,17 +260,9 @@ def fused_pipeline_train_cuda(camera: torch.Tensor, projector: torch.Tensor,
             float(beta), float(threshold), int(unnormalized_head(beta, D)),
             stream_of(camera.device), int(tile_rows), int(planes),
             what=f"{what} fused pipeline (training) launch")
-    if save_volume:
-        fused_pipeline_train_cuda.launches += 1
-    else:
-        fused_pipeline_train_cuda.maps_launches += 1
     disparity, soft, mask, conf, am, s, t = maps.unbind(0)
     return (PipelineMaps(disparity, soft, mask, conf),
             HeadResiduals(am, mask, conf, s, t, *volume))
-
-
-fused_pipeline_train_cuda.launches = 0
-fused_pipeline_train_cuda.maps_launches = 0
 
 
 def head_cotangent(cost: torch.Tensor, am: torch.Tensor, mask: torch.Tensor,
@@ -313,9 +292,8 @@ def fused_pipeline_bwd_reference(camera: torch.Tensor,
                                  beta: float = 50.0) -> torch.Tensor:
     """Plain version of K4 and K5: :func:`head_cotangent` on the residual
     volume (K4) or, when ``residuals.volume`` is None, on the plain volume
-    recomputed (K5); then the closed-form camera VJP.  ``.calls`` counts
-    its uses."""
-    fused_pipeline_bwd_reference.calls += 1
+    recomputed (K5); then the closed-form camera VJP."""
+    COUNTS["plain.fused_pipeline_bwd_reference"] += 1
     D, k = int(num_disparities), int(kernel_size)
     r = residuals
     cost = (forward_banded(camera, projector, D, k, epsilon)
@@ -323,9 +301,6 @@ def fused_pipeline_bwd_reference(camera: torch.Tensor,
     g = head_cotangent(cost, r.am, r.mask, r.confidence, r.s, r.t, gsoft,
                        gconf, beta, unnormalized_head(beta, D))
     return camera_grad_banded(camera, projector, g, D, k, epsilon)
-
-
-fused_pipeline_bwd_reference.calls = 0
 
 
 def _check_maps(camera: torch.Tensor, what: str, **maps: torch.Tensor):
@@ -361,7 +336,6 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
     and has no tile to set (``tile_rows`` is not read).  Where neither
     kernel's blocks fit (K5 from k = 129, K4 from k = 187 on an H100) the
     large-k route runs (``cuda_large_k.camera_grad_large``).
-    ``.launches`` counts K4's launches and ``.recompute_launches`` K5's.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -403,15 +377,7 @@ def fused_pipeline_bwd_cuda(camera: torch.Tensor, projector: torch.Tensor,
             stream_of(camera.device),
             ptr_or_null(slab) if free else int(tile_rows),
             what=f"{what} fused pipeline backward launch")
-    if free:
-        fused_pipeline_bwd_cuda.recompute_launches += 1
-    else:
-        fused_pipeline_bwd_cuda.launches += 1
     return grad
-
-
-fused_pipeline_bwd_cuda.launches = 0
-fused_pipeline_bwd_cuda.recompute_launches = 0
 
 
 class _TrainablePipeline(torch.autograd.Function):
@@ -511,13 +477,10 @@ def stereo_pipeline_trainable_reference(camera: torch.Tensor,
     node.  ``save_volume`` and the tiles are accepted only to match the
     kernel node's signature: they choose what the kernels keep and how
     they cut the image, and the plain ops compute the same values and
-    gradients either way.  ``.calls`` counts its uses."""
+    gradients either way."""
     _check_trainable(camera)
-    stereo_pipeline_trainable_reference.calls += 1
+    COUNTS["plain.stereo_pipeline_trainable_reference"] += 1
     D = int(num_disparities)
     cost = StereoMatchingFunction.apply(camera, projector, D,
                                         int(kernel_size), epsilon)
     return PipelineMaps(*_TrainableHead.apply(cost, D, beta, threshold))
-
-
-stereo_pipeline_trainable_reference.calls = 0

@@ -157,8 +157,7 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     ``ValueError`` (:func:`own_blocks`).  Where K1's block does not fit
     at the default tile (k >= 129 on an H100) the large-k route writes
     the volume (``cuda_large_k.banded_volume_large``).  A CPU tensor takes
-    the plain version, which has no tile.  ``.launches`` counts K1's
-    launches.
+    the plain version, which has no tile.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -180,11 +179,7 @@ def cost_volume_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
             ptr(out), B, H, W, D, k, float(epsilon),
             stream_of(camera.device), int(tile_rows), int(planes),
             what="K1 banded volume launch")
-    cost_volume_banded_cuda.launches += 1
     return out.permute(0, 2, 3, 1)
-
-
-cost_volume_banded_cuda.launches = 0
 
 
 def check_volume(volume: torch.Tensor, camera: torch.Tensor,
@@ -242,8 +237,7 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     which recomputes each cost plane from the images.  A CPU tensor takes
     the plain closed form, which recomputes the cost.  Where the kernel's
     blocks do not fit (k >= 129 on an H100) the large-k route runs
-    (``cuda_large_k.camera_grad_large``).  ``.launches`` counts K2's
-    launches and ``.recompute_launches`` K6's.
+    (``cuda_large_k.camera_grad_large``).
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -277,15 +271,7 @@ def camera_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
             float(epsilon), stream_of(camera.device),
             *((ptr_or_null(slab),) if cost is None else ()),
             what=f"{what} camera VJP launch")
-    if cost is None:
-        camera_grad_banded_cuda.recompute_launches += 1
-    else:
-        camera_grad_banded_cuda.launches += 1
     return grad
-
-
-camera_grad_banded_cuda.launches = 0
-camera_grad_banded_cuda.recompute_launches = 0
 
 
 def camera_grad_banded_parity_cuda(camera: torch.Tensor,
@@ -325,8 +311,7 @@ def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
     (``n r = c``), or, where its blocks do not fit (k = 129 on an H100),
     the large-k route (``cuda_large_k.projector_grad_large``); k >= 131
     raises ``ValueError`` before any launch, as JAX's ``_proj_bwd_kernel``
-    does.  A CPU tensor takes the plain closed form.  ``.launches`` counts
-    K7's launches.
+    does.  A CPU tensor takes the plain closed form.
     """
     D, k = int(num_disparities), int(kernel_size)
     camera, projector = prepare(camera, projector, D, k)
@@ -358,8 +343,4 @@ def projector_grad_banded_cuda(camera: torch.Tensor, projector: torch.Tensor,
             ptr(proj_s), ptr(proj_e2), ptr(cost), ptr(cotangent), ptr(a1p),
             ptr(z2), ptr(z3), ptr(grad), B, H, W, D, k, float(epsilon),
             stream_of(camera.device), what="K7 projector VJP launch")
-    projector_grad_banded_cuda.launches += 1
     return grad
-
-
-projector_grad_banded_cuda.launches = 0

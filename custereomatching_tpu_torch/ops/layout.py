@@ -20,6 +20,7 @@ import torch
 
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops._build import ptr, stream_of
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 def _check(x: torch.Tensor, what: str) -> None:
@@ -31,28 +32,21 @@ def _check(x: torch.Tensor, what: str) -> None:
 
 
 def plane_major_to_parity_reference(volume: torch.Tensor) -> torch.Tensor:
-    """Plain version of K9a.  ``.calls`` counts its uses."""
-    plane_major_to_parity_reference.calls += 1
+    """Plain version of K9a."""
+    COUNTS["plain.plane_major_to_parity_reference"] += 1
     return volume.movedim(-3, -1).contiguous()
 
 
-plane_major_to_parity_reference.calls = 0
-
-
 def parity_to_plane_major_reference(g: torch.Tensor) -> torch.Tensor:
-    """Plain version of K9b.  ``.calls`` counts its uses."""
-    parity_to_plane_major_reference.calls += 1
+    """Plain version of K9b."""
+    COUNTS["plain.parity_to_plane_major_reference"] += 1
     return g.movedim(-1, -3).contiguous()
 
 
-parity_to_plane_major_reference.calls = 0
-
-
 def _transpose(x: torch.Tensor, out_shape, planes: int, kernel: str,
-               entry: str, what: str, wrapper) -> torch.Tensor:
+               entry: str, what: str) -> torch.Tensor:
     """Launch ``kernel`` (K9a or K9b) through its C entry on ``x``
-    (contiguous) into a new ``out_shape`` tensor, counting the launch on
-    ``wrapper``."""
+    (contiguous) into a new ``out_shape`` tensor."""
     x = x.contiguous()
     out = x.new_empty(out_shape)
     if x.numel() == 0:
@@ -62,14 +56,12 @@ def _transpose(x: torch.Tensor, out_shape, planes: int, kernel: str,
         _build.launch(kernel, entry, ptr(x), ptr(out), frames, planes,
                       x.numel() // (frames * planes), stream_of(x.device),
                       what=f"{what} launch")
-    wrapper.launches += 1
     return out
 
 
 def plane_major_to_parity(volume: torch.Tensor) -> torch.Tensor:
     """``[B, D+1, H, W]`` (or ``[D+1, H, W]``) to a contiguous
-    ``[B, H, W, D+1]`` (or ``[H, W, D+1]``).  ``.launches`` counts K9a's
-    launches."""
+    ``[B, H, W, D+1]`` (or ``[H, W, D+1]``): K9a."""
     _check(volume, "K9a")
     if volume.device.type == "cpu":
         return plane_major_to_parity_reference(volume)
@@ -79,16 +71,12 @@ def plane_major_to_parity(volume: torch.Tensor) -> torch.Tensor:
     shape = tuple(volume.shape)
     return _transpose(volume, shape[:-3] + shape[-2:] + shape[-3:-2],
                       shape[-3], "K9a", "custereo_plane_major_to_parity",
-                      "K9a plane-major to parity", plane_major_to_parity)
-
-
-plane_major_to_parity.launches = 0
+                      "K9a plane-major to parity")
 
 
 def parity_to_plane_major(g: torch.Tensor) -> torch.Tensor:
     """``[B, H, W, D+1]`` (or ``[H, W, D+1]``) to a contiguous
-    ``[B, D+1, H, W]`` (or ``[D+1, H, W]``).  ``.launches`` counts K9b's
-    launches."""
+    ``[B, D+1, H, W]`` (or ``[D+1, H, W]``): K9b."""
     _check(g, "K9b")
     if g.device.type == "cpu":
         return parity_to_plane_major_reference(g)
@@ -98,7 +86,4 @@ def parity_to_plane_major(g: torch.Tensor) -> torch.Tensor:
     shape = tuple(g.shape)
     return _transpose(g, shape[:-3] + shape[-1:] + shape[-3:-1], shape[-1],
                       "K9b", "custereo_parity_to_plane_major",
-                      "K9b parity to plane-major", parity_to_plane_major)
-
-
-parity_to_plane_major.launches = 0
+                      "K9b parity to plane-major")

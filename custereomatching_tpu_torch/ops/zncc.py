@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from custereomatching_tpu_torch.utils.profiling import span
+from custereomatching_tpu_torch.utils.profiling import COUNTS, span
 
 EPSILON = 1e-8
 
@@ -121,15 +121,11 @@ def forward_banded(camera: torch.Tensor, projector: torch.Tensor,
     """Banded cost volume of ``[B, H, W]`` pairs: ``[B, H, W, D+1]``, band
     d matching projector column ``w - d``.
 
-    The plain version of K1 (the JAX ``_forward_banded``); ``.calls``
-    counts its uses."""
-    forward_banded.calls += 1
+    The plain version of K1 (the JAX ``_forward_banded``)."""
+    COUNTS["plain.forward_banded"] += 1
     _, ex2, _, ey2_band, _, exy, _ = _banded_stats(
         camera, projector, int(num_disparities), int(kernel_size))
     return (exy + epsilon) * torch.rsqrt(ex2[..., None] * ey2_band + epsilon)
-
-
-forward_banded.calls = 0
 
 
 def _allpairs_cross(camera: torch.Tensor, projector: torch.Tensor,
@@ -151,9 +147,8 @@ def forward_allpairs(camera: torch.Tensor, projector: torch.Tensor,
     """All-pairs cost volume of ``[B, H, W]`` pairs: ``[B, H, W, W]``, the
     last axis the absolute projector column (the reference's own output).
 
-    The plain version of K8 (the JAX ``_forward_allpairs``); ``.calls``
-    counts its uses."""
-    forward_allpairs.calls += 1
+    The plain version of K8 (the JAX ``_forward_allpairs``)."""
+    COUNTS["plain.forward_allpairs"] += 1
     k = int(kernel_size)
     k2 = float(k * k)
     sx, ex2 = _image_moments(camera, k)
@@ -162,9 +157,6 @@ def forward_allpairs(camera: torch.Tensor, projector: torch.Tensor,
            - sx[..., :, None] * sy[..., None, :] / k2)
     return (exy + epsilon) * torch.rsqrt(ex2[..., :, None] * ey2[..., None, :]
                                          + epsilon)
-
-
-forward_allpairs.calls = 0
 
 
 def check_pair(camera: torch.Tensor, projector: torch.Tensor,
@@ -194,9 +186,8 @@ def camera_grad_banded(camera: torch.Tensor, projector: torch.Tensor,
         B = sum_d g n r^3 ey2,  GRMU = sum_d g r muy,
         A1 = sum_d box2d(g r) proj(x - d)
 
-    The plain version of K2 (the JAX ``_camera_grad_banded``); ``.calls``
-    counts its uses."""
-    camera_grad_banded.calls += 1
+    The plain version of K2 (the JAX ``_camera_grad_banded``)."""
+    COUNTS["plain.camera_grad_banded"] += 1
     D, k = int(num_disparities), int(kernel_size)
     sx, ex2, sy_band, ey2_band, proj_band, exy, k2 = _banded_stats(
         camera, projector, D, k)
@@ -210,9 +201,6 @@ def camera_grad_banded(camera: torch.Tensor, projector: torch.Tensor,
     a1 = torch.sum(box2d(gr, k, dim=1) * proj_band, dim=-1)
     return (a1 - box2d(grmu, k, dim=1) + box2d(b * mux, k, dim=1)
             - camera * box2d(b, k, dim=1))
-
-
-camera_grad_banded.calls = 0
 
 
 def camera_grad_allpairs(camera: torch.Tensor, projector: torch.Tensor,
@@ -231,8 +219,8 @@ def camera_grad_allpairs(camera: torch.Tensor, projector: torch.Tensor,
     the global TF32 flags say).  The plain version of K8b
     (``cuda_allpairs.camera_grad_allpairs_cuda``; the JAX package leaves
     this backward to XLA), inside the span ``custereo.vjp.allpairs`` as
-    K8b's launch is.  ``.calls`` counts its uses."""
-    camera_grad_allpairs.calls += 1
+    K8b's launch is."""
+    COUNTS["plain.camera_grad_allpairs"] += 1
     with span("custereo.vjp.allpairs"):
         k = int(kernel_size)
         p = k // 2
@@ -260,9 +248,6 @@ def camera_grad_allpairs(camera: torch.Tensor, projector: torch.Tensor,
                 a1[..., -s:] += e_j[..., :W + s]
         return (a1 - box2d(grmu, k, dim=1) + box2d(b * mux, k, dim=1)
                 - camera * box2d(b, k, dim=1))
-
-
-camera_grad_allpairs.calls = 0
 
 
 def _projector_index(W: int, D: int, p: int, device: torch.device):
@@ -296,8 +281,8 @@ def projector_grad_banded(camera: torch.Tensor, projector: torch.Tensor,
     holds real values at x < 0 (camera columns x + d >= 0), and the boxes
     at x in [0, p) read them.  ``muy`` and ``ey2`` there are the statistics
     of the partial windows of the image widened left by p zero columns.
-    The plain version of K7; ``.calls`` counts its uses."""
-    projector_grad_banded.calls += 1
+    The plain version of K7."""
+    COUNTS["plain.projector_grad_banded"] += 1
     D, k = int(num_disparities), int(kernel_size)
     p = k // 2
     k2 = float(k * k)
@@ -324,9 +309,6 @@ def projector_grad_banded(camera: torch.Tensor, projector: torch.Tensor,
     t3 = projector * box2d(z3, k, dim=1)[..., p:]
     t4 = box2d(sy_e / k2 * z3, k, dim=1)[..., p:]
     return a1p[..., p:] - t2 - t3 + t4
-
-
-projector_grad_banded.calls = 0
 
 
 class StereoMatchingFunction(torch.autograd.Function):

@@ -68,6 +68,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from custereomatching_tpu_torch.ops import _build
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 CACHE_PATH = (Path(__file__).resolve().parents[2] / "build" / "rates"
               / "hopper_rates.json")
@@ -196,11 +197,10 @@ def rate_probe_reference(mode: str, iters: int, rows: int, cols: int,
     two fp32 values is exact in fp64, and the sum is rounded to fp32 once.
     A product rounded before the add would settle elsewhere: near madd's
     fixed point (0.625) a step moves ``a`` by less than half an fp32 ulp
-    within ~1e-4 of it, so each rounding order stops at its own value.
-    ``.calls`` counts its uses."""
+    within ~1e-4 of it, so each rounding order stops at its own value."""
     if mode not in _MODE_IDS:
         raise ValueError(f"unknown K10a mode {mode!r}")
-    rate_probe_reference.calls += 1
+    COUNTS["plain.rate_probe_reference"] += 1
     a = torch.full((rows, cols), RATE_A0, dtype=torch.float32, device=device)
     mul = _f32(0.9996)
     add = {"madd": _f32(0.00025), "smem": SMEM_FILL}.get(mode)
@@ -216,15 +216,12 @@ def rate_probe_reference(mode: str, iters: int, rows: int, cols: int,
     return a
 
 
-rate_probe_reference.calls = 0
-
-
 def rate_probe(mode: str, iters: int, blocks: int,
                device="cuda") -> torch.Tensor:
     """K10a: ``blocks`` blocks of ``mode``'s chains through ``iters``
     iterations; ``[blocks, rate_probe_cols(mode)]``.  On the CPU the plain
-    version; on a CUDA device the kernel, or the call raises.
-    ``.launches`` counts K10a's launches, ``.mode_launches`` each mode's."""
+    version; on a CUDA device the kernel, or the call raises.  A launch
+    counts in ``COUNTS`` as ``K10a`` and as ``K10a.<mode>``."""
     if mode not in _MODE_IDS:
         raise ValueError(f"unknown K10a mode {mode!r}")
     if mode != "boxadd" and iters % RATE_UNROLL:
@@ -243,13 +240,8 @@ def rate_probe(mode: str, iters: int, blocks: int,
         _build.launch("K10a", "custereo_rate_probe", _MODE_IDS[mode],
                       _build.ptr(out), blocks, iters, RATE_A0, 0.0, fill,
                       _build.stream_of(device), what=f"K10a {mode} launch")
-    rate_probe.launches += 1
-    rate_probe.mode_launches[mode] += 1
+    COUNTS[f"K10a.{mode}"] += 1
     return out
-
-
-rate_probe.launches = 0
-rate_probe.mode_launches = {m: 0 for m in _OP_MODES}
 
 
 def _on_card(device: torch.device, kernel: str, entry: str, *args) -> None:
@@ -272,15 +264,12 @@ def _check_volume(vol: torch.Tensor, what: str) -> None:
 
 def hbm_read_reference(vol: torch.Tensor) -> torch.Tensor:
     """Plain version of K10b: each pixel's sum over the planes, in plane
-    order.  ``.calls`` counts its uses."""
-    hbm_read_reference.calls += 1
+    order."""
+    COUNTS["plain.hbm_read_reference"] += 1
     acc = torch.zeros(vol.shape[1:], dtype=vol.dtype, device=vol.device)
     for d in range(vol.shape[0]):
         acc = acc + vol[d]
     return acc
-
-
-hbm_read_reference.calls = 0
 
 
 def hbm_read_probe(vol: torch.Tensor) -> torch.Tensor:
@@ -290,8 +279,7 @@ def hbm_read_probe(vol: torch.Tensor) -> torch.Tensor:
     of shared-memory stages filled by ``cp.async.bulk`` copies issued
     ahead of the threads that sum, so its rate ``hbm_r3d`` is the card's
     bulk read rate for the volume.  On the CPU the plain version; on a
-    CUDA device the kernel, or the call raises.  ``.launches`` counts its
-    launches."""
+    CUDA device the kernel, or the call raises."""
     _check_volume(vol, "K10b")
     device = vol.device
     if device.type == "cpu":
@@ -304,24 +292,16 @@ def hbm_read_probe(vol: torch.Tensor) -> torch.Tensor:
     out = vol.new_empty((H, W))
     _on_card(device, "K10b", "custereo_hbm_read_probe", vol.data_ptr(),
              out.data_ptr(), P, H, W)
-    hbm_read_probe.launches += 1
     return out
 
 
-hbm_read_probe.launches = 0
-
-
 def hbm_write_reference(P: int, H: int, W: int, device="cpu") -> torch.Tensor:
-    """Plain version of K10c: ``out[d, h, w] = d``, a plane at a time.
-    ``.calls`` counts its uses."""
-    hbm_write_reference.calls += 1
+    """Plain version of K10c: ``out[d, h, w] = d``, a plane at a time."""
+    COUNTS["plain.hbm_write_reference"] += 1
     out = torch.empty((P, H, W), dtype=torch.float32, device=device)
     for d in range(P):
         out[d].fill_(float(d))
     return out
-
-
-hbm_write_reference.calls = 0
 
 
 def hbm_write_probe(P: int, H: int, W: int, device="cuda") -> torch.Tensor:
@@ -330,7 +310,7 @@ def hbm_write_probe(P: int, H: int, W: int, device="cuda") -> torch.Tensor:
     one dense stream, a contiguous span a block and 16 bytes a store, so
     its rate ``hbm_w3d`` is the card's bulk write rate for the volume.  On
     the CPU the plain version; on a CUDA device the kernel, or the call
-    raises.  ``.launches`` counts its launches."""
+    raises."""
     if min(P, H, W) < 1:
         raise ValueError(f"K10c: expected a non-empty [P, H, W] volume, got "
                          f"[{P}, {H}, {W}]")
@@ -342,11 +322,7 @@ def hbm_write_probe(P: int, H: int, W: int, device="cuda") -> torch.Tensor:
     out = torch.empty((P, H, W), dtype=torch.float32, device=device)
     _on_card(device, "K10c", "custereo_hbm_write_probe", out.data_ptr(), P,
              H, W)
-    hbm_write_probe.launches += 1
     return out
-
-
-hbm_write_probe.launches = 0
 
 
 def rate_probe_size(mode: str) -> Tuple[int, int]:

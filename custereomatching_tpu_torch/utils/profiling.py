@@ -3,7 +3,8 @@ and the least-work bounds of the port's kernels.
 
 The counterpart of ``custereomatching_tpu/utils/profiling.py``: (a) a
 context manager around ``torch.profiler`` that exports a Chrome trace,
-and :func:`span`, the port's named ranges in such a trace, (b) the data
+:func:`span`, the port's named ranges in such a trace, and ``COUNTS``,
+its record of what ran, (b) the data
 sheet's peaks by card name, (c) the roofline of one ZNCC frame (the JAX
 formula), and (d) the least work of each kernel's function at those
 peaks, the bound ``chip_smoke.py`` sets beside each kernel's time.
@@ -13,6 +14,7 @@ design-dependent bound is ``utils/kernel_model.py``'s.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import subprocess
 from typing import Dict, Iterator, Optional, Tuple, Union
@@ -77,6 +79,14 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
 
 # What :func:`span` returns while no profiler records: one shared no-op.
 _NO_SPAN = contextlib.nullcontext()
+
+# What ran, by name: each kernel launch under the name of its span
+# (``K1`` ... ``K10c``, ``K8b``, ``K8h``, ``K8hb``, ``large_k.<step>``;
+# ``ops._build.launch`` counts it once it succeeded), each call of a plain
+# twin as ``plain.<function>``, each call of a large-k route as
+# ``route.<K>`` and each K10a launch also as ``K10a.<mode>``.  A check
+# copies it, runs, and compares ``COUNTS - before`` with what it expects.
+COUNTS: collections.Counter = collections.Counter()
 
 
 def span(name: str):
@@ -199,7 +209,7 @@ def allpairs_bound(B: int, H: int, W: int, k: int) -> Tuple[float, str]:
     return bound(cost_flops(k) * n, 4 * n + 2 * 4 * B * H * W)
 
 
-__all__ = ["COTANGENT_FLOPS", "DEVICE_SPECS", "HEAD_FLOPS", "PEAK_BYTES",
+__all__ = ["COTANGENT_FLOPS", "COUNTS", "DEVICE_SPECS", "HEAD_FLOPS", "PEAK_BYTES",
            "PEAK_FLOPS", "allpairs_bound", "banded_bounds", "bound",
            "card_line", "cost_flops", "device_specs", "span", "trace",
            "vjp_flops", "zncc_roofline"]

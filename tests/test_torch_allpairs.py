@@ -4,6 +4,7 @@ paths and the default (all-pairs) StereoMatcher, held against the JAX package on
 Pallas kernel in interpret mode, its XLA op and its model)."""
 
 import dataclasses
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from custereomatching_tpu_torch.ops.zncc import (
     forward_allpairs,
     stereo_matching_torch,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 # The JAX suite's all-pairs forward tolerance
 # (tests/test_pallas_allpairs.py:39-40): the summation orders differ and
@@ -117,10 +119,11 @@ def test_allpairs_camera_grad_matches_jax(shape):
 
     cam_t = torch.from_numpy(cam).requires_grad_(True)
     proj_t = torch.from_numpy(proj).requires_grad_(True)
-    calls = camera_grad_allpairs.calls
+    before = COUNTS.copy()
     (stereo_matching(cam_t, proj_t, None, K) * torch.from_numpy(g)).sum() \
         .backward()
-    assert camera_grad_allpairs.calls == calls + 1
+    assert COUNTS - before == Counter({"plain.forward_allpairs": 1,
+                                       "plain.camera_grad_allpairs": 1})
     assert proj_t.grad is None
     for want in wants:
         np.testing.assert_allclose(cam_t.grad.numpy(), np.asarray(want),
@@ -249,11 +252,9 @@ def test_camera_grad_allpairs_matches_autograd():
 def test_k8_wrapper_cpu_takes_plain_version():
     B, H, W, K = 2, 9, 21, 3
     cam, proj = (torch.from_numpy(a) for a in _pair(7, B, H, W))
-    launches = cost_volume_allpairs_cuda.launches
-    calls = forward_allpairs.calls
+    before = COUNTS.copy()
     got = cost_volume_allpairs_cuda(cam, proj, K, precision="default")
-    assert forward_allpairs.calls == calls + 1
-    assert cost_volume_allpairs_cuda.launches == launches
+    assert COUNTS - before == Counter({"plain.forward_allpairs": 1})
     torch.testing.assert_close(got, forward_allpairs(cam, proj, K), rtol=0,
                                atol=0)
     # The autograd node over the wrapper: the plain VJP, no projector grad.
@@ -274,11 +275,9 @@ def test_k8b_wrapper_cpu_takes_plain_version():
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (B, H, W, W)).astype(np.float32))
     cost = forward_allpairs(cam, proj, K)
-    launches = camera_grad_allpairs_cuda.launches
-    calls = camera_grad_allpairs.calls
+    before = COUNTS.copy()
     got = camera_grad_allpairs_cuda(cam, proj, g, cost, (), K)
-    assert camera_grad_allpairs.calls == calls + 1
-    assert camera_grad_allpairs_cuda.launches == launches
+    assert COUNTS - before == Counter({"plain.camera_grad_allpairs": 1})
     torch.testing.assert_close(got, camera_grad_allpairs(cam, proj, g, cost,
                                                          K), rtol=0, atol=0)
 
@@ -289,10 +288,10 @@ def test_k8b_wrapper_rejects_other_devices():
     B, H, W, K = 1, 6, 8, 3
     cam = torch.zeros((B, H, W), device="meta")
     vol = torch.zeros((B, H, W, W), device="meta")
-    launches = camera_grad_allpairs_cuda.launches
+    before = COUNTS.copy()
     with pytest.raises(ValueError, match="K8b runs on CUDA or"):
         camera_grad_allpairs_cuda(cam, cam, vol, vol, (cam,) * 4, K)
-    assert camera_grad_allpairs_cuda.launches == launches
+    assert COUNTS == before
 
 
 @pytest.mark.parametrize("bad", [

@@ -4,6 +4,7 @@ the exact shifted selection it gathers with (``models/pyramid.py``),
 against the JAX package on the CPU."""
 
 import dataclasses
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +28,8 @@ from custereomatching_tpu_torch import (
 from custereomatching_tpu_torch.data import make_stereo_pair
 from custereomatching_tpu_torch.models.pyramid import _select_shifted
 from custereomatching_tpu_torch.ops import consistency
-from custereomatching_tpu_torch.ops.cuda_pipeline import (
-    stereo_pipeline_reference,
-)
 from custereomatching_tpu_torch.utils import disparity_metrics
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 @pytest.mark.parametrize("lo,hi", [(-3, 5), (0, 16), (-12, 40)])
@@ -109,10 +108,11 @@ def test_disparity_maps_lr_matches_jax(backend, shape):
     want = JaxStereoMatcher(jcfg).disparity_maps_lr(jnp.asarray(cam),
                                                     jnp.asarray(proj))
     model = StereoMatcher(config_from_jax(dataclasses.asdict(jcfg)))
-    calls = stereo_pipeline_reference.calls
+    before = COUNTS.copy()
     got = model.disparity_maps_lr(torch.from_numpy(cam),
                                   torch.from_numpy(proj))
-    assert stereo_pipeline_reference.calls == calls + 2
+    assert COUNTS - before == Counter({"plain.stereo_pipeline_reference": 2,
+                                       "plain.forward_banded": 2})
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     np.testing.assert_array_equal(got.disparity.numpy(),
                                   np.asarray(want.disparity))

@@ -9,6 +9,8 @@ versions run against the JAX kernels in interpret mode at k = 129 and 131
 in interpret mode at that k).  ``kernel_model``'s mirrored route choice
 gives every odd k a route whose blocks fit the card."""
 
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,6 +58,7 @@ from custereomatching_tpu_torch.ops.zncc import (
     projector_grad_banded,
 )
 from custereomatching_tpu_torch.utils import kernel_model as km
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 LIMIT = km.SMEM_OPTIN_BYTES // 4
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -436,18 +439,17 @@ def test_route_chains_match_plain_versions(k):
 
 def test_route_steps_count_only_card_launches():
     """On CPU tensors the route's steps run their plain forms and count no
-    launch; the route functions count their calls, one counter a kernel."""
+    launch (no ``large_k.<step>``); the route functions count their calls,
+    ``route.<K>`` for the kernel each stands in for."""
     cam, proj = _t(*_pair(3, 1, 10, 30))
-    before = {f.__name__: f.launches for f in lk.STEPS}
-    calls = lk.fused_pipeline_large.maps_launches
+    before = COUNTS.copy()
     lk.fused_pipeline_large(cam, proj, 3, 129, EPS, 50.0, 0.6, True,
                             residuals=True)
-    assert {f.__name__: f.launches for f in lk.STEPS} == before
-    assert lk.fused_pipeline_large.maps_launches == calls + 1
-    heads = lk.camera_grad_large.head_recompute_launches
+    assert COUNTS - before == Counter({"route.K3m": 1})
+    before = COUNTS.copy()
     lk.camera_grad_large(cam, proj, None, None, 3, 129, EPS,
                          head=(*(torch.ones_like(cam),) * 7, 50.0, True))
-    assert lk.camera_grad_large.head_recompute_launches == heads + 1
+    assert COUNTS - before == Counter({"route.K5": 1})
 
 
 def test_large_k_cost_counts_the_route():

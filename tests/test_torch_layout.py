@@ -8,6 +8,7 @@ planes, rows and columns, bit for bit.  K9a's block geometry
 index walk is replayed here in numpy."""
 
 import re
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,11 +22,10 @@ from custereomatching_tpu.ops.pallas_layout import (
 from custereomatching_tpu_torch.ops import _build
 from custereomatching_tpu_torch.ops.layout import (
     parity_to_plane_major,
-    parity_to_plane_major_reference,
     plane_major_to_parity,
-    plane_major_to_parity_reference,
 )
 from custereomatching_tpu_torch.utils import kernel_model as km
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 # tests/test_pallas_layout.py's shapes: (ndt, h_pad, wo, H, W, D).
 SHAPES = [
@@ -44,9 +44,10 @@ def test_plane_major_to_parity_matches_jax(shape):
     want = np.asarray(jax_to_parity(jnp.asarray(padded), H, W, D, 16, 256,
                                     True, "mxu"))
     vol = np.ascontiguousarray(padded[:D + 1, :H, :W])
-    calls = plane_major_to_parity_reference.calls
+    before = COUNTS.copy()
     got = plane_major_to_parity(torch.from_numpy(vol))
-    assert plane_major_to_parity_reference.calls == calls + 1
+    assert COUNTS - before == Counter(
+        {"plain.plane_major_to_parity_reference": 1})
     assert got.shape == (H, W, D + 1) and got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), want)
     batched = plane_major_to_parity(torch.from_numpy(np.stack([vol, vol])))
@@ -60,9 +61,10 @@ def test_parity_to_plane_major_matches_jax(shape):
     g = rng.random((H, W, D + 1), dtype=np.float32)
     want = np.asarray(jax_to_plane_major(jnp.asarray(g), ndt, h_pad, wo, D,
                                          16, 256, True, "mxu"))
-    calls = parity_to_plane_major_reference.calls
+    before = COUNTS.copy()
     got = parity_to_plane_major(torch.from_numpy(g)[None])
-    assert parity_to_plane_major_reference.calls == calls + 1
+    assert COUNTS - before == Counter(
+        {"plain.parity_to_plane_major_reference": 1})
     assert got.shape == (1, D + 1, H, W) and got.is_contiguous()
     np.testing.assert_array_equal(got[0].numpy(), want[:D + 1, :H, :W])
     # The JAX padding the port has no counterpart of is zeros.
@@ -72,8 +74,11 @@ def test_parity_to_plane_major_matches_jax(shape):
 
 def test_layout_round_trip_and_checks():
     vol = torch.rand(2, 5, 7, 9)
+    before = COUNTS.copy()
     assert torch.equal(parity_to_plane_major(plane_major_to_parity(vol)), vol)
-    assert plane_major_to_parity.launches == 0       # plain on the CPU
+    assert COUNTS - before == Counter(                # plain on the CPU
+        {"plain.plane_major_to_parity_reference": 1,
+         "plain.parity_to_plane_major_reference": 1})
     with pytest.raises(ValueError, match="float32"):
         plane_major_to_parity(vol.double())
     with pytest.raises(ValueError, match="3-d or 4-d"):

@@ -1,6 +1,8 @@
 """PyTorch port: the plain fused-pipeline twin and the K3 wrapper's CPU
 path, held against the JAX fused Pallas kernel in interpret mode."""
 
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
     stereo_pipeline_reference,
     unnormalized_head,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 @pytest.mark.parametrize("shape", [
@@ -58,11 +61,10 @@ def test_kernel_wrapper_cpu_takes_plain_version():
     rng = np.random.default_rng(9)
     cam = torch.from_numpy(rng.random((2, 12, 40), dtype=np.float32))
     proj = torch.from_numpy(rng.random((2, 12, 40), dtype=np.float32))
-    launches = stereo_pipeline_cuda.launches
-    calls = stereo_pipeline_reference.calls
+    before = COUNTS.copy()
     got = stereo_pipeline_cuda(cam, proj, 5, 5)
-    assert stereo_pipeline_reference.calls == calls + 1
-    assert stereo_pipeline_cuda.launches == launches
+    assert COUNTS - before == Counter({"plain.stereo_pipeline_reference": 1,
+                                       "plain.forward_banded": 1})
     want = stereo_pipeline_reference(cam, proj, 5, 5)
     for g, w in zip(got, want):
         assert g.shape == (2, 12, 40)

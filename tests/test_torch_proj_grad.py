@@ -5,6 +5,7 @@ the CPU (its Pallas kernels in interpret mode, its golden oracle, its XLA
 op and model); and the port's verify example."""
 
 import dataclasses
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from custereomatching_tpu_torch.ops.zncc import (
     projector_grad_banded,
     stereo_matching_with_proj_grad,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 # The JAX suite's gradient tolerance (tests/test_pallas_bwd.py:89).
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
@@ -92,11 +94,9 @@ def test_k7_wrapper_cpu_takes_plain_version():
     g = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (B, D + 1, H, W)).astype(np.float32))
     cost = forward_banded(cam, proj, D, K).permute(0, 3, 1, 2)
-    launches = projector_grad_banded_cuda.launches
-    calls = projector_grad_banded.calls
+    before = COUNTS.copy()
     got = projector_grad_banded_cuda(cam, proj, cost, g, D, K)
-    assert projector_grad_banded_cuda.launches == launches
-    assert projector_grad_banded.calls == calls + 1
+    assert COUNTS - before == Counter({"plain.projector_grad_banded": 1})
     want = projector_grad_banded(cam, proj, cost.permute(0, 2, 3, 1),
                                  g.permute(0, 2, 3, 1), D, K)
     torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -2,6 +2,7 @@
 the JAX package's on the CPU."""
 
 import dataclasses
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,11 +21,9 @@ from custereomatching_tpu_torch.data.synthetic import (
 )
 from custereomatching_tpu_torch.models import PyramidStereoMatcher
 from custereomatching_tpu_torch.models.pyramid import _avg_pool, _upsample
-from custereomatching_tpu_torch.ops.cuda_pipeline import (
-    stereo_pipeline_reference,
-)
 from custereomatching_tpu_torch.ops.zncc import forward_banded
 from custereomatching_tpu_torch.utils import disparity_metrics
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 @pytest.mark.parametrize("shape,f", [((4, 4), 2), ((10, 23), 4),
@@ -134,9 +133,10 @@ def test_pyramid_matches_jax(backend, H, W, D, K, f, r):
                                downsample=f, residual=r)
     both = (torch.from_numpy(np.stack([cam, cam])),
             torch.from_numpy(np.stack([proj, proj])))
-    calls = stereo_pipeline_reference.calls
+    before = COUNTS.copy()
     got = pyr(*both)
-    assert stereo_pipeline_reference.calls == calls + 2
+    assert COUNTS - before == Counter({"plain.stereo_pipeline_reference": 2,
+                                       "plain.forward_banded": 2})
     torch.testing.assert_close(got.soft_disparity[0], got.soft_disparity[1],
                                rtol=0, atol=0)
     xla = dict(rtol=1e-4, atol=1e-5)

@@ -1,11 +1,13 @@
 """The port's spans on the profiler's clock (``utils.profiling.span``) and
-the one way a kernel is launched (``ops._build.launch``).
+the one way a kernel is launched and counted (``ops._build.launch``,
+``utils.profiling.COUNTS``).
 
 No JAX here: the file also runs on the card, alone, with ``python -m
 pytest --noconftest tests/test_torch_tracing.py``."""
 
 import ast
 import json
+from collections import Counter
 from pathlib import Path
 
 import pytest
@@ -196,7 +198,7 @@ class _Module:
                 for node in ast.walk(fn):
                     self.owner[node] = fn      # innermost wins: walk order
 
-    def calls(self, name):
+    def calls_of(self, name):
         for node in ast.walk(self.tree):
             if isinstance(node, ast.Call) and isinstance(
                     node.func, ast.Name) and node.func.id == name:
@@ -224,7 +226,7 @@ class _Module:
             if expr.id in params:
                 i = params.index(expr.id)
                 out = set()
-                for call in self.calls(fn.name):
+                for call in self.calls_of(fn.name):
                     arg = next((k.value for k in call.keywords
                                 if k.arg == expr.id), None)
                     if arg is None:
@@ -311,6 +313,45 @@ def test_launch_names_the_kernel_and_raises_as_check(monkeypatch):
     events = _profiled(profiled)
     assert len(_named(events, "custereo.kernel.K1")) == 1
     assert seen == [((1, 2), False), ((3,), True)]
+
+
+def test_launch_counts_a_launch_once_under_its_span_name(monkeypatch):
+    codes = [0, 700]
+
+    class Library:
+        def custereo_volume_head_grad(self, *args):
+            return codes.pop(0)
+
+        def custereo_error_string(self, code):
+            return b"an illegal memory access was encountered"
+
+    monkeypatch.setattr(_build, "kernels", lambda: Library())
+    before = profiling.COUNTS.copy()
+    events = _profiled(lambda: _build.launch(
+        "K8hb", "custereo_volume_head_grad", 1))
+    assert profiling.COUNTS - before == Counter({"K8hb": 1})
+    assert [e.name for e in events if e.name.startswith("custereo.")] == [
+        "custereo.kernel.K8hb"]
+    # A launch that fails raises and counts nothing.
+    before = profiling.COUNTS.copy()
+    with pytest.raises(RuntimeError, match="K8hb launch: CUDA error 700"):
+        _build.launch("K8hb", "custereo_volume_head_grad", 2)
+    assert profiling.COUNTS == before
+    assert codes == []
+
+
+def test_no_function_carries_a_counter():
+    """What ran is counted in ``profiling.COUNTS`` alone: no source sets
+    or bumps a ``launches`` or ``calls`` attribute."""
+    for path in _sources() + [PACKAGE / "bench.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            targets = (node.targets if isinstance(node, ast.Assign) else
+                       [node.target] if isinstance(node, ast.AugAssign)
+                       else [])
+            for t in targets:
+                assert not (isinstance(t, ast.Attribute) and (
+                    t.attr.endswith("launches") or t.attr == "calls")), \
+                    f"{path.relative_to(ROOT)}:{node.lineno}"
 
 
 # ---------------------------------------------------------------------------

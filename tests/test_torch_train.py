@@ -4,6 +4,7 @@ and the trainer example, held against the JAX package on the CPU (its
 Pallas kernels in interpret mode, or its XLA op)."""
 
 import dataclasses
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -23,16 +24,18 @@ from custereomatching_tpu.ops.pallas_pipeline import (
 )
 from custereomatching_tpu.ops.pallas_zncc import stereo_matching_pallas
 from custereomatching_tpu.utils import metrics as jax_metrics
-from custereomatching_tpu_torch import StereoMatcher, config_from_jax
+from custereomatching_tpu_torch import (
+    StereoConfig,
+    StereoMatcher,
+    config_from_jax,
+)
 from custereomatching_tpu_torch.data import synthetic
 from custereomatching_tpu_torch.examples import train as train_example
 from custereomatching_tpu_torch.models import optimize
 from custereomatching_tpu_torch.ops import stereo_matching
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     fused_pipeline_bwd_cuda,
-    fused_pipeline_bwd_reference,
     fused_pipeline_train_cuda,
-    fused_pipeline_train_reference,
     stereo_pipeline_reference,
     stereo_pipeline_trainable,
     stereo_pipeline_trainable_reference,
@@ -44,6 +47,7 @@ from custereomatching_tpu_torch.ops.zncc import (
     forward_banded,
 )
 from custereomatching_tpu_torch.utils import metrics
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 # The JAX suite's gradient tolerance (tests/test_pallas_bwd.py:89).
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
@@ -75,10 +79,11 @@ def test_closed_form_vjp_matches_jax(shape):
             c, jproj, D, K, 1e-8, True) * jg))(jcam))
 
     cam_t = torch.from_numpy(cam).requires_grad_(True)
-    calls = camera_grad_banded.calls
+    before = COUNTS.copy()
     (stereo_matching(cam_t, torch.from_numpy(proj), D, K)
      * torch.from_numpy(g)).sum().backward()
-    assert camera_grad_banded.calls == calls + 1
+    assert COUNTS - before == Counter({"plain.forward_banded": 1,
+                                       "plain.camera_grad_banded": 1})
     for want in wants:
         np.testing.assert_allclose(cam_t.grad.numpy(), np.asarray(want),
                                    **GRAD_TOL)
@@ -90,9 +95,9 @@ def test_k2_wrapper_cpu_takes_closed_form():
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (B, D + 1, H, W)).astype(np.float32))
     cost = forward_banded(cam, proj, D, K).permute(0, 3, 1, 2)
-    launches = camera_grad_banded_cuda.launches
+    before = COUNTS.copy()
     got = camera_grad_banded_cuda(cam, proj, cost, g, D, K)
-    assert camera_grad_banded_cuda.launches == launches
+    assert COUNTS - before == Counter({"plain.camera_grad_banded": 1})
     want = camera_grad_banded(cam, proj, g.permute(0, 2, 3, 1), D, K)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="plane-major"):
@@ -191,17 +196,13 @@ def test_train_wrappers_cpu_take_plain_versions():
     cam, proj = (torch.from_numpy(a) for a in _pair(8, B, H, W))
     gs, gc = (torch.from_numpy(a) for a in _cotangents(9, B * H, W))
     gs, gc = gs.reshape(B, H, W), gc.reshape(B, H, W)
-    counts = (fused_pipeline_train_cuda.launches,
-              fused_pipeline_bwd_cuda.launches,
-              fused_pipeline_train_reference.calls,
-              fused_pipeline_bwd_reference.calls)
+    before = COUNTS.copy()
     maps, res = fused_pipeline_train_cuda(cam, proj, D, K)
     grad = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, D, K)
-    assert (fused_pipeline_train_cuda.launches,
-            fused_pipeline_bwd_cuda.launches,
-            fused_pipeline_train_reference.calls,
-            fused_pipeline_bwd_reference.calls) == (
-        counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert COUNTS - before == Counter({
+        "plain.fused_pipeline_train_reference": 1,
+        "plain.fused_pipeline_bwd_reference": 1,
+        "plain.forward_banded": 1, "plain.camera_grad_banded": 1})
     assert grad.shape == (B, H, W) and bool(torch.isfinite(grad).all())
     # K3w's plain twin: the plain volume, plane-major, and the serving maps.
     torch.testing.assert_close(res.volume.permute(0, 2, 3, 1),
@@ -296,6 +297,38 @@ def test_train_steps_match_optax():
         torch.from_numpy(target), learning_rate=lr, num_steps=3)
     np.testing.assert_allclose(losses_t.numpy(), losses, rtol=1e-6)
     torch.testing.assert_close(cam, state.camera.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(num_disparities=4),
+    dict(num_disparities=4, grad_projector=True),
+    dict(num_disparities=None),
+], ids=["banded", "grad_projector", "all_pairs"])
+def test_disparity_loss_leaves_the_cuda_path_to_the_matcher(monkeypatch,
+                                                            cfg):
+    """On the ``cuda`` backend the loss takes
+    ``trainable_disparity_maps`` whatever the config (the method picks the
+    fused pipeline or the volume path); on ``torch`` it takes the volume
+    path, ``disparity(cost_volume(...))``."""
+    cam, proj = (torch.from_numpy(a) for a in _pair(11, 1, 10, 24))
+    target = torch.full((1, 10, 24), 2.0)
+    model = StereoMatcher(StereoConfig(kernel_size=3, **cfg))
+    calls = []
+    want = optimize.disparity_loss(model, cam, proj, target)
+    maps = model._volume_maps(cam, proj)
+
+    def trainable(self, camera, projector):
+        calls.append((camera, projector))
+        return maps
+
+    monkeypatch.setattr(StereoMatcher, "trainable_disparity_maps", trainable)
+    assert optimize.disparity_loss(model, cam, proj, target) == want
+    assert calls == []
+    monkeypatch.setattr(StereoConfig, "resolved_backend",
+                        lambda self, device: "cuda")
+    got = optimize.disparity_loss(model, cam, proj, target)
+    assert len(calls) == 1 and calls[0][0] is cam and calls[0][1] is proj
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_train_state_from_jax_continues_optax():

@@ -5,6 +5,8 @@ K5) and the plane-major volume op, held against the JAX package on the CPU
 past the limits they had before every odd k <= 127 ran.  CPU tensors take
 the kernels' plain versions."""
 
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,9 +35,7 @@ from custereomatching_tpu_torch.ops import (
 )
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     fused_pipeline_bwd_cuda,
-    fused_pipeline_bwd_reference,
     fused_pipeline_train_cuda,
-    fused_pipeline_train_reference,
     stereo_pipeline_cuda,
     stereo_pipeline_trainable,
     stereo_pipeline_trainable_reference,
@@ -44,10 +44,7 @@ from custereomatching_tpu_torch.ops.cuda_pipeline import (
 from custereomatching_tpu_torch.ops.cuda_zncc import (
     projector_grad_banded_cuda,
 )
-from custereomatching_tpu_torch.ops.zncc import (
-    camera_grad_banded,
-    forward_banded,
-)
+from custereomatching_tpu_torch.ops.zncc import forward_banded
 from custereomatching_tpu_torch.utils.kernel_model import (
     COST_CHUNK,
     cost_slab_planes,
@@ -55,6 +52,7 @@ from custereomatching_tpu_torch.utils.kernel_model import (
     halo_round,
     halo_tile,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 # The JAX suite's gradient tolerance (tests/test_pallas_bwd.py:89) and its
 # forward tolerance (tests/test_pallas_zncc.py:47).
@@ -88,11 +86,12 @@ def test_k6_parity_entry_matches_jax(shape):
     want = np.asarray(pallas_camera_grad_banded(
         jnp.asarray(cam), jnp.asarray(proj), jnp.asarray(g), D, K, 1e-8, hb,
         dtb, True))
-    calls = camera_grad_banded.calls
+    before = COUNTS.copy()
     got = camera_grad_banded_parity_cuda(
         torch.from_numpy(cam)[None], torch.from_numpy(proj)[None],
         torch.from_numpy(g)[None], D, K)
-    assert camera_grad_banded.calls == calls + 1   # the plain closed form
+    # The plain closed form.
+    assert COUNTS - before == Counter({"plain.camera_grad_banded": 1})
     np.testing.assert_allclose(got[0].numpy(), want, **GRAD_TOL)
 
 
@@ -110,12 +109,12 @@ def test_k6_plane_major_entry_matches_jax():
     want = np.asarray(pallas_camera_grad_banded_hdw(
         jnp.asarray(cam), jnp.asarray(proj), jnp.asarray(gp), D, K, 1e-8, hb,
         8, True))
-    launches = camera_grad_banded_cuda.recompute_launches
+    before = COUNTS.copy()
     got = camera_grad_banded_cuda(
         torch.from_numpy(cam)[None], torch.from_numpy(proj)[None], None,
         torch.from_numpy(np.ascontiguousarray(gp[None, :D + 1, :H, :W])), D,
         K)
-    assert camera_grad_banded_cuda.recompute_launches == launches  # plain
+    assert COUNTS - before == Counter({"plain.camera_grad_banded": 1})
     np.testing.assert_allclose(got[0].numpy(), want, **GRAD_TOL)
 
 
@@ -148,17 +147,18 @@ def test_volume_free_trainable_matches_jax(beta):
         jnp.asarray(cam))
 
     cam_t = torch.from_numpy(cam)[None].requires_grad_(True)
-    counts = (fused_pipeline_train_reference.calls,
-              fused_pipeline_bwd_reference.calls)
+    before = COUNTS.copy()
     maps = stereo_pipeline_trainable(cam_t, torch.from_numpy(proj)[None], D,
                                      K, 1e-8, beta, 0.6, save_volume=False)
     loss = (torch.mean((maps.soft_disparity[0] - torch.from_numpy(target))
                        ** 2) + 0.1 * torch.mean(maps.confidence[0]))
     loss.backward()
-    # The volume-free node ran its two plain twins, once each.
-    assert (fused_pipeline_train_reference.calls,
-            fused_pipeline_bwd_reference.calls) == (
-                counts[0] + 1, counts[1] + 1)
+    # The volume-free node ran its two plain twins, once each; the
+    # backward's recomputes the volume.
+    assert COUNTS - before == Counter({
+        "plain.fused_pipeline_train_reference": 1,
+        "plain.fused_pipeline_bwd_reference": 1,
+        "plain.forward_banded": 2, "plain.camera_grad_banded": 1})
     assert abs(float(loss.detach()) - float(v_want)) <= 1e-5 + 1e-4 * abs(
         float(v_want))
     for name in ("soft_disparity", "confidence"):
@@ -215,10 +215,12 @@ def test_volume_free_forward_has_no_volume():
     # Without a volume the backward's plain twin recomputes it (K5's
     # twin); with K3w's twin's volume it reads it (K4's): the same gradient.
     gs, gc = torch.ones(1, 12, 30) / 360, torch.ones(1, 12, 30) / 360
-    calls = fused_pipeline_bwd_reference.calls
+    before = COUNTS.copy()
     a = fused_pipeline_bwd_cuda(cam, proj, res, gs, gc, 5, 5)
     b = fused_pipeline_bwd_cuda(cam, proj, res_v, gs, gc, 5, 5)
-    assert fused_pipeline_bwd_reference.calls == calls + 2
+    assert COUNTS - before == Counter({
+        "plain.fused_pipeline_bwd_reference": 2, "plain.forward_banded": 1,
+        "plain.camera_grad_banded": 2})
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 

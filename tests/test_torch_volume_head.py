@@ -11,6 +11,7 @@ The file imports no JAX, so on the card: ``python -m pytest --noconftest
 -p no:cacheprovider tests/test_torch_volume_head.py -q``.
 """
 
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ from custereomatching_tpu_torch.ops.disparity import (
     DisparityResult,
     extract_disparity,
 )
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 # The JAX suite's head tolerance (forward) and gradient tolerance
 # (tests/test_pallas_bwd.py:89).
@@ -339,8 +341,7 @@ def test_node_takes_a_plane_major_view(case, twin_node):
 
 def test_cpu_tensor_takes_the_plain_head():
     c = _volume(CASES[1]).requires_grad_(True)
-    before = (extract_disparity_cuda.launches,
-              extract_disparity_cuda.grad_launches)
+    before = COUNTS.copy()
     got = extract_disparity_cuda(c, None, THRESHOLD, BETA)
     want = extract_disparity(c, None, THRESHOLD, BETA)
     for a, b in zip(got, want):
@@ -348,8 +349,7 @@ def test_cpu_tensor_takes_the_plain_head():
     assert got.soft_disparity.grad_fn.name() == \
         want.soft_disparity.grad_fn.name()
     got.soft_disparity.sum().backward()
-    assert (extract_disparity_cuda.launches,
-            extract_disparity_cuda.grad_launches) == before
+    assert COUNTS == before
 
 
 @pytest.mark.parametrize("bad", [
@@ -412,8 +412,7 @@ def _card_check(card, cost, D, seed):
     """K8h's maps against the plain head (hard map, mask and confidence
     bit for bit), then K8hb's gradient against the plain autograd, on
     cotangents at a mean loss's scale; one launch of each."""
-    launches = (extract_disparity_cuda.launches,
-                extract_disparity_cuda.grad_launches)
+    before = COUNTS.copy()
     leaf = cost.clone().requires_grad_(True)
     got = extract_disparity_cuda(leaf, D, THRESHOLD, BETA)
     want = extract_disparity(cost, D, THRESHOLD, BETA)
@@ -431,9 +430,7 @@ def _card_check(card, cost, D, seed):
                             [g_soft, g_conf])
     want = _plain_grad(cost, D, g_soft, g_conf)
     torch.testing.assert_close(leaf.grad, want, **_grad_tol(want))
-    assert (extract_disparity_cuda.launches,
-            extract_disparity_cuda.grad_launches) == (launches[0] + 1,
-                                                      launches[1] + 1)
+    assert COUNTS - before == Counter({"K8h": 1, "K8hb": 1})
 
 
 @pytest.mark.card
@@ -490,13 +487,11 @@ def test_card_banded_matcher_gradient(card):
                  for _ in range(2))
     cfg = dict(kernel_size=7, num_disparities=24)
     cam_k = cam.clone().requires_grad_(True)
-    launches = (extract_disparity_cuda.launches,
-                extract_disparity_cuda.grad_launches)
+    before = COUNTS.copy()
     StereoMatcher(StereoConfig(**cfg))(cam_k, proj) \
         .soft_disparity.mean().backward()
-    assert (extract_disparity_cuda.launches,
-            extract_disparity_cuda.grad_launches) == (launches[0] + 1,
-                                                      launches[1] + 1)
+    assert COUNTS - before == Counter({"K1": 1, "K8h": 1, "K8hb": 1,
+                                       "K2": 1})
     cam_p = cam.cpu().requires_grad_(True)
     StereoMatcher(StereoConfig(backend="torch", **cfg))(
         cam_p, proj.cpu()).soft_disparity.mean().backward()
@@ -513,7 +508,7 @@ def test_card_head_all_pairs_rows_past_one_tile(card):
 @pytest.mark.card
 def test_card_head_refuses_strided_volumes(card):
     x = torch.zeros((1, 4, 7, 3), device=card).transpose(2, 3)
-    launches = extract_disparity_cuda.launches
+    before = COUNTS.copy()
     with pytest.raises(ValueError, match="strided"):
         extract_disparity_cuda(x, 2)
-    assert extract_disparity_cuda.launches == launches
+    assert COUNTS == before

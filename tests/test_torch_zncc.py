@@ -2,6 +2,8 @@
 path, held against the JAX package (Pallas kernel in interpret mode, the
 XLA op, and its box filter)."""
 
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ from custereomatching_tpu.ops.pallas_zncc import pallas_cost_volume_banded
 from custereomatching_tpu_torch.ops import _build, stereo_matching
 from custereomatching_tpu_torch.ops.cuda_zncc import cost_volume_banded_cuda
 from custereomatching_tpu_torch.ops.zncc import box2d, forward_banded
+from custereomatching_tpu_torch.utils.profiling import COUNTS
 
 
 def _pair(seed, *shape):
@@ -100,11 +103,9 @@ def test_kernel_wrapper_cpu_takes_plain_version():
     B, H, W, D, K = 2, 9, 21, 3, 3
     cam, proj = _pair(5, B, H, W)
     cam_t, proj_t = torch.from_numpy(cam), torch.from_numpy(proj)
-    launches = cost_volume_banded_cuda.launches
-    calls = forward_banded.calls
+    before = COUNTS.copy()
     got = cost_volume_banded_cuda(cam_t, proj_t, D, K)
-    assert forward_banded.calls == calls + 1
-    assert cost_volume_banded_cuda.launches == launches
+    assert COUNTS - before == Counter({"plain.forward_banded": 1})
     torch.testing.assert_close(got, forward_banded(cam_t, proj_t, D, K),
                                rtol=0, atol=0)
 
