@@ -164,10 +164,15 @@ imports nothing of JAX.  Phases, each printing its lines:
     direct K3 calls composed with the plain mask, some confident pixels
     masked, coverage, EPE and the per-frame median;
 29. the pyramid, counted: ``PyramidStereoMatcher`` at KITTI (k =
-    15, D = 192) on the JAX bench's scene, K3 twice a call, each level's
+    15, D = 192) on the JAX bench's scene, K3 twice a call and the glue
+    kernels K11p, K11w and K11c once, each level's
     K3 maps against the plain pipeline on that level's inputs, EPE <=
     0.30 px and coverage >= 0.97 printed beside the JAX package's values,
-    and the time a call;
+    and the time a call; then the glue at Middlebury 2014's 2880x1988
+    (D = 289, f = 4, r = 12) on the pipeline's own maps, counted: K11w
+    and K11c bit-equal to the plain glue, K11p within rtol 1e-6 of
+    ``_avg_pool``, each timed beside its bound by bytes and the plain
+    stage;
 30. the failsafe layer: an injected allocation failure retried and
     served, an injected sticky error (700) raised at once, and
     ``device_healthcheck()`` true;
@@ -321,6 +326,11 @@ from custereomatching_tpu_torch.examples import (
     video_depth,
 )
 from custereomatching_tpu_torch.models import PyramidStereoMatcher
+from custereomatching_tpu_torch.models.pyramid import (
+    _avg_pool,
+    _compose,
+    _shift_and_warp,
+)
 from custereomatching_tpu_torch.models import (
     StereoOutput,
     adam,
@@ -340,6 +350,7 @@ from custereomatching_tpu_torch.ops import (
     tuning,
 )
 from custereomatching_tpu_torch.ops import cuda_large_k as lk
+from custereomatching_tpu_torch.ops import cuda_pyramid
 from custereomatching_tpu_torch.ops.consistency import lr_consistency_mask
 from custereomatching_tpu_torch.ops.cuda_pipeline import (
     HeadResiduals,
@@ -681,7 +692,7 @@ PATH_LAUNCHES = {
                             **{f"K10a.{m}": 3 for m in K10A_MODES}}),
     "allpairs_k1": Counter({"K8": 1, "K8h": 1, "K8hb": 1, "K8b": 1}),
     "lr": Counter({"K3": 2 * (1 + N_FRAMES)}),
-    "pyramid": Counter({"K3": 2}),
+    "pyramid": Counter({"K3": 2, "K11p": 1, "K11w": 1, "K11c": 1}),
 }
 
 
@@ -2867,8 +2878,9 @@ PYRAMID_CALLS = 5
 def phase_pyramid(card: str) -> dict:
     """``PyramidStereoMatcher(StereoConfig(kernel_size=15,
     num_disparities=192))`` on the bench scene (375x1242, d 4..40, noise
-    0.01, seed 0), counted: K3 twice a call (coarse, fine), no
-    plain twin; each level's K3 maps against the plain pipeline on the
+    0.01, seed 0), counted: K3 twice a call (coarse, fine) and K11p,
+    K11w and K11c once, no plain twin; each level's K3 maps against the
+    plain pipeline on the
     same inputs (as phase 4 at KITTI), the call bit-equal to the levels
     composed; EPE, bad3 and coverage beside the JAX package's; EPE <=
     0.30 px and coverage >= 0.97; the host-clock time a call."""
@@ -2883,7 +2895,7 @@ def phase_pyramid(card: str) -> dict:
     before = COUNTS.copy()
     with torch.no_grad():
         maps = fence(pyr(cam, proj))
-    # K3 twice a pyramid call.
+    # K3 twice a pyramid call, and each glue kernel once.
     counts = require_launched("pyramid", before, PATH_LAUNCHES["pyramid"])
     # Each level's K3 call against the plain pipeline on the same inputs
     # (the pooled pair; the camera and the projector warped by the
@@ -2929,6 +2941,109 @@ def phase_pyramid(card: str) -> dict:
     counts.update(m)
     counts["median_ms"] = median
     return counts
+
+
+# Middlebury 2014 at full resolution (H, W, D, k), as the benchmark's
+# middlebury2014 configuration, and its pyramid (f, r).
+MIDDLEBURY = (1988, 2880, 289, 15)
+MIDDLEBURY_PYRAMID = (4, 12)
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase_pyramid_glue(card: str) -> dict:
+    """K11p, K11w and K11c against the plain glue at Middlebury 2014's
+    2880x1988 (D = 289, f = 4, r = 12), on a speckle scene of disparities
+    30-260, each stage fed the pipeline's own values (the pooled pair to
+    the coarse K3, its soft map to the warp, the fine K3's maps on the
+    warped pair to the composition), counted: K11w's shift and warped
+    projector and K11c's maps bit-equal to the plain glue's, the
+    confidence passed through, K11p within rtol 1e-6 of ``_avg_pool`` (of
+    the blocks' mean magnitude).  Then each kernel and its plain stage
+    timed in turns (``interleaved``) beside the kernel's bound by bytes.
+    Returns {key: (max abs error, kernel ms, plain ms, (bound ms, by))}."""
+    H, W, D, k = MIDDLEBURY
+    f, r = MIDDLEBURY_PYRAMID
+    pyr = PyramidStereoMatcher(StereoConfig(kernel_size=k,
+                                            num_disparities=D),
+                               downsample=f, residual=r)
+    cam_np, proj_np, _ = make_stereo_pair(H, W, d_min=30.0, d_max=260.0,
+                                          noise=0.01, seed=27)
+    # Contiguous, as the matcher's inputs are: a strided pair would time
+    # the wrappers' copies with the kernels.
+    cam, proj = (torch.from_numpy(np.ascontiguousarray(x[None])).cuda()
+                 for x in (cam_np, proj_np))
+    torch.cuda.synchronize()
+    before = COUNTS.copy()
+    with torch.no_grad():
+        pooled = cuda_pyramid.pool_pair(cam, proj, f)
+        soft = pyr._coarse.disparity_maps(*pooled).soft_disparity
+        shift, proj_w = cuda_pyramid.shift_and_warp(proj, soft, f, r, D)
+        fine = pyr._fine.disparity_maps(cam, proj_w)
+        maps = cuda_pyramid.compose(fine, shift, r)
+    torch.cuda.synchronize()
+    require_launched("pyramid glue", before, PATH_LAUNCHES["pyramid"])
+
+    def plain_pool(camera, projector, f):
+        return _avg_pool(camera, f), _avg_pool(projector, f)
+
+    # The scene's noise makes some blocks' means near 0, where any two
+    # orders of the sum differ relatively by far more than 1e-6: rtol 1e-6
+    # is taken of the block's mean magnitude (of the mean itself where the
+    # image is nonnegative).
+    pool_err = 0.0
+    for got, want, img in zip(pooled, plain_pool(cam, proj, f),
+                              (cam, proj)):
+        gap = (got - want).abs()
+        pool_err = max(pool_err, float(gap.max()))
+        require(bool((gap <= 1e-6 * _avg_pool(img.abs(), f)).all()),
+                "K11p within rtol 1e-6 of _avg_pool, of the blocks' mean "
+                "magnitude")
+    for name, got, want in zip(("shift", "warped projector"),
+                               (shift, proj_w),
+                               _shift_and_warp(proj, soft, f, r, D)):
+        require(bit_equal(got, want), f"K11w {name} bit-equal to the plain "
+                f"warp's")
+    for name, got, want in zip(maps._fields, maps,
+                               _compose(fine, shift, r)):
+        require(bit_equal(got, want), f"K11c {name} bit-equal to the plain "
+                f"compose's")
+    require(maps.confidence is fine.confidence,
+            "K11c passes the confidence through")
+    print(f"pyramid glue {H}x{W} D={D} f={f} r={r}: K11w and K11c bit-equal "
+          f"to the plain glue, K11p max abs {pool_err:.3e}; shift in "
+          f"[{float(shift.min()):.0f}, {float(shift.max()):.0f}], "
+          f"{float((shift == -r).float().mean()):.4f} at -r, "
+          f"{float((shift == D).float().mean()):.4f} at D")
+
+    px, cpx = H * W, -(-H // f) * -(-W // f)
+    stages = {
+        # Bytes: K11p reads both images and writes both pooled; K11w reads
+        # the projector and the coarse soft map and writes the shift and
+        # the warped projector; K11c reads three maps and the shift and
+        # writes three maps.
+        "K11p": (cuda_pyramid.pool_pair, plain_pool, (cam, proj, f),
+                 4 * (2 * px + 2 * cpx), pool_err),
+        "K11w": (cuda_pyramid.shift_and_warp, _shift_and_warp,
+                 (proj, soft, f, r, D), 4 * (3 * px + cpx), 0.0),
+        "K11c": (cuda_pyramid.compose, _compose, (fine, shift, r),
+                 4 * 7 * px, 0.0),
+    }
+    out = {}
+    for key, (kernel, plain, args, nbytes, err) in stages.items():
+        ms, plain_ms, _ = interleaved(key, kernel, plain, args, args,
+                                      f"{H}x{W}", card)
+        b_ms, by = bound(0, nbytes)
+        print(f"time: {key} at {H}x{W}: bound {b_ms:.4f} ms by {by} "
+              f"({nbytes / 1e6:.1f} MB), the kernel {ms / b_ms:.2f} times "
+              f"its bound ({card})")
+        out[key] = (err, ms, plain_ms, (b_ms, by))
+    del cam, proj, pooled, soft, shift, proj_w, fine, maps
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_failsafe() -> None:
@@ -4489,6 +4604,7 @@ def main() -> int:
         errs[key] = max(errs.get(key, 0.0), err)
     counts["lr"] = phase_lr_engine(card)
     counts["pyramid"] = phase_pyramid(card)
+    glue = phase_pyramid_glue(card)
     phase_failsafe()
     ref = phase_parallel_unsharded()
     counts["parallel"] = phase_parallel_one_rank(card, ref)
@@ -4566,6 +4682,17 @@ def main() -> int:
                      "K8hb": "volume_head_vjp"}[key], "route": "cuda",
             "source": "custereomatching_tpu_torch/csrc/volume_head.cu",
             "replaces": None, "launches": counts["allpairs"][key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}}))
+    # K11p, K11w and K11c port no TPU kernel either (the JAX package
+    # leaves the pyramid's glue to XLA).
+    for key, (err, ms, plain_ms, (bound_ms, bound_by)) in glue.items():
+        require(counts["pyramid"][key] == 1, f"{key} launched on its path")
+        print(json.dumps({key.lower(): {
+            "name": {"K11p": "pyramid_pool", "K11w": "pyramid_warp",
+                     "K11c": "pyramid_compose"}[key], "route": "cuda",
+            "source": "custereomatching_tpu_torch/csrc/pyramid_glue.cu",
+            "replaces": None, "launches": counts["pyramid"][key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}}))
     bench.write_smoke_record(True, card)

@@ -8,7 +8,11 @@ it.  Both levels run :meth:`StereoMatcher.disparity_maps` on the whole
 batch, so on the ``cuda`` backend a call launches K3 twice: once on the
 pooled pair, once on the warped pair.
 
-The shifted pixels are selected by ``ops.consistency._select_shifted_f``:
+The glue between the levels (pool, warp, compose) runs on the ``cuda``
+backend as one launch a stage, K11p, K11w and K11c
+(``ops/cuda_pyramid.py``), and on ``torch`` as the plain functions here,
+their twins, each call counted as ``plain.pyramid_<stage>``.  The plain
+glue selects the shifted pixels by ``ops.consistency._select_shifted_f``:
 one ``torch.gather`` with two masks where the JAX package makes
 ``hi - lo + 1`` where-passes (a TPU choice); the selection is exact.
 """
@@ -23,11 +27,12 @@ import torch.nn.functional as F
 
 from custereomatching_tpu_torch.config import StereoConfig
 from custereomatching_tpu_torch.models.stereo import StereoMatcher
+from custereomatching_tpu_torch.ops import cuda_pyramid
 from custereomatching_tpu_torch.ops.consistency import (
     _select_shifted_f as _select_shifted,
 )
 from custereomatching_tpu_torch.ops.cuda_pipeline import PipelineMaps
-from custereomatching_tpu_torch.utils.profiling import span
+from custereomatching_tpu_torch.utils.profiling import COUNTS, span
 
 
 def _avg_pool(img: torch.Tensor, f: int) -> torch.Tensor:
@@ -58,6 +63,33 @@ def _warp_projector(projector: torch.Tensor, shift: torch.Tensor, lo: int,
     where the source column is out of view; ``shift`` integer-valued in
     ``[lo, hi]``."""
     return _select_shifted(projector, shift, lo, hi)
+
+
+def _shift_and_warp(projector: torch.Tensor, coarse_soft: torch.Tensor,
+                    f: int, r: int, D: int):
+    """Plain version of K11w: ``(shift, warped projector)``.  The shift is
+    computed at the coarse resolution and then upsampled: the same values,
+    each pass but the last over 1/f^2 of the pixels.  A NaN shift reads
+    the column x, as the JAX package's int32 cast of NaN gives 0."""
+    H, W = projector.shape[-2:]
+    shift = torch.clamp(torch.round(coarse_soft * f) - r, -r, D)
+    shift = _upsample(shift, f, H, W)
+    k = torch.where(torch.isnan(shift), 0.0, shift)
+    return shift, _warp_projector(projector, k, -r, D)
+
+
+def _compose(fine: PipelineMaps, shift: torch.Tensor, r: int
+             ) -> PipelineMaps:
+    """Plain version of K11c.  The hard and soft maps go through each step
+    together, stacked."""
+    d_res = torch.stack((fine.disparity, fine.soft_disparity))
+    shift_at = _select_shifted(shift.expand_as(d_res), torch.round(d_res), 0,
+                               2 * r)
+    total = (shift_at + d_res) * fine.mask
+    mask = torch.where((total < 0).any(0), 0.0, fine.mask)
+    hard, soft = (torch.clamp_min(total, 0.0) * mask).unbind(0)
+    return PipelineMaps(disparity=hard, soft_disparity=soft, mask=mask,
+                        confidence=fine.confidence)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,47 +127,45 @@ class PyramidStereoMatcher:
         return StereoMatcher(dataclasses.replace(
             self.config, num_disparities=2 * self.residual))
 
+    def _on_card(self, x: torch.Tensor) -> bool:
+        return self.config.resolved_backend(x.device) == "cuda"
+
     def coarse_pair(self, camera: torch.Tensor, projector: torch.Tensor):
         """The coarse level's inputs: both images f x f mean-pooled (the
-        span ``custereo.pyramid.pool``)."""
+        span ``custereo.pyramid.pool``; K11p on the ``cuda`` backend)."""
         f = self.downsample
         with span("custereo.pyramid.pool"):
+            if self._on_card(camera):
+                return cuda_pyramid.pool_pair(camera, projector, f)
+            COUNTS["plain.pyramid_pool"] += 1
             return _avg_pool(camera, f), _avg_pool(projector, f)
 
     def warp(self, projector: torch.Tensor, coarse_soft: torch.Tensor):
         """``(shift, warped projector)`` of the fine level: the shift
         ``round(d_up) - r`` (clamped to ``[-r, D]``) that centres the fine
         band ``[0, 2r]`` on the upsampled coarse estimate ``d_up``, and the
-        projector read at ``x - shift``.  The shift is computed at the
-        coarse resolution and then upsampled: the same values, each pass
-        but the last over 1/f^2 of the pixels.  The span
-        ``custereo.pyramid.warp``."""
-        H, W = projector.shape[-2:]
-        f, r = self.downsample, self.residual
-        D = self.config.num_disparities
+        projector read at ``x - shift``.  The span
+        ``custereo.pyramid.warp``; K11w on the ``cuda`` backend."""
+        args = (self.downsample, self.residual, self.config.num_disparities)
         with span("custereo.pyramid.warp"):
-            shift = torch.clamp(torch.round(coarse_soft * f) - r, -r, D)
-            shift = _upsample(shift, f, H, W)
-            return shift, _warp_projector(projector, shift, -r, D)
+            if self._on_card(projector):
+                return cuda_pyramid.shift_and_warp(projector, coarse_soft,
+                                                   *args)
+            COUNTS["plain.pyramid_warp"] += 1
+            return _shift_and_warp(projector, coarse_soft, *args)
 
     def compose(self, fine: PipelineMaps, shift: torch.Tensor
                 ) -> PipelineMaps:
         """The fine level's maps to full disparities.  Band index d at
         pixel x read proj_w[x - d] = proj[x - d - shift(x - d)]: the total
         disparity is d + shift(x - d).  Negative disparities are physically
-        invalid: they are clamped and lose their confidence.  The hard and
-        soft maps go through each step together, stacked.  The span
-        ``custereo.pyramid.compose``."""
-        r = self.residual
+        invalid: they are clamped and lose their confidence.  The span
+        ``custereo.pyramid.compose``; K11c on the ``cuda`` backend."""
         with span("custereo.pyramid.compose"):
-            d_res = torch.stack((fine.disparity, fine.soft_disparity))
-            shift_at = _select_shifted(shift.expand_as(d_res),
-                                       torch.round(d_res), 0, 2 * r)
-            total = (shift_at + d_res) * fine.mask
-            mask = torch.where((total < 0).any(0), 0.0, fine.mask)
-            hard, soft = (torch.clamp_min(total, 0.0) * mask).unbind(0)
-            return PipelineMaps(disparity=hard, soft_disparity=soft,
-                                mask=mask, confidence=fine.confidence)
+            if self._on_card(shift):
+                return cuda_pyramid.compose(fine, shift, self.residual)
+            COUNTS["plain.pyramid_compose"] += 1
+            return _compose(fine, shift, self.residual)
 
     def __call__(self, camera: torch.Tensor,
                  projector: torch.Tensor) -> PipelineMaps:

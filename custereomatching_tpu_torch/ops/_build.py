@@ -144,6 +144,14 @@ SIGNATURES = {
     "custereo_lk_row_products": [_P] * 3 + [_I] * 4 + [_P],
     # a, cam_s, cam_e2, proj_s, proj_e2, out, B, H, W, k2, eps, stream
     "custereo_lk_allpairs_cost": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P],
+    # The pyramid's glue (pyramid_glue.cu).
+    # camera, projector, cam_out, proj_out, frames, H, W, f, stream
+    "custereo_pyramid_pool": [_P] * 4 + [_I] * 4 + [_P],
+    # projector, coarse, shift, proj_w, frames, H, W, h, w, f, r, D, stream
+    "custereo_pyramid_warp": [_P] * 4 + [_I] * 8 + [_P],
+    # hard, soft, mask, shift, hard_out, soft_out, mask_out, frames, H, W,
+    # r, stream
+    "custereo_pyramid_compose": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 
@@ -264,7 +272,7 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 def launch(kernel: str, entry: str, *args,
            what: Optional[str] = None) -> None:
     """Call the C entry point ``entry`` with ``args`` inside the span
-    ``custereo.kernel.<kernel>`` (``kernel``: K1 ... K10c and K8b, or
+    ``custereo.kernel.<kernel>`` (``kernel``: K1 ... K11c and K8b, or
     ``large_k.<step>`` for a step of the large-k route), and raise as
     :func:`check` does, the error named by ``what`` (default ``<kernel>
     launch``); a launch that passes adds 1 to ``profiling.COUNTS[kernel]``.

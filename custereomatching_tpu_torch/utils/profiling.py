@@ -81,7 +81,7 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
 _NO_SPAN = contextlib.nullcontext()
 
 # What ran, by name: each kernel launch under the name of its span
-# (``K1`` ... ``K10c``, ``K8b``, ``K8h``, ``K8hb``, ``large_k.<step>``;
+# (``K1`` ... ``K11c``, ``K8b``, ``K8h``, ``K8hb``, ``large_k.<step>``;
 # ``ops._build.launch`` counts it once it succeeded), each call of a plain
 # twin as ``plain.<function>``, each call of a large-k route as
 # ``route.<K>`` and each K10a launch also as ``K10a.<mode>``.  A check
@@ -100,7 +100,8 @@ def span(name: str):
     The port's spans are named ``custereo.<layer>.<what>``: ``kernel.<K>``
     around each launch (``ops._build.launch``), ``model.disparity_maps``,
     ``model.pyramid`` and inside it the pyramid's glue, ``pyramid.pool``,
-    ``pyramid.warp`` and ``pyramid.compose``, ``train.step``,
+    ``pyramid.warp`` and ``pyramid.compose`` (around K11p, K11w and K11c
+    on the ``cuda`` backend), ``train.step``,
     ``train.loss`` and ``vjp.allpairs``."""
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)

@@ -15,6 +15,11 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 
+# Cycles of the sleep kernel ahead of each sample of :func:`benchmark`:
+# ~10 ms at the H100's 1.98 GHz.
+_SLEEP_CYCLES = 20_000_000
+
+
 class TimerError(Exception):
     """Raised when a Timer is queried while not running."""
 
@@ -111,9 +116,12 @@ def benchmark(
     Runs ``warmup`` fenced calls (builds kernels, grows the allocator's
     pools), then ``iters`` samples; each sample is a CUDA-event interval
     around ``chain`` back-to-back calls on the current stream, divided by
-    ``chain``.  Returns ``median_s``, ``mean_s``, ``min_s``, ``max_s``,
-    ``std_s`` and ``iters``.  Raises ``RuntimeError`` without a card: a
-    CPU time is never reported as a device time.
+    ``chain``.  Each sample's calls queue behind a sleep kernel of about 10
+    ms, so that a call the host issues more slowly than the card runs it (a
+    wrapper takes ~40 us to issue a kernel of 20 us) is timed by the card
+    and not by the host.  Returns ``median_s``, ``mean_s``, ``min_s``,
+    ``max_s``, ``std_s`` and ``iters``.  Raises ``RuntimeError`` without a
+    card: a CPU time is never reported as a device time.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("benchmark() times the CUDA device, and none is "
@@ -123,6 +131,8 @@ def benchmark(
 
     samples = []
     for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(_SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -123,7 +123,8 @@ def test_pyramid_matches_jax(backend, H, W, D, K, f, r):
     (tests/test_pallas_zncc.py holds it to the plain head so), and the
     same inputs also against the XLA levels at 1e-4 / 1e-5.  The port
     runs its plain K3 at both levels, each once for the whole batch, and
-    passes the JAX test's accuracy floors."""
+    each stage of its plain glue once, and passes the JAX test's accuracy
+    floors."""
     proj = _multi_octave(H, W, seed=0 if backend == "xla" else 5)
     dtrue = slanted_plane_disparity(H, W, d_min=4 if backend == "xla" else 2,
                                     d_max=40 if backend == "xla" else 12)
@@ -136,7 +137,10 @@ def test_pyramid_matches_jax(backend, H, W, D, K, f, r):
     before = COUNTS.copy()
     got = pyr(*both)
     assert COUNTS - before == Counter({"plain.stereo_pipeline_reference": 2,
-                                       "plain.forward_banded": 2})
+                                       "plain.forward_banded": 2,
+                                       "plain.pyramid_pool": 1,
+                                       "plain.pyramid_warp": 1,
+                                       "plain.pyramid_compose": 1})
     torch.testing.assert_close(got.soft_disparity[0], got.soft_disparity[1],
                                rtol=0, atol=0)
     xla = dict(rtol=1e-4, atol=1e-5)
