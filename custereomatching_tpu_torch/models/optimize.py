@@ -3,8 +3,10 @@
 The counterpart of ``custereomatching_tpu/models/optimize.py``: Adam over
 the camera frames so that the differentiable (soft-argmax) disparity
 matches a target map.  On CUDA tensors with the default backend the loss
-runs the trainable fused pipeline (kernels K3w forward, K4 backward); on
-CPU tensors, or with ``backend="torch"``, the plain volume op and head.
+runs the trainable fused pipeline (kernels K3w forward, K4 backward; where
+the saved cost volume would not fit on the card, K3m forward and K5
+backward, which keep no volume: ``models.stereo.keeps_volume``); on CPU
+tensors, or with ``backend="torch"``, the plain volume op and head.
 With a ``(data, space)`` mesh the loss runs the sharded volume
 (``parallel/sharded.py``: K1 forward, K2 backward on each rank's
 halo-extended block) and the plain head, as in the JAX package; the

@@ -9,6 +9,7 @@ which encode the TPU window-sum read reach) has no counterpart here.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -38,7 +39,32 @@ from custereomatching_tpu_torch.parallel.sharded import (
     sharded_cost_volume,
     sharded_disparity,
 )
-from custereomatching_tpu_torch.utils.profiling import span
+from custereomatching_tpu_torch.utils.profiling import COUNTS, span
+
+# The share of the card's memory that the trainable pipeline's saved cost
+# volume may take; past it the volume-free pipeline (K3m + K5) runs.
+VOLUME_SHARE = 0.75
+
+
+def keeps_volume(batch: int, height: int, width: int, num_disparities: int,
+                 capacity: int) -> bool:
+    """Whether the trainable fused pipeline keeps its cost volume as the
+    backward's residual (K3w + K4) for ``[batch, height, width]`` pairs
+    over ``num_disparities``: where the volume's ``4 B (D+1) H W`` bytes
+    are at most :data:`VOLUME_SHARE` (3/4) of the card's ``capacity``
+    bytes.  The quarter left holds the maps, the scratch, the images and
+    Adam's state beside it.  KITTI's 4 frames (1.44 GB) keep it; 15
+    Middlebury frames at 2880x1988 over 290 planes (99.6 GB) do not."""
+    volume = 4 * batch * (num_disparities + 1) * height * width
+    return volume <= VOLUME_SHARE * capacity
+
+
+@functools.lru_cache(maxsize=None)
+def card_memory(index: int) -> int:
+    """Total memory of the CUDA card ``index`` in bytes, read once (the
+    caching allocator's free memory would change the choice from step to
+    step)."""
+    return torch.cuda.get_device_properties(index).total_memory
 
 
 class StereoOutput(NamedTuple):
@@ -68,10 +94,11 @@ class StereoMatcher(nn.Module):
     :meth:`cost_volume`, K8b for its camera gradient; K8h for
     :meth:`disparity` over either volume, K8hb for its gradient; K3 for
     :meth:`disparity_maps` (twice for :meth:`disparity_maps_lr`), K3w and
-    K4 for :meth:`trainable_disparity_maps`, K3 and K3w at the config's
-    ``pipeline_blocks`` tile and K4 at its ``trainable_bwd_block_rows``.
-    The ``torch`` backend runs their plain versions.  The model has no
-    parameters: its state is the config.
+    K4 for :meth:`trainable_disparity_maps`, or K3m and K5 where the saved
+    volume would not fit on the card (:func:`keeps_volume`), K3, K3w and
+    K3m at the config's ``pipeline_blocks`` tile and K4 at its
+    ``trainable_bwd_block_rows``.  The ``torch`` backend runs their plain
+    versions.  The model has no parameters: its state is the config.
     """
 
     def __init__(self, config: StereoConfig = StereoConfig()):
@@ -151,23 +178,37 @@ class StereoMatcher(nn.Module):
         Banded and camera-only, the ``cuda`` backend runs the trainable
         fused pipeline (K3w forward at ``pipeline_blocks``' tile, K4
         backward at ``trainable_bwd_block_rows``'): the cost-volume
-        cotangent never exists in device memory; the ``torch`` backend runs
-        its plain twin.  Gradients flow through ``soft_disparity`` and
-        ``confidence``.  The fused pipeline's VJP is banded and
-        camera-only, so ``grad_projector`` and all-pairs take the volume
-        path and :meth:`disparity` on either backend (where the JAX
-        package's Pallas backend raises for all-pairs)."""
+        cotangent never exists in device memory.  Where the saved volume
+        would take more than :func:`keeps_volume` allows of the card's
+        memory, it runs without it: K3m writes only the maps and K5
+        recomputes each cost plane from the images, so no volume exists in
+        either direction; that call is the span
+        ``custereo.model.volume_free`` and adds 1 to
+        ``COUNTS["train.volume_free"]``.  The values are the same either
+        way.  The ``torch`` backend runs the plain twin.  Gradients flow
+        through ``soft_disparity`` and ``confidence``.  The fused
+        pipeline's VJP is banded and camera-only, so ``grad_projector`` and
+        all-pairs take the volume path and :meth:`disparity` on either
+        backend (where the JAX package's Pallas backend raises for
+        all-pairs)."""
         c = self.config
         if c.grad_projector or c.num_disparities is None:
             return self._volume_maps(camera, projector)
         args = (camera, projector, c.num_disparities, c.kernel_size,
                 c.epsilon, c.softargmax_beta, c.cost_threshold)
-        if self._backend(camera) == "cuda":
-            tile_rows, planes = c.pipeline_tile()
-            return stereo_pipeline_trainable(
-                *args, tile_rows=tile_rows, planes=planes,
-                bwd_tile_rows=c.bwd_tile_rows())
-        return stereo_pipeline_trainable_reference(*args)
+        if self._backend(camera) != "cuda":
+            return stereo_pipeline_trainable_reference(*args)
+        tile_rows, planes = c.pipeline_tile()
+        kw = dict(tile_rows=tile_rows, planes=planes,
+                  bwd_tile_rows=c.bwd_tile_rows())
+        if camera.ndim != 3 or keeps_volume(
+                *camera.shape, c.num_disparities,
+                card_memory(camera.device.index or 0)):
+            return stereo_pipeline_trainable(*args, **kw)
+        with span("custereo.model.volume_free"):
+            maps = stereo_pipeline_trainable(*args, save_volume=False, **kw)
+        COUNTS["train.volume_free"] += 1
+        return maps
 
     def disparity_maps_lr(self, camera: torch.Tensor,
                           projector: torch.Tensor,

@@ -84,7 +84,8 @@ _NO_SPAN = contextlib.nullcontext()
 # (``K1`` ... ``K11c``, ``K8b``, ``K8h``, ``K8hb``, ``large_k.<step>``;
 # ``ops._build.launch`` counts it once it succeeded), each call of a plain
 # twin as ``plain.<function>``, each call of a large-k route as
-# ``route.<K>`` and each K10a launch also as ``K10a.<mode>``.  A check
+# ``route.<K>``, each K10a launch also as ``K10a.<mode>`` and each trainable
+# call that drops the cost volume as ``train.volume_free``.  A check
 # copies it, runs, and compares ``COUNTS - before`` with what it expects.
 COUNTS: collections.Counter = collections.Counter()
 
@@ -101,8 +102,9 @@ def span(name: str):
     around each launch (``ops._build.launch``), ``model.disparity_maps``,
     ``model.pyramid`` and inside it the pyramid's glue, ``pyramid.pool``,
     ``pyramid.warp`` and ``pyramid.compose`` (around K11p, K11w and K11c
-    on the ``cuda`` backend), ``train.step``,
-    ``train.loss`` and ``vjp.allpairs``."""
+    on the ``cuda`` backend), ``model.volume_free`` (a trainable call that
+    runs without the cost volume, K3m and its statistics pass; K5 runs in
+    the backward), ``train.step``, ``train.loss`` and ``vjp.allpairs``."""
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN

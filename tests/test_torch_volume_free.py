@@ -364,3 +364,100 @@ def test_plane_major_op_batched_is_the_parity_op_permuted():
                                .permute(0, 3, 1, 2), rtol=0, atol=0)
     with pytest.raises(ValueError, match="banded"):
         stereo_matching_hdw(cam, proj, None, 3)
+
+
+# The keep-or-drop rule of the trainable fused pipeline: K3w + K4 keep the
+# cost volume as the backward's residual where it takes at most 3/4 of the
+# card's memory, else K3m + K5 run without it.
+CARD = 80 * 10 ** 9        # an 80 GB card
+
+
+@pytest.mark.parametrize("shape,capacity,keeps", [
+    ((4, 375, 1242, 192), CARD, True),       # KITTI, 1.44 GB
+    ((15, 1988, 2880, 289), CARD, False),    # MiddEval3 F, 99.6 GB
+    ((1, 1988, 2880, 289), CARD, True),      # one frame, 6.6 GB
+    ((1, 3, 4, 2), 192, True),                     # 144 B = 3/4 of 192
+    ((1, 3, 4, 2), 191, False),
+], ids=["kitti_b4", "middlebury_b15", "middlebury_b1", "at_bound",
+        "past_bound"])
+def test_keeps_volume_at_given_capacities(shape, capacity, keeps):
+    from custereomatching_tpu_torch.models.stereo import keeps_volume
+
+    assert keeps_volume(*shape, capacity) is keeps
+
+
+def _routed(monkeypatch, capacity):
+    """A matcher on the ``cuda`` backend over CPU tensors (the kernels'
+    plain twins run), the card's memory ``capacity``, and the
+    ``save_volume`` of each ``stereo_pipeline_trainable`` call."""
+    from custereomatching_tpu_torch.config import StereoConfig
+    from custereomatching_tpu_torch.models import stereo
+
+    monkeypatch.setattr(stereo, "card_memory", lambda index: capacity)
+    monkeypatch.setattr(StereoConfig, "resolved_backend",
+                        lambda self, device: "cuda")
+    saved = []
+
+    def trainable(*args, save_volume=True, **kwargs):
+        saved.append(save_volume)
+        return stereo_pipeline_trainable(*args, save_volume=save_volume,
+                                         **kwargs)
+
+    monkeypatch.setattr(stereo, "stereo_pipeline_trainable", trainable)
+    return stereo.StereoMatcher(StereoConfig(num_disparities=8,
+                                             kernel_size=5)), saved
+
+
+# [2, 20, 48] over 9 planes: a volume of 69,120 bytes, kept up to a card
+# of 92,160.
+@pytest.mark.parametrize("capacity,keeps", [
+    (10 ** 9, True), (92_160, True), (92_159, False), (1, False)])
+def test_trainable_maps_drop_the_volume_where_the_rule_says(monkeypatch,
+                                                           capacity, keeps):
+    model, saved = _routed(monkeypatch, capacity)
+    cam, proj = (torch.from_numpy(a) for a in _pair(21, 2, 20, 48))
+    before = COUNTS.copy()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        model.trainable_disparity_maps(cam, proj)
+    assert saved == [keeps]
+    assert COUNTS - before == Counter({
+        "plain.fused_pipeline_train_reference": 1,
+        "plain.forward_banded": 1,
+        **({} if keeps else {"train.volume_free": 1})})
+    spans = {e.name for e in prof.events()}
+    assert ("custereo.model.volume_free" in spans) is not keeps
+
+
+@pytest.mark.parametrize("capacity", [10 ** 9, 1], ids=["keep", "drop"])
+def test_both_routes_match_jax_volume_free(monkeypatch, capacity):
+    """The maps and the camera gradient of a mean-squared loss are the JAX
+    volume-free pipeline's (``save_volume=False``, interpret mode) along
+    either route."""
+    B, H, W, D, K = 2, 20, 48, 8, 5
+    model, saved = _routed(monkeypatch, capacity)
+    cam, proj = _pair(22, B, H, W)
+    target = np.random.default_rng(23).random((B, H, W),
+                                              dtype=np.float32) * 6
+
+    def jax_loss(c):
+        maps = [jax_pipeline_trainable(c[b], jnp.asarray(proj[b]), D, K,
+                                       1e-8, 50.0, 0.6, True,
+                                       save_volume=False) for b in range(B)]
+        soft = jnp.stack([m.soft_disparity for m in maps])
+        conf = jnp.stack([m.confidence for m in maps])
+        return jnp.mean((soft - jnp.asarray(target)) ** 2), (soft, conf)
+
+    (_, (soft_want, conf_want)), g_want = jax.value_and_grad(
+        jax_loss, has_aux=True)(jnp.asarray(cam))
+    cam_t = torch.from_numpy(cam).requires_grad_(True)
+    maps = model.trainable_disparity_maps(cam_t, torch.from_numpy(proj))
+    torch.mean((maps.soft_disparity - torch.from_numpy(target)) ** 2
+               ).backward()
+    assert saved == [capacity > 1]
+    np.testing.assert_allclose(maps.soft_disparity.detach().numpy(),
+                               np.asarray(soft_want), **FWD_TOL)
+    np.testing.assert_allclose(maps.confidence.detach().numpy(),
+                               np.asarray(conf_want), **FWD_TOL)
+    np.testing.assert_allclose(cam_t.grad.numpy(), np.asarray(g_want),
+                               **GRAD_TOL)
